@@ -1,0 +1,6 @@
+"""Small host-side utilities shared across the port."""
+
+from .besseli0 import besseli0
+from .misc import next_fast_len
+
+__all__ = ["besseli0", "next_fast_len"]

@@ -1,0 +1,129 @@
+"""The plain PyTorch versions of the two hand-written kernels against the
+JAX package: spreading against ``spread_reference``, interpolation against
+``interpolate_reference``, and the blocked wrappers, which on CPU tensors
+run those plain versions from the bin-sorted point state."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import nonuniformffts_tpu as jnufft
+import nonuniformffts_tpu_torch as tnufft
+from nonuniformffts_tpu.ops.interpolation import interpolate_reference as j_interp
+from nonuniformffts_tpu.ops.pallas.common import coefficient_stack as j_coefs
+from nonuniformffts_tpu.ops.spreading import spread_reference as j_spread
+from nonuniformffts_tpu_torch.ops.interpolation import interpolate_reference as t_interp
+from nonuniformffts_tpu_torch.ops.kernels import blocked
+from nonuniformffts_tpu_torch.ops.spreading import spread_reference as t_spread
+from torch_port_utils import random_complex, random_points, rel_err
+
+torch.set_num_threads(1)
+
+TOL = {np.complex64: 1e-5, np.complex128: 1e-12}
+CASES = [
+    ((20,), 1, None),
+    ((16, 12), 2, 97),
+    ((12, 16, 10), 1, None),
+    ((12, 16, 10), 2, 64),
+]
+
+
+def _plans(shape, dtype, C):
+    kw = dict(m=4, sigma=1.5, ntransforms=C)
+    return (tnufft.PlanNUFFT(dtype, shape, device="cpu", **kw),
+            jnufft.PlanNUFFT(dtype, shape, **kw))
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("shape,C,chunk", CASES, ids=str)
+def test_plain_spread_matches_jax(shape, C, chunk, dtype):
+    rng = np.random.default_rng(1)
+    tp, jp = _plans(shape, dtype, C)
+    pts = random_points(rng, len(shape), 300, dtype)
+    v = random_complex(rng, dtype, (C, 300))
+    got = t_spread(tp.kernel_data, tp.evalmode, tp.shape_over,
+                   torch.from_numpy(pts), torch.from_numpy(v), chunk_size=chunk)
+    want = j_spread(jp.kernel_data, jp.evalmode, jp.shape_over,
+                    jnp.asarray(pts), jnp.asarray(v), chunk_size=chunk)
+    assert got.shape == (C,) + tp.shape_over and got.dtype == tp.dtype
+    assert rel_err(got.numpy(), np.asarray(want)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("shape,C,chunk", CASES, ids=str)
+def test_plain_interp_matches_jax(shape, C, chunk, dtype):
+    rng = np.random.default_rng(2)
+    tp, jp = _plans(shape, dtype, C)
+    pts = random_points(rng, len(shape), 300, dtype)
+    g = random_complex(rng, dtype, (C,) + tp.shape_over)
+    got = t_interp(tp.kernel_data, tp.evalmode, torch.from_numpy(g),
+                   torch.from_numpy(pts), tp.normfactor, chunk_size=chunk)
+    want = j_interp(jp.kernel_data, jp.evalmode, jnp.asarray(g),
+                    jnp.asarray(pts), jp.normfactor, chunk_size=chunk)
+    assert got.shape == (C, 300)
+    assert rel_err(got.numpy(), np.asarray(want)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_blocked_wrappers_on_cpu_run_plain_versions(dtype):
+    """On CPU tensors the K1/K2 wrappers run the plain versions from the
+    sorted state; they match JAX's reference path and launch nothing."""
+    rng = np.random.default_rng(3)
+    shape = (12, 16, 10)
+    tp = tnufft.PlanNUFFT(dtype, shape, m=4, sigma=1.5, ntransforms=2,
+                          spread_method="blocked", device="cpu", chunk_size=101)
+    _, jp = _plans(shape, dtype, 2)
+    pts = random_points(rng, 3, 400, dtype)
+    v = random_complex(rng, dtype, (2, 400))
+    g = random_complex(rng, dtype, (2,) + tp.shape_over)
+    tp = tnufft.set_points(tp, pts)
+    blocked.reset_launch_counts()
+    grid = blocked.spread_blocked(tp, torch.from_numpy(v))
+    vals = blocked.interpolate_blocked(tp, torch.from_numpy(g))
+    assert blocked.LAUNCHES == {"nufft_spread_3d_f32": 0, "nufft_interp_3d_f32": 0}
+    want_g = j_spread(jp.kernel_data, jp.evalmode, jp.shape_over,
+                      jnp.asarray(pts), jnp.asarray(v))
+    want_v = j_interp(jp.kernel_data, jp.evalmode, jnp.asarray(g),
+                      jnp.asarray(pts), jp.normfactor)
+    assert rel_err(grid.numpy(), np.asarray(want_g)) <= TOL[dtype]
+    assert rel_err(vals.numpy(), np.asarray(want_v)) <= TOL[dtype]
+
+
+def test_wrappers_refuse_other_devices():
+    tp = tnufft.PlanNUFFT(np.complex64, (8, 8, 8), m=2, sigma=2.0,
+                          spread_method="blocked", device="cpu")
+    tp = tnufft.set_points(tp, np.zeros((3, 4), np.float32))
+    meta = dict(device="meta", dtype=torch.complex64)
+    with pytest.raises(ValueError, match="no spread kernel"):
+        blocked.spread_blocked(tp, torch.empty((1, 4), **meta))
+    with pytest.raises(ValueError, match="no interpolation kernel"):
+        blocked.interpolate_blocked(tp, torch.empty((1, 16, 16, 16), **meta))
+
+
+def test_coefficient_stack_matches_jax():
+    tp = tnufft.PlanNUFFT(np.complex64, (16, 12, 20), m=5, sigma=1.5, device="cpu")
+    jp = jnufft.PlanNUFFT(np.complex64, (16, 12, 20), m=5, sigma=1.5)
+    want = np.asarray(j_coefs(jp.kernel_data))
+    assert tp.coefs.shape == want.shape == (3, 10, 9)
+    assert tp.coefs.dtype == torch.float32 and tp.coefs.is_contiguous()
+    np.testing.assert_array_equal(tp.coefs.numpy(), want)
+
+
+def test_kernel_support_checks():
+    """What the CUDA kernels do not take is refused, not run elsewhere."""
+    tp = tnufft.PlanNUFFT(np.complex64, (16, 16, 16), m=4, sigma=1.5,
+                          spread_method="blocked", device="cpu")
+    blocked.check_kernel_support(tp)
+    bad = [
+        (dataclasses.replace(tp, shape=(16, 16)), NotImplementedError, "3D"),
+        (dataclasses.replace(tp, dtype=torch.complex128), NotImplementedError, "FP64"),
+        (dataclasses.replace(tp, evalmode=tnufft.Direct()), NotImplementedError, "FastApprox"),
+        (dataclasses.replace(tp, m=9), NotImplementedError, "m in 2..8"),
+        (dataclasses.replace(tp, block_dims=(24, 24, 24)), ValueError, "shared memory"),
+    ]
+    for plan, exc, match in bad:
+        with pytest.raises(exc, match=match):
+            blocked.check_kernel_support(plan)
