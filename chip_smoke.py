@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed S]
 
@@ -7,32 +7,51 @@ Phases, in order; the first failure raises and the script exits non-zero:
 
 1. environment: torch and CUDA versions, nvcc, Triton, the card's name and
    power limit; requires ``torch.cuda.is_available()``;
-2. build: compiles the CUDA kernels from ``nonuniformffts_tpu_torch/csrc``;
-3. kernels against their plain PyTorch versions on the card: a 64^3 plan
-   (grid 96^3), 200,000 uniform points, complex64;
-4. the main path at full size: N = 256^3, m = 4, sigma = 1.5, backwards
-   Kaiser-Bessel, FastApproximation, complex64, ``spread_method='blocked'``,
-   for Np = 1,000,000 and Np = 16,777,216: ``set_points`` ->
-   ``exec_type1`` -> ``exec_type2``, stage times (CUDA events, median of 5
-   after one warm-up), accuracy against exact float64 sums, launch counts;
-   at 1M also each kernel against its plain version, checked and timed.
+2. build: compiles the CUDA kernels from ``nonuniformffts_tpu_torch/csrc``
+   (one nvcc per source and value type, all at once), prints each kernel's
+   registers and spills from ``ptxas -v`` and the atomic instructions its
+   SASS holds (``cuobjdump -sass``);
+3. the complex64 kernels against their plain PyTorch versions on the card:
+   a 64^3 plan (grid 96^3), 200,000 uniform points;
+4. the complex64 main path at full size: N = 256^3, m = 4, sigma = 1.5,
+   backwards Kaiser-Bessel, FastApproximation, ``spread_method='blocked'``,
+   for Np = 1,000,000 and 16,777,216: ``set_points`` -> ``exec_type1`` ->
+   ``exec_type2``, stage times (CUDA events, median of 5 after one
+   warm-up), accuracy against exact float64 sums, launch counts; at 1M also
+   each kernel against its plain version, checked and timed in turns;
+5. 64-bit accuracy: 64^3 (grid 128^3), m = 8, sigma = 2, 200,000 points,
+   complex128 and float64: each 64-bit kernel against its plain version,
+   and err1 / err2 against exact float64 sums;
+6. the 64-bit main path at full size (the reference's protocol point):
+   N = 256^3, m = 4, sigma = 1.5, complex128 and float64 (r2c/c2r), at
+   Np = 1,677,722 (rho = 0.1) and 16,777,216 (rho = 1), measured as in
+   phase 4; at rho = 0.1 each kernel against its plain version;
+7. the float32 real (r2c/c2r) main path: N = 256^3, m = 4, sigma = 1.5, at
+   Np = 1,000,000 and 16,777,216, measured as in phase 4.
 
-The line before the last is one JSON object with each kernel's launches on
-the main path, its max abs error against the plain version and both times;
-the last line is ``{"ok": true, "device": {...}}``.
+Each main-path row sets every launch count to 0 just before it drives the
+path and reads the counts just after; a kernel of the path that was not
+launched fails the run.  The line before the last is one JSON object with
+each of the eight kernel entry points: launches on its main path, its error
+against its plain version, both times, the least time the card could take
+for the same work (``bound_ms``) and what bounds it; the last line is
+``{"ok": true, "device": {...}}``.
 
-Tolerances: kernels against plain versions <= 1e-5 relative L2 (float32
-atomics add in a run-dependent order; ~1e-7 expected); transform errors
-err1, err2 <= 1e-5 (the f32 pipeline's accuracy at this operating point is
-about 1.5e-6).
+Tolerances: kernels against plain versions <= 1e-5 relative L2 in float32
+(atomics add in a run-dependent order; ~1e-7 expected) and <= 1e-12 in
+float64 (~1e-16 expected); err1, err2 <= 1e-5 at m = 4, sigma = 1.5 (the
+window's own error is ~1.5e-6) and <= 1e-11 at m = 8, sigma = 2 (~2e-14;
+anything float32 left on the 64-bit path would floor it near 1e-7).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -43,23 +62,34 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_TOL = 1e-5
+KERNEL_TOL = {4: 1e-5, 8: 1e-12}  # by the bytes of the plan's real scalar
 ERR_TOL = 1e-5
+ERR_TOL_64 = 1e-11
 N_MAIN = 256
 NP_MAIN = (1_000_000, 16_777_216)
+NP_64 = (1_677_722, 16_777_216)
+N_ACC, NP_ACC = 64, 200_000  # phase 5
 REPS = 5
 ERR_MODES = 64
 ERR_POINTS = 4096
 PLAIN_CHUNK = 1 << 16
+# H100 SXM at 700 W (NVIDIA's data sheet): HBM3 rate, FP32 and FP64 peaks
+# outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {4: 67e12, 8: 34e12}
+_SPREAD_SRC = "nonuniformffts_tpu_torch/csrc/spread_3d.cu"
+_INTERP_SRC = "nonuniformffts_tpu_torch/csrc/interp_3d.cu"
+_Z = "nonuniformffts_tpu/ops/pallas/blocked.py"
+_DS = "nonuniformffts_tpu/ops/pallas/blocked_ds.py"
 KERNELS = {
-    "nufft_spread_3d_f32": dict(
-        source="nonuniformffts_tpu_torch/csrc/spread_3d.cu",
-        replaces="nonuniformffts_tpu/ops/pallas/blocked.py:639",
-    ),
-    "nufft_interp_3d_f32": dict(
-        source="nonuniformffts_tpu_torch/csrc/interp_3d.cu",
-        replaces="nonuniformffts_tpu/ops/pallas/blocked.py:1393",
-    ),
+    "nufft_spread_3d_f32": dict(source=_SPREAD_SRC, replaces=f"{_Z}:639"),
+    "nufft_interp_3d_f32": dict(source=_INTERP_SRC, replaces=f"{_Z}:1393"),
+    "nufft_spread_3d_real_f32": dict(source=_SPREAD_SRC, replaces=f"{_Z}:639"),
+    "nufft_interp_3d_real_f32": dict(source=_INTERP_SRC, replaces=f"{_Z}:1393"),
+    "nufft_spread_3d_f64": dict(source=_SPREAD_SRC, replaces=f"{_DS}:132"),
+    "nufft_interp_3d_f64": dict(source=_INTERP_SRC, replaces=f"{_DS}:314"),
+    "nufft_spread_3d_real_f64": dict(source=_SPREAD_SRC, replaces=f"{_DS}:132"),
+    "nufft_interp_3d_real_f64": dict(source=_INTERP_SRC, replaces=f"{_DS}:314"),
 }
 
 
@@ -129,45 +159,120 @@ def phase_environment():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _kernel_label(mangled: str) -> str:
+    """``spread_3d_kernel<4, double, 2>`` from a mangled kernel name."""
+    m = re.search(r"(spread|interp)_3d_kernelILi(\d+)E([fd])Li(\d)E", mangled)
+    if not m:
+        return mangled
+    return f"{m[1]}<M={m[2]}, {'float' if m[3] == 'f' else 'double'}, {m[4]}>"
+
+
+def report_ptxas(text: str) -> None:
+    """One line per kernel instantiation: registers, spills, stack."""
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = dict(name=_kernel_label(m[1]))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m[1]), spill_st=int(m[2]), spill_ld=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["regs"] = int(m[1])
+            rows.append(cur)
+            cur = None
+    for r in sorted(rows, key=lambda r: r["name"]):
+        log(f"  ptxas {r['name']}: {r['regs']} registers, spill stores "
+            f"{r.get('spill_st')} B, loads {r.get('spill_ld')} B, stack {r.get('stack')} B")
+
+
+def report_sass_atomics(lib_path: Path) -> None:
+    """The atomic instructions of each kernel's SASS: a shared-memory add
+    compiled to a compare-and-swap loop shows as ATOMS.CAST.SPIN."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        log("  cuobjdump: not found, SASS not read")
+        return
+    sass = run([tool, "-sass", str(lib_path)])
+    for part in re.split(r"\n\s+Function : ", sass)[1:]:
+        name, body = part.split("\n", 1)
+        ops = collections.Counter(re.findall(r"\b((?:ATOMS|ATOMG|REDG|RED|ATOM)\.[A-Z0-9.]+)", body))
+        log(f"  sass {_kernel_label(name.strip())}: "
+            + (", ".join(f"{k} x{v}" for k, v in sorted(ops.items())) or "no atomics"))
+
+
 def phase_build():
     from nonuniformffts_tpu_torch.ops.kernels import build
 
     log("== phase 2: build")
     t0 = time.perf_counter()
-    path = build.build(ptxas_verbose=True)
+    path = build.build()
     build.load()
     log(f"built and loaded {path.relative_to(ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    if build.PTXAS_LOG.exists():
+        report_ptxas(build.PTXAS_LOG.read_text())
+    report_sass_atomics(path)
 
 
-def _uniform_points(gen, np_: int, device):
+def _uniform_points(gen, np_: int, dtype, device):
     import torch
 
-    return torch.rand((3, np_), generator=gen, device=device) * (2 * math.pi)
+    return torch.rand((3, np_), generator=gen, device=device, dtype=dtype) * (2 * math.pi)
 
 
-def _complex_normal(gen, shape, device):
+def _random_values(gen, shape, dtype, device):
     import torch
 
-    return torch.randn(shape, generator=gen, device=device, dtype=torch.complex64)
+    return torch.randn(shape, generator=gen, device=device, dtype=dtype)
 
 
-def compare_kernels(plan, vp, grid, timed: bool):
-    """K1 and K2 against their plain versions on the same inputs."""
+def kernel_bound(kind: str, plan, C: int):
+    """Least time the card could take for a wrapper's work on these inputs:
+    the larger of the bytes it must move (each input read once, each output
+    written once) over the HBM rate and its operations over the FP32 or FP64
+    peak.  Returns (ms, 'bytes' or 'operations')."""
+    from nonuniformffts_tpu_torch.blocking import num_blocks
+    from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES
+
+    _, sb, ncomp = VALUE_TYPES[plan.dtype]
+    S, ncoef, np_ = 2 * plan.m, plan.coefs.shape[-1], plan.num_points
+    vol = math.prod(plan.shape_over)
+    nblocks = math.prod(num_blocks(plan.shape_over, plan.block_dims))
+    state = np_ * (3 * 4 + 3 * sb + 8) + 3 * S * ncoef * sb  # cells, fracs, perm, coefs
+    horner = 3 * S * (ncoef - 1) * 2  # FMAs of the taps, per point
+    if kind == "spread":
+        nbytes = C * np_ * ncomp * sb + state + (nblocks + 1) * 4 + C * vol * ncomp * sb
+        ops = np_ * (horner + C * (S * S * (1 + ncomp) + S ** 3 * ncomp * 2))
+    else:
+        nbytes = C * vol * ncomp * sb + state + C * np_ * ncomp * sb
+        ops = np_ * (horner + C * ncomp * 2 * (S ** 3 + S * S + S + 1))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[sb]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def compare_kernels(plan, vp, grid, timed: bool, plain_chunk: int = PLAIN_CHUNK):
+    """The plan's spread and interpolation kernels against their plain
+    versions on the same inputs; timed in turns (plain, kernel, kernel,
+    plain) when ``timed``."""
     import torch
 
     from nonuniformffts_tpu_torch.ops.kernels import blocked
 
-    plain = dataclasses.replace(plan, chunk_size=PLAIN_CHUNK)
+    plain = dataclasses.replace(plan, chunk_size=plain_chunk)
+    tol = KERNEL_TOL[torch.empty((), dtype=plan.real_dtype).element_size()]
     pairs = {
-        "nufft_spread_3d_f32": (lambda: blocked.spread_blocked(plan, vp),
-                                lambda: blocked.spread_blocked_plain(plain, vp)),
-        "nufft_interp_3d_f32": (lambda: blocked.interpolate_blocked(plan, grid),
-                                lambda: blocked.interpolate_blocked_plain(plain, grid)),
+        "spread": (lambda: blocked.spread_blocked(plan, vp),
+                   lambda: blocked.spread_blocked_plain(plain, vp)),
+        "interp": (lambda: blocked.interpolate_blocked(plan, grid),
+                   lambda: blocked.interpolate_blocked_plain(plain, grid)),
     }
     results = {}
-    for name, (kern, ref) in pairs.items():
-        if timed:  # in turns: plain, kernel, kernel, plain
+    for kind, (kern, ref) in pairs.items():
+        name = blocked.entry_point(kind, plan.dtype)
+        if timed:
             p1, want = cuda_time_ms(ref, reps=3)
             k1, got = cuda_time_ms(kern)
             k2, _ = cuda_time_ms(kern)
@@ -179,10 +284,14 @@ def compare_kernels(plan, vp, grid, timed: bool):
         torch.cuda.synchronize()
         err = rel_l2(got, want)
         max_abs = float((got - want).abs().max())
+        bound_ms, bound_by = kernel_bound(kind, plan, vp.shape[0])
         log(f"  {name}: rel L2 {err:.3e}, max abs {max_abs:.3e}"
-            + (f", kernel {ms:.3f} ms, plain {plain_ms:.3f} ms" if timed else ""))
-        check(f"{name} rel L2 vs plain", err, KERNEL_TOL)
-        results[name] = dict(max_abs_err=max_abs, rel_l2=err, ms=ms, plain_ms=plain_ms)
+            + (f", kernel {ms:.3f} ms, plain {plain_ms:.3f} ms" if timed else "")
+            + f", bound {bound_ms:.3f} ms ({bound_by})")
+        check(f"{name} rel L2 vs plain", err, tol)
+        results[name] = dict(max_abs_err=max_abs, rel_l2=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+        del got, want
     return results
 
 
@@ -192,33 +301,44 @@ def phase_kernels(seed: int):
     import nonuniformffts_tpu_torch as nufft
     from nonuniformffts_tpu_torch.ops.kernels import blocked
 
-    log("== phase 3: kernels against their plain versions (64^3, 200,000 points)")
+    log("== phase 3: complex64 kernels against their plain versions (64^3, 200,000 points)")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     plan = nufft.PlanNUFFT(np.complex64, (64, 64, 64), m=4, sigma=1.5,
                            spread_method="blocked", device=dev)
-    plan = nufft.set_points(plan, _uniform_points(gen, 200_000, dev))
+    plan = nufft.set_points(plan, _uniform_points(gen, 200_000, torch.float32, dev))
     log(f"  grid {plan.shape_over}, block_dims {plan.block_dims}")
-    vp = _complex_normal(gen, (1, 200_000), dev)
-    grid = _complex_normal(gen, (1,) + plan.shape_over, dev)
+    vp = _random_values(gen, (1, 200_000), torch.complex64, dev)
+    grid = _random_values(gen, (1,) + plan.shape_over, torch.complex64, dev)
     blocked.reset_launch_counts()
     compare_kernels(plan, vp, grid, timed=False)
-    log(f"  launches {blocked.LAUNCHES}")
-    if min(blocked.LAUNCHES.values()) < 1:
+    names = [blocked.entry_point(k, torch.complex64) for k in ("spread", "interp")]
+    log(f"  launches { {n: blocked.LAUNCHES[n] for n in names} }")
+    if min(blocked.LAUNCHES[n] for n in names) < 1:
         raise AssertionError("a kernel was not launched in phase 3")
 
 
-def _err1(pts, vp, uhat, seed: int) -> float:
+# ---------------------------------------------------------------------------
+# Accuracy oracles (exact float64 sums), copied from bench.py
+# ---------------------------------------------------------------------------
+
+
+def _err1(pts, v, uhat, N: int, real: bool, seed: int) -> float:
     """Type-1 output against exact float64 sums at random modes, computed on
-    the card in point chunks (the oracle of bench.py:measure_t1_error)."""
+    the card in point chunks (bench.py:measure_t1_error).  Real plans store
+    k = 0..+N/2 on the halved LAST axis: the Nyquist index is POSITIVE there
+    (bench.py:336-347), while the full axes fold index N/2 to -N/2."""
     import torch
 
-    N = N_MAIN
     rng = np.random.default_rng(seed + 7)
     kidx = rng.integers(0, N, (ERR_MODES, 3))
+    if real:
+        kidx[:, 2] = rng.integers(0, N // 2 + 1, ERR_MODES)
     kval = np.where(kidx >= (N + 1) // 2, kidx - N, kidx).astype(np.float64)
+    if real:
+        kval[:, 2] = kidx[:, 2]
     k = torch.as_tensor(kval, device=pts.device)
-    v = vp[0].to(torch.complex128)
+    v = v.to(torch.complex128)
     exact = torch.zeros(ERR_MODES, dtype=torch.complex128, device=pts.device)
     for s in range(0, pts.shape[1], 1 << 20):
         ph = k @ pts[:, s : s + (1 << 20)].to(torch.float64)
@@ -228,101 +348,175 @@ def _err1(pts, vp, uhat, seed: int) -> float:
     return rel_l2(got, exact)
 
 
-def _rank1_spectrum(seed: int):
+def _rank1_spectrum(N: int, real: bool, seed: int):
+    """Per-dim factors of a rank-1 spectrum and the spectrum itself
+    (complex128, numpy).  Real plans get the c2r oracle's factors
+    (bench.py:386-428): Hermitian full axes with a zero Nyquist bin, and a
+    halved last axis of N // 2 + 1 modes with a real k = 0 term."""
     rng = np.random.default_rng(seed + 8)
-    N = N_MAIN
-    return [(rng.standard_normal(N) + 1j * rng.standard_normal(N)) / N
-            for _ in range(3)]
+    if not real:
+        a = [(rng.standard_normal(N) + 1j * rng.standard_normal(N)) / N for _ in range(3)]
+        return a, np.einsum("a,b,c->abc", *a)
+
+    def herm_full(n):
+        f = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) / n
+        f[0] = f[0].real
+        f[n // 2] = 0.0
+        f[n // 2 + 1 :] = np.conj(f[1 : n // 2][::-1])
+        return f
+
+    H = N // 2 + 1
+    a2h = (rng.standard_normal(H) + 1j * rng.standard_normal(H)) / N
+    a2h[0] = a2h[0].real
+    a = [herm_full(N), herm_full(N), a2h]
+    return a, np.einsum("a,b,c->abc", *a)
 
 
-def _err2(pts, v2, a, seed: int) -> float:
+def _err2(pts, v2, a, N: int, real: bool, seed: int) -> float:
     """Type-2 output for the rank-1 spectrum a0 x a1 x a2, whose exact values
-    are products of 1D sums (bench.py:measure_t2_error)."""
+    are products of 1D sums (bench.py:measure_t2_error).  On real plans the
+    c2r convention doubles every stored k2 > 0 plane, the +N/2 plane
+    included, and takes real parts (bench.py:measure_t2_error_real)."""
     sel = np.random.default_rng(seed + 9).integers(0, pts.shape[1], ERR_POINTS)
     x = pts[:, sel].double().cpu().numpy()
-    kval = np.fft.fftfreq(N_MAIN, 1.0 / N_MAIN)
-    exact = np.ones(ERR_POINTS, np.complex128)
-    for d in range(3):
-        exact *= np.exp(1j * np.outer(x[d], kval)) @ a[d]
+    kfull = np.fft.fftfreq(N, 1.0 / N)
     got = v2[sel].cpu().numpy().astype(np.complex128)
+    if not real:
+        exact = np.ones(ERR_POINTS, np.complex128)
+        for d in range(3):
+            exact *= np.exp(1j * np.outer(x[d], kfull)) @ a[d]
+    else:
+        exact = np.ones(ERR_POINTS, np.float64)
+        for d in range(2):
+            exact *= (np.exp(1j * np.outer(x[d], kfull)) @ a[d]).real
+        terms = np.exp(1j * np.outer(x[2], np.arange(N // 2 + 1, dtype=np.float64))) * a[2]
+        exact *= terms[:, 0].real + 2.0 * np.sum(terms[:, 1:].real, axis=1)
     return float(np.linalg.norm(got - exact) / np.linalg.norm(exact))
 
 
-def phase_main(seed: int, np_list):
+# ---------------------------------------------------------------------------
+# Phases 4-7
+# ---------------------------------------------------------------------------
+
+
+def _plan(dtype, N: int, m: int, sigma: float):
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+
+    return nufft.PlanNUFFT(
+        dtype, (N,) * 3, m=m, sigma=sigma,
+        kernel=nufft.BackwardsKaiserBesselKernel(),
+        kernel_evalmode=nufft.FastApproximation(),
+        spread_method="blocked", device=torch.device("cuda"),
+    )
+
+
+def main_path(label: str, dtype, np_list, compare_np: int, seed: int):
+    """Drive one dtype's main path at N = 256^3, m = 4, sigma = 1.5 for each
+    Np; returns (launches summed over the rows, kernel comparisons at
+    ``compare_np``, rows)."""
     import torch
 
     import nonuniformffts_tpu_torch as nufft
     from nonuniformffts_tpu_torch import execution as ex
     from nonuniformffts_tpu_torch.ops.kernels import blocked
 
-    log(f"== phase 4: main path, N = {N_MAIN}^3, m = 4, sigma = 1.5, complex64")
     dev = torch.device("cuda")
-    plan0 = nufft.PlanNUFFT(
-        np.complex64, (N_MAIN,) * 3, m=4, sigma=1.5,
-        kernel=nufft.BackwardsKaiserBesselKernel(),
-        kernel_evalmode=nufft.FastApproximation(),
-        spread_method="blocked", device=dev,
-    )
-    log(f"  grid {plan0.shape_over}, block_dims {plan0.block_dims}")
-    a = _rank1_spectrum(seed)
-    u_rank1 = torch.as_tensor(
-        np.einsum("a,b,c->abc", *a).astype(np.complex64), device=dev
-    )
-    launches = dict.fromkeys(KERNELS, 0)
-    compared = {}
-    rows = []
+    plan0 = _plan(dtype, N_MAIN, 4, 1.5)
+    names = [blocked.entry_point(k, plan0.dtype) for k in ("spread", "interp")]
+    log(f"  {label}: grid {plan0.shape_over}, block_dims {plan0.block_dims}, "
+        f"kernels {names}")
+    a, u_np = _rank1_spectrum(N_MAIN, plan0.is_real, seed)
+    u_spec = torch.as_tensor(u_np, device=dev).to(plan0.complex_dtype)
+    del u_np
+    launches = dict.fromkeys(names, 0)
+    compared, rows = {}, []
     for np_ in np_list:
         gen = torch.Generator(device=dev).manual_seed(seed + np_)
-        pts = _uniform_points(gen, np_, dev)
-        vp = _complex_normal(gen, (np_,), dev)
+        pts = _uniform_points(gen, np_, plan0.real_dtype, dev)
+        vp = _random_values(gen, (np_,), plan0.dtype, dev)
         torch.cuda.synchronize()
 
         blocked.reset_launch_counts()
         t_set, plan = cuda_time_ms(lambda: nufft.set_points(plan0, pts))
         t_t1, uhat = cuda_time_ms(lambda: nufft.exec_type1(plan, vp))
-        t_t2, v2 = cuda_time_ms(lambda: nufft.exec_type2(plan, u_rank1))
+        t_t2, v2 = cuda_time_ms(lambda: nufft.exec_type2(plan, u_spec))
         vp_c = vp[None]
         stages = {}
         stages["t1 spread"], g = cuda_time_ms(lambda: ex.t1_spread_stage(plan, vp_c))
         stages["t1 fft"], spec = cuda_time_ms(lambda: ex.t1_fft_stage(plan, g))
         stages["t1 deconvolve"], _ = cuda_time_ms(lambda: ex.t1_deconv_stage(plan, spec))
         del g, spec
-        stages["t2 pad"], w = cuda_time_ms(lambda: ex.t2_pad_stage(plan, u_rank1[None]))
+        stages["t2 pad"], w = cuda_time_ms(lambda: ex.t2_pad_stage(plan, u_spec[None]))
         stages["t2 fft"], gr = cuda_time_ms(lambda: ex.t2_fft_stage(plan, w))
         stages["t2 interp"], _ = cuda_time_ms(lambda: ex.t2_interp_stage(plan, gr))
         del w, gr
         torch.cuda.synchronize()
-        counts = dict(blocked.LAUNCHES)
-        for name in KERNELS:
-            launches[name] += counts[name]
+        counts = {n: blocked.LAUNCHES[n] for n in names}
+        for n in names:
+            launches[n] += counts[n]
 
         log(f"  Np = {np_:,}: launches {counts}")
         if min(counts.values()) < 1:
             raise AssertionError("a kernel of the main path was not launched")
-        if tuple(uhat.shape) != (N_MAIN,) * 3 or tuple(v2.shape) != (np_,):
+        if tuple(uhat.shape) != plan.spectral_shape or tuple(v2.shape) != (np_,):
             raise AssertionError(f"output shapes {tuple(uhat.shape)}, {tuple(v2.shape)}")
+        if uhat.dtype != plan.complex_dtype or v2.dtype != plan.dtype:
+            raise AssertionError(f"output dtypes {uhat.dtype}, {v2.dtype}")
         if not (torch.isfinite(torch.view_as_real(uhat)).all()
-                and torch.isfinite(torch.view_as_real(v2)).all()):
+                and torch.isfinite(v2).all()):
             raise AssertionError("non-finite output")
         log(f"  set_points {t_set:.3f} ms, exec_type1 {t_t1:.3f} ms, "
             f"exec_type2 {t_t2:.3f} ms")
         log("  stages: " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
-        e1 = _err1(pts, vp[None], uhat, seed)
-        e2 = _err2(pts, v2, a, seed)
-        check(f"err1 (Np={np_})", e1, ERR_TOL)
-        check(f"err2 (Np={np_})", e2, ERR_TOL)
-        rows.append(dict(np=np_, set_points_ms=t_set, exec_type1_ms=t_t1,
+        e1 = _err1(pts, vp, uhat, N_MAIN, plan.is_real, seed)
+        e2 = _err2(pts, v2, a, N_MAIN, plan.is_real, seed)
+        check(f"err1 ({label}, Np={np_})", e1, ERR_TOL)
+        check(f"err2 ({label}, Np={np_})", e2, ERR_TOL)
+        rows.append(dict(dtype=label, np=np_, set_points_ms=t_set, exec_type1_ms=t_t1,
                          exec_type2_ms=t_t2, stages_ms=stages, err1=e1, err2=e2,
                          launches=counts))
-        if np_ == NP_MAIN[0]:
+        if np_ == compare_np:
             log("  kernels against their plain versions at this shape:")
-            grid = _complex_normal(gen, (1,) + plan.shape_over, dev)
+            grid = _random_values(gen, (1,) + plan.shape_over, plan.dtype, dev)
             compared = compare_kernels(plan, vp_c, grid, timed=True)
             del grid
         del plan, uhat, v2, pts, vp, vp_c
         torch.cuda.empty_cache()
     log("  results " + json.dumps(rows))
     return launches, compared
+
+
+def phase_accuracy_64(seed: int):
+    """64-bit kernels against their plain versions and err1 / err2 at
+    m = 8, sigma = 2, where the window's own error is ~2e-14."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+
+    N, np_ = N_ACC, NP_ACC
+    log(f"== phase 5: 64-bit accuracy, {N}^3, m = 8, sigma = 2, {np_:,} points")
+    dev = torch.device("cuda")
+    for dtype in (np.complex128, np.float64):
+        plan = _plan(dtype, N, 8, 2.0)
+        label = np.dtype(dtype).name
+        gen = torch.Generator(device=dev).manual_seed(seed + 5)
+        pts = _uniform_points(gen, np_, torch.float64, dev)
+        plan = nufft.set_points(plan, pts)
+        log(f"  {label}: grid {plan.shape_over}, block_dims {plan.block_dims}")
+        vp = _random_values(gen, (1, np_), plan.dtype, dev)
+        grid = _random_values(gen, (1,) + plan.shape_over, plan.dtype, dev)
+        compare_kernels(plan, vp, grid, timed=False, plain_chunk=1 << 13)
+        a, u_np = _rank1_spectrum(N, plan.is_real, seed)
+        u_spec = torch.as_tensor(u_np, device=dev).to(plan.complex_dtype)
+        uhat = nufft.exec_type1(plan, vp[0])
+        v2 = nufft.exec_type2(plan, u_spec)
+        check(f"err1 ({label}, m=8)", _err1(pts, vp[0], uhat, N, plan.is_real, seed),
+              ERR_TOL_64)
+        check(f"err2 ({label}, m=8)", _err2(pts, v2, a, N, plan.is_real, seed), ERR_TOL_64)
+        del plan, pts, vp, grid, uhat, v2, u_spec
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -338,11 +532,27 @@ def main(argv=None) -> int:
     phase_environment()
     phase_build()
     phase_kernels(args.seed)
-    launches, compared = phase_main(args.seed, NP_MAIN)
+    launches, compared = {}, {}
+
+    def record(result):
+        launches.update(result[0])
+        compared.update(result[1])
+
+    log(f"== phase 4: main path, N = {N_MAIN}^3, m = 4, sigma = 1.5, complex64")
+    record(main_path("complex64", np.complex64, NP_MAIN, NP_MAIN[0], args.seed))
+    phase_accuracy_64(args.seed)
+    log(f"== phase 6: 64-bit main path, N = {N_MAIN}^3, m = 4, sigma = 1.5")
+    for dtype in (np.complex128, np.float64):
+        record(main_path(np.dtype(dtype).name, dtype, NP_64, NP_64[0], args.seed))
+    log(f"== phase 7: float32 real main path, N = {N_MAIN}^3, m = 4, sigma = 1.5")
+    record(main_path("float32", np.float32, NP_MAIN, NP_MAIN[0], args.seed))
+
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name], launches=launches[name],
-             max_abs_err=compared[name]["max_abs_err"], ms=compared[name]["ms"],
-             plain_ms=compared[name]["plain_ms"])
+             max_abs_err=compared[name]["max_abs_err"], rel_l2=compared[name]["rel_l2"],
+             ms=compared[name]["ms"], plain_ms=compared[name]["plain_ms"],
+             bound_ms=compared[name]["bound_ms"], bound_by=compared[name]["bound_by"],
+             library_ms=None)
         for name in KERNELS
     ]
     print(nvidia_smi_line(), flush=True)

@@ -2,11 +2,12 @@
 CUDA kernels for the NVIDIA H100.
 
 The port of ``nonuniformffts_tpu`` (JAX/Pallas on TPU), which stays in the
-repository as its reference.  This slice covers 3D-capable complex plans:
-``PlanNUFFT`` -> ``set_points`` -> ``exec_type1`` / ``exec_type2``, with the
-blocked method running the CUDA kernels ``nufft_spread_3d_f32`` and
-``nufft_interp_3d_f32`` (``csrc/``, built with nvcc at first use) on
-complex64 plans.
+repository as its reference.  ``PlanNUFFT`` -> ``set_points`` ->
+``exec_type1`` / ``exec_type2`` on complex64, complex128, float32 and
+float64 (real-data r2c/c2r) values; on the card the blocked method runs the
+CUDA kernels ``nufft_spread_3d_<type>`` and ``nufft_interp_3d_<type>``
+(``csrc/``, built with nvcc at first use) for 3D plans, in native float64
+for 64-bit plans.  Plans run on the card unless ``device='cpu'``.
 
 Quick start::
 

@@ -26,7 +26,8 @@ from .ops.kernels.common import (
     NUM_SMS,
     SM_SMEM_BYTES,
     SMEM_RESERVED_PER_CTA,
-    SPREAD_CTAS_PER_SM,
+    spread_bank_conflicts,
+    spread_ctas_per_sm,
     spread_smem_bytes,
 )
 from .ops.stencil import cells_and_fracs
@@ -44,24 +45,34 @@ def num_blocks(shape_over: Sequence[int], block_dims: Sequence[int]) -> Tuple[in
     return tuple(n // b for n, b in zip(shape_over, block_dims))
 
 
-def choose_geometry(shape_over: Sequence[int], m: int) -> Tuple[int, ...]:
-    """Block dims for the spread kernel on an H100.
+def choose_geometry(shape_over: Sequence[int], m: int, scalar_bytes: int = 4,
+                    ncomp: int = 2) -> Tuple[int, ...]:
+    """Block dims for the spread kernel on an H100, for values of ``ncomp``
+    scalars of ``scalar_bytes`` each (complex64: 4, 2; complex128: 8, 2;
+    float32: 4, 1; float64: 8, 1).
 
     Each block dim divides its grid dim, and one CTA's padded block
-    ``prod(B + 2M - 1)`` (two float planes, 8 B a cell) fits the 227 KB of
-    shared memory.  Among candidates with at least two blocks per SM (264
-    blocks, so the grid fills the card), the lowest estimated cost
-    ``halo_ratio / ctas`` wins, ties going to the wider last dim (coalesced
-    flush rows):
+    ``prod(B + 2M - 1)`` (``ncomp`` planes, ``ncomp * scalar_bytes`` a cell)
+    fits the 227 KB of shared memory.  Among candidates with at least two
+    blocks per SM (264 blocks, so the grid fills the card), the lowest
+    estimated cost ``halo_ratio * conflicts / ctas`` wins, ties going to the
+    wider last dim (coalesced flush rows):
 
     - ``halo_ratio = prod(B + 2M - 1) / prod(B)``: every padded cell of a
       non-empty block costs a global atomic add in the flush;
-    - ``ctas``: resident CTAs per SM by shared memory, counted up to
-      ``SPREAD_CTAS_PER_SM``.  K1 ran 1.8x faster at rho = 1 with three
-      CTAs' worth of shared memory per SM than with one (PERF.md, PR 1):
-      one CTA's atomics stall at its barriers unless another CTA runs.
+    - ``conflicts``: lanes of a warp on one shared-memory bank in the tap
+      loop (``spread_bank_conflicts``), which depends on the padded last
+      dim; K1 ran 1.8x (float32) to 3x (complex64) slower at rho = 1 with
+      a last block dim of 24 (4-way) than of 16 (2-way) (PERF.md);
+    - ``ctas``: resident CTAs per SM by shared memory, counted up to what
+      the register file allows (``spread_ctas_per_sm``).  K1 ran 1.8x
+      faster at rho = 1 with three CTAs' worth of shared memory per SM than
+      with one (PERF.md): one CTA's atomics stall at its barriers
+      unless another CTA runs.  A complex128 cell takes 16 B, so the same
+      cap picks smaller blocks than for complex64.
     """
     ncoef = m + 4
+    cta_cap = spread_ctas_per_sm(scalar_bytes, ncomp, m)
     per_dim = [[b for b in range(1, min(n, 128) + 1) if n % b == 0]
                for n in shape_over]
     total = 1
@@ -69,15 +80,17 @@ def choose_geometry(shape_over: Sequence[int], m: int) -> Tuple[int, ...]:
         total *= n
     best, best_score = None, None
     for dims in itertools.product(*per_dim):
-        smem = spread_smem_bytes(dims, m, ncoef)
+        smem = spread_smem_bytes(dims, m, ncoef, scalar_bytes, ncomp)
         if smem > MAX_SMEM_BYTES:
             continue
-        ctas = min(SM_SMEM_BYTES // (smem + SMEM_RESERVED_PER_CTA), SPREAD_CTAS_PER_SM)
+        ctas = min(SM_SMEM_BYTES // (smem + SMEM_RESERVED_PER_CTA), cta_cap)
         vol, padded = 1, 1
         for b in dims:
             vol *= b
             padded *= b + 2 * m - 1
-        score = (total // vol >= 2 * NUM_SMS, -padded / vol / ctas, dims[-1])
+        conflicts = spread_bank_conflicts(dims[-1] + 2 * m - 1, m, scalar_bytes)
+        score = (total // vol >= 2 * NUM_SMS, -padded / vol * conflicts / ctas,
+                 dims[-1])
         if best_score is None or score > best_score:
             best, best_score = tuple(dims), score
     if best is None:

@@ -1,5 +1,5 @@
 """Transform execution: type-1 (non-uniform -> uniform) and type-2
-(uniform -> non-uniform) pipelines on native complex tensors.
+(uniform -> non-uniform) pipelines on native complex and real tensors.
 
 Counterpart of ``nonuniformffts_tpu/execution.py`` (reference:
 src/NonuniformFFTs.jl:148-189, 237-286), with identical conventions:
@@ -9,11 +9,18 @@ src/NonuniformFFTs.jl:148-189, 237-286), with identical conventions:
 
 Stages, each a function so that a caller can time them one by one:
 
-- type 1: spread (K1 on the blocked CUDA path) -> ``torch.fft.fftn`` ->
-  ``deconvolve_truncate`` with ``normfactor``.  K1 adds each block's halo
-  into the grid with periodic wrap, so there is no fold pass.
-- type 2: ``deconvolve_pad`` -> unnormalised inverse FFT -> interpolate
-  (K2 on the blocked CUDA path, writing each result to its original index).
+- type 1: spread (the spread kernel on the blocked CUDA path) ->
+  ``torch.fft.fftn`` (``rfftn`` on real-data plans) -> ``deconvolve_truncate``
+  with ``normfactor``.  The kernel adds each block's halo into the grid with
+  periodic wrap, so there is no fold pass.
+- type 2: ``deconvolve_pad`` -> unnormalised inverse FFT (``irfftn`` on
+  real-data plans) -> interpolate (the interpolation kernel on the blocked
+  CUDA path, writing each result to its original index).
+
+Real-data plans take real values in type 1 and return a complex spectrum of
+``plan.spectral_shape`` (last axis halved); type 2 takes that spectrum and
+returns real values.  64-bit plans run float64 in every stage: the JAX
+package's double-single branches (``plan.ds``) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -29,7 +36,12 @@ from .ops.kernels.blocked import interpolate_blocked, spread_blocked
 from .ops.spreading import spread_reference
 from .plan import Plan
 
-_NP_DTYPE = {torch.complex64: np.complex64, torch.complex128: np.complex128}
+_NP_DTYPE = {
+    torch.complex64: np.complex64,
+    torch.complex128: np.complex128,
+    torch.float32: np.float32,
+    torch.float64: np.float64,
+}
 
 
 def _check_points(plan: Plan):
@@ -37,15 +49,15 @@ def _check_points(plan: Plan):
         raise ValueError("points not set; call set_points first")
 
 
-def _as_plan_tensor(x, plan: Plan, what: str) -> torch.Tensor:
-    """Host arrays and tensors of the plan's dtype, moved to its device."""
+def _as_plan_tensor(x, plan: Plan, dtype: torch.dtype, what: str) -> torch.Tensor:
+    """Host arrays and tensors of ``dtype``, moved to the plan's device."""
     if isinstance(x, torch.Tensor):
-        if x.dtype != plan.dtype:
-            raise TypeError(f"{what} must have dtype {plan.dtype}, got {x.dtype}")
+        if x.dtype != dtype:
+            raise TypeError(f"{what} must have dtype {dtype}, got {x.dtype}")
         return x.to(plan.device)
     x = np.asarray(x)
-    if x.dtype != np.dtype(_NP_DTYPE[plan.dtype]):
-        raise TypeError(f"{what} must have dtype {plan.dtype}, got {x.dtype}")
+    if x.dtype != np.dtype(_NP_DTYPE[dtype]):
+        raise TypeError(f"{what} must have dtype {dtype}, got {x.dtype}")
     return torch.as_tensor(x, device=plan.device)
 
 
@@ -84,7 +96,7 @@ def t1_spread_stage(plan: Plan, vp: torch.Tensor) -> torch.Tensor:
 
 
 def t1_fft_stage(plan: Plan, grid: torch.Tensor) -> torch.Tensor:
-    return fft.forward_fft(grid)
+    return fft.forward_fft(grid, real=plan.is_real)
 
 
 def t1_deconv_stage(plan: Plan, spec: torch.Tensor) -> torch.Tensor:
@@ -94,11 +106,13 @@ def t1_deconv_stage(plan: Plan, spec: torch.Tensor) -> torch.Tensor:
 
 
 def t2_pad_stage(plan: Plan, uhat: torch.Tensor) -> torch.Tensor:
-    return deconvolve_pad(uhat, plan.shape_over, plan.index_ranges, plan.phihat_inv)
+    return deconvolve_pad(
+        uhat, plan.spectral_shape_over, plan.index_ranges, plan.phihat_inv
+    )
 
 
 def t2_fft_stage(plan: Plan, spec: torch.Tensor) -> torch.Tensor:
-    return fft.backward_fft(spec)
+    return fft.backward_fft(spec, plan.shape_over, real=plan.is_real)
 
 
 def t2_interp_stage(plan: Plan, grid: torch.Tensor) -> torch.Tensor:
@@ -122,14 +136,15 @@ def t2_interp_stage(plan: Plan, grid: torch.Tensor) -> torch.Tensor:
 def exec_type1(plan: Plan, vp, callbacks: NUFFTCallbacks = None) -> torch.Tensor:
     """Type-1 NUFFT: values at non-uniform points -> Fourier modes.
 
-    ``vp`` (numpy array or tensor of the plan's dtype) has shape ``(Np,)``
-    or ``(ntransforms, Np)``; the output is a tensor on the plan's device of
-    shape ``plan.spectral_shape`` (plus the leading component axis if
-    present), in FFTW frequency order unless ``fftshift``.
+    ``vp`` (numpy array or tensor of the plan's dtype, real on real-data
+    plans) has shape ``(Np,)`` or ``(ntransforms, Np)``; the output is a
+    tensor of ``plan.complex_dtype`` on the plan's device of shape
+    ``plan.spectral_shape`` (plus the leading component axis if present), in
+    FFTW frequency order unless ``fftshift``.
     """
     _check_points(plan)
     check_no_callbacks(callbacks)
-    vp = _as_plan_tensor(vp, plan, "non-uniform data")
+    vp = _as_plan_tensor(vp, plan, plan.dtype, "non-uniform data")
     vp, had_axis = _as_components(vp, plan, expected_tail_ndim=1)
     if vp.shape[1] != plan.num_points:
         raise ValueError(
@@ -145,12 +160,13 @@ def exec_type2(plan: Plan, uhat, callbacks: NUFFTCallbacks = None) -> torch.Tens
     """Type-2 NUFFT: Fourier modes -> values at non-uniform points.
 
     ``uhat`` has shape ``plan.spectral_shape`` (optionally with a leading
-    component axis) and the plan's complex dtype; the output is ``(Np,)`` /
-    ``(ntransforms, Np)`` on the plan's device.
+    component axis) and dtype ``plan.complex_dtype``; the output is ``(Np,)``
+    / ``(ntransforms, Np)`` of the plan's dtype (real on real-data plans) on
+    the plan's device.
     """
     _check_points(plan)
     check_no_callbacks(callbacks)
-    uhat = _as_plan_tensor(uhat, plan, "uniform data")
+    uhat = _as_plan_tensor(uhat, plan, plan.complex_dtype, "uniform data")
     uhat, had_axis = _as_components(uhat, plan, expected_tail_ndim=plan.ndim)
     if tuple(uhat.shape[1:]) != plan.spectral_shape:
         raise ValueError(

@@ -13,7 +13,7 @@ exactly the JAX package's coefficients::
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,6 +22,12 @@ from .ops.kernels.common import coefficient_stack
 from .ops.windows import KernelData
 
 TWO_PI = 2.0 * math.pi
+
+
+def _hi_plus_lo(hi, lo) -> np.ndarray:
+    """A double-single pair summed in float64 (``hi`` alone without ``lo``)."""
+    out = np.asarray(hi, dtype=np.float64)
+    return out if lo is None else out + np.asarray(lo, dtype=np.float64)
 
 
 def plan_data_from_numpy(
@@ -33,21 +39,30 @@ def plan_data_from_numpy(
     phihat_inv: Sequence[np.ndarray],
     index_ranges,
     shape_over,
+    cs_poly_lo: Optional[Sequence[np.ndarray]] = None,
+    phihat_inv_lo: Optional[Sequence[np.ndarray]] = None,
     dtype: torch.dtype = torch.float64,
     device="cpu",
 ) -> dict:
     """Port plan fields from a JAX plan of a (B)KB kernel.
 
     ``cs_poly[d]`` is ``(npoly, 2M)``; ``dtype`` is the plan's real dtype.
-    Returns ``kernel_data``, ``phihat_inv``, ``index_ranges``,
-    ``shape_over`` and ``coefs``.
+    A JAX double-single plan (``precision='double'`` on a 64-bit dtype)
+    stores float32 ``(hi, lo)`` pairs: pass its ``cs_poly_lo`` and
+    ``phihat_inv_lo`` too, and each pair is summed in float64 (about 48 bits
+    of each coefficient).  ``index_ranges`` may be a real-data plan's, whose
+    halved last axis is one range.  Returns ``kernel_data``, ``phihat_inv``,
+    ``index_ranges``, ``shape_over`` and ``coefs``.
     """
     if kind not in ("kb", "bkb"):
         raise ValueError(f"plan_data_from_numpy takes (B)KB kernel data, not {kind!r}")
     shape_over = tuple(int(n) for n in shape_over)
+    ndim = len(shape_over)
+    cs_lo = [None] * ndim if cs_poly_lo is None else list(cs_poly_lo)
+    ph_lo = [None] * ndim if phihat_inv_lo is None else list(phihat_inv_lo)
     kernel_data = []
-    for n, cs, b, pk in zip(shape_over, cs_poly, beta, peak):
-        cs = np.asarray(cs, dtype=np.float64)
+    for n, cs_hi, cs_l, b, pk in zip(shape_over, cs_poly, cs_lo, beta, peak):
+        cs = _hi_plus_lo(cs_hi, cs_l)
         m = cs.shape[1] // 2
         dx = TWO_PI / n
         kernel_data.append(KernelData(
@@ -58,8 +73,8 @@ def plan_data_from_numpy(
     return dict(
         kernel_data=kernel_data,
         phihat_inv=tuple(
-            torch.tensor(np.asarray(p, np.float64), dtype=dtype, device=device)
-            for p in phihat_inv
+            torch.tensor(_hi_plus_lo(p, p_lo), dtype=dtype, device=device)
+            for p, p_lo in zip(phihat_inv, ph_lo)
         ),
         index_ranges=tuple(
             tuple((int(s), int(l)) for s, l in r) for r in index_ranges

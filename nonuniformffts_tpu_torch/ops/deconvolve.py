@@ -8,7 +8,10 @@ oversampled FFT axis (k >= 0 at the front, k < 0 at the back), so truncation
 and padding are slices; ``1/phi_hat`` is applied as D broadcast multiplies.
 
 Wavenumber order is FFTW's (``0 .. N/2-1, -N/2 .. -1``) unless
-``fftshift=True`` (increasing order).
+``fftshift=True`` (increasing order).  On real-data (r2c/c2r) plans the
+halved LAST axis holds ``k = 0 .. N/2`` in order (positive Nyquist, never
+shifted) at the front of an ``n_over // 2 + 1`` oversampled axis, so its
+range is one slice; callers pass the plan's ``spectral_shape_over``.
 """
 
 from __future__ import annotations

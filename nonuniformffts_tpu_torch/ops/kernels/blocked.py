@@ -1,14 +1,17 @@
-"""Blocked fast path: wrappers around the hand-written CUDA kernels K1
-(spread) and K2 (interpolate), each with its plain PyTorch version.
+"""Blocked fast path: wrappers around the hand-written CUDA kernels K1/K6a
+(spread) and K2/K6b (interpolate), each with its plain PyTorch version.
 
-Counterpart of ``nonuniformffts_tpu/ops/pallas/blocked.py``.  Both wrappers
-read the plan's bin-sorted point state (``set_points`` with
-``spread_method='blocked'``): cells and fractions in sorted order, the
-sort permutation and the per-block point ranges.
+Counterpart of ``nonuniformffts_tpu/ops/pallas/blocked.py`` and
+``blocked_ds.py``.  Both wrappers read the plan's bin-sorted point state
+(``set_points`` with ``spread_method='blocked'``): cells and fractions in
+sorted order, the sort permutation and the per-block point ranges.  The
+plan's dtype picks the kernel's entry point (``common.VALUE_TYPES``):
+complex64, complex128, float32 or float64 values, with fractions and
+coefficients in the matching real dtype; 64-bit plans run native FP64.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches its kernel or raises.  Each launch adds one to
-``LAUNCHES[kernel name]``.
+``LAUNCHES[entry point]``.
 """
 
 from __future__ import annotations
@@ -19,10 +22,14 @@ from ..interpolation import interpolate_cells
 from ..spreading import spread_cells
 from ..windows import FastApproximation
 from . import build
-from .common import KERNEL_M_RANGE, MAX_SMEM_BYTES, spread_smem_bytes
+from .common import KERNEL_M_RANGE, MAX_SMEM_BYTES, VALUE_TYPES, spread_smem_bytes
 
-#: Launches of each kernel by its wrapper in this process.
-LAUNCHES = {"nufft_spread_3d_f32": 0, "nufft_interp_3d_f32": 0}
+#: Launches of each entry point by its wrapper in this process.
+LAUNCHES = {
+    f"nufft_{kind}_3d_{suffix}": 0
+    for kind in ("spread", "interp")
+    for suffix, _, _ in VALUE_TYPES.values()
+}
 
 
 def reset_launch_counts() -> None:
@@ -30,19 +37,23 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def entry_point(kind: str, dtype: torch.dtype) -> str:
+    """The kernel entry point (``kind`` 'spread' or 'interp') for values of
+    ``dtype``."""
+    return f"nufft_{kind}_3d_{VALUE_TYPES[dtype][0]}"
+
+
 def check_kernel_support(plan) -> None:
-    """Raise unless the CUDA kernels take this plan (3D, complex64,
-    (B)KB FastApproximation, M in 2..8, padded block within shared memory)."""
+    """Raise unless the CUDA kernels take this plan (3D, complex or real of
+    32 or 64 bits, (B)KB FastApproximation, M in 2..8, padded block within
+    shared memory)."""
     if plan.ndim != 3:
         raise NotImplementedError(
             "the CUDA kernels are 3D only; 1D/2D plans arrive with ROADMAP "
             "queue 1, item 6 (use spread_method='reference')"
         )
-    if plan.dtype != torch.complex64:
-        raise NotImplementedError(
-            f"the CUDA kernels take complex64 plans, not {plan.dtype}; "
-            "native FP64 arrives with ROADMAP queue 1, item 7"
-        )
+    if plan.dtype not in VALUE_TYPES:
+        raise NotImplementedError(f"no CUDA kernel takes {plan.dtype} values")
     if plan.coefs is None or not isinstance(plan.evalmode, FastApproximation):
         raise NotImplementedError(
             "the CUDA kernels evaluate (B)KB windows in FastApproximation "
@@ -52,7 +63,9 @@ def check_kernel_support(plan) -> None:
         raise NotImplementedError(
             f"the CUDA kernels are instantiated for m in 2..8, got m={plan.m}"
         )
-    smem = spread_smem_bytes(plan.block_dims, plan.m, plan.coefs.shape[-1])
+    _, scalar_bytes, ncomp = VALUE_TYPES[plan.dtype]
+    smem = spread_smem_bytes(plan.block_dims, plan.m, plan.coefs.shape[-1],
+                             scalar_bytes, ncomp)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"block_dims {plan.block_dims} need {smem} B of shared memory "
@@ -61,8 +74,8 @@ def check_kernel_support(plan) -> None:
 
 
 def _check_cuda_inputs(x: torch.Tensor, plan, what: str) -> None:
-    if x.dtype != torch.complex64:
-        raise TypeError(f"{what} must be complex64, got {x.dtype}")
+    if x.dtype != plan.dtype:
+        raise TypeError(f"{what} must be {plan.dtype}, got {x.dtype}")
     for t in (plan.cells_sorted, plan.fracs_sorted, plan.sort_perm,
               plan.pstarts, plan.coefs):
         if t.device != x.device:
@@ -71,9 +84,9 @@ def _check_cuda_inputs(x: torch.Tensor, plan, what: str) -> None:
                 f"{t.device}"
             )
     for t, dt in ((plan.cells_sorted, torch.int32),
-                  (plan.fracs_sorted, torch.float32),
+                  (plan.fracs_sorted, plan.real_dtype),
                   (plan.sort_perm, torch.int64), (plan.pstarts, torch.int32),
-                  (plan.coefs, torch.float32)):
+                  (plan.coefs, plan.real_dtype)):
         if t.dtype != dt or not t.is_contiguous():
             raise TypeError(f"plan point state must be contiguous {dt}")
 
@@ -84,13 +97,13 @@ def _raise_on_error(name: str, err: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K1: spread
+# K1 / K6a: spread
 # ---------------------------------------------------------------------------
 
 
 def spread_blocked_plain(plan, vp: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1: chunked ``index_add_`` from the sorted cells and
-    fractions.  ``vp``: (C, Np) in original point order."""
+    """Plain version of the spread kernel: chunked ``index_add_`` from the
+    sorted cells and fractions.  ``vp``: (C, Np) in original point order."""
     return spread_cells(
         plan.kernel_data, plan.evalmode, plan.shape_over, plan.cells_sorted,
         plan.fracs_sorted, vp[:, plan.sort_perm], chunk_size=plan.chunk_size,
@@ -98,8 +111,9 @@ def spread_blocked_plain(plan, vp: torch.Tensor) -> torch.Tensor:
 
 
 def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
-    """Blocked type-1 spreading.  ``vp``: (C, Np) in original point order.
-    Returns the oversampled grid ``(C,) + shape_over``."""
+    """Blocked type-1 spreading.  ``vp``: (C, Np) of the plan's dtype in
+    original point order.  Returns the oversampled grid ``(C,) +
+    shape_over`` of the same dtype."""
     if vp.device.type == "cpu":
         return spread_blocked_plain(plan, vp)
     if vp.device.type != "cuda":
@@ -112,30 +126,32 @@ def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
     vals = vp[:, plan.sort_perm].contiguous()
     grid = torch.zeros((C,) + tuple(plan.shape_over), dtype=vp.dtype,
                        device=vp.device)
-    lib = build.load()
+    name = entry_point("spread", plan.dtype)
+    fn = getattr(build.load(), name)
     n0, n1, n2 = plan.shape_over
     b0, b1, b2 = plan.block_dims
     with torch.cuda.device(vp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.nufft_spread_3d_f32(
+        err = fn(
             vals.data_ptr(), plan.cells_sorted.data_ptr(),
             plan.fracs_sorted.data_ptr(), plan.pstarts.data_ptr(),
             plan.coefs.data_ptr(), grid.data_ptr(), np_, C, plan.m,
             plan.coefs.shape[-1], n0, n1, n2, b0, b1, b2, stream,
         )
-    _raise_on_error("nufft_spread_3d_f32", err)
-    LAUNCHES["nufft_spread_3d_f32"] += 1
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
     return grid
 
 
 # ---------------------------------------------------------------------------
-# K2: interpolate
+# K2 / K6b: interpolate
 # ---------------------------------------------------------------------------
 
 
 def interpolate_blocked_plain(plan, grid: torch.Tensor) -> torch.Tensor:
-    """Plain version of K2: chunked gather at the sorted points, times
-    ``normfactor``, scattered back to original point order."""
+    """Plain version of the interpolation kernel: chunked gather at the
+    sorted points, times ``normfactor``, scattered back to original point
+    order."""
     vals = interpolate_cells(
         plan.kernel_data, plan.evalmode, grid, plan.cells_sorted,
         plan.fracs_sorted, plan.normfactor, chunk_size=plan.chunk_size,
@@ -146,8 +162,9 @@ def interpolate_blocked_plain(plan, grid: torch.Tensor) -> torch.Tensor:
 
 
 def interpolate_blocked(plan, grid: torch.Tensor) -> torch.Tensor:
-    """Blocked type-2 interpolation.  ``grid``: (C,) + shape_over.  Returns
-    (C, Np) in original point order with the prefactor applied."""
+    """Blocked type-2 interpolation.  ``grid``: (C,) + shape_over of the
+    plan's dtype.  Returns (C, Np) in original point order with the
+    prefactor applied."""
     if grid.device.type == "cpu":
         return interpolate_blocked_plain(plan, grid)
     if grid.device.type != "cuda":
@@ -165,16 +182,17 @@ def interpolate_blocked(plan, grid: torch.Tensor) -> torch.Tensor:
     out = torch.empty((C, np_), dtype=grid.dtype, device=grid.device)
     if np_ == 0:
         return out
-    lib = build.load()
+    name = entry_point("interp", plan.dtype)
+    fn = getattr(build.load(), name)
     n0, n1, n2 = plan.shape_over
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.nufft_interp_3d_f32(
+        err = fn(
             grid.data_ptr(), plan.cells_sorted.data_ptr(),
             plan.fracs_sorted.data_ptr(), plan.sort_perm.data_ptr(),
             plan.coefs.data_ptr(), out.data_ptr(), np_, C, plan.m,
             plan.coefs.shape[-1], n0, n1, n2, float(plan.normfactor), stream,
         )
-    _raise_on_error("nufft_interp_3d_f32", err)
-    LAUNCHES["nufft_interp_3d_f32"] += 1
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
     return out

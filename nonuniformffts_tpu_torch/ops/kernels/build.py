@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels (``csrc/``).
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
-library with a plain C interface, which is loaded with ``ctypes``.  The build
-happens at first use (never at import), goes to
-``build/nonuniformffts_tpu_torch/`` at the repository root, and is redone
-when a hash of the sources and flags changes.
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` once per value type
+(``-DNUFFT_ONLY=<index into VALUE_SUFFIXES>``), all compiles started together,
+and links the objects into one shared library with a plain C interface,
+which is loaded with ``ctypes``.  The build happens at first use (never at
+import), goes to ``build/nonuniformffts_tpu_torch/`` at the repository
+root, and is redone when a hash of the sources and flags changes.  What
+``ptxas -v`` says of each kernel (registers, spills, shared memory) is kept
+beside the library in ``ptxas.log``.
 """
 
 from __future__ import annotations
@@ -17,26 +20,33 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from .common import VALUE_TYPES
+
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "nonuniformffts_tpu_torch"
 LIB_NAME = "libnufft_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+PTXAS_LOG = BUILD_DIR / "ptxas.log"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+#: Entry-point suffixes of each kernel, in the order of ``NUFFT_ONLY``
+#: (``csrc/*.cu``: 0 complex64, 1 complex128, 2 float32, 3 float64).
+VALUE_SUFFIXES = tuple(suffix for suffix, _, _ in VALUE_TYPES.values())
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# vals, cells, fracs, pstarts, coefs, grid, np, nchan, m, ncoef,
+# n0, n1, n2, b0, b1, b2, stream
+_SPREAD_ARGS = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
+                _I, _I, _I, _I, _P]
+# grid, cells, fracs, perm, coefs, out, np, nchan, m, ncoef,
+# n0, n1, n2, normfactor, stream
+_INTERP_ARGS = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
+                _I, ctypes.c_double, _P]
 _SIGNATURES = {
-    # vals, cells, fracs, pstarts, coefs, grid, np, nchan, m, ncoef,
-    # n0, n1, n2, b0, b1, b2, stream
-    "nufft_spread_3d_f32": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # grid, cells, fracs, perm, coefs, out, np, nchan, m, ncoef,
-    # n0, n1, n2, normfactor, stream
-    "nufft_interp_3d_f32": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
-                            _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    **{f"nufft_spread_3d_{vt}": _SPREAD_ARGS for vt in VALUE_SUFFIXES},
+    **{f"nufft_interp_3d_{vt}": _INTERP_ARGS for vt in VALUE_SUFFIXES},
 }
 
 _lib = None
@@ -48,7 +58,7 @@ def _sources():
 
 def source_hash() -> str:
     cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + VALUE_SUFFIXES).encode())
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -65,29 +75,45 @@ def _nvcc() -> str:
     return path
 
 
-def build(*, ptxas_verbose: bool = False) -> Path:
+def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library matches the sources.
-    Returns the library path; ``ptxas_verbose`` prints each kernel's
-    registers, shared memory and spills."""
+    Returns the library path."""
     lib_path = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = source_hash()
     if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", tmp, *map(str, cu)]
-    if ptxas_verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if ptxas_verbose:
-        print(res.stderr, flush=True)
-    os.replace(tmp, lib_path)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in cu:
+            for idx, vt in enumerate(VALUE_SUFFIXES):
+                obj = Path(tmp) / f"{src.stem}_{vt}.o"
+                cmd = [nvcc, *COMPILE_FLAGS, f"-DNUFFT_ONLY={idx}", f"-I{CSRC_DIR}",
+                       "-c", "-o", str(obj), str(src)]
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+                jobs.append((f"{src.name} [{vt}]", obj, proc))
+        failed, logs = [], []
+        for name, _, proc in jobs:  # wait for every compile before raising
+            _, err = proc.communicate()
+            logs.append(f"--- {name}\n{err}")
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exit {proc.returncode}\n{err}")
+        PTXAS_LOG.write_text("\n".join(logs))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        out = Path(tmp) / LIB_NAME
+        res = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out),
+             *(str(obj) for _, obj, _ in jobs)],
+            capture_output=True, text=True,
+        )
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(out, lib_path)
     stamp.write_text(digest)
     return lib_path
 

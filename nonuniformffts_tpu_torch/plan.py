@@ -19,7 +19,7 @@ import torch
 from .blocking import bin_sort, cells_and_fracs, choose_geometry
 from .ops import deconvolve, windows
 from .ops.kernels.blocked import check_kernel_support
-from .ops.kernels.common import coefficient_stack
+from .ops.kernels.common import VALUE_TYPES, coefficient_stack
 from .ops.windows import (
     AbstractKernel,
     BackwardsKaiserBesselKernel,
@@ -37,7 +37,13 @@ _DTYPES = {
     np.dtype(np.complex64): torch.complex64,
     np.dtype(np.complex128): torch.complex128,
 }
-_REAL_OF = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+_REAL_OF = {
+    torch.complex64: torch.float32,
+    torch.complex128: torch.float64,
+    torch.float32: torch.float32,
+    torch.float64: torch.float64,
+}
+_COMPLEX_OF = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
 
 def _identity(x):
@@ -48,7 +54,7 @@ def _identity(x):
 class Plan:
     """See :func:`PlanNUFFT` for the user-facing constructor."""
 
-    dtype: torch.dtype  # complex dtype of the non-uniform data
+    dtype: torch.dtype  # dtype of the non-uniform data (real: r2c/c2r)
     shape: Tuple[int, ...]  # output (non-oversampled) dims
     shape_over: Tuple[int, ...]  # oversampled grid dims
     m: int
@@ -85,12 +91,33 @@ class Plan:
         return len(self.shape)
 
     @property
+    def is_real(self) -> bool:
+        return not self.dtype.is_complex
+
+    @property
     def real_dtype(self) -> torch.dtype:
         return _REAL_OF[self.dtype]
 
     @property
+    def complex_dtype(self) -> torch.dtype:
+        """dtype of the uniform (Fourier) data."""
+        return _COMPLEX_OF[self.dtype] if self.is_real else self.dtype
+
+    @property
     def spectral_shape(self) -> Tuple[int, ...]:
+        """Dimensions of the uniform (Fourier) data; real-data plans halve
+        the LAST axis to ``n // 2 + 1`` (rfft layout, positive Nyquist)."""
+        if self.is_real:
+            return self.shape[:-1] + (self.shape[-1] // 2 + 1,)
         return self.shape
+
+    @property
+    def spectral_shape_over(self) -> Tuple[int, ...]:
+        """The oversampled spectrum: ``shape_over`` with the last axis
+        halved to ``n_over // 2 + 1`` on real-data plans."""
+        if self.is_real:
+            return self.shape_over[:-1] + (self.shape_over[-1] // 2 + 1,)
+        return self.shape_over
 
     @property
     def num_points(self) -> Optional[int]:
@@ -127,10 +154,15 @@ def _resolve_dtype(dtype) -> torch.dtype:
 
 
 def resolve_device(device) -> torch.device:
-    """``None`` -> ``cuda`` when available, else ``cpu``; an explicit CUDA
-    device on a host without CUDA raises."""
+    """``None`` -> ``cuda``; a CUDA device on a host without CUDA raises.
+    The CPU runs only when the caller asks for it (``device='cpu'``)."""
     if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device (torch.cuda.is_available() is False); pass "
+                "device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -178,12 +210,16 @@ def PlanNUFFT(
     """Construct a NUFFT plan (counterpart of ``PlanNUFFT`` in src/plan.jl
     and in the JAX package).
 
-    ``dtype`` is the non-uniform data type (numpy or torch complex dtype),
-    ``shape`` the uniform grid dimensions, ``m`` the kernel half-support,
-    ``sigma`` the oversampling factor, ``kernel`` one of the four windows
+    ``dtype`` is the non-uniform data type (numpy or torch dtype: complex64,
+    complex128, or float32 / float64 for real-data r2c/c2r plans, whose
+    spectrum halves the last axis), ``shape`` the uniform grid dimensions,
+    ``m`` the kernel half-support, ``sigma`` the oversampling factor, ``kernel`` one of the four windows
     (default backwards Kaiser-Bessel), ``ntransforms`` the number of
     simultaneous transforms over shared points, ``fftshift`` the frequency
-    order.  ``device`` defaults to ``cuda`` when available, else ``cpu``.
+    order.  ``device`` defaults to ``cuda`` and raises without a card; the CPU
+    runs only with ``device='cpu'``.  64-bit plans run native float64
+    everywhere, whatever ``precision`` says (the JAX package's
+    double-single mode, ``precision='double'``, is a TPU workaround).
 
     ``spread_method``: ``'reference'`` is the plain torch scatter/gather
     path; ``'blocked'`` bin-sorts the points and runs the hand-written CUDA
@@ -198,22 +234,22 @@ def PlanNUFFT(
         raise ValueError(f"only 1-3 dimensions supported, got {D}")
     tdtype = _resolve_dtype(dtype)
 
-    shape_over = tuple(next_fast_len(int(math.floor(sigma * n))) for n in shape)
-    for n_over in shape_over:
+    is_real = not tdtype.is_complex
+
+    # Oversampled dims: next 5-smooth integer >= sigma*N; a real-data plan's
+    # halved (last) axis is forced even (the JAX package's plan.py:427-435).
+    shape_over = []
+    for d, n in enumerate(shape):
+        if is_real and d == D - 1:
+            n_over = 2 * next_fast_len(int(math.floor(sigma * ((n + 1) // 2))))
+        else:
+            n_over = next_fast_len(int(math.floor(sigma * n)))
         _check_nufft_size(n_over, m)
+        shape_over.append(n_over)
+    shape_over = tuple(shape_over)
     sigma_actual = max(no / n for no, n in zip(shape_over, shape))
 
-    if tdtype not in _REAL_OF:
-        raise NotImplementedError(
-            "real-data (r2c/c2r) plans are not ported yet (ROADMAP queue 1, "
-            "item 3)"
-        )
     dev = resolve_device(device)
-    if dev.type == "cuda" and tdtype != torch.complex64:
-        raise NotImplementedError(
-            "complex128 plans on CUDA need native FP64 (ROADMAP queue 1, "
-            "item 7); use device='cpu'"
-        )
     if timer is not None:
         raise NotImplementedError(
             "the staged timer is not ported yet (ROADMAP queue 1, item 5)"
@@ -233,6 +269,12 @@ def PlanNUFFT(
         )
     if precision not in ("default", "high", "highest", "double"):
         raise ValueError(f"unknown precision {precision!r}")
+    # In the JAX package precision='double' on a 64-bit dtype selects the
+    # double-single pipeline (its plan.py:412-462): float64 emulated as
+    # (hi, lo) float32 pairs, which forces FastApproximation, m <= 8, the
+    # pruned matmul DFT, the packed layout and dma_super=1.  The card has
+    # native FP64, so none of those limits carries over and 'double' changes
+    # nothing here: every 64-bit plan runs float64 throughout.
     if kernel_precision not in (None, "default", "high", "highest", "double", "fxp"):
         raise ValueError(f"unknown kernel_precision {kernel_precision!r}")
     if value_permute not in ("auto", "gather", "sort"):
@@ -243,12 +285,17 @@ def PlanNUFFT(
         windows.make_kernel_data(kernel, m, n_over, n_over / n, real_dtype, dev)
         for n, n_over in zip(shape, shape_over)
     )
+    # Per-dim 1/phi_hat and slice ranges; the halved r2c axis holds
+    # k = 0 .. n/2 in order (no fftshift) from an n_over // 2 + 1 spectrum.
     phinv, iranges = [], []
-    for n, n_over, kd in zip(shape, shape_over, kernel_data):
-        k = deconvolve.output_wavenumbers(n, r2c=False, fftshift=fftshift)
+    for d, (n, n_over, kd) in enumerate(zip(shape, shape_over, kernel_data)):
+        r2c = is_real and d == D - 1
+        shift = fftshift and not r2c
+        k = deconvolve.output_wavenumbers(n, r2c=r2c, fftshift=shift)
         phinv.append(1.0 / windows.fourier_coefficients_np(kd, k))
+        n_over_spec = n_over // 2 + 1 if r2c else n_over
         iranges.append(
-            deconvolve.truncate_ranges(len(k), n_over, r2c=False, fftshift=fftshift)
+            deconvolve.truncate_ranges(len(k), n_over_spec, r2c=r2c, fftshift=shift)
         )
 
     if spread_method == "blocked":
@@ -259,7 +306,8 @@ def PlanNUFFT(
                 "interpret=True for emulation with smaller batches"
             )
         if block_dims is None:
-            block_dims = choose_geometry(shape_over, m)
+            _, scalar_bytes, ncomp = VALUE_TYPES[tdtype]
+            block_dims = choose_geometry(shape_over, m, scalar_bytes, ncomp)
         block_dims = tuple(int(b) for b in block_dims)
         if len(block_dims) != D:
             raise ValueError(f"block_dims {block_dims} must have {D} entries")

@@ -16,7 +16,8 @@ from nonuniformffts_tpu_torch.ops.kernels.common import (
     NUM_SMS,
     SM_SMEM_BYTES,
     SMEM_RESERVED_PER_CTA,
-    SPREAD_CTAS_PER_SM,
+    spread_bank_conflicts,
+    spread_ctas_per_sm,
     spread_smem_bytes,
 )
 from torch_port_utils import random_points
@@ -77,6 +78,28 @@ def test_main_path_geometry():
     SM's shared memory, at a halo ratio below 3.7."""
     bd = blocking.choose_geometry((384, 384, 384), 4)
     smem = spread_smem_bytes(bd, 4, 8)
-    assert SM_SMEM_BYTES // (smem + SMEM_RESERVED_PER_CTA) >= SPREAD_CTAS_PER_SM
+    assert spread_ctas_per_sm(4, 2, 4) == 3
+    assert SM_SMEM_BYTES // (smem + SMEM_RESERVED_PER_CTA) >= 3
     padded = np.prod([b + 7 for b in bd])
     assert padded / np.prod(bd) < 3.7
+
+
+@pytest.mark.parametrize(
+    "pd_last,m,scalar_bytes,want",
+    [(23, 4, 4, 2), (31, 4, 4, 4), (19, 4, 4, 2), (40, 4, 4, 1), (31, 4, 8, 2),
+     (23, 4, 8, 2), (23, 2, 4, 1)],
+)
+def test_spread_bank_conflicts(pd_last, m, scalar_bytes, want):
+    """Lanes of a warp on one shared-memory bank in the spread kernel's tap
+    loop: lane q writes word (q // 2M) * pd_last + q % 2M."""
+    assert spread_bank_conflicts(pd_last, m, scalar_bytes) == want
+
+
+def test_float32_geometry_avoids_four_way_conflicts():
+    """At grid 384^3, m = 4, the float32 and complex64 picks keep the tap
+    loop at two lanes a bank; a last block dim of 24 (padded 31) would put
+    four there (K1 measured 1.8-3x slower, PERF.md)."""
+    for ncomp in (1, 2):
+        bd = blocking.choose_geometry((384, 384, 384), 4, 4, ncomp)
+        assert spread_bank_conflicts(bd[-1] + 7, 4, 4) == 2
+    assert blocking.choose_geometry((384, 384, 384), 4, 4, 2) == (12, 12, 16)

@@ -20,12 +20,17 @@ torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
-# float32 atomics add in a run-dependent order; ~1e-7 expected.
-KERNEL_TOL = 1e-5
+# float32 atomics add in a run-dependent order (~1e-7 expected); float64
+# atomics reorder sums at ~1e-16.
+KERNEL_TOL = {4: 1e-5, 8: 1e-12}
+DTYPES = [np.complex64, np.complex128, np.float32, np.float64]
 
 
-def _complex(rng, shape):
-    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+def _values(rng, dtype, shape):
+    dtype = np.dtype(dtype)
+    if dtype.kind == "c":
+        return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(dtype)
+    return rng.standard_normal(shape).astype(dtype)
 
 
 def _rel_err(a, b) -> float:
@@ -58,26 +63,32 @@ def test_toolchain(cuda_device):
     assert has_nvcc
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
 @pytest.mark.parametrize("m", [2, 4, 8])
-def test_kernels_match_plain_versions(cuda_device, m):
-    """K1 and K2 at 32^3 (grid 48^3) against their plain versions, with the
-    launch counts moving."""
+def test_kernels_match_plain_versions(cuda_device, m, dtype):
+    """Each spread and interpolation entry point at 32^3 (grid 48^3) against
+    its plain version, with the launch counts moving."""
     rng = np.random.default_rng(m)
-    plan = tnufft.PlanNUFFT(np.complex64, (32, 32, 32), m=m, sigma=1.5,
+    plan = tnufft.PlanNUFFT(dtype, (32, 32, 32), m=m, sigma=1.5,
                             ntransforms=2, spread_method="blocked",
                             device=cuda_device)
-    pts = rng.uniform(-1.0, 7.0, (3, 20_000)).astype(np.float32)
-    pts[:, :50] = np.nextafter(np.float32(2 * np.pi), np.float32(0))
+    real = np.dtype(dtype).type(0).real.dtype
+    pts = rng.uniform(-1.0, 7.0, (3, 20_000)).astype(real)
+    pts[:, :50] = np.nextafter(real.type(2 * np.pi), real.type(0))
     plan = tnufft.set_points(plan, torch.from_numpy(pts).to(cuda_device))
-    vp = torch.from_numpy(_complex(rng, (2, 20_000))).to(cuda_device)
-    grid = torch.from_numpy(_complex(rng, (2,) + plan.shape_over)).to(cuda_device)
+    vp = torch.from_numpy(_values(rng, dtype, (2, 20_000))).to(cuda_device)
+    grid = torch.from_numpy(_values(rng, dtype, (2,) + plan.shape_over)).to(cuda_device)
+    spread = blocked.entry_point("spread", plan.dtype)
+    interp = blocked.entry_point("interp", plan.dtype)
     before = dict(blocked.LAUNCHES)
     g_k = blocked.spread_blocked(plan, vp)
     v_k = blocked.interpolate_blocked(plan, grid)
     torch.cuda.synchronize()
-    assert blocked.LAUNCHES["nufft_spread_3d_f32"] == before["nufft_spread_3d_f32"] + 1
-    assert blocked.LAUNCHES["nufft_interp_3d_f32"] == before["nufft_interp_3d_f32"] + 1
+    assert blocked.LAUNCHES[spread] == before[spread] + 1
+    assert blocked.LAUNCHES[interp] == before[interp] + 1
     g_p = blocked.spread_blocked_plain(plan, vp)
     v_p = blocked.interpolate_blocked_plain(plan, grid)
-    assert _rel_err(g_k, g_p) <= KERNEL_TOL
-    assert _rel_err(v_k, v_p) <= KERNEL_TOL
+    tol = KERNEL_TOL[np.dtype(real).itemsize]
+    assert g_k.dtype == g_p.dtype == plan.dtype
+    assert _rel_err(g_k, g_p) <= tol
+    assert _rel_err(v_k, v_p) <= tol

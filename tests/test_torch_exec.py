@@ -15,6 +15,7 @@ import torch
 import nonuniformffts_tpu as jnufft
 import nonuniformffts_tpu_torch as tnufft
 from nonuniformffts_tpu_torch.ops.deconvolve import output_wavenumbers
+from nonuniformffts_tpu_torch.ops.kernels import blocked
 from nufft_test_utils import direct_type1, direct_type2
 from torch_port_utils import random_complex, random_points, rel_err
 
@@ -192,25 +193,27 @@ def test_error_paths():
 
 def test_unported_surface_raises():
     """What later slices bring raises NotImplementedError instead of
-    running something else."""
-    for kw in (dict(dtype=np.float32), dict(dtype=np.float64),
-               dict(spread_method="direct"), dict(timer=object())):
-        opts = dict(dtype=np.complex64, shape=(16,), device="cpu")
-        opts.update(kw)
+    running something else, and a plan runs on the CPU only when asked."""
+    for kw in (dict(spread_method="direct"), dict(timer=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tnufft.PlanNUFFT(opts.pop("dtype"), opts.pop("shape"), **opts)
+            tnufft.PlanNUFFT(np.complex64, (16,), device="cpu", **kw)
     plan = tnufft.set_points(tnufft.PlanNUFFT(np.complex64, (16,), device="cpu"),
                              np.zeros(3, np.float32))
     cb = tnufft.NUFFTCallbacks(uniform=lambda w, i: w)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tnufft.exec_type1(plan, np.zeros(3, np.complex64), callbacks=cb)
-    if torch.cuda.is_available():
+    # The CUDA kernels are 3D (B)KB FastApproximation only.
+    for dtype, shape, kw in ((np.float64, (16, 16), {}),
+                             (np.complex128, (8, 8, 8),
+                              dict(kernel_evalmode=tnufft.Direct()))):
+        p = tnufft.PlanNUFFT(dtype, shape, spread_method="blocked", device="cpu", **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tnufft.PlanNUFFT(np.complex128, (16, 16, 16), device="cuda")
+            blocked.check_kernel_support(p)
+    if torch.cuda.is_available():
+        assert tnufft.PlanNUFFT(np.complex64, (16,)).device.type == "cuda"
     else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tnufft.PlanNUFFT(np.complex64, (16,))
         with pytest.raises(RuntimeError, match="is_available"):
             tnufft.PlanNUFFT(np.complex64, (16, 16, 16), device="cuda")
-    assert tnufft.PlanNUFFT(np.complex64, (16,)).device.type == (
-        "cuda" if torch.cuda.is_available() else "cpu"
-    )
     assert tnufft.PlanNUFFT(np.complex64, (16,), device="cpu").spread_method == "reference"

@@ -83,7 +83,7 @@ def test_blocked_wrappers_on_cpu_run_plain_versions(dtype):
     blocked.reset_launch_counts()
     grid = blocked.spread_blocked(tp, torch.from_numpy(v))
     vals = blocked.interpolate_blocked(tp, torch.from_numpy(g))
-    assert blocked.LAUNCHES == {"nufft_spread_3d_f32": 0, "nufft_interp_3d_f32": 0}
+    assert len(blocked.LAUNCHES) == 8 and not any(blocked.LAUNCHES.values())
     want_g = j_spread(jp.kernel_data, jp.evalmode, jp.shape_over,
                       jnp.asarray(pts), jnp.asarray(v))
     want_v = j_interp(jp.kernel_data, jp.evalmode, jnp.asarray(g),
@@ -119,7 +119,7 @@ def test_kernel_support_checks():
     blocked.check_kernel_support(tp)
     bad = [
         (dataclasses.replace(tp, shape=(16, 16)), NotImplementedError, "3D"),
-        (dataclasses.replace(tp, dtype=torch.complex128), NotImplementedError, "FP64"),
+        (dataclasses.replace(tp, dtype=torch.bfloat16), NotImplementedError, "bfloat16"),
         (dataclasses.replace(tp, evalmode=tnufft.Direct()), NotImplementedError, "FastApprox"),
         (dataclasses.replace(tp, m=9), NotImplementedError, "m in 2..8"),
         (dataclasses.replace(tp, block_dims=(24, 24, 24)), ValueError, "shared memory"),
