@@ -8,34 +8,45 @@ Phases, in order; the first failure raises and the script exits non-zero:
 1. environment: torch and CUDA versions, nvcc, Triton, the card's name and
    power limit; requires ``torch.cuda.is_available()``;
 2. build: compiles the CUDA kernels from ``nonuniformffts_tpu_torch/csrc``
-   (one nvcc per source and value type, all at once), prints each kernel's
-   registers and spills from ``ptxas -v`` and the atomic instructions its
-   SASS holds (``cuobjdump -sass``);
-3. the complex64 kernels against their plain PyTorch versions on the card:
-   a 64^3 plan (grid 96^3), 200,000 uniform points;
-4. the complex64 main path at full size: N = 256^3, m = 4, sigma = 1.5,
+   (one nvcc per source, dimension and value type, all at once), prints each
+   kernel's registers and spills from ``ptxas -v`` and the atomic
+   instructions its SASS holds (``cuobjdump -sass``);
+3. the 3D complex64 kernels against their plain PyTorch versions on the
+   card: a 64^3 plan (grid 96^3), 200,000 uniform points;
+4. the 3D complex64 main path at full size: N = 256^3, m = 4, sigma = 1.5,
    backwards Kaiser-Bessel, FastApproximation, ``spread_method='blocked'``,
    for Np = 1,000,000 and 16,777,216: ``set_points`` -> ``exec_type1`` ->
    ``exec_type2``, stage times (CUDA events, median of 5 after one
    warm-up), accuracy against exact float64 sums, launch counts; at 1M also
-   each kernel against its plain version, checked and timed in turns;
-5. 64-bit accuracy: 64^3 (grid 128^3), m = 8, sigma = 2, 200,000 points,
-   complex128 and float64: each 64-bit kernel against its plain version,
-   and err1 / err2 against exact float64 sums;
-6. the 64-bit main path at full size (the reference's protocol point):
-   N = 256^3, m = 4, sigma = 1.5, complex128 and float64 (r2c/c2r), at
-   Np = 1,677,722 (rho = 0.1) and 16,777,216 (rho = 1), measured as in
-   phase 4; at rho = 0.1 each kernel against its plain version;
-7. the float32 real (r2c/c2r) main path: N = 256^3, m = 4, sigma = 1.5, at
-   Np = 1,000,000 and 16,777,216, measured as in phase 4.
+   each kernel against its plain version, checked and timed in turns; at
+   rho = 1 the float32-accumulation diagnostic (below);
+5. 64-bit accuracy at m = 8, sigma = 2, complex128 and float64: 64^3 (grid
+   128^3), 256^2 (grid 512^2) and 4096 (grid 8192), 200,000 points each:
+   each 64-bit kernel against its plain version, and err1 / err2 against
+   exact float64 sums;
+6. the 3D 64-bit main path (the reference's protocol point): N = 256^3,
+   m = 4, sigma = 1.5, complex128 and float64 (r2c/c2r), at Np = 1,677,722
+   (rho = 0.1) and 16,777,216 (rho = 1), measured as in phase 4;
+7. the 3D float32 real (r2c/c2r) main path: N = 256^3, m = 4, sigma = 1.5,
+   at Np = 1,000,000 and 16,777,216;
+8. the 2D main path, N = 4096^2 (grid 6144^2), m = 4, sigma = 1.5, all four
+   dtypes: complex64 and float32 at Np = 1,000,000 and 16,777,216,
+   complex128 and float64 at 1,677,722 and 16,777,216;
+9. the 1D main path, N = 2^20 (grid 1,572,864), m = 4, sigma = 1.5, all four
+   dtypes at Np = 1,000,000 and 10,000,000.
 
 Each main-path row sets every launch count to 0 just before it drives the
 path and reads the counts just after; a kernel of the path that was not
-launched fails the run.  The line before the last is one JSON object with
-each of the eight kernel entry points: launches on its main path, its error
-against its plain version, both times, the least time the card could take
-for the same work (``bound_ms``) and what bounds it; the last line is
-``{"ok": true, "device": {...}}``.
+launched fails the run.  At the smaller Np of each dtype and dimension
+every kernel is held against its plain version and timed.  The
+float32-accumulation diagnostic (ROADMAP queue 3, P2) re-spreads the
+complex64 rho = 1 row's own float32 values and fractions, widened to
+float64, with the float64 kernel and a Z2Z FFT, and prints that err1 beside
+the float32 err1 of three calls.  The line before the last is one JSON
+object with each of the 24 kernel entry points: launches on its main path,
+its error against its plain version, both times, the least time the card
+could take for the same work (``bound_ms``) and what bounds it; the last
+line is ``{"ok": true, "device": {...}}``.
 
 Tolerances: kernels against plain versions <= 1e-5 relative L2 in float32
 (atomics add in a run-dependent order; ~1e-7 expected) and <= 1e-12 in
@@ -49,6 +60,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -65,10 +77,13 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_TOL = {4: 1e-5, 8: 1e-12}  # by the bytes of the plan's real scalar
 ERR_TOL = 1e-5
 ERR_TOL_64 = 1e-11
-N_MAIN = 256
+SHAPE_3D = (256,) * 3
 NP_MAIN = (1_000_000, 16_777_216)
 NP_64 = (1_677_722, 16_777_216)
-N_ACC, NP_ACC = 64, 200_000  # phase 5
+SHAPE_2D = (4096, 4096)
+SHAPE_1D = (1 << 20,)
+NP_1D = (1_000_000, 10_000_000)
+ACC_SHAPES, NP_ACC = ((64,) * 3, (256, 256), (4096,)), 200_000  # phase 5
 REPS = 5
 ERR_MODES = 64
 ERR_POINTS = 4096
@@ -77,19 +92,25 @@ PLAIN_CHUNK = 1 << 16
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {4: 67e12, 8: 34e12}
-_SPREAD_SRC = "nonuniformffts_tpu_torch/csrc/spread_3d.cu"
-_INTERP_SRC = "nonuniformffts_tpu_torch/csrc/interp_3d.cu"
+_CSRC = "nonuniformffts_tpu_torch/csrc"
 _Z = "nonuniformffts_tpu/ops/pallas/blocked.py"
 _DS = "nonuniformffts_tpu/ops/pallas/blocked_ds.py"
+# The TPU kernel each entry point replaces, by (kind, D, 64-bit): in 3D the
+# z-form kernels (32-bit) and the double-single kernels (64-bit); in 1D and
+# 2D the yz-form kernels, which 64-bit plans run too unless
+# precision='double' (then blocked_ds.py, whose 2D form the *_f64 entry
+# points also replace).
+_REPLACES = {
+    ("spread", 3, False): f"{_Z}:639", ("interp", 3, False): f"{_Z}:1393",
+    ("spread", 3, True): f"{_DS}:132", ("interp", 3, True): f"{_DS}:314",
+    **{(kind, d, w): f"{_Z}:{line}" for kind, line in (("spread", 501), ("interp", 1225))
+       for d in (1, 2) for w in (False, True)},
+}
 KERNELS = {
-    "nufft_spread_3d_f32": dict(source=_SPREAD_SRC, replaces=f"{_Z}:639"),
-    "nufft_interp_3d_f32": dict(source=_INTERP_SRC, replaces=f"{_Z}:1393"),
-    "nufft_spread_3d_real_f32": dict(source=_SPREAD_SRC, replaces=f"{_Z}:639"),
-    "nufft_interp_3d_real_f32": dict(source=_INTERP_SRC, replaces=f"{_Z}:1393"),
-    "nufft_spread_3d_f64": dict(source=_SPREAD_SRC, replaces=f"{_DS}:132"),
-    "nufft_interp_3d_f64": dict(source=_INTERP_SRC, replaces=f"{_DS}:314"),
-    "nufft_spread_3d_real_f64": dict(source=_SPREAD_SRC, replaces=f"{_DS}:132"),
-    "nufft_interp_3d_real_f64": dict(source=_INTERP_SRC, replaces=f"{_DS}:314"),
+    f"nufft_{kind}_{d}d_{suffix}": dict(source=f"{_CSRC}/{kind}_{d}d.cu",
+                                        replaces=_REPLACES[(kind, d, "f64" in suffix)])
+    for d in (3, 2, 1) for suffix in ("f32", "real_f32", "f64", "real_f64")
+    for kind in ("spread", "interp")
 }
 
 
@@ -160,11 +181,11 @@ def phase_environment():
 
 
 def _kernel_label(mangled: str) -> str:
-    """``spread_3d_kernel<4, double, 2>`` from a mangled kernel name."""
-    m = re.search(r"(spread|interp)_3d_kernelILi(\d+)E([fd])Li(\d)E", mangled)
+    """``spread_3d<M=4, double, 2>`` from a mangled kernel name."""
+    m = re.search(r"(spread|interp)_(\d)d_kernelILi(\d+)E([fd])Li(\d)E", mangled)
     if not m:
         return mangled
-    return f"{m[1]}<M={m[2]}, {'float' if m[3] == 'f' else 'double'}, {m[4]}>"
+    return f"{m[1]}_{m[2]}d<M={m[3]}, {'float' if m[4] == 'f' else 'double'}, {m[5]}>"
 
 
 def report_ptxas(text: str) -> None:
@@ -217,16 +238,28 @@ def phase_build():
     report_sass_atomics(path)
 
 
-def _uniform_points(gen, np_: int, dtype, device):
+def _uniform_points(gen, D: int, np_: int, dtype, device):
     import torch
 
-    return torch.rand((3, np_), generator=gen, device=device, dtype=dtype) * (2 * math.pi)
+    return torch.rand((D, np_), generator=gen, device=device, dtype=dtype) * (2 * math.pi)
 
 
 def _random_values(gen, shape, dtype, device):
     import torch
 
     return torch.randn(shape, generator=gen, device=device, dtype=dtype)
+
+
+# Operations per point and transform of each kernel's loops beyond the taps'
+# Horner FMAs, by D (S = 2M taps a dim, n scalars a value): 3D and 2D spread
+# form the trailing tap products and add v * w per tap; 1D spread does one
+# FMA per (point, tap) and scalar; interpolation FMAs every level of the
+# tensor-product window and scales by normfactor.
+_SPREAD_OPS = {
+    1: lambda S, n: 2 * n * S,
+    2: lambda S, n: S * S * (1 + 2 * n),
+    3: lambda S, n: S * S * (1 + n) + 2 * n * S ** 3,
+}
 
 
 def kernel_bound(kind: str, plan, C: int):
@@ -238,17 +271,19 @@ def kernel_bound(kind: str, plan, C: int):
     from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES
 
     _, sb, ncomp = VALUE_TYPES[plan.dtype]
+    D = plan.ndim
     S, ncoef, np_ = 2 * plan.m, plan.coefs.shape[-1], plan.num_points
     vol = math.prod(plan.shape_over)
     nblocks = math.prod(num_blocks(plan.shape_over, plan.block_dims))
-    state = np_ * (3 * 4 + 3 * sb + 8) + 3 * S * ncoef * sb  # cells, fracs, perm, coefs
-    horner = 3 * S * (ncoef - 1) * 2  # FMAs of the taps, per point
+    # cells, fracs, perm, coefs
+    state = np_ * (D * 4 + D * sb + 8) + D * S * ncoef * sb
+    horner = D * S * (ncoef - 1) * 2  # FMAs of the taps, per point
     if kind == "spread":
         nbytes = C * np_ * ncomp * sb + state + (nblocks + 1) * 4 + C * vol * ncomp * sb
-        ops = np_ * (horner + C * (S * S * (1 + ncomp) + S ** 3 * ncomp * 2))
+        ops = np_ * (horner + C * _SPREAD_OPS[D](S, ncomp))
     else:
         nbytes = C * vol * ncomp * sb + state + C * np_ * ncomp * sb
-        ops = np_ * (horner + C * ncomp * 2 * (S ** 3 + S * S + S + 1))
+        ops = np_ * (horner + C * ncomp * 2 * sum(S ** i for i in range(D + 1)))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[sb]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -271,7 +306,7 @@ def compare_kernels(plan, vp, grid, timed: bool, plain_chunk: int = PLAIN_CHUNK)
     }
     results = {}
     for kind, (kern, ref) in pairs.items():
-        name = blocked.entry_point(kind, plan.dtype)
+        name = blocked.entry_point(kind, plan)
         if timed:
             p1, want = cuda_time_ms(ref, reps=3)
             k1, got = cuda_time_ms(kern)
@@ -306,37 +341,39 @@ def phase_kernels(seed: int):
     gen = torch.Generator(device=dev).manual_seed(seed)
     plan = nufft.PlanNUFFT(np.complex64, (64, 64, 64), m=4, sigma=1.5,
                            spread_method="blocked", device=dev)
-    plan = nufft.set_points(plan, _uniform_points(gen, 200_000, torch.float32, dev))
+    plan = nufft.set_points(plan, _uniform_points(gen, 3, 200_000, torch.float32, dev))
     log(f"  grid {plan.shape_over}, block_dims {plan.block_dims}")
     vp = _random_values(gen, (1, 200_000), torch.complex64, dev)
     grid = _random_values(gen, (1,) + plan.shape_over, torch.complex64, dev)
     blocked.reset_launch_counts()
     compare_kernels(plan, vp, grid, timed=False)
-    names = [blocked.entry_point(k, torch.complex64) for k in ("spread", "interp")]
+    names = [blocked.entry_point(k, plan) for k in ("spread", "interp")]
     log(f"  launches { {n: blocked.LAUNCHES[n] for n in names} }")
     if min(blocked.LAUNCHES[n] for n in names) < 1:
         raise AssertionError("a kernel was not launched in phase 3")
 
 
 # ---------------------------------------------------------------------------
-# Accuracy oracles (exact float64 sums), copied from bench.py
+# Accuracy oracles (exact float64 sums), after bench.py
 # ---------------------------------------------------------------------------
 
 
-def _err1(pts, v, uhat, N: int, real: bool, seed: int) -> float:
+def _err1(pts, v, uhat, shape, real: bool, seed: int) -> float:
     """Type-1 output against exact float64 sums at random modes, computed on
     the card in point chunks (bench.py:measure_t1_error).  Real plans store
     k = 0..+N/2 on the halved LAST axis: the Nyquist index is POSITIVE there
     (bench.py:336-347), while the full axes fold index N/2 to -N/2."""
     import torch
 
+    D = len(shape)
     rng = np.random.default_rng(seed + 7)
-    kidx = rng.integers(0, N, (ERR_MODES, 3))
+    kidx = np.stack([rng.integers(0, n, ERR_MODES) for n in shape], axis=1)
     if real:
-        kidx[:, 2] = rng.integers(0, N // 2 + 1, ERR_MODES)
-    kval = np.where(kidx >= (N + 1) // 2, kidx - N, kidx).astype(np.float64)
+        kidx[:, -1] = rng.integers(0, shape[-1] // 2 + 1, ERR_MODES)
+    n = np.array(shape)
+    kval = np.where(kidx >= (n + 1) // 2, kidx - n, kidx).astype(np.float64)
     if real:
-        kval[:, 2] = kidx[:, 2]
+        kval[:, -1] = kidx[:, -1]
     k = torch.as_tensor(kval, device=pts.device)
     v = v.to(torch.complex128)
     exact = torch.zeros(ERR_MODES, dtype=torch.complex128, device=pts.device)
@@ -344,19 +381,19 @@ def _err1(pts, v, uhat, N: int, real: bool, seed: int) -> float:
         ph = k @ pts[:, s : s + (1 << 20)].to(torch.float64)
         exact += torch.exp(-1j * ph) @ v[s : s + (1 << 20)]
     ki = torch.as_tensor(kidx, device=uhat.device)
-    got = uhat[ki[:, 0], ki[:, 1], ki[:, 2]].to(torch.complex128)
+    got = uhat[tuple(ki[:, d] for d in range(D))].to(torch.complex128)
     return rel_l2(got, exact)
 
 
-def _rank1_spectrum(N: int, real: bool, seed: int):
+def _rank1_spectrum(shape, real: bool, seed: int):
     """Per-dim factors of a rank-1 spectrum and the spectrum itself
     (complex128, numpy).  Real plans get the c2r oracle's factors
     (bench.py:386-428): Hermitian full axes with a zero Nyquist bin, and a
     halved last axis of N // 2 + 1 modes with a real k = 0 term."""
     rng = np.random.default_rng(seed + 8)
     if not real:
-        a = [(rng.standard_normal(N) + 1j * rng.standard_normal(N)) / N for _ in range(3)]
-        return a, np.einsum("a,b,c->abc", *a)
+        a = [(rng.standard_normal(n) + 1j * rng.standard_normal(n)) / n for n in shape]
+        return a, functools.reduce(np.multiply.outer, a)
 
     def herm_full(n):
         f = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) / n
@@ -365,57 +402,106 @@ def _rank1_spectrum(N: int, real: bool, seed: int):
         f[n // 2 + 1 :] = np.conj(f[1 : n // 2][::-1])
         return f
 
-    H = N // 2 + 1
-    a2h = (rng.standard_normal(H) + 1j * rng.standard_normal(H)) / N
-    a2h[0] = a2h[0].real
-    a = [herm_full(N), herm_full(N), a2h]
-    return a, np.einsum("a,b,c->abc", *a)
+    H = shape[-1] // 2 + 1
+    a_last = (rng.standard_normal(H) + 1j * rng.standard_normal(H)) / shape[-1]
+    a_last[0] = a_last[0].real
+    a = [herm_full(n) for n in shape[:-1]] + [a_last]
+    return a, functools.reduce(np.multiply.outer, a)
 
 
-def _err2(pts, v2, a, N: int, real: bool, seed: int) -> float:
-    """Type-2 output for the rank-1 spectrum a0 x a1 x a2, whose exact values
-    are products of 1D sums (bench.py:measure_t2_error).  On real plans the
-    c2r convention doubles every stored k2 > 0 plane, the +N/2 plane
-    included, and takes real parts (bench.py:measure_t2_error_real)."""
-    sel = np.random.default_rng(seed + 9).integers(0, pts.shape[1], ERR_POINTS)
-    x = pts[:, sel].double().cpu().numpy()
-    kfull = np.fft.fftfreq(N, 1.0 / N)
-    got = v2[sel].cpu().numpy().astype(np.complex128)
+def _factor_sums(x, coefs, half: bool = False):
+    """``sum_k coefs[k] exp(i k x)`` for each point x (float64, on the
+    card), over the FFT-ordered wavenumbers k of a full axis or, for a
+    halved axis (``half``), k = 0..len(coefs) - 1; chunked to ~2^24 terms."""
+    import torch
+
+    K = len(coefs)
+    kv = np.arange(K, dtype=np.float64) if half else np.fft.fftfreq(K, 1.0 / K)
+    k = torch.as_tensor(kv, device=x.device)
+    c = torch.as_tensor(coefs, device=x.device)
+    step = max(1, (1 << 24) // K)
+    return torch.cat([torch.exp(1j * torch.outer(x[s : s + step], k)) @ c
+                      for s in range(0, len(x), step)])
+
+
+def _err2(pts, v2, a, real: bool, seed: int) -> float:
+    """Type-2 output for the rank-1 spectrum a_0 x ... x a_{D-1}, whose
+    exact values are products of 1D sums (bench.py:measure_t2_error),
+    computed on the card.  On real plans the c2r convention doubles every
+    stored k > 0 entry of the halved last axis, the +N/2 one included, and
+    takes real parts (bench.py:measure_t2_error_real)."""
+    import torch
+
+    sel = torch.as_tensor(np.random.default_rng(seed + 9).integers(0, pts.shape[1], ERR_POINTS),
+                          device=pts.device)
+    x = pts[:, sel].double()
+    got = v2[sel].to(torch.complex128)
     if not real:
-        exact = np.ones(ERR_POINTS, np.complex128)
-        for d in range(3):
-            exact *= np.exp(1j * np.outer(x[d], kfull)) @ a[d]
+        exact = torch.ones(ERR_POINTS, dtype=torch.complex128, device=pts.device)
+        for d, ad in enumerate(a):
+            exact = exact * _factor_sums(x[d], ad)
     else:
-        exact = np.ones(ERR_POINTS, np.float64)
-        for d in range(2):
-            exact *= (np.exp(1j * np.outer(x[d], kfull)) @ a[d]).real
-        terms = np.exp(1j * np.outer(x[2], np.arange(N // 2 + 1, dtype=np.float64))) * a[2]
-        exact *= terms[:, 0].real + 2.0 * np.sum(terms[:, 1:].real, axis=1)
-    return float(np.linalg.norm(got - exact) / np.linalg.norm(exact))
+        exact = torch.ones(ERR_POINTS, dtype=torch.float64, device=pts.device)
+        for d, ad in enumerate(a[:-1]):
+            exact = exact * _factor_sums(x[d], ad).real
+        last = 2.0 * _factor_sums(x[-1], a[-1], half=True).real - a[-1][0].real
+        exact = (exact * last).to(torch.complex128)
+    return rel_l2(got, exact)
 
 
 # ---------------------------------------------------------------------------
-# Phases 4-7
+# Phases 4-9
 # ---------------------------------------------------------------------------
 
 
-def _plan(dtype, N: int, m: int, sigma: float):
+def _plan(dtype, shape, m: int, sigma: float, **kw):
     import torch
 
     import nonuniformffts_tpu_torch as nufft
 
     return nufft.PlanNUFFT(
-        dtype, (N,) * 3, m=m, sigma=sigma,
+        dtype, shape, m=m, sigma=sigma,
         kernel=nufft.BackwardsKaiserBesselKernel(),
         kernel_evalmode=nufft.FastApproximation(),
-        spread_method="blocked", device=torch.device("cuda"),
+        spread_method="blocked", device=torch.device("cuda"), **kw,
     )
 
 
-def main_path(label: str, dtype, np_list, compare_np: int, seed: int):
-    """Drive one dtype's main path at N = 256^3, m = 4, sigma = 1.5 for each
+def float32_accumulation_diagnostic(plan, pts, vp, err1_f32: float, seed: int):
+    """P2 (ROADMAP queue 3): err1 of two more float32 calls on the same
+    inputs (the atomics' order changes between calls), and err1 of the same
+    float32 values and fractions widened to float64, spread by the float64
+    kernel at the same block geometry and transformed by a Z2Z FFT.  The gap
+    is what float32 arithmetic and accumulation add."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+
+    e32 = [err1_f32] + [_err1(pts, vp, nufft.exec_type1(plan, vp), plan.shape,
+                              False, seed) for _ in range(2)]
+    p64 = dataclasses.replace(
+        _plan(np.complex128, plan.shape, plan.m, plan.sigma, block_dims=plan.block_dims),
+        cells_sorted=plan.cells_sorted, fracs_sorted=plan.fracs_sorted.double(),
+        sort_perm=plan.sort_perm, pstarts=plan.pstarts,
+        num_points_static=plan.num_points,
+    )
+    assert p64.shape_over == plan.shape_over
+    e64 = _err1(pts, vp, nufft.exec_type1(p64, vp.to(torch.complex128)), plan.shape,
+                False, seed)
+    log(f"  P2 diagnostic: err1 float32 path {', '.join(f'{e:.3e}' for e in e32)}; "
+        f"same inputs spread and transformed in float64 {e64:.3e}; "
+        f"gap {min(e32) - e64:.3e} .. {max(e32) - e64:.3e}")
+    del p64
+    torch.cuda.empty_cache()
+    return dict(err1_f32=e32, err1_f64_same_inputs=e64)
+
+
+def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
+              diagnose_at=None):
+    """Drive one dtype's main path at ``shape``, m = 4, sigma = 1.5 for each
     Np; returns (launches summed over the rows, kernel comparisons at
-    ``compare_np``, rows)."""
+    ``compare_np``).  At Np = ``diagnose_at`` also runs
+    ``float32_accumulation_diagnostic``."""
     import torch
 
     import nonuniformffts_tpu_torch as nufft
@@ -423,18 +509,19 @@ def main_path(label: str, dtype, np_list, compare_np: int, seed: int):
     from nonuniformffts_tpu_torch.ops.kernels import blocked
 
     dev = torch.device("cuda")
-    plan0 = _plan(dtype, N_MAIN, 4, 1.5)
-    names = [blocked.entry_point(k, plan0.dtype) for k in ("spread", "interp")]
+    D = len(shape)
+    plan0 = _plan(dtype, shape, 4, 1.5)
+    names = [blocked.entry_point(k, plan0) for k in ("spread", "interp")]
     log(f"  {label}: grid {plan0.shape_over}, block_dims {plan0.block_dims}, "
         f"kernels {names}")
-    a, u_np = _rank1_spectrum(N_MAIN, plan0.is_real, seed)
+    a, u_np = _rank1_spectrum(shape, plan0.is_real, seed)
     u_spec = torch.as_tensor(u_np, device=dev).to(plan0.complex_dtype)
     del u_np
     launches = dict.fromkeys(names, 0)
     compared, rows = {}, []
     for np_ in np_list:
         gen = torch.Generator(device=dev).manual_seed(seed + np_)
-        pts = _uniform_points(gen, np_, plan0.real_dtype, dev)
+        pts = _uniform_points(gen, D, np_, plan0.real_dtype, dev)
         vp = _random_values(gen, (np_,), plan0.dtype, dev)
         torch.cuda.synchronize()
 
@@ -470,19 +557,23 @@ def main_path(label: str, dtype, np_list, compare_np: int, seed: int):
         log(f"  set_points {t_set:.3f} ms, exec_type1 {t_t1:.3f} ms, "
             f"exec_type2 {t_t2:.3f} ms")
         log("  stages: " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
-        e1 = _err1(pts, vp, uhat, N_MAIN, plan.is_real, seed)
-        e2 = _err2(pts, v2, a, N_MAIN, plan.is_real, seed)
+        e1 = _err1(pts, vp, uhat, shape, plan.is_real, seed)
+        e2 = _err2(pts, v2, a, plan.is_real, seed)
         check(f"err1 ({label}, Np={np_})", e1, ERR_TOL)
         check(f"err2 ({label}, Np={np_})", e2, ERR_TOL)
-        rows.append(dict(dtype=label, np=np_, set_points_ms=t_set, exec_type1_ms=t_t1,
-                         exec_type2_ms=t_t2, stages_ms=stages, err1=e1, err2=e2,
-                         launches=counts))
+        row = dict(dtype=label, np=np_, set_points_ms=t_set, exec_type1_ms=t_t1,
+                   exec_type2_ms=t_t2, stages_ms=stages, err1=e1, err2=e2,
+                   launches=counts)
+        del uhat, v2
+        if np_ == diagnose_at:
+            row["p2"] = float32_accumulation_diagnostic(plan, pts, vp, e1, seed)
+        rows.append(row)
         if np_ == compare_np:
             log("  kernels against their plain versions at this shape:")
             grid = _random_values(gen, (1,) + plan.shape_over, plan.dtype, dev)
             compared = compare_kernels(plan, vp_c, grid, timed=True)
             del grid
-        del plan, uhat, v2, pts, vp, vp_c
+        del plan, pts, vp, vp_c
         torch.cuda.empty_cache()
     log("  results " + json.dumps(rows))
     return launches, compared
@@ -490,33 +581,36 @@ def main_path(label: str, dtype, np_list, compare_np: int, seed: int):
 
 def phase_accuracy_64(seed: int):
     """64-bit kernels against their plain versions and err1 / err2 at
-    m = 8, sigma = 2, where the window's own error is ~2e-14."""
+    m = 8, sigma = 2, where the window's own error is ~2e-14, in 3D, 2D and
+    1D."""
     import torch
 
     import nonuniformffts_tpu_torch as nufft
 
-    N, np_ = N_ACC, NP_ACC
-    log(f"== phase 5: 64-bit accuracy, {N}^3, m = 8, sigma = 2, {np_:,} points")
+    np_ = NP_ACC
+    log(f"== phase 5: 64-bit accuracy, m = 8, sigma = 2, {np_:,} points, "
+        f"N = {', '.join('x'.join(map(str, s)) for s in ACC_SHAPES)}")
     dev = torch.device("cuda")
-    for dtype in (np.complex128, np.float64):
-        plan = _plan(dtype, N, 8, 2.0)
-        label = np.dtype(dtype).name
-        gen = torch.Generator(device=dev).manual_seed(seed + 5)
-        pts = _uniform_points(gen, np_, torch.float64, dev)
-        plan = nufft.set_points(plan, pts)
-        log(f"  {label}: grid {plan.shape_over}, block_dims {plan.block_dims}")
-        vp = _random_values(gen, (1, np_), plan.dtype, dev)
-        grid = _random_values(gen, (1,) + plan.shape_over, plan.dtype, dev)
-        compare_kernels(plan, vp, grid, timed=False, plain_chunk=1 << 13)
-        a, u_np = _rank1_spectrum(N, plan.is_real, seed)
-        u_spec = torch.as_tensor(u_np, device=dev).to(plan.complex_dtype)
-        uhat = nufft.exec_type1(plan, vp[0])
-        v2 = nufft.exec_type2(plan, u_spec)
-        check(f"err1 ({label}, m=8)", _err1(pts, vp[0], uhat, N, plan.is_real, seed),
-              ERR_TOL_64)
-        check(f"err2 ({label}, m=8)", _err2(pts, v2, a, N, plan.is_real, seed), ERR_TOL_64)
-        del plan, pts, vp, grid, uhat, v2, u_spec
-        torch.cuda.empty_cache()
+    for shape in ACC_SHAPES:
+        for dtype in (np.complex128, np.float64):
+            plan = _plan(dtype, shape, 8, 2.0)
+            label = f"{len(shape)}D {np.dtype(dtype).name}"
+            gen = torch.Generator(device=dev).manual_seed(seed + 5)
+            pts = _uniform_points(gen, len(shape), np_, torch.float64, dev)
+            plan = nufft.set_points(plan, pts)
+            log(f"  {label}: grid {plan.shape_over}, block_dims {plan.block_dims}")
+            vp = _random_values(gen, (1, np_), plan.dtype, dev)
+            grid = _random_values(gen, (1,) + plan.shape_over, plan.dtype, dev)
+            compare_kernels(plan, vp, grid, timed=False, plain_chunk=1 << 13)
+            a, u_np = _rank1_spectrum(shape, plan.is_real, seed)
+            u_spec = torch.as_tensor(u_np, device=dev).to(plan.complex_dtype)
+            uhat = nufft.exec_type1(plan, vp[0])
+            v2 = nufft.exec_type2(plan, u_spec)
+            check(f"err1 ({label}, m=8)", _err1(pts, vp[0], uhat, shape, plan.is_real, seed),
+                  ERR_TOL_64)
+            check(f"err2 ({label}, m=8)", _err2(pts, v2, a, plan.is_real, seed), ERR_TOL_64)
+            del plan, pts, vp, grid, uhat, v2, u_spec
+            torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -529,6 +623,7 @@ def main(argv=None) -> int:
 
     import torch
 
+    t0 = time.perf_counter()
     phase_environment()
     phase_build()
     phase_kernels(args.seed)
@@ -538,15 +633,31 @@ def main(argv=None) -> int:
         launches.update(result[0])
         compared.update(result[1])
 
-    log(f"== phase 4: main path, N = {N_MAIN}^3, m = 4, sigma = 1.5, complex64")
-    record(main_path("complex64", np.complex64, NP_MAIN, NP_MAIN[0], args.seed))
-    phase_accuracy_64(args.seed)
-    log(f"== phase 6: 64-bit main path, N = {N_MAIN}^3, m = 4, sigma = 1.5")
-    for dtype in (np.complex128, np.float64):
-        record(main_path(np.dtype(dtype).name, dtype, NP_64, NP_64[0], args.seed))
-    log(f"== phase 7: float32 real main path, N = {N_MAIN}^3, m = 4, sigma = 1.5")
-    record(main_path("float32", np.float32, NP_MAIN, NP_MAIN[0], args.seed))
+    def shape_text(shape):
+        return "x".join(map(str, shape))
 
+    log(f"== phase 4: main path, N = {shape_text(SHAPE_3D)}, m = 4, sigma = 1.5, complex64")
+    record(main_path("3D complex64", np.complex64, SHAPE_3D, NP_MAIN, NP_MAIN[0],
+                     args.seed, diagnose_at=NP_MAIN[1]))
+    phase_accuracy_64(args.seed)
+    log(f"== phase 6: 64-bit main path, N = {shape_text(SHAPE_3D)}, m = 4, sigma = 1.5")
+    for dtype in (np.complex128, np.float64):
+        record(main_path(f"3D {np.dtype(dtype).name}", dtype, SHAPE_3D, NP_64, NP_64[0],
+                         args.seed))
+    log(f"== phase 7: float32 real main path, N = {shape_text(SHAPE_3D)}, m = 4, sigma = 1.5")
+    record(main_path("3D float32", np.float32, SHAPE_3D, NP_MAIN, NP_MAIN[0], args.seed))
+    for phase, shape in ((8, SHAPE_2D), (9, SHAPE_1D)):
+        log(f"== phase {phase}: {len(shape)}D main path, N = {shape_text(shape)}, "
+            f"m = 4, sigma = 1.5, four dtypes")
+        for dtype in (np.complex64, np.float32, np.complex128, np.float64):
+            nps = NP_1D if len(shape) == 1 else (
+                NP_64 if dtype in (np.complex128, np.float64) else NP_MAIN)
+            record(main_path(f"{len(shape)}D {np.dtype(dtype).name}", dtype, shape, nps,
+                             nps[0], args.seed))
+
+    missing = sorted(set(KERNELS) - set(compared))
+    if missing:
+        raise AssertionError(f"kernels not compared with their plain versions: {missing}")
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name], launches=launches[name],
              max_abs_err=compared[name]["max_abs_err"], rel_l2=compared[name]["rel_l2"],
@@ -555,6 +666,7 @@ def main(argv=None) -> int:
              library_ms=None)
         for name in KERNELS
     ]
+    log(f"run time {time.perf_counter() - t0:.1f} s")
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,10 @@ The port of ``nonuniformffts_tpu`` (JAX/Pallas on TPU), which stays in the
 repository as its reference.  ``PlanNUFFT`` -> ``set_points`` ->
 ``exec_type1`` / ``exec_type2`` on complex64, complex128, float32 and
 float64 (real-data r2c/c2r) values; on the card the blocked method runs the
-CUDA kernels ``nufft_spread_3d_<type>`` and ``nufft_interp_3d_<type>``
-(``csrc/``, built with nvcc at first use) for 3D plans, in native float64
-for 64-bit plans.  Plans run on the card unless ``device='cpu'``.
+CUDA kernels ``nufft_spread_<D>d_<type>`` and ``nufft_interp_<D>d_<type>``
+(``csrc/``, built with nvcc at first use) for 1D, 2D and 3D plans, in
+native float64 for 64-bit plans.  Plans run on the card unless
+``device='cpu'``.
 
 Quick start::
 

@@ -22,6 +22,7 @@ from typing import Sequence, Tuple
 import torch
 
 from .ops.kernels.common import (
+    ACC_BYTES,
     MAX_SMEM_BYTES,
     NUM_SMS,
     SM_SMEM_BYTES,
@@ -45,15 +46,30 @@ def num_blocks(shape_over: Sequence[int], block_dims: Sequence[int]) -> Tuple[in
     return tuple(n // b for n, b in zip(shape_over, block_dims))
 
 
+#: A 1D grid is cut into at least this many blocks per SM where it can be:
+#: two full waves of the 8 CTAs of 256 threads an SM holds of the 1D spread
+#: kernel.  At 1,572,864 cells and 10M complex128 points, B = 1,024 (1.45
+#: waves) ran 1.69 ms and B = 512 1.05 ms (``chip_probe.py``, PERF.md).
+BLOCKS_PER_SM_1D = 16
+#: Longest 1D block considered (its start table takes 4 B a cell).
+MAX_BLOCK_1D = 16_384
+
+
 def choose_geometry(shape_over: Sequence[int], m: int, scalar_bytes: int = 4,
                     ncomp: int = 2) -> Tuple[int, ...]:
     """Block dims for the spread kernel on an H100, for values of ``ncomp``
     scalars of ``scalar_bytes`` each (complex64: 4, 2; complex128: 8, 2;
-    float32: 4, 1; float64: 8, 1).
+    float32: 4, 1; float64: 8, 1).  Each block dim divides its grid dim and
+    the CTA's shared memory (``spread_smem_bytes``) fits the 227 KB.
 
-    Each block dim divides its grid dim, and one CTA's padded block
-    ``prod(B + 2M - 1)`` (``ncomp`` planes, ``ncomp * scalar_bytes`` a cell)
-    fits the 227 KB of shared memory.  Among candidates with at least two
+    1D (``csrc/spread_1d.cu`` keeps its sums in registers, so shared memory
+    does not bound the block): the longest block, up to ``MAX_BLOCK_1D``
+    cells, that still cuts the grid into ``BLOCKS_PER_SM_1D`` blocks per
+    SM, or into as many blocks as the grid allows.  At 1,572,864 cells that
+    is 512 cells, 3,072 blocks.
+
+    2D and 3D (a padded block of ``ncomp`` double planes in shared memory,
+    ``ACC_BYTES``): among candidates up to 128 cells a dim with at least two
     blocks per SM (264 blocks, so the grid fills the card), the lowest
     estimated cost ``halo_ratio * conflicts / ctas`` wins, ties going to the
     wider last dim (coalesced flush rows):
@@ -68,11 +84,17 @@ def choose_geometry(shape_over: Sequence[int], m: int, scalar_bytes: int = 4,
       the register file allows (``spread_ctas_per_sm``).  K1 ran 1.8x
       faster at rho = 1 with three CTAs' worth of shared memory per SM than
       with one (PERF.md): one CTA's atomics stall at its barriers
-      unless another CTA runs.  A complex128 cell takes 16 B, so the same
-      cap picks smaller blocks than for complex64.
+      unless another CTA runs.  A complex cell takes 16 B, so the same cap
+      picks smaller blocks than for real values.
     """
     ncoef = m + 4
-    cta_cap = spread_ctas_per_sm(scalar_bytes, ncomp, m)
+    D = len(shape_over)
+    if D == 1:
+        n = shape_over[0]
+        want = BLOCKS_PER_SM_1D * NUM_SMS
+        return (max((b for b in range(1, min(n, MAX_BLOCK_1D) + 1) if n % b == 0),
+                    key=lambda b: (min(n // b, want), b)),)
+    cta_cap = spread_ctas_per_sm(scalar_bytes, ncomp, m, D)
     per_dim = [[b for b in range(1, min(n, 128) + 1) if n % b == 0]
                for n in shape_over]
     total = 1
@@ -88,7 +110,7 @@ def choose_geometry(shape_over: Sequence[int], m: int, scalar_bytes: int = 4,
         for b in dims:
             vol *= b
             padded *= b + 2 * m - 1
-        conflicts = spread_bank_conflicts(dims[-1] + 2 * m - 1, m, scalar_bytes)
+        conflicts = spread_bank_conflicts(dims[-1] + 2 * m - 1, m, ACC_BYTES)
         score = (total // vol >= 2 * NUM_SMS, -padded / vol * conflicts / ctas,
                  dims[-1])
         if best_score is None or score > best_score:

@@ -20,27 +20,32 @@
 //   contiguous range of the bin-sorted arrays (pstarts).  An empty block
 //   returns before touching shared memory.
 // - The CTA zeroes a padded (B0+2M-1)(B1+2M-1)(B2+2M-1) accumulator in
-//   dynamic shared memory, NCOMP planes of T (re and im for complex values,
-//   one plane for real values), so the 32 lanes of a warp hit consecutive
-//   words.
+//   dynamic shared memory, NCOMP planes of double (re and im for complex
+//   values, one plane for real values), so the lanes of a warp hit
+//   consecutive words.  The accumulator is double for float values too: at
+//   rho = 1 a cell sums ~150 terms, and float32 sums put err1 at 1.8e-6
+//   against 1.5e-6 for the JAX package's float32 kernels, which sum each
+//   128-point batch inside one matmul (ROADMAP queue 3, P2).
 // - Each warp takes one point at a time.  Its lanes evaluate the 3 x 2M taps
 //   (Horner in T, window.cuh) into a per-warp scratch, then split the (2M)^2
 //   (y, z) tap pairs among themselves and walk the 2M x taps, adding
-//   v * wx * wy * wz into shared memory with atomicAdd.  Lanes of one warp
-//   write distinct addresses, consecutive along z.
-// - The CTA then adds its padded block, halo included, into the global grid
-//   with periodic wrap and global atomicAdd.  This replaces the TPU's halo
-//   merge inside the DFT factors: there is no separate fold pass.
+//   v * wx * wy * wz (formed in T) into shared memory with atomicAdd.
+//   Lanes of one warp write distinct addresses, consecutive along z.
+// - The CTA then rounds its padded block, halo included, to T and adds it
+//   into the global grid with periodic wrap and global atomicAdd.  This
+//   replaces the TPU's halo merge inside the DFT factors: there is no
+//   separate fold pass.
 //
 // What bounds it on the H100: the shared-memory atomics, NCOMP (2M)^3 adds
-// per point (1024 at M = 4 for complex values), and at low density the
-// global atomics of the block flush (about 2-3x the grid at the chosen
-// geometry).  The design keeps the per-point atomics conflict-free within a
-// warp and in shared memory; the flush skips cells no point reached.  In
-// FP64 a padded block takes twice the shared memory, so the geometry
-// chooser (blocking.py) takes smaller blocks to keep several CTAs resident.
-// Values, fractions, taps, coefficients and accumulators are all T; cells
-// are int32.  There is no TF32 anywhere.
+// per point (1024 at M = 4 for complex values, each a 64-bit
+// compare-and-swap loop), and at low density the global atomics of the
+// block flush (about 2-3x the grid at the chosen geometry).  The design
+// keeps the per-point atomics conflict-free within a warp and in shared
+// memory; the flush skips cells no point reached.  A double padded block
+// takes twice a float one's shared memory, so the geometry chooser
+// (blocking.py) takes smaller blocks to keep several CTAs resident.
+// Values, fractions, taps and coefficients are T, accumulators double;
+// cells are int32.  There is no TF32 anywhere.
 #include <cstdint>
 
 #include "window.cuh"
@@ -48,6 +53,7 @@
 namespace {
 
 constexpr int kThreads = 512;  // ops/kernels/common.py:SPREAD_THREADS
+using Acc = double;            // ops/kernels/common.py:ACC_BYTES
 
 // Must match ops/kernels/common.py:spread_smem_bytes.
 template <typename T, int NCOMP>
@@ -55,7 +61,7 @@ size_t spread_smem_bytes(int m, int ncoef, int b0, int b1, int b2) {
   const size_t s = 2 * m;
   const size_t pv = (size_t)(b0 + s - 1) * (b1 + s - 1) * (b2 + s - 1);
   const size_t ntaps = 3 * s;
-  return sizeof(T) * (NCOMP * pv + ntaps * ncoef + (kThreads / 32) * ntaps);
+  return sizeof(Acc) * NCOMP * pv + sizeof(T) * (ntaps * ncoef + (kThreads / 32) * ntaps);
 }
 
 template <int M, typename T, int NCOMP>
@@ -66,7 +72,6 @@ __global__ void __launch_bounds__(kThreads) spread_3d_kernel(
     int ncoef, int n0, int n1, int n2, int b0, int b1, int b2) {
   constexpr int S = 2 * M;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
 
   const int bid = blockIdx.x;
   const int chan = blockIdx.y;
@@ -77,13 +82,13 @@ __global__ void __launch_bounds__(kThreads) spread_3d_kernel(
   const int pd1 = b1 + S - 1, pd2 = b2 + S - 1;
   const int plane = pd1 * pd2;
   const int pv = (b0 + S - 1) * plane;
-  T* acc = smem;              // NCOMP planes of pv
-  T* cs = acc + NCOMP * pv;   // (3, S, ncoef)
+  Acc* acc = reinterpret_cast<Acc*>(smem_raw);      // NCOMP planes of pv
+  T* cs = reinterpret_cast<T*>(acc + NCOMP * pv);   // (3, S, ncoef)
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
   T* taps = cs + 3 * S * ncoef + warp * 3 * S;  // this warp's (3, S)
 
-  for (int i = tid; i < NCOMP * pv; i += blockDim.x) acc[i] = T(0);
+  for (int i = tid; i < NCOMP * pv; i += blockDim.x) acc[i] = Acc(0);
   for (int i = tid; i < 3 * S * ncoef; i += blockDim.x) cs[i] = coefs[i];
   __syncthreads();
 
@@ -115,7 +120,7 @@ __global__ void __launch_bounds__(kThreads) spread_3d_kernel(
       for (int ix = 0; ix < S; ++ix) {
         const T wx = taps[ix];
 #pragma unroll
-        for (int k = 0; k < NCOMP; ++k) atomicAdd(acc + k * pv + idx, vw[k] * wx);
+        for (int k = 0; k < NCOMP; ++k) atomicAdd(acc + k * pv + idx, Acc(vw[k] * wx));
         idx += plane;
       }
     }
@@ -127,12 +132,12 @@ __global__ void __launch_bounds__(kThreads) spread_3d_kernel(
   // grid node origin - (M - 1) + i.
   T* g = grid + (long long)chan * n0 * n1 * n2 * NCOMP;
   for (int i = tid; i < pv; i += blockDim.x) {
-    T a[NCOMP];
+    Acc a[NCOMP];
     bool any = false;
 #pragma unroll
     for (int k = 0; k < NCOMP; ++k) {
       a[k] = acc[k * pv + i];
-      any = any || a[k] != T(0);
+      any = any || a[k] != Acc(0);
     }
     if (!any) continue;
     const int i0 = i / plane;
@@ -144,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) spread_3d_kernel(
     const int gz = nufft::wrap_index(oz - (M - 1) + i2, n2);
     const long long off = NCOMP * (((long long)gx * n1 + gy) * n2 + gz);
 #pragma unroll
-    for (int k = 0; k < NCOMP; ++k) atomicAdd(g + off + k, a[k]);
+    for (int k = 0; k < NCOMP; ++k) atomicAdd(g + off + k, T(a[k]));
   }
 }
 

@@ -1,13 +1,15 @@
-"""Blocked fast path: wrappers around the hand-written CUDA kernels K1/K6a
-(spread) and K2/K6b (interpolate), each with its plain PyTorch version.
+"""Blocked fast path: wrappers around the hand-written CUDA kernels, each
+with its plain PyTorch version: spread K4 (1D, 2D) and K1/K6a (3D),
+interpolate K5 (1D, 2D) and K2/K6b (3D).
 
 Counterpart of ``nonuniformffts_tpu/ops/pallas/blocked.py`` and
 ``blocked_ds.py``.  Both wrappers read the plan's bin-sorted point state
 (``set_points`` with ``spread_method='blocked'``): cells and fractions in
 sorted order, the sort permutation and the per-block point ranges.  The
-plan's dtype picks the kernel's entry point (``common.VALUE_TYPES``):
-complex64, complex128, float32 or float64 values, with fractions and
-coefficients in the matching real dtype; 64-bit plans run native FP64.
+plan's dimension and dtype pick the kernel's entry point
+(``common.entry_point_name``): D = 1, 2 or 3; complex64, complex128, float32
+or float64 values, with fractions and coefficients in the matching real
+dtype; 64-bit plans run native FP64.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches its kernel or raises.  Each launch adds one to
@@ -22,13 +24,21 @@ from ..interpolation import interpolate_cells
 from ..spreading import spread_cells
 from ..windows import FastApproximation
 from . import build
-from .common import KERNEL_M_RANGE, MAX_SMEM_BYTES, VALUE_TYPES, spread_smem_bytes
+from .common import (
+    KERNEL_DIMS,
+    KERNEL_M_RANGE,
+    MAX_SMEM_BYTES,
+    VALUE_TYPES,
+    entry_point_name,
+    spread_smem_bytes,
+)
 
 #: Launches of each entry point by its wrapper in this process.
 LAUNCHES = {
-    f"nufft_{kind}_3d_{suffix}": 0
+    entry_point_name(kind, ndim, dtype): 0
+    for ndim in KERNEL_DIMS
     for kind in ("spread", "interp")
-    for suffix, _, _ in VALUE_TYPES.values()
+    for dtype in VALUE_TYPES
 }
 
 
@@ -37,21 +47,18 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def entry_point(kind: str, dtype: torch.dtype) -> str:
-    """The kernel entry point (``kind`` 'spread' or 'interp') for values of
-    ``dtype``."""
-    return f"nufft_{kind}_3d_{VALUE_TYPES[dtype][0]}"
+def entry_point(kind: str, plan) -> str:
+    """The kernel entry point (``kind`` 'spread' or 'interp') for the plan's
+    dimension and dtype."""
+    return entry_point_name(kind, plan.ndim, plan.dtype)
 
 
 def check_kernel_support(plan) -> None:
-    """Raise unless the CUDA kernels take this plan (3D, complex or real of
-    32 or 64 bits, (B)KB FastApproximation, M in 2..8, padded block within
-    shared memory)."""
-    if plan.ndim != 3:
-        raise NotImplementedError(
-            "the CUDA kernels are 3D only; 1D/2D plans arrive with ROADMAP "
-            "queue 1, item 6 (use spread_method='reference')"
-        )
+    """Raise unless the CUDA kernels take this plan (1-3D, complex or real
+    of 32 or 64 bits, (B)KB FastApproximation, M in 2..8, the spread CTA's
+    shared memory within the card's)."""
+    if plan.ndim not in KERNEL_DIMS:
+        raise NotImplementedError(f"no CUDA kernel takes {plan.ndim}D plans")
     if plan.dtype not in VALUE_TYPES:
         raise NotImplementedError(f"no CUDA kernel takes {plan.dtype} values")
     if plan.coefs is None or not isinstance(plan.evalmode, FastApproximation):
@@ -97,7 +104,7 @@ def _raise_on_error(name: str, err: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K1 / K6a: spread
+# K4 (1D, 2D), K1 / K6a (3D): spread
 # ---------------------------------------------------------------------------
 
 
@@ -126,17 +133,15 @@ def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
     vals = vp[:, plan.sort_perm].contiguous()
     grid = torch.zeros((C,) + tuple(plan.shape_over), dtype=vp.dtype,
                        device=vp.device)
-    name = entry_point("spread", plan.dtype)
+    name = entry_point("spread", plan)
     fn = getattr(build.load(), name)
-    n0, n1, n2 = plan.shape_over
-    b0, b1, b2 = plan.block_dims
     with torch.cuda.device(vp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             vals.data_ptr(), plan.cells_sorted.data_ptr(),
             plan.fracs_sorted.data_ptr(), plan.pstarts.data_ptr(),
             plan.coefs.data_ptr(), grid.data_ptr(), np_, C, plan.m,
-            plan.coefs.shape[-1], n0, n1, n2, b0, b1, b2, stream,
+            plan.coefs.shape[-1], *plan.shape_over, *plan.block_dims, stream,
         )
     _raise_on_error(name, err)
     LAUNCHES[name] += 1
@@ -144,7 +149,7 @@ def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K2 / K6b: interpolate
+# K5 (1D, 2D), K2 / K6b (3D): interpolate
 # ---------------------------------------------------------------------------
 
 
@@ -182,16 +187,16 @@ def interpolate_blocked(plan, grid: torch.Tensor) -> torch.Tensor:
     out = torch.empty((C, np_), dtype=grid.dtype, device=grid.device)
     if np_ == 0:
         return out
-    name = entry_point("interp", plan.dtype)
+    name = entry_point("interp", plan)
     fn = getattr(build.load(), name)
-    n0, n1, n2 = plan.shape_over
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             grid.data_ptr(), plan.cells_sorted.data_ptr(),
             plan.fracs_sorted.data_ptr(), plan.sort_perm.data_ptr(),
             plan.coefs.data_ptr(), out.data_ptr(), np_, C, plan.m,
-            plan.coefs.shape[-1], n0, n1, n2, float(plan.normfactor), stream,
+            plan.coefs.shape[-1], *plan.shape_over, float(plan.normfactor),
+            stream,
         )
     _raise_on_error(name, err)
     LAUNCHES[name] += 1

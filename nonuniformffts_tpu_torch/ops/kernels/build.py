@@ -20,7 +20,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-from .common import VALUE_TYPES
+from .common import KERNEL_DIMS, VALUE_TYPES
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -36,18 +36,16 @@ VALUE_SUFFIXES = tuple(suffix for suffix, _, _ in VALUE_TYPES.values())
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# vals, cells, fracs, pstarts, coefs, grid, np, nchan, m, ncoef,
-# n0, n1, n2, b0, b1, b2, stream
-_SPREAD_ARGS = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
-                _I, _I, _I, _I, _P]
-# grid, cells, fracs, perm, coefs, out, np, nchan, m, ncoef,
-# n0, n1, n2, normfactor, stream
-_INTERP_ARGS = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
-                _I, ctypes.c_double, _P]
-_SIGNATURES = {
-    **{f"nufft_spread_3d_{vt}": _SPREAD_ARGS for vt in VALUE_SUFFIXES},
-    **{f"nufft_interp_3d_{vt}": _INTERP_ARGS for vt in VALUE_SUFFIXES},
-}
+_HEAD = [_P] * 6 + [ctypes.c_longlong, _I, _I, _I]
+_SIGNATURES = {}
+for _d in KERNEL_DIMS:
+    for _vt in VALUE_SUFFIXES:
+        # vals, cells, fracs, pstarts, coefs, grid, np, nchan, m, ncoef,
+        # n_0..n_{D-1}, b_0..b_{D-1}, stream
+        _SIGNATURES[f"nufft_spread_{_d}d_{_vt}"] = _HEAD + [_I] * (2 * _d) + [_P]
+        # grid, cells, fracs, perm, coefs, out, np, nchan, m, ncoef,
+        # n_0..n_{D-1}, normfactor, stream
+        _SIGNATURES[f"nufft_interp_{_d}d_{_vt}"] = _HEAD + [_I] * _d + [ctypes.c_double, _P]
 
 _lib = None
 

@@ -26,13 +26,21 @@ SM_SMEM_BYTES = 233_472
 SMEM_RESERVED_PER_CTA = 1024
 #: Registers of one SM.
 SM_REGISTERS = 65_536
-#: Threads per CTA of the spread kernel (``csrc/spread_3d.cu:kThreads``).
+#: Threads per CTA of the 2D and 3D spread kernels (``csrc/spread_{2,3}d.cu:
+#: kThreads``).
 SPREAD_THREADS = 512
 #: Half-supports M the kernels are instantiated for (``csrc/*.cu``).
 KERNEL_M_RANGE = range(2, 9)
+#: Dimensions the kernels are instantiated for (``csrc/{spread,interp}_<D>d.cu``).
+KERNEL_DIMS = (1, 2, 3)
+#: Bytes of one scalar of the spread kernels' sums (``csrc/spread_<D>d.cu:
+#: Acc``): double for every value type, since float32 sums of the ~150 terms
+#: a cell takes at rho = 1 in 3D cost err1 more than the JAX package's
+#: float32 kernels do (ROADMAP queue 3, P2).
+ACC_BYTES = 8
 
 #: The kernels' value types by the plan's dtype: the entry-point suffix
-#: (``nufft_spread_3d_<suffix>``), the bytes of one scalar and the scalars
+#: (``nufft_spread_<D>d_<suffix>``), the bytes of one scalar and the scalars
 #: of one value (2 for complex, 1 for real).
 VALUE_TYPES = {
     torch.complex64: ("f32", 4, 2),
@@ -41,36 +49,52 @@ VALUE_TYPES = {
     torch.float64: ("real_f64", 8, 1),
 }
 
-#: Registers per thread of each spread-kernel instantiation, by (scalar
-#: bytes, components) and then M = 2..8, as ``ptxas -v`` gave them for
-#: sm_90a (CUDA 12.9, PERF.md).
+#: Registers per thread of each 2D and 3D spread-kernel instantiation (with
+#: double accumulators), by (D, scalar bytes, components) and then
+#: M = 2..8, as ``ptxas -v`` gave them for sm_90a (CUDA 12.9, PERF.md).  The 1D kernel has no shared
+#: accumulator and its chooser no CTA term, so it has no row.
 SPREAD_REGISTERS = {
-    (4, 2): (40, 55, 40, 32, 32, 32, 32),
-    (8, 2): (40, 58, 40, 40, 40, 40, 40),
-    (4, 1): (32, 40, 40, 32, 32, 32, 32),
-    (8, 1): (32, 48, 40, 38, 32, 32, 32),
+    (3, 4, 2): (32, 55, 32, 32, 40, 40, 32),
+    (3, 8, 2): (40, 58, 40, 40, 40, 40, 40),
+    (3, 4, 1): (32, 40, 40, 32, 32, 32, 32),
+    (3, 8, 1): (32, 48, 40, 38, 32, 32, 32),
+    (2, 4, 2): (32, 53, 40, 54, 40, 40, 32),
+    (2, 8, 2): (32, 52, 38, 58, 48, 46, 40),
+    (2, 4, 1): (32, 40, 40, 53, 51, 51, 32),
+    (2, 8, 1): (30, 40, 36, 48, 46, 45, 32),
 }
 
 
-def spread_ctas_per_sm(scalar_bytes: int, ncomp: int, m: int) -> int:
-    """Resident spread CTAs per SM that the register file allows (registers
-    go to a warp in multiples of 256, so 8 per thread): K1 runs faster with
-    several CTAs resident than with one (PERF.md)."""
-    regs = SPREAD_REGISTERS[(scalar_bytes, ncomp)][m - KERNEL_M_RANGE.start]
+def entry_point_name(kind: str, ndim: int, dtype: torch.dtype) -> str:
+    """``nufft_<kind>_<ndim>d_<suffix>``: the C entry point of the
+    ``kind`` ('spread' or 'interp') kernel for ``ndim``-D plans of
+    ``dtype``."""
+    return f"nufft_{kind}_{ndim}d_{VALUE_TYPES[dtype][0]}"
+
+
+def spread_ctas_per_sm(scalar_bytes: int, ncomp: int, m: int, ndim: int = 3) -> int:
+    """Resident 2D/3D spread CTAs per SM that the register file allows
+    (registers go to a warp in multiples of 256, so 8 per thread): K1 runs
+    faster with several CTAs resident than with one (PERF.md)."""
+    regs = SPREAD_REGISTERS[(ndim, scalar_bytes, ncomp)][m - KERNEL_M_RANGE.start]
     regs = -(-regs // 8) * 8
     return max(SM_REGISTERS // (regs * SPREAD_THREADS), 1)
 
 
-def spread_bank_conflicts(pd_last: int, m: int, scalar_bytes: int) -> int:
-    """Most lanes of one warp that hit the same shared-memory bank in the
-    spread kernel's tap loop (``csrc/spread_3d.cu``): lane ``q`` adds to
-    word ``(q // 2M) * pd_last + q % 2M`` of an accumulator plane, where
-    ``pd_last`` is the padded last block dim.  4-byte words serve the 32
-    lanes from 32 banks; 8-byte words serve each half-warp from 16 bank
-    pairs.  Each conflict serialises a compare-and-swap loop (PERF.md):
-    K1 ran 3x slower at pd_last = 31 (4 lanes a bank) than at 23 (2)."""
+def spread_bank_conflicts(pd_last: int, m: int, word_bytes: int) -> int:
+    """Most lanes of one warp that hit the same shared-memory bank in the 2D
+    and 3D spread kernels' tap loop (``csrc/spread_{2,3}d.cu``): lane ``q``
+    adds to word ``(q // 2M) * pd_last + q % 2M`` of an accumulator plane of
+    ``word_bytes`` words (``ACC_BYTES``), where ``pd_last`` is the padded
+    last block dim (lanes over (y, z) tap pairs in 3D, (x, y) pairs in 2D).
+    4-byte words serve the 32 lanes from 32 banks; 8-byte words serve each
+    half-warp from 16 bank pairs.  Each conflict serialises a
+    compare-and-swap loop (PERF.md): K1 ran 3x slower at pd_last = 31 (4
+    lanes a bank) than at 23 (2) with float accumulators.  The 1D kernel
+    (``csrc/spread_1d.cu``) has no shared accumulator: its lanes read
+    consecutive words of a start table, one lane a bank."""
     S = 2 * m
-    lanes = 32 if scalar_bytes == 4 else 16
+    lanes = 32 if word_bytes == 4 else 16
     worst = 1
     for start in range(0, S * S, lanes):
         counts = collections.Counter(
@@ -101,12 +125,20 @@ def padded_block_dims(block_dims: Sequence[int], m: int) -> Tuple[int, ...]:
 
 def spread_smem_bytes(block_dims: Sequence[int], m: int, ncoef: int,
                       scalar_bytes: int = 4, ncomp: int = 2) -> int:
-    """Dynamic shared memory of one spread CTA: ``ncomp`` accumulator planes
-    over the padded block, the coefficient stack, and each warp's 3 x 2M
-    taps, all of ``scalar_bytes`` each (must match
-    ``csrc/spread_3d.cu:spread_smem_bytes``)."""
+    """Dynamic shared memory of one spread CTA for ``D = len(block_dims)``
+    (must match ``spread_smem_bytes`` in ``csrc/spread_<D>d.cu``).
+
+    2D and 3D: ``ncomp`` accumulator planes of ``ACC_BYTES`` scalars over
+    the padded block, then the ``(D, 2M, ncoef)`` coefficient stack and each
+    warp's D x 2M taps of ``scalar_bytes`` each.  1D: the ``(2M, ncoef)``
+    coefficients and an int32 start table of B + 1 entries; the sums live
+    in registers."""
+    D = len(block_dims)
+    ntaps = D * 2 * m
+    if D == 1:
+        return scalar_bytes * ntaps * ncoef + 4 * (int(block_dims[0]) + 1)
     pv = 1
     for p in padded_block_dims(block_dims, m):
         pv *= p
-    ntaps = 3 * 2 * m
-    return scalar_bytes * (ncomp * pv + ntaps * ncoef + (SPREAD_THREADS // 32) * ntaps)
+    return ACC_BYTES * ncomp * pv + scalar_bytes * (ntaps * ncoef
+                                                    + (SPREAD_THREADS // 32) * ntaps)

@@ -28,12 +28,16 @@ def spread_cells(
     chunk_size: Optional[int] = None,
 ) -> torch.Tensor:
     """Spread from precomputed cells and fractions; returns
-    ``(C,) + shape_over`` with the dtype of ``vp``."""
+    ``(C,) + shape_over`` with the dtype of ``vp``.  Each term is formed in
+    the dtype of ``vp`` and summed in float64, as the spread kernels do
+    (``csrc/spread_<D>d.cu``: float32 sums cost err1 more than the JAX
+    package's float32 kernels, ROADMAP queue 3, P2)."""
     C, np_ = vp.shape
     ntot = 1
     for n in shape_over:
         ntot *= n
-    grid = torch.zeros((C, ntot), dtype=vp.dtype, device=vp.device)
+    acc_dtype = torch.complex128 if vp.is_complex() else torch.float64
+    grid = torch.zeros((C, ntot), dtype=acc_dtype, device=vp.device)
     # index_add_ on the (re, im) view: real accumulation on every device.
     acc = torch.view_as_real(grid) if grid.is_complex() else grid
     step = np_ if chunk_size is None else max(int(chunk_size), 1)
@@ -41,11 +45,11 @@ def spread_cells(
         lin, w = linear_stencil_cells(
             kernel_data, evalmode, cells[:, s : s + step], fracs[:, s : s + step]
         )
-        vals = (w[None, :, :] * vp[:, s : s + step, None]).reshape(C, -1)
+        vals = (w[None, :, :] * vp[:, s : s + step, None]).reshape(C, -1).to(acc_dtype)
         if vals.is_complex():
             vals = torch.view_as_real(vals)
         acc.index_add_(1, lin.reshape(-1), vals)
-    return grid.reshape((C,) + tuple(shape_over))
+    return grid.to(vp.dtype).reshape((C,) + tuple(shape_over))
 
 
 def spread_reference(

@@ -207,50 +207,24 @@ def make_kernel_data(
 # ---------------------------------------------------------------------------
 
 
-def _f32_split_hi(a: np.float32) -> np.float32:
-    """``a`` with the low 12 significand bits cleared (12 bits remain)."""
-    bits = np.frombuffer(np.float32(a).tobytes(), np.uint32) & np.uint32(0xFFFFF000)
-    return np.frombuffer(bits.tobytes(), np.float32)[0]
-
-
 def point_to_cell_split(x: torch.Tensor, n: int):
     """High-accuracy cell decomposition: raw (possibly unfolded)
     coordinates -> ``(c, X)``, ``c`` the int32 cell in ``[0, N)`` and
-    ``X = r - floor(r)`` in ``[0, 1)`` for ``r = x * N / 2pi``.  Folding is
-    the mod-N on the cell.
+    ``X = r - floor(r)`` in ``[0, 1)`` for ``r = x * N / 2pi``, ``X`` in the
+    dtype of ``x``.  Folding is the mod-N on the cell.
 
-    In f32 the naive ``(x/L)*N`` carries an absolute error of ``N * 2^-24``
-    cells (2.3e-5 at N=384), which alone breaks a 1e-5 transform budget.
-    The f32 product is therefore taken in double-single arithmetic with
-    Veltkamp-split operands (12 + 12 significand bits, so ``x_hi * k_hi`` is
-    exact); ``0xFFFFF000`` does not fit an int32, so the mask is ``-4096``.
-    f64 inputs take the plain path.
+    The product is taken in float64 for float32 inputs too (the card has
+    native FP64).  In float32 the naive ``(x/L)*N`` carries an absolute
+    error of ``N * 2^-24`` cells (2.3e-5 at N=384); the JAX package's
+    double-single product (a TPU workaround, 12 + 12-bit Veltkamp split)
+    still keeps ``N * 2^-36`` (2.3e-5 cells at N = 1,572,864, the 1D main
+    path's grid, where it alone put err1 at 1.1e-5).  In float64 the error
+    is ``N * 2^-53`` cells, and only ``X`` is rounded to float32.
     """
-    if x.dtype == torch.float64:
-        r = x * (np.float64(n) / np.float64(TWO_PI))
-        i = torch.floor(r)
-        X = r - i
-        c = torch.remainder(i.to(torch.int64), n).to(torch.int32)
-        return c, X
-
-    x = x.to(torch.float32)
-    k = np.float64(n) / np.float64(TWO_PI)
-    k_hi_np = _f32_split_hi(np.float32(k))
-    k_hi = torch.tensor(k_hi_np, dtype=torch.float32, device=x.device)
-    k_lo = torch.tensor(
-        np.float32(k - np.float64(k_hi_np)), dtype=torch.float32, device=x.device
-    )
-    x_hi = (x.contiguous().view(torch.int32) & -4096).view(torch.float32)
-    x_lo = x - x_hi  # exact
-    r_main = x_hi * k_hi  # exact product
-    r_rest = x_lo * k_hi + x * k_lo
-    i_main = torch.floor(r_main)
-    f_main = r_main - i_main  # exact (Sterbenz)
-    t = f_main + r_rest
-    extra = torch.floor(t)
-    X = t - extra
-    i = i_main.to(torch.int32) + extra.to(torch.int32)
-    c = torch.remainder(i, n)
+    r = x.to(torch.float64) * (np.float64(n) / np.float64(TWO_PI))
+    i = torch.floor(r)
+    X = (r - i).to(x.dtype)
+    c = torch.remainder(i.to(torch.int64), n).to(torch.int32)
     return c, X
 
 

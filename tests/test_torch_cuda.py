@@ -65,21 +65,30 @@ def test_toolchain(cuda_device):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
 @pytest.mark.parametrize("m", [2, 4, 8])
-def test_kernels_match_plain_versions(cuda_device, m, dtype):
-    """Each spread and interpolation entry point at 32^3 (grid 48^3) against
-    its plain version, with the launch counts moving."""
+@pytest.mark.parametrize(
+    "shape,block_dims",
+    [((32, 32, 32), None), ((64, 48), None), ((64, 48), (16, 24)),
+     ((4096,), None), ((4096,), (512,))],
+    ids=str,
+)
+def test_kernels_match_plain_versions(cuda_device, shape, block_dims, m, dtype):
+    """Each spread and interpolation entry point (3D at 32^3, grid 48^3; 2D
+    at 64 x 48; 1D at 4096, ~3 points a cell) against its plain version,
+    with the launch counts moving."""
     rng = np.random.default_rng(m)
-    plan = tnufft.PlanNUFFT(dtype, (32, 32, 32), m=m, sigma=1.5,
-                            ntransforms=2, spread_method="blocked",
+    D = len(shape)
+    plan = tnufft.PlanNUFFT(dtype, shape, m=m, sigma=1.5, ntransforms=2,
+                            spread_method="blocked", block_dims=block_dims,
                             device=cuda_device)
     real = np.dtype(dtype).type(0).real.dtype
-    pts = rng.uniform(-1.0, 7.0, (3, 20_000)).astype(real)
+    pts = rng.uniform(-1.0, 7.0, (D, 20_000)).astype(real)
     pts[:, :50] = np.nextafter(real.type(2 * np.pi), real.type(0))
     plan = tnufft.set_points(plan, torch.from_numpy(pts).to(cuda_device))
     vp = torch.from_numpy(_values(rng, dtype, (2, 20_000))).to(cuda_device)
     grid = torch.from_numpy(_values(rng, dtype, (2,) + plan.shape_over)).to(cuda_device)
-    spread = blocked.entry_point("spread", plan.dtype)
-    interp = blocked.entry_point("interp", plan.dtype)
+    spread = blocked.entry_point("spread", plan)
+    interp = blocked.entry_point("interp", plan)
+    assert f"_{D}d_" in spread and f"_{D}d_" in interp
     before = dict(blocked.LAUNCHES)
     g_k = blocked.spread_blocked(plan, vp)
     v_k = blocked.interpolate_blocked(plan, grid)

