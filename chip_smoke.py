@@ -33,7 +33,21 @@ Phases, in order; the first failure raises and the script exits non-zero:
    dtypes: complex64 and float32 at Np = 1,000,000 and 16,777,216,
    complex128 and float64 at 1,677,722 and 16,777,216;
 9. the 1D main path, N = 2^20 (grid 1,572,864), m = 4, sigma = 1.5, all four
-   dtypes at Np = 1,000,000 and 10,000,000.
+   dtypes at Np = 1,000,000 and 10,000,000;
+10. every window at the full 3D width: N = 256^3, m = 4, sigma = 2 (grid
+    512^3), complex64 and complex128 at Np = 1,000,000 and 16,777,216, for
+    BKB Fast (the yardstick at this sigma), KB Fast and Direct, BKB
+    Direct, Gaussian Fast and Direct and the B-spline, measured as in
+    phase 4; then the same windows on the 2D (4096^2, 16,777,216 points)
+    and 1D (2^20, 10,000,000 points) complex64 main paths at sigma = 2;
+11. m = 10 for every dtype, dimension and window in both modes: 32^3, 128^2
+    and 4096 (sigma = 2), 50,000 points; each kernel against its plain
+    version (timed), err1 / err2 against exact sums;
+12. the NFFT adapter at full width: ``plan_nfft`` in 3D at N = 256^3,
+    16,777,216 points in [-1/2, 1/2)^3, complex128, the default reltol 1e-9
+    (m = 6, sigma = 2), windows kaiser_bessel, gauss and spline: forward and
+    adjoint times, and their errors against exact NFFT-convention sums at
+    4,096 points and 64 modes.
 
 Each main-path row sets every launch count to 0 just before it drives the
 path and reads the counts just after; a kernel of the path that was not
@@ -43,16 +57,24 @@ float32-accumulation diagnostic (ROADMAP queue 3, P2) re-spreads the
 complex64 rho = 1 row's own float32 values and fractions, widened to
 float64, with the float64 kernel and a Z2Z FFT, and prints that err1 beside
 the float32 err1 of three calls.  The line before the last is one JSON
-object with each of the 24 kernel entry points: launches on its main path,
-its error against its plain version, both times, the least time the card
-could take for the same work (``bound_ms``) and what bounds it; the last
-line is ``{"ok": true, "device": {...}}``.
+object with each of the 26 kernel entry points (24 spread and
+interpolation, two window-weights): launches on its main path, its error
+against its plain version, both times, the least time the card could take
+for the same work (``bound_ms``) and what bounds it, and a ``windows`` map
+with the same numbers under each window mode and m of phases 10-11; the
+last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances: kernels against plain versions <= 1e-5 relative L2 in float32
 (atomics add in a run-dependent order; ~1e-7 expected) and <= 1e-12 in
 float64 (~1e-16 expected); err1, err2 <= 1e-5 at m = 4, sigma = 1.5 (the
 window's own error is ~1.5e-6) and <= 1e-11 at m = 8, sigma = 2 (~2e-14;
 anything float32 left on the 64-bit path would floor it near 1e-7).
+Phases 10-12 hold err1 / err2 to D times the window's 1D budget at sigma = 2
+(``error_budget``, copied from tests/test_accuracy.py: 1.5e-7 for (B)KB,
+1.3e-4 for the Gaussian and 4.8e-5 for the B-spline at m = 4), at least
+1e-5 for complex64; at m = 10 64-bit (B)KB to 1e-11, the Gaussian and
+B-spline to max(D x budget, 1e-11), 32-bit plans to 5e-5; the adapter's KB
+to 10 x reltol.
 """
 
 from __future__ import annotations
@@ -84,6 +106,9 @@ SHAPE_2D = (4096, 4096)
 SHAPE_1D = (1 << 20,)
 NP_1D = (1_000_000, 10_000_000)
 ACC_SHAPES, NP_ACC = ((64,) * 3, (256, 256), (4096,)), 200_000  # phase 5
+SIGMA_W = 2.0  # phases 10-12
+NP_M10, M10_SHAPES = 50_000, ((32,) * 3, (128, 128), (4096,))  # phase 11
+NFFT_RELTOL, NP_NFFT = 1e-9, 16_777_216  # phase 12
 REPS = 5
 ERR_MODES = 64
 ERR_POINTS = 4096
@@ -107,11 +132,39 @@ _REPLACES = {
        for d in (1, 2) for w in (False, True)},
 }
 KERNELS = {
-    f"nufft_{kind}_{d}d_{suffix}": dict(source=f"{_CSRC}/{kind}_{d}d.cu",
-                                        replaces=_REPLACES[(kind, d, "f64" in suffix)])
-    for d in (3, 2, 1) for suffix in ("f32", "real_f32", "f64", "real_f64")
-    for kind in ("spread", "interp")
+    **{f"nufft_{kind}_{d}d_{suffix}": dict(source=f"{_CSRC}/{kind}_{d}d.cu",
+                                           replaces=_REPLACES[(kind, d, "f64" in suffix)])
+       for d in (3, 2, 1) for suffix in ("f32", "real_f32", "f64", "real_f64")
+       for kind in ("spread", "interp")},
+    # K3: window_weights, which every TPU spread and interpolation kernel
+    # calls in its body.
+    **{f"nufft_window_weights_{t}": dict(source=f"{_CSRC}/window_weights.cu",
+                                         replaces="nonuniformffts_tpu/ops/pallas/common.py:120")
+       for t in ("f32", "f64")},
 }
+# Window modes by label: (kernel class, evaluation mode).
+WINDOW_MODES = {
+    f"{label} {mode}": (cls, ev)
+    for label, cls in (("KB", "KaiserBesselKernel"), ("BKB", "BackwardsKaiserBesselKernel"),
+                       ("Gaussian", "GaussianKernel"), ("B-spline", "BSplineKernel"))
+    for mode, ev in (("Fast", "FastApproximation"), ("Direct", "Direct"))
+}
+PHASE10_MODES = ("BKB Fast", "KB Fast", "KB Direct", "BKB Direct", "Gaussian Fast",
+                 "Gaussian Direct", "B-spline Direct")
+MAIN_WINDOW = WINDOW_MODES["BKB Fast"]
+
+
+def error_budget(kernel: str, m: int) -> float:
+    """Relative L2 error budget of one dimension at sigma = 2 (copied from
+    tests/test_accuracy.py:error_budget, whose file imports JAX), the
+    64-bit floor included."""
+    if kernel in ("KaiserBesselKernel", "BackwardsKaiserBesselKernel"):
+        return max(6 * 10.0 ** (-1.9 * m), 4e-14)
+    if kernel == "GaussianKernel":
+        return 10.0 ** (-0.95 * m) * 0.8
+    if kernel == "BSplineKernel":
+        return 10.0 ** (-0.98 * m) * 0.4
+    raise ValueError(kernel)
 
 
 def log(msg: str) -> None:
@@ -181,11 +234,16 @@ def phase_environment():
 
 
 def _kernel_label(mangled: str) -> str:
-    """``spread_3d<M=4, double, 2>`` from a mangled kernel name."""
-    m = re.search(r"(spread|interp)_(\d)d_kernelILi(\d+)E([fd])Li(\d)E", mangled)
-    if not m:
-        return mangled
-    return f"{m[1]}_{m[2]}d<M={m[3]}, {'float' if m[4] == 'f' else 'double'}, {m[5]}>"
+    """``spread_3d<M=4, double, 2>`` or ``window_weights<M=4, double>`` from
+    a mangled kernel name."""
+    m = re.search(r"(spread|interp)_(\d)d_kernelILi(\d+)E([fd])Li(\d)E(Lb1E)?", mangled)
+    if m:
+        return (f"{m[1]}_{m[2]}d<M={m[3]}, {'float' if m[4] == 'f' else 'double'}, {m[5]}"
+                + (", taps>" if m[6] else ">"))
+    m = re.search(r"window_weights_kernelILi(\d+)E([fd])E", mangled)
+    if m:
+        return f"window_weights<M={m[1]}, {'float' if m[2] == 'f' else 'double'}>"
+    return mangled
 
 
 def report_ptxas(text: str) -> None:
@@ -234,7 +292,12 @@ def phase_build():
     log(f"built and loaded {path.relative_to(ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s")
     if build.PTXAS_LOG.exists():
-        report_ptxas(build.PTXAS_LOG.read_text())
+        text = build.PTXAS_LOG.read_text()
+        done = sorted(((float(t), n) for n, t in re.findall(r"^--- (.+) \(([\d.]+) s\)$", text,
+                                                            re.M)), reverse=True)
+        log("  compiles finished (s after the start), slowest first: "
+            + ", ".join(f"{n} {t:.1f}" for t, n in done))
+        report_ptxas(text)
     report_sass_atomics(path)
 
 
@@ -250,10 +313,10 @@ def _random_values(gen, shape, dtype, device):
     return torch.randn(shape, generator=gen, device=device, dtype=dtype)
 
 
-# Operations per point and transform of each kernel's loops beyond the taps'
-# Horner FMAs, by D (S = 2M taps a dim, n scalars a value): 3D and 2D spread
-# form the trailing tap products and add v * w per tap; 1D spread does one
-# FMA per (point, tap) and scalar; interpolation FMAs every level of the
+# Operations per point and transform of each kernel's loops beyond the taps,
+# by D (S = 2M taps a dim, n scalars a value): 3D and 2D spread form the
+# trailing tap products and add v * w per tap; 1D spread does one FMA per
+# (point, tap) and scalar; interpolation FMAs every level of the
 # tensor-product window and scales by normfactor.
 _SPREAD_OPS = {
     1: lambda S, n: 2 * n * S,
@@ -262,23 +325,45 @@ _SPREAD_OPS = {
 }
 
 
+def tap_ops(plan) -> float:
+    """Operations of one window tap, estimated from the formulas of
+    csrc/window.cuh: Horner 2 (ncoef - 1) (an FMA is two); KB Direct ~50
+    (y, 1 - y^2, sqrt, beta s and I0's polynomials); BKB Direct ~30 (two exps
+    and a division); the Gaussian ~15 (one exp); the B-spline ~2.5 S (de
+    Boor's S^2 / 2 updates of about five operations, over S taps)."""
+    from nonuniformffts_tpu_torch.ops.windows import WINDOW_KINDS
+
+    S = 2 * plan.m
+    by_kind = {"horner": 2 * (plan.m + 3), "kb_direct": 50, "bkb_direct": 30,
+               "gaussian": 15, "bspline": 2.5 * S}
+    return by_kind[next(k for k, v in WINDOW_KINDS.items() if v == plan.window.kind)]
+
+
 def kernel_bound(kind: str, plan, C: int):
     """Least time the card could take for a wrapper's work on these inputs:
     the larger of the bytes it must move (each input read once, each output
     written once) over the HBM rate and its operations over the FP32 or FP64
-    peak.  Returns (ms, 'bytes' or 'operations')."""
+    peak.  ``kind``: 'spread', 'interp' or 'weights' (K3, whose output is
+    the taps).  A spread or interpolation wrapper of a window without
+    coefficients launches K3 first: its taps are counted as operations, the
+    intermediate taps as no bytes.  Returns (ms, 'bytes' or 'operations')."""
     from nonuniformffts_tpu_torch.blocking import num_blocks
+    from nonuniformffts_tpu_torch.ops.kernels.blocked import kernel_coefs
     from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES
 
     _, sb, ncomp = VALUE_TYPES[plan.dtype]
     D = plan.ndim
-    S, ncoef, np_ = 2 * plan.m, plan.coefs.shape[-1], plan.num_points
+    S, np_ = 2 * plan.m, plan.num_points
+    ncoef = kernel_coefs(plan)[1]
     vol = math.prod(plan.shape_over)
     nblocks = math.prod(num_blocks(plan.shape_over, plan.block_dims))
     # cells, fracs, perm, coefs
     state = np_ * (D * 4 + D * sb + 8) + D * S * ncoef * sb
-    horner = D * S * (ncoef - 1) * 2  # FMAs of the taps, per point
-    if kind == "spread":
+    horner = D * S * tap_ops(plan)  # the taps, per point
+    if kind == "weights":
+        nbytes = np_ * D * sb + np_ * D * S * sb
+        ops = np_ * horner
+    elif kind == "spread":
         nbytes = C * np_ * ncomp * sb + state + (nblocks + 1) * 4 + C * vol * ncomp * sb
         ops = np_ * (horner + C * _SPREAD_OPS[D](S, ncomp))
     else:
@@ -288,10 +373,22 @@ def kernel_bound(kind: str, plan, C: int):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def compare_kernels(plan, vp, grid, timed: bool, plain_chunk: int = PLAIN_CHUNK):
-    """The plan's spread and interpolation kernels against their plain
-    versions on the same inputs; timed in turns (plain, kernel, kernel,
-    plain) when ``timed``."""
+def entry_points(plan):
+    """The entry points a plan's transforms launch: spread, interpolation
+    and, for a window without coefficients, K3."""
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    names = [blocked.entry_point(k, plan) for k in ("spread", "interp")]
+    if blocked.kernel_coefs(plan)[0] is None:
+        names.append(blocked.WEIGHTS_ENTRY[plan.real_dtype])
+    return names
+
+
+def compare_kernels(plan, vp, grid, timed: bool, plain_chunk: int = PLAIN_CHUNK,
+                    plain_reps: int = 3):
+    """The plan's spread and interpolation kernels (and K3 for a window
+    without coefficients) against their plain versions on the same inputs;
+    timed in turns (plain, kernel, kernel, plain) when ``timed``."""
     import torch
 
     from nonuniformffts_tpu_torch.ops.kernels import blocked
@@ -304,14 +401,18 @@ def compare_kernels(plan, vp, grid, timed: bool, plain_chunk: int = PLAIN_CHUNK)
         "interp": (lambda: blocked.interpolate_blocked(plan, grid),
                    lambda: blocked.interpolate_blocked_plain(plain, grid)),
     }
+    if blocked.kernel_coefs(plan)[0] is None:
+        pairs["weights"] = (lambda: blocked.window_weights_blocked(plan),
+                            lambda: blocked.window_weights_blocked_plain(plan))
     results = {}
     for kind, (kern, ref) in pairs.items():
-        name = blocked.entry_point(kind, plan)
+        name = (blocked.WEIGHTS_ENTRY[plan.real_dtype] if kind == "weights"
+                else blocked.entry_point(kind, plan))
         if timed:
-            p1, want = cuda_time_ms(ref, reps=3)
+            p1, want = cuda_time_ms(ref, reps=plain_reps)
             k1, got = cuda_time_ms(kern)
             k2, _ = cuda_time_ms(kern)
-            p2, _ = cuda_time_ms(ref, reps=3)
+            p2, _ = cuda_time_ms(ref, reps=plain_reps)
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
         else:
             got, want = kern(), ref()
@@ -322,7 +423,7 @@ def compare_kernels(plan, vp, grid, timed: bool, plain_chunk: int = PLAIN_CHUNK)
         bound_ms, bound_by = kernel_bound(kind, plan, vp.shape[0])
         log(f"  {name}: rel L2 {err:.3e}, max abs {max_abs:.3e}"
             + (f", kernel {ms:.3f} ms, plain {plain_ms:.3f} ms" if timed else "")
-            + f", bound {bound_ms:.3f} ms ({bound_by})")
+            + f", bound {bound_ms:.4g} ms ({bound_by})")
         check(f"{name} rel L2 vs plain", err, tol)
         results[name] = dict(max_abs_err=max_abs, rel_l2=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
@@ -358,28 +459,29 @@ def phase_kernels(seed: int):
 # ---------------------------------------------------------------------------
 
 
-def _err1(pts, v, uhat, shape, real: bool, seed: int) -> float:
-    """Type-1 output against exact float64 sums at random modes, computed on
-    the card in point chunks (bench.py:measure_t1_error).  Real plans store
+def _err1(pts, v, uhat, shape, real: bool, seed: int, modes: int = ERR_MODES) -> float:
+    """Type-1 output against exact float64 sums at ``modes`` random modes,
+    computed on the card in point chunks (bench.py:measure_t1_error).  Real plans store
     k = 0..+N/2 on the halved LAST axis: the Nyquist index is POSITIVE there
     (bench.py:336-347), while the full axes fold index N/2 to -N/2."""
     import torch
 
     D = len(shape)
     rng = np.random.default_rng(seed + 7)
-    kidx = np.stack([rng.integers(0, n, ERR_MODES) for n in shape], axis=1)
+    kidx = np.stack([rng.integers(0, n, modes) for n in shape], axis=1)
     if real:
-        kidx[:, -1] = rng.integers(0, shape[-1] // 2 + 1, ERR_MODES)
+        kidx[:, -1] = rng.integers(0, shape[-1] // 2 + 1, modes)
     n = np.array(shape)
     kval = np.where(kidx >= (n + 1) // 2, kidx - n, kidx).astype(np.float64)
     if real:
         kval[:, -1] = kidx[:, -1]
     k = torch.as_tensor(kval, device=pts.device)
     v = v.to(torch.complex128)
-    exact = torch.zeros(ERR_MODES, dtype=torch.complex128, device=pts.device)
-    for s in range(0, pts.shape[1], 1 << 20):
-        ph = k @ pts[:, s : s + (1 << 20)].to(torch.float64)
-        exact += torch.exp(-1j * ph) @ v[s : s + (1 << 20)]
+    exact = torch.zeros(modes, dtype=torch.complex128, device=pts.device)
+    step = max(1, (1 << 26) // modes)
+    for s in range(0, pts.shape[1], step):
+        ph = k @ pts[:, s : s + step].to(torch.float64)
+        exact += torch.exp(-1j * ph) @ v[s : s + step]
     ki = torch.as_tensor(kidx, device=uhat.device)
     got = uhat[tuple(ki[:, d] for d in range(D))].to(torch.complex128)
     return rel_l2(got, exact)
@@ -424,7 +526,7 @@ def _factor_sums(x, coefs, half: bool = False):
                       for s in range(0, len(x), step)])
 
 
-def _err2(pts, v2, a, real: bool, seed: int) -> float:
+def _err2(pts, v2, a, real: bool, seed: int, points: int = ERR_POINTS) -> float:
     """Type-2 output for the rank-1 spectrum a_0 x ... x a_{D-1}, whose
     exact values are products of 1D sums (bench.py:measure_t2_error),
     computed on the card.  On real plans the c2r convention doubles every
@@ -432,16 +534,16 @@ def _err2(pts, v2, a, real: bool, seed: int) -> float:
     takes real parts (bench.py:measure_t2_error_real)."""
     import torch
 
-    sel = torch.as_tensor(np.random.default_rng(seed + 9).integers(0, pts.shape[1], ERR_POINTS),
+    sel = torch.as_tensor(np.random.default_rng(seed + 9).integers(0, pts.shape[1], points),
                           device=pts.device)
     x = pts[:, sel].double()
     got = v2[sel].to(torch.complex128)
     if not real:
-        exact = torch.ones(ERR_POINTS, dtype=torch.complex128, device=pts.device)
+        exact = torch.ones(points, dtype=torch.complex128, device=pts.device)
         for d, ad in enumerate(a):
             exact = exact * _factor_sums(x[d], ad)
     else:
-        exact = torch.ones(ERR_POINTS, dtype=torch.float64, device=pts.device)
+        exact = torch.ones(points, dtype=torch.float64, device=pts.device)
         for d, ad in enumerate(a[:-1]):
             exact = exact * _factor_sums(x[d], ad).real
         last = 2.0 * _factor_sums(x[-1], a[-1], half=True).real - a[-1][0].real
@@ -454,15 +556,15 @@ def _err2(pts, v2, a, real: bool, seed: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _plan(dtype, shape, m: int, sigma: float, **kw):
+def _plan(dtype, shape, m: int, sigma: float, window=MAIN_WINDOW, **kw):
     import torch
 
     import nonuniformffts_tpu_torch as nufft
 
     return nufft.PlanNUFFT(
         dtype, shape, m=m, sigma=sigma,
-        kernel=nufft.BackwardsKaiserBesselKernel(),
-        kernel_evalmode=nufft.FastApproximation(),
+        kernel=getattr(nufft, window[0])(),
+        kernel_evalmode=getattr(nufft, window[1])(),
         spread_method="blocked", device=torch.device("cuda"), **kw,
     )
 
@@ -497,11 +599,14 @@ def float32_accumulation_diagnostic(plan, pts, vp, err1_f32: float, seed: int):
 
 
 def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
-              diagnose_at=None):
-    """Drive one dtype's main path at ``shape``, m = 4, sigma = 1.5 for each
-    Np; returns (launches summed over the rows, kernel comparisons at
-    ``compare_np``).  At Np = ``diagnose_at`` also runs
-    ``float32_accumulation_diagnostic``."""
+              diagnose_at=None, m: int = 4, sigma: float = 1.5, window=MAIN_WINDOW,
+              err_tol: float = ERR_TOL, err_modes: int = ERR_MODES):
+    """Drive one dtype's main path at ``shape``, ``m``, ``sigma`` and
+    ``window`` (kernel class and evaluation mode names; BKB
+    FastApproximation, m = 4, sigma = 1.5 by default) for each Np, holding
+    err1 (at ``err_modes`` random modes) and err2 to ``err_tol``; returns (launches summed over the rows,
+    kernel comparisons at ``compare_np``).  At Np = ``diagnose_at`` also
+    runs ``float32_accumulation_diagnostic``."""
     import torch
 
     import nonuniformffts_tpu_torch as nufft
@@ -510,8 +615,8 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
 
     dev = torch.device("cuda")
     D = len(shape)
-    plan0 = _plan(dtype, shape, 4, 1.5)
-    names = [blocked.entry_point(k, plan0) for k in ("spread", "interp")]
+    plan0 = _plan(dtype, shape, m, sigma, window)
+    names = entry_points(plan0)
     log(f"  {label}: grid {plan0.shape_over}, block_dims {plan0.block_dims}, "
         f"kernels {names}")
     a, u_np = _rank1_spectrum(shape, plan0.is_real, seed)
@@ -557,10 +662,10 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
         log(f"  set_points {t_set:.3f} ms, exec_type1 {t_t1:.3f} ms, "
             f"exec_type2 {t_t2:.3f} ms")
         log("  stages: " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
-        e1 = _err1(pts, vp, uhat, shape, plan.is_real, seed)
+        e1 = _err1(pts, vp, uhat, shape, plan.is_real, seed, modes=err_modes)
         e2 = _err2(pts, v2, a, plan.is_real, seed)
-        check(f"err1 ({label}, Np={np_})", e1, ERR_TOL)
-        check(f"err2 ({label}, Np={np_})", e2, ERR_TOL)
+        check(f"err1 ({label}, Np={np_})", e1, err_tol)
+        check(f"err2 ({label}, Np={np_})", e2, err_tol)
         row = dict(dtype=label, np=np_, set_points_ms=t_set, exec_type1_ms=t_t1,
                    exec_type2_ms=t_t2, stages_ms=stages, err1=e1, err2=e2,
                    launches=counts)
@@ -613,6 +718,185 @@ def phase_accuracy_64(seed: int):
             torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: every window, m = 10, the NFFT adapter
+# ---------------------------------------------------------------------------
+
+
+def window_err_tol(kernel: str, m: int, D: int, dtype) -> float:
+    """D times the window's 1D budget at sigma = 2; complex64 at least 1e-5
+    at m = 4; at m = 10 64-bit (B)KB 1e-11, 64-bit Gaussian and B-spline
+    at least 1e-11, 32-bit plans 5e-5 (tests/test_accuracy.py:109-124)."""
+    f32 = np.dtype(dtype) in (np.dtype(np.complex64), np.dtype(np.float32))
+    if m == 10:
+        if f32:
+            return 5e-5
+        if kernel in ("KaiserBesselKernel", "BackwardsKaiserBesselKernel"):
+            return ERR_TOL_64
+        return max(D * error_budget(kernel, m), ERR_TOL_64)
+    tol = D * error_budget(kernel, m)
+    return max(tol, ERR_TOL) if f32 else tol
+
+
+def phase_windows(seed: int, record, windows):
+    """Phase 10: each window mode through the 3D main path at 256^3, m = 4,
+    sigma = 2, complex64 and complex128 (BKB Fast too, as the yardstick at
+    the same sigma); then the cost of a window on the 2D (4096^2, 16.8M
+    points) and 1D (2^20, 10M points) complex64 main paths at sigma = 2.
+    err1 samples 1,024 modes: the budgets bound the whole L2 error
+    (tests/test_torch_window_paths.py checks that on the CPU), which 64
+    random modes estimate only to about a factor of 2 (a 64-mode 1D
+    B-spline row read 4.95e-5 against its 4.8e-5)."""
+    log(f"== phase 10: every window, N = {'x'.join(map(str, SHAPE_3D))}, m = 4, "
+        f"sigma = {SIGMA_W}, complex64 and complex128; 2D and 1D complex64")
+    for dtype in (np.complex64, np.complex128):
+        for mode in PHASE10_MODES:
+            window = WINDOW_MODES[mode]
+            label = f"3D {np.dtype(dtype).name} {mode}"
+            launches, compared = main_path(
+                label, dtype, SHAPE_3D, NP_MAIN, NP_MAIN[0], seed, m=4, sigma=SIGMA_W,
+                window=window, err_tol=window_err_tol(window[0], 4, 3, dtype),
+                err_modes=1024)
+            record((launches, {}))
+            for name, res in compared.items():
+                windows[name][f"{mode}, m=4"] = res
+    for shape, np_ in ((SHAPE_2D, NP_MAIN[1]), (SHAPE_1D, NP_1D[1])):
+        for mode in PHASE10_MODES:
+            window = WINDOW_MODES[mode]
+            record(main_path(f"{len(shape)}D complex64 {mode}", np.complex64, shape, (np_,),
+                             0, seed, m=4, sigma=SIGMA_W, window=window,
+                             err_tol=window_err_tol(window[0], 4, len(shape), np.complex64),
+                             err_modes=1024))
+
+
+def phase_m10(seed: int, record, windows):
+    """Phase 11: every dtype, dimension and window mode at m = 10, sigma = 2,
+    50,000 points: kernels against their plain versions (timed) and
+    err1 / err2 against exact sums, with launch counts."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    log(f"== phase 11: m = 10, sigma = {SIGMA_W}, {NP_M10:,} points, every dtype, "
+        "dimension and window mode")
+    dev = torch.device("cuda")
+    for shape in M10_SHAPES:
+        D = len(shape)
+        for dtype in (np.complex64, np.complex128, np.float32, np.float64):
+            for mode, window in WINDOW_MODES.items():
+                label = f"{D}D {np.dtype(dtype).name} {mode}"
+                plan = _plan(dtype, shape, 10, SIGMA_W, window)
+                gen = torch.Generator(device=dev).manual_seed(seed + 11)
+                pts = _uniform_points(gen, D, NP_M10, plan.real_dtype, dev)
+                vp = _random_values(gen, (1, NP_M10), plan.dtype, dev)
+                grid = _random_values(gen, (1,) + plan.shape_over, plan.dtype, dev)
+                names = entry_points(plan)
+                blocked.reset_launch_counts()
+                plan = nufft.set_points(plan, pts)
+                a, u_np = _rank1_spectrum(shape, plan.is_real, seed)
+                uhat = nufft.exec_type1(plan, vp[0])
+                v2 = nufft.exec_type2(plan, torch.as_tensor(u_np, device=dev).to(
+                    plan.complex_dtype))
+                torch.cuda.synchronize()
+                counts = {n: blocked.LAUNCHES[n] for n in names}
+                if min(counts.values()) < 1:
+                    raise AssertionError(f"a kernel was not launched ({label}): {counts}")
+                record((counts, {}))
+                log(f"  {label}: grid {plan.shape_over}, block_dims {plan.block_dims}, "
+                    f"launches {counts}")
+                # The budgets bound the whole L2 error, which 64 modes
+                # estimate only to about a factor of 2 (phase_windows): err1
+                # and err2 here sample 4,096 modes and 50,000 points.
+                tol = window_err_tol(window[0], 10, D, dtype)
+                check(f"err1 ({label})", _err1(pts, vp[0], uhat, shape, plan.is_real, seed,
+                                               modes=4096), tol)
+                check(f"err2 ({label})", _err2(pts, v2, a, plan.is_real, seed,
+                                               points=NP_M10), tol)
+                compared = compare_kernels(plan, vp, grid, timed=True, plain_chunk=1 << 12,
+                                           plain_reps=1)
+                for name, res in compared.items():
+                    windows[name][f"{mode}, m=10"] = res
+                del plan, pts, vp, grid, uhat, v2
+                torch.cuda.empty_cache()
+
+
+def _nfft_factor_sums(x, coefs, sign: float):
+    """``sum_k coefs[k] exp(sign 2 pi i k x)`` over k = -N/2 .. N/2 - 1 (the
+    adapter's increasing order) for each x, float64 on the card."""
+    import torch
+
+    N = len(coefs)
+    k = torch.arange(-(N // 2), N - N // 2, dtype=torch.float64, device=x.device)
+    c = torch.as_tensor(coefs, device=x.device)
+    return torch.exp(sign * 2j * math.pi * torch.outer(x, k)) @ c
+
+
+def phase_nfft(seed: int, record):
+    """Phase 12: the NFFT adapter at 256^3, 16.8M points, complex128, the
+    default reltol, three windows: forward and adjoint times (CUDA events,
+    median of 5) and errors against exact NFFT-convention sums."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    N = SHAPE_3D
+    log(f"== phase 12: NFFT adapter, N = {'x'.join(map(str, N))}, {NP_NFFT:,} points, "
+        f"complex128, reltol {NFFT_RELTOL:g}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    x = torch.rand((3, NP_NFFT), generator=gen, dtype=torch.float64, device=dev) - 0.5
+    f = _random_values(gen, (NP_NFFT,), torch.complex128, dev)
+    rng = np.random.default_rng(seed + 13)
+    a = [(rng.standard_normal(n) + 1j * rng.standard_normal(n)) / n for n in N]
+    fhat = torch.as_tensor(functools.reduce(np.multiply.outer, a), device=dev)
+    sel = torch.as_tensor(rng.integers(0, NP_NFFT, ERR_POINTS), device=dev)
+    kidx = rng.integers(0, N[0], (ERR_MODES, 3))
+    kval = torch.as_tensor(kidx - N[0] // 2, dtype=torch.float64, device=dev)
+    exact_adj = torch.zeros(ERR_MODES, dtype=torch.complex128, device=dev)
+    for s in range(0, NP_NFFT, 1 << 20):
+        ph = kval @ x[:, s : s + (1 << 20)]
+        exact_adj += torch.exp(2j * math.pi * ph) @ f[s : s + (1 << 20)]
+    exact_fwd = functools.reduce(
+        torch.mul, (_nfft_factor_sums(x[d, sel], a[d], -1.0) for d in range(3)))
+    rows = []
+    for window in ("kaiser_bessel", "gauss", "spline"):
+        blocked.reset_launch_counts()
+        t0 = time.perf_counter()
+        plan = nufft.plan_nfft(x, N, reltol=NFFT_RELTOL, window=window)
+        torch.cuda.synchronize()
+        t_plan = 1e3 * (time.perf_counter() - t0)
+        if (plan.plan.m, plan.plan.sigma) != (6, 2.0):
+            raise AssertionError(f"reltol {NFFT_RELTOL:g} gave m={plan.plan.m}, "
+                                 f"sigma={plan.plan.sigma}, not 6, 2")
+        t_fwd, fx = cuda_time_ms(lambda: plan.forward(fhat))
+        t_adj, fh = cuda_time_ms(lambda: plan.H @ f)
+        torch.cuda.synchronize()
+        names = entry_points(plan.plan)
+        counts = {n: blocked.LAUNCHES[n] for n in names}
+        if min(counts.values()) < 1:
+            raise AssertionError(f"a kernel was not launched ({window}): {counts}")
+        record((counts, {}))
+        e_fwd = rel_l2(fx[sel], exact_fwd)
+        e_adj = rel_l2(fh[tuple(torch.as_tensor(kidx[:, d], device=dev) for d in range(3))],
+                       exact_adj)
+        kind = type(plan.plan.kernel).__name__
+        tol = 10 * NFFT_RELTOL if window == "kaiser_bessel" else 3 * error_budget(kind, 6)
+        log(f"  {window} ({kind}): grid {plan.plan.shape_over}, block_dims "
+            f"{plan.plan.block_dims}, plan_nfft {t_plan:.1f} ms (host clock, set_points "
+            f"included), forward {t_fwd:.3f} ms, adjoint {t_adj:.3f} ms, launches {counts}")
+        check(f"forward error ({window})", e_fwd, tol)
+        check(f"adjoint error ({window})", e_adj, tol)
+        rows.append(dict(window=window, m=plan.plan.m, sigma=plan.plan.sigma,
+                         block_dims=plan.plan.block_dims,
+                         plan_ms=t_plan, forward_ms=t_fwd, adjoint_ms=t_adj,
+                         forward_err=e_fwd, adjoint_err=e_adj, launches=counts))
+        del plan, fx, fh
+        torch.cuda.empty_cache()
+    log("  results " + json.dumps(rows))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -627,7 +911,8 @@ def main(argv=None) -> int:
     phase_environment()
     phase_build()
     phase_kernels(args.seed)
-    launches, compared = {}, {}
+    launches, compared = collections.Counter(), {}
+    windows = collections.defaultdict(dict)
 
     def record(result):
         launches.update(result[0])
@@ -654,7 +939,14 @@ def main(argv=None) -> int:
                 NP_64 if dtype in (np.complex128, np.float64) else NP_MAIN)
             record(main_path(f"{len(shape)}D {np.dtype(dtype).name}", dtype, shape, nps,
                              nps[0], args.seed))
+    phase_windows(args.seed, record, windows)
+    phase_m10(args.seed, record, windows)
+    phase_nfft(args.seed, record)
 
+    # K3's headline numbers: KB Direct at 1M points in phase 10 (float32
+    # taps from complex64, float64 from complex128).
+    for name in ("nufft_window_weights_f32", "nufft_window_weights_f64"):
+        compared[name] = windows[name]["KB Direct, m=4"]
     missing = sorted(set(KERNELS) - set(compared))
     if missing:
         raise AssertionError(f"kernels not compared with their plain versions: {missing}")
@@ -663,7 +955,9 @@ def main(argv=None) -> int:
              max_abs_err=compared[name]["max_abs_err"], rel_l2=compared[name]["rel_l2"],
              ms=compared[name]["ms"], plain_ms=compared[name]["plain_ms"],
              bound_ms=compared[name]["bound_ms"], bound_by=compared[name]["bound_by"],
-             library_ms=None)
+             library_ms=None,
+             windows={mode: {k: res[k] for k in ("rel_l2", "ms", "plain_ms", "bound_ms")}
+                      for mode, res in sorted(windows[name].items())})
         for name in KERNELS
     ]
     log(f"run time {time.perf_counter() - t0:.1f} s")

@@ -7,7 +7,9 @@ repository as its reference.  ``PlanNUFFT`` -> ``set_points`` ->
 float64 (real-data r2c/c2r) values; on the card the blocked method runs the
 CUDA kernels ``nufft_spread_<D>d_<type>`` and ``nufft_interp_<D>d_<type>``
 (``csrc/``, built with nvcc at first use) for 1D, 2D and 3D plans, in
-native float64 for 64-bit plans.  Plans run on the card unless
+native float64 for 64-bit plans, for all four windows in both evaluation
+modes and m = 2..10.  ``NFFTPlan`` / ``plan_nfft`` / ``nfft`` /
+``nfft_adjoint`` speak the NFFT convention.  Plans run on the card unless
 ``device='cpu'``.
 
 Quick start::
@@ -31,6 +33,7 @@ from .ops.windows import (
     GaussianKernel,
     KaiserBesselKernel,
 )
+from .nfft_compat import WINDOWS, NFFTPlan, accuracy_params, nfft, nfft_adjoint, plan_nfft
 from .plan import Plan, PlanNUFFT, set_points
 
 __version__ = "0.1.0"
@@ -48,4 +51,10 @@ __all__ = [
     "BSplineKernel",
     "Direct",
     "FastApproximation",
+    "NFFTPlan",
+    "plan_nfft",
+    "nfft",
+    "nfft_adjoint",
+    "accuracy_params",
+    "WINDOWS",
 ]

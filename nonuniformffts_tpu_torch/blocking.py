@@ -56,11 +56,13 @@ MAX_BLOCK_1D = 16_384
 
 
 def choose_geometry(shape_over: Sequence[int], m: int, scalar_bytes: int = 4,
-                    ncomp: int = 2) -> Tuple[int, ...]:
+                    ncomp: int = 2, ncoef: int = None) -> Tuple[int, ...]:
     """Block dims for the spread kernel on an H100, for values of ``ncomp``
     scalars of ``scalar_bytes`` each (complex64: 4, 2; complex128: 8, 2;
-    float32: 4, 1; float64: 8, 1).  Each block dim divides its grid dim and
-    the CTA's shared memory (``spread_smem_bytes``) fits the 227 KB.
+    float32: 4, 1; float64: 8, 1) and a window of ``ncoef`` staged
+    coefficients a tap (``m + 4`` by default, (B)KB FastApproximation; 0
+    for the other windows).  Each block dim divides its grid dim and the
+    CTA's shared memory (``spread_smem_bytes``) fits the 227 KB.
 
     1D (``csrc/spread_1d.cu`` keeps its sums in registers, so shared memory
     does not bound the block): the longest block, up to ``MAX_BLOCK_1D``
@@ -87,7 +89,8 @@ def choose_geometry(shape_over: Sequence[int], m: int, scalar_bytes: int = 4,
       unless another CTA runs.  A complex cell takes 16 B, so the same cap
       picks smaller blocks than for real values.
     """
-    ncoef = m + 4
+    if ncoef is None:
+        ncoef = m + 4
     D = len(shape_over)
     if D == 1:
         n = shape_over[0]

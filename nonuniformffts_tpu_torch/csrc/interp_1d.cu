@@ -12,7 +12,8 @@
 // padded block out of the grid, the kernel contracted it with a dense
 // weight matrix on the MXU, and a masked sort restored input order.  Here:
 //
-// - One thread per bin-sorted point: its 2M taps (Horner in T, window.cuh)
+// - One thread per bin-sorted point: its 2M taps (Horner in T, window.cuh,
+//   or read from the window-weights kernel's output for the other windows)
 //   and wrapped indices live in registers, and it reads the 2M cells of
 //   each transform from the grid with periodic wrap (no halo copy);
 //   neighbouring threads read overlapping, mostly identical lines.
@@ -35,8 +36,8 @@ __global__ void __launch_bounds__(kThreads) interp_1d_kernel(
     const nufft::Value<T, NCOMP>* __restrict__ grid,
     const int* __restrict__ cells, const T* __restrict__ fracs,
     const long long* __restrict__ perm, const T* __restrict__ coefs,
-    nufft::Value<T, NCOMP>* __restrict__ out, long long np, int nchan,
-    int ncoef, int n0, double normfactor) {
+    const T* __restrict__ wtaps, nufft::Value<T, NCOMP>* __restrict__ out,
+    long long np, int nchan, int ncoef, int n0, double normfactor) {
   constexpr int S = 2 * M;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* cs = reinterpret_cast<T*>(smem_raw);  // (S, ncoef)
@@ -48,7 +49,7 @@ __global__ void __launch_bounds__(kThreads) interp_1d_kernel(
 
   T w[S];
   int ix[S];
-  nufft::window_taps<S>(cs, ncoef, fracs[j], w);
+  nufft::point_taps<S>(wtaps, cs, ncoef, fracs, np, j, 0, w);
   const int cx = cells[j] - (M - 1);
 #pragma unroll
   for (int t = 0; t < S; ++t) ix[t] = nufft::wrap_index(cx + t, n0);
@@ -73,7 +74,8 @@ __global__ void __launch_bounds__(kThreads) interp_1d_kernel(
 
 template <int M, typename T, int NCOMP>
 cudaError_t launch(const void* grid, const void* cells, const void* fracs,
-                   const void* perm, const void* coefs, void* out,
+                   const void* perm, const void* coefs,
+                   const void* wtaps, void* out,
                    long long np, int nchan, int ncoef, int n0,
                    double normfactor, cudaStream_t stream) {
   const size_t smem = sizeof(T) * 2 * M * ncoef;
@@ -82,6 +84,7 @@ cudaError_t launch(const void* grid, const void* cells, const void* fracs,
       static_cast<const nufft::Value<T, NCOMP>*>(grid),
       static_cast<const int*>(cells), static_cast<const T*>(fracs),
       static_cast<const long long*>(perm), static_cast<const T*>(coefs),
+      static_cast<const T*>(wtaps),
       static_cast<nufft::Value<T, NCOMP>*>(out), np, nchan, ncoef, n0,
       normfactor);
   return cudaGetLastError();
@@ -89,23 +92,19 @@ cudaError_t launch(const void* grid, const void* cells, const void* fracs,
 
 template <typename T, int NCOMP>
 int dispatch(const void* grid, const void* cells, const void* fracs,
-             const void* perm, const void* coefs, void* out, long long np,
+             const void* perm, const void* coefs,
+             const void* wtaps, void* out, long long np,
              int nchan, int m, int ncoef, int n0, double normfactor,
              void* stream) {
   if (np == 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NUFFT_INTERP_CASE(MM)                                              \
   case MM:                                                                 \
-    return (int)launch<MM, T, NCOMP>(grid, cells, fracs, perm, coefs, out, \
-                                     np, nchan, ncoef, n0, normfactor, s);
+    return (int)launch<MM, T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, \
+                                     out, np, nchan, ncoef, n0, normfactor, \
+                                     s);
   switch (m) {
-    NUFFT_INTERP_CASE(2)
-    NUFFT_INTERP_CASE(3)
-    NUFFT_INTERP_CASE(4)
-    NUFFT_INTERP_CASE(5)
-    NUFFT_INTERP_CASE(6)
-    NUFFT_INTERP_CASE(7)
-    NUFFT_INTERP_CASE(8)
+    NUFFT_FOR_EACH_M(NUFFT_INTERP_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -116,16 +115,19 @@ int dispatch(const void* grid, const void* cells, const void* fracs,
 
 // grid (nchan, n0) values (complex: re, im interleaved); cells (1, np) int32
 // and fracs (1, np) T in bin-sorted order; perm (np,) int64, the original
-// index of each sorted point; coefs (1, 2m, ncoef) T; out (nchan, np) values
+// index of each sorted point; coefs (1, 2m, ncoef) T, or ncoef = 0 and no
+// coefficients for a window other than kHorner, whose taps come in wtaps
+// (1, 2m, np) T (window_weights.cu), null for kHorner; out (nchan, np) values
 // in original point order.  T is float for *_f32, double for *_f64;
 // normfactor is a double for both.  Launches on `stream`, does not
 // synchronise, allocates nothing.
 #define NUFFT_INTERP_ENTRY(NAME, T, NCOMP)                                    \
   extern "C" int NAME(const void* grid, const void* cells, const void* fracs, \
-                      const void* perm, const void* coefs, void* out,         \
+                      const void* perm, const void* coefs,                    \
+                      const void* wtaps, void* out,              \
                       long long np, int nchan, int m, int ncoef, int n0,      \
                       double normfactor, void* stream) {                      \
-    return dispatch<T, NCOMP>(grid, cells, fracs, perm, coefs, out, np,       \
+    return dispatch<T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, out, np,  \
                               nchan, m, ncoef, n0, normfactor, stream);       \
   }
 

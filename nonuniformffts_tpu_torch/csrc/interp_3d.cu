@@ -19,10 +19,11 @@
 // - One thread per bin-sorted point.  Neighbouring threads hold points of
 //   the same block, so their windows overlap and the gathers share L1/L2
 //   lines.
-// - The thread evaluates its 2M y and z taps (Horner in T, window.cuh) and
-//   the wrapped y and z node indices into registers; the x loop stays
-//   rolled and evaluates one x tap per step, so no tap array is indexed at
-//   run time.  It gathers the (2M)^3 window of each transform from the
+// - The thread evaluates its 2M y and z taps (Horner in T, window.cuh, or
+//   reads them from the window-weights kernel's output for the other
+//   windows) and the wrapped y and z node indices into registers; the x loop
+//   stays rolled and takes one x tap per step, so no tap array is indexed
+//   at run time.  It gathers the (2M)^3 window of each transform from the
 //   global grid with periodic wrap, accumulates in T FMAs and multiplies by
 //   normfactor, passed as a double so that FP64 plans keep every bit.
 // - It writes out[c, perm[j]] directly: the un-permute is a scatter, with
@@ -41,13 +42,18 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int M, typename T, int NCOMP>
+// TAPS: the window's taps come in wtaps (window_weights.cu), else by
+// Horner's rule.  The two instantiations keep the Horner one's registers at
+// what it needs alone: one kernel for both took 172 registers at M = 4 in
+// 3D double, against 128, and halved the resident CTAs.
+template <int M, typename T, int NCOMP, bool TAPS>
 __global__ void __launch_bounds__(kThreads) interp_3d_kernel(
     const nufft::Value<T, NCOMP>* __restrict__ grid,
     const int* __restrict__ cells, const T* __restrict__ fracs,
     const long long* __restrict__ perm, const T* __restrict__ coefs,
-    nufft::Value<T, NCOMP>* __restrict__ out, long long np, int nchan,
-    int ncoef, int n0, int n1, int n2, double normfactor) {
+    const T* __restrict__ wtaps, nufft::Value<T, NCOMP>* __restrict__ out,
+    long long np, int nchan, int ncoef, int n0, int n1, int n2,
+    double normfactor) {
   constexpr int S = 2 * M;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* cs = reinterpret_cast<T*>(smem_raw);  // (3, S, ncoef)
@@ -60,9 +66,16 @@ __global__ void __launch_bounds__(kThreads) interp_3d_kernel(
 
   T wy[S], wz[S];
   int iy[S], iz[S];
-  nufft::window_taps<S>(cs + S * ncoef, ncoef, fracs[np + j], wy);
-  nufft::window_taps<S>(cs + 2 * S * ncoef, ncoef, fracs[2 * np + j], wz);
-  const T zx = T(2) * fracs[j] - T(1);
+  if constexpr (TAPS) {
+#pragma unroll
+    for (int t = 0; t < S; ++t) {
+      wy[t] = wtaps[(S + t) * np + j];
+      wz[t] = wtaps[(2 * S + t) * np + j];
+    }
+  } else {
+    nufft::horner_taps<S>(cs + S * ncoef, ncoef, fracs[np + j], wy);
+    nufft::horner_taps<S>(cs + 2 * S * ncoef, ncoef, fracs[2 * np + j], wz);
+  }
   const int cx = cells[j] - (M - 1);
   const int cy = cells[np + j] - (M - 1);
   const int cz = cells[2 * np + j] - (M - 1);
@@ -71,6 +84,7 @@ __global__ void __launch_bounds__(kThreads) interp_3d_kernel(
     iy[t] = nufft::wrap_index(cy + t, n1);
     iz[t] = nufft::wrap_index(cz + t, n2);
   }
+  const T fx = fracs[j];
   const long long dest = perm[j];
   const long long volume = (long long)n0 * n1 * n2;
   const T nf = T(normfactor);
@@ -82,7 +96,12 @@ __global__ void __launch_bounds__(kThreads) interp_3d_kernel(
     // from M = 6 on and takes minutes to compile at M = 8.
 #pragma unroll 1
     for (int a = 0; a < S; ++a) {
-      const T wx = nufft::horner_tap(cs + a * ncoef, ncoef, zx);
+      T wx;
+      if constexpr (TAPS) {
+        wx = wtaps[a * np + j];
+      } else {
+        wx = nufft::horner_tap(cs + a * ncoef, ncoef, T(2) * fx - T(1));
+      }
       const long long xrow = (long long)nufft::wrap_index(cx + a, n0) * n1;
       T ax[NCOMP] = {};
 #pragma unroll
@@ -110,15 +129,19 @@ __global__ void __launch_bounds__(kThreads) interp_3d_kernel(
 
 template <int M, typename T, int NCOMP>
 cudaError_t launch(const void* grid, const void* cells, const void* fracs,
-                   const void* perm, const void* coefs, void* out,
+                   const void* perm, const void* coefs,
+                   const void* wtaps, void* out,
                    long long np, int nchan, int ncoef, int n0, int n1, int n2,
                    double normfactor, cudaStream_t stream) {
   const size_t smem = sizeof(T) * 3 * 2 * M * ncoef;
   const long long nblocks = (np + kThreads - 1) / kThreads;
-  interp_3d_kernel<M, T, NCOMP><<<(unsigned)nblocks, kThreads, smem, stream>>>(
+  auto kernel = wtaps ? interp_3d_kernel<M, T, NCOMP, true>
+                      : interp_3d_kernel<M, T, NCOMP, false>;
+  kernel<<<(unsigned)nblocks, kThreads, smem, stream>>>(
       static_cast<const nufft::Value<T, NCOMP>*>(grid),
       static_cast<const int*>(cells), static_cast<const T*>(fracs),
       static_cast<const long long*>(perm), static_cast<const T*>(coefs),
+      static_cast<const T*>(wtaps),
       static_cast<nufft::Value<T, NCOMP>*>(out), np, nchan, ncoef, n0, n1,
       n2, normfactor);
   return cudaGetLastError();
@@ -126,24 +149,19 @@ cudaError_t launch(const void* grid, const void* cells, const void* fracs,
 
 template <typename T, int NCOMP>
 int dispatch(const void* grid, const void* cells, const void* fracs,
-             const void* perm, const void* coefs, void* out, long long np,
+             const void* perm, const void* coefs,
+             const void* wtaps, void* out, long long np,
              int nchan, int m, int ncoef, int n0, int n1, int n2,
              double normfactor, void* stream) {
   if (np == 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NUFFT_INTERP_CASE(MM)                                               \
   case MM:                                                                  \
-    return (int)launch<MM, T, NCOMP>(grid, cells, fracs, perm, coefs, out,  \
-                                     np, nchan, ncoef, n0, n1, n2,          \
+    return (int)launch<MM, T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, \
+                                     out, np, nchan, ncoef, n0, n1, n2,     \
                                      normfactor, s);
   switch (m) {
-    NUFFT_INTERP_CASE(2)
-    NUFFT_INTERP_CASE(3)
-    NUFFT_INTERP_CASE(4)
-    NUFFT_INTERP_CASE(5)
-    NUFFT_INTERP_CASE(6)
-    NUFFT_INTERP_CASE(7)
-    NUFFT_INTERP_CASE(8)
+    NUFFT_FOR_EACH_M(NUFFT_INTERP_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -154,16 +172,19 @@ int dispatch(const void* grid, const void* cells, const void* fracs,
 
 // grid (nchan, n0, n1, n2) values (complex: re, im interleaved); cells
 // (3, np) int32 and fracs (3, np) T in bin-sorted order; perm (np,) int64,
-// the original index of each sorted point; coefs (3, 2m, ncoef) T; out
+// the original index of each sorted point; coefs (3, 2m, ncoef) T, or
+// ncoef = 0 and no coefficients for a window other than kHorner, whose taps
+// come in wtaps (3, 2m, np) T (window_weights.cu), null for kHorner; out
 // (nchan, np) values in original point order.  T is float for *_f32, double
 // for *_f64; normfactor is a double for both.  Launches on `stream`, does
 // not synchronise, allocates nothing.
 #define NUFFT_INTERP_ENTRY(NAME, T, NCOMP)                                    \
   extern "C" int NAME(const void* grid, const void* cells, const void* fracs, \
-                      const void* perm, const void* coefs, void* out,         \
+                      const void* perm, const void* coefs,                    \
+                      const void* wtaps, void* out,              \
                       long long np, int nchan, int m, int ncoef, int n0,      \
                       int n1, int n2, double normfactor, void* stream) {      \
-    return dispatch<T, NCOMP>(grid, cells, fracs, perm, coefs, out, np,       \
+    return dispatch<T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, out, np,  \
                               nchan, m, ncoef, n0, n1, n2, normfactor,        \
                               stream);                                        \
   }

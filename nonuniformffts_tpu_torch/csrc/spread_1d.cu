@@ -28,15 +28,17 @@
 //   atomics or a scan.
 // - Each thread then owns padded cells i (grid node origin - (M-1) + i) and
 //   sums, over local cells c in [i - 2M + 1, i] and their points j, the tap
-//   t = i - c of point j (Horner in T, window.cuh) times its value, in
-//   double registers (as K1: ROADMAP queue 3, P2).  Every (point, tap) pair
-//   is evaluated once, by the one thread that owns its cell: no
-//   shared-memory atomics, and a sum whose order does not depend on
+//   t = i - c of point j (Horner in T, window.cuh, or read from the
+//   window-weights kernel's output for the other windows, whose B-spline
+//   yields all 2M taps together) times its value, in double registers (as
+//   K1: ROADMAP queue 3, P2).  Every (point, tap) pair is evaluated (or
+//   read) once, by the one thread that owns its cell: no shared-memory
+//   atomics, and a sum whose order does not depend on
 //   scheduling.
 // - The thread rounds its sums to T and adds them into the global grid with
 //   periodic wrap and global atomicAdd (neighbouring blocks' halos overlap).
 //
-// What bounds it on the H100: at high density the Horner taps and the L1
+// What bounds it on the H100: at high density the taps and the L1
 // reads of the points (each point's value and fraction are read by the 2M
 // threads whose cells it reaches); at low density the per-block start table
 // and the flush.  Values, fractions, taps and coefficients are T, sums
@@ -60,8 +62,8 @@ template <int M, typename T, int NCOMP>
 __global__ void __launch_bounds__(kThreads) spread_1d_kernel(
     const nufft::Value<T, NCOMP>* __restrict__ vals, const int* __restrict__ cells,
     const T* __restrict__ fracs, const int* __restrict__ pstarts,
-    const T* __restrict__ coefs, T* __restrict__ grid, long long np,
-    int ncoef, int n0, int b0) {
+    const T* __restrict__ coefs, const T* __restrict__ wtaps,
+    T* __restrict__ grid, long long np, int ncoef, int n0, int b0) {
   constexpr int S = 2 * M;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* cs = reinterpret_cast<T*>(smem_raw);                  // (S, ncoef)
@@ -95,7 +97,7 @@ __global__ void __launch_bounds__(kThreads) spread_1d_kernel(
       const T* cst = cs + (i - c) * ncoef;  // tap i - c
       const int j_end = starts[c + 1];
       for (int j = starts[c]; j < j_end; ++j) {
-        const T w = nufft::horner_tap(cst, ncoef, T(2) * fracs[j] - T(1));
+        const T w = nufft::point_tap<S>(wtaps, cst, ncoef, fracs[j], np, j, 0, i - c);
         const nufft::Value<T, NCOMP> v = vrow[j];
 #pragma unroll
         for (int k = 0; k < NCOMP; ++k) acc[k] = nufft::fma_t(Acc(v.c[k]), Acc(w), acc[k]);
@@ -113,7 +115,8 @@ __global__ void __launch_bounds__(kThreads) spread_1d_kernel(
 
 template <int M, typename T, int NCOMP>
 cudaError_t launch(const void* vals, const void* cells, const void* fracs,
-                   const void* pstarts, const void* coefs, void* grid,
+                   const void* pstarts, const void* coefs, const void* wtaps,
+                   void* grid,
                    long long np, int nchan, int ncoef, int n0, int b0,
                    cudaStream_t stream) {
   const size_t smem = spread_smem_bytes<T>(M, ncoef, b0);
@@ -126,27 +129,23 @@ cudaError_t launch(const void* vals, const void* cells, const void* fracs,
       static_cast<const nufft::Value<T, NCOMP>*>(vals),
       static_cast<const int*>(cells), static_cast<const T*>(fracs),
       static_cast<const int*>(pstarts), static_cast<const T*>(coefs),
-      static_cast<T*>(grid), np, ncoef, n0, b0);
+      static_cast<const T*>(wtaps), static_cast<T*>(grid), np, ncoef, n0, b0);
   return cudaGetLastError();
 }
 
 template <typename T, int NCOMP>
 int dispatch(const void* vals, const void* cells, const void* fracs,
-             const void* pstarts, const void* coefs, void* grid, long long np,
-             int nchan, int m, int ncoef, int n0, int b0, void* stream) {
+             const void* pstarts, const void* coefs, const void* wtaps,
+             void* grid, long long np, int nchan, int m, int ncoef, int n0,
+             int b0, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NUFFT_SPREAD_CASE(MM)                                            \
   case MM:                                                               \
     return (int)launch<MM, T, NCOMP>(vals, cells, fracs, pstarts, coefs, \
-                                     grid, np, nchan, ncoef, n0, b0, s);
+                                     wtaps, grid, np, nchan, ncoef, n0, b0, \
+                                     s);
   switch (m) {
-    NUFFT_SPREAD_CASE(2)
-    NUFFT_SPREAD_CASE(3)
-    NUFFT_SPREAD_CASE(4)
-    NUFFT_SPREAD_CASE(5)
-    NUFFT_SPREAD_CASE(6)
-    NUFFT_SPREAD_CASE(7)
-    NUFFT_SPREAD_CASE(8)
+    NUFFT_FOR_EACH_M(NUFFT_SPREAD_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -157,16 +156,18 @@ int dispatch(const void* vals, const void* cells, const void* fracs,
 
 // vals (nchan, np) values in bin-sorted order (complex: re, im interleaved);
 // cells (1, np) int32 and fracs (1, np) T, sorted; pstarts (nblocks + 1,)
-// int32; coefs (1, 2m, ncoef) T; grid (nchan, n0) values, zeroed by the
-// caller.  T is float for *_f32, double for *_f64.  Launches on `stream`,
+// int32; coefs (1, 2m, ncoef) T, or ncoef = 0 and no coefficients for a
+// window other than kHorner, whose taps come in wtaps (1, 2m, np) T
+// (window_weights.cu), null for kHorner; grid (nchan, n0) values, zeroed by
+// the caller.  T is float for *_f32, double for *_f64.  Launches on `stream`,
 // does not synchronise, allocates nothing.
 #define NUFFT_SPREAD_ENTRY(NAME, T, NCOMP)                                    \
   extern "C" int NAME(const void* vals, const void* cells, const void* fracs, \
-                      const void* pstarts, const void* coefs, void* grid,     \
-                      long long np, int nchan, int m, int ncoef, int n0,      \
-                      int b0, void* stream) {                                 \
-    return dispatch<T, NCOMP>(vals, cells, fracs, pstarts, coefs, grid, np,   \
-                              nchan, m, ncoef, n0, b0, stream);               \
+                      const void* pstarts, const void* coefs,                 \
+                      const void* wtaps, void* grid, long long np, int nchan, \
+                      int m, int ncoef, int n0, int b0, void* stream) {       \
+    return dispatch<T, NCOMP>(vals, cells, fracs, pstarts, coefs, wtaps,      \
+                              grid, np, nchan, m, ncoef, n0, b0, stream);     \
   }
 
 #if NUFFT_WANT(0)

@@ -23,9 +23,10 @@
 //   memory, NCOMP planes of double, for float values too (as K1: ROADMAP
 //   queue 3, P2).
 // - Each warp takes one point at a time: its lanes evaluate the 2 x 2M taps
-//   (Horner in T, window.cuh) into a per-warp scratch, then split the (2M)^2
-//   (x, y) tap pairs among themselves and add v * wx * wy (formed in T) into
-//   shared memory with atomicAdd.  Lane q writes word (q / 2M) * pd1 +
+//   (Horner in T, window.cuh, or read from the window-weights kernel's
+//   output for the other windows) into a per-warp scratch, then split the
+//   (2M)^2 (x, y) tap pairs among themselves and add v * wx * wy (formed in
+//   T) into shared memory with atomicAdd.  Lane q writes word (q / 2M) * pd1 +
 //   q % 2M: distinct addresses within a warp, consecutive along y.
 // - The CTA then rounds its padded block, halo included, to T and adds it
 //   into the global grid with periodic wrap and global atomicAdd: no
@@ -35,7 +36,8 @@
 // point, compare-and-swap loops in SASS) and, at low density, the global
 // atomics of the flush.  The geometry chooser (blocking.py) keeps several
 // CTAs resident and the tap loop at two lanes a bank.  Values, fractions,
-// taps and coefficients are T, accumulators double; there is no TF32.
+// taps and coefficients are T, accumulators double; there is no TF32.  Only
+// a Horner window stages coefficients (ncoef > 0).
 #include <cstdint>
 
 #include "window.cuh"
@@ -58,8 +60,9 @@ template <int M, typename T, int NCOMP>
 __global__ void __launch_bounds__(kThreads) spread_2d_kernel(
     const nufft::Value<T, NCOMP>* __restrict__ vals, const int* __restrict__ cells,
     const T* __restrict__ fracs, const int* __restrict__ pstarts,
-    const T* __restrict__ coefs, T* __restrict__ grid, long long np,
-    int ncoef, int n0, int n1, int b0, int b1) {
+    const T* __restrict__ coefs, const T* __restrict__ wtaps,
+    T* __restrict__ grid, long long np, int ncoef, int n0, int n1, int b0,
+    int b1) {
   constexpr int S = 2 * M;
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
@@ -87,11 +90,7 @@ __global__ void __launch_bounds__(kThreads) spread_2d_kernel(
   const nufft::Value<T, NCOMP>* vrow = vals + (long long)chan * np;
 
   for (long long j = p_begin + warp; j < p_end; j += nwarps) {
-    for (int q = lane; q < 2 * S; q += 32) {
-      const int d = q / S;
-      const T z = T(2) * fracs[d * np + j] - T(1);
-      taps[q] = nufft::horner_tap(cs + q * ncoef, ncoef, z);
-    }
+    nufft::warp_taps<S, 2>(wtaps, cs, ncoef, fracs, np, j, lane, taps);
     __syncwarp();
     const int lx = cells[j] - ox;
     const int ly = cells[np + j] - oy;
@@ -131,7 +130,8 @@ __global__ void __launch_bounds__(kThreads) spread_2d_kernel(
 
 template <int M, typename T, int NCOMP>
 cudaError_t launch(const void* vals, const void* cells, const void* fracs,
-                   const void* pstarts, const void* coefs, void* grid,
+                   const void* pstarts, const void* coefs,
+                   const void* wtaps, void* grid,
                    long long np, int nchan, int ncoef, int n0, int n1, int b0,
                    int b1, cudaStream_t stream) {
   const size_t smem = spread_smem_bytes<T, NCOMP>(M, ncoef, b0, b1);
@@ -144,29 +144,25 @@ cudaError_t launch(const void* vals, const void* cells, const void* fracs,
       static_cast<const nufft::Value<T, NCOMP>*>(vals),
       static_cast<const int*>(cells), static_cast<const T*>(fracs),
       static_cast<const int*>(pstarts), static_cast<const T*>(coefs),
+      static_cast<const T*>(wtaps),
       static_cast<T*>(grid), np, ncoef, n0, n1, b0, b1);
   return cudaGetLastError();
 }
 
 template <typename T, int NCOMP>
 int dispatch(const void* vals, const void* cells, const void* fracs,
-             const void* pstarts, const void* coefs, void* grid, long long np,
+             const void* pstarts, const void* coefs,
+             const void* wtaps, void* grid, long long np,
              int nchan, int m, int ncoef, int n0, int n1, int b0, int b1,
              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NUFFT_SPREAD_CASE(MM)                                                \
   case MM:                                                                   \
     return (int)launch<MM, T, NCOMP>(vals, cells, fracs, pstarts, coefs,     \
-                                     grid, np, nchan, ncoef, n0, n1, b0, b1, \
-                                     s);
+                                     wtaps, grid, np, nchan, ncoef, n0, n1,   \
+                                     b0, b1, s);
   switch (m) {
-    NUFFT_SPREAD_CASE(2)
-    NUFFT_SPREAD_CASE(3)
-    NUFFT_SPREAD_CASE(4)
-    NUFFT_SPREAD_CASE(5)
-    NUFFT_SPREAD_CASE(6)
-    NUFFT_SPREAD_CASE(7)
-    NUFFT_SPREAD_CASE(8)
+    NUFFT_FOR_EACH_M(NUFFT_SPREAD_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -177,16 +173,20 @@ int dispatch(const void* vals, const void* cells, const void* fracs,
 
 // vals (nchan, np) values in bin-sorted order (complex: re, im interleaved);
 // cells (2, np) int32 and fracs (2, np) T, sorted; pstarts (nblocks + 1,)
-// int32; coefs (2, 2m, ncoef) T; grid (nchan, n0, n1) values, zeroed by the
-// caller.  T is float for *_f32, double for *_f64.  Launches on `stream`,
-// does not synchronise, allocates nothing.
+// int32; coefs (2, 2m, ncoef) T, or ncoef = 0 and no coefficients for a
+// window other than kHorner, whose taps come in wtaps (D, 2m, np) T
+// (window_weights.cu), null for kHorner;
+// grid (nchan, n0, n1) values, zeroed by the caller.  T is float for *_f32,
+// double for *_f64.  Launches on `stream`, does not synchronise, allocates
+// nothing.
 #define NUFFT_SPREAD_ENTRY(NAME, T, NCOMP)                                    \
   extern "C" int NAME(const void* vals, const void* cells, const void* fracs, \
-                      const void* pstarts, const void* coefs, void* grid,     \
+                      const void* pstarts, const void* coefs,                 \
+                      const void* wtaps, void* grid,             \
                       long long np, int nchan, int m, int ncoef, int n0,      \
                       int n1, int b0, int b1, void* stream) {                 \
-    return dispatch<T, NCOMP>(vals, cells, fracs, pstarts, coefs, grid, np,   \
-                              nchan, m, ncoef, n0, n1, b0, b1, stream);       \
+    return dispatch<T, NCOMP>(vals, cells, fracs, pstarts, coefs, wtaps, grid,  \
+                              np, nchan, m, ncoef, n0, n1, b0, b1, stream);   \
   }
 
 #if NUFFT_WANT(0)

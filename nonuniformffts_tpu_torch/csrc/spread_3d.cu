@@ -27,8 +27,9 @@
 //   against 1.5e-6 for the JAX package's float32 kernels, which sum each
 //   128-point batch inside one matmul (ROADMAP queue 3, P2).
 // - Each warp takes one point at a time.  Its lanes evaluate the 3 x 2M taps
-//   (Horner in T, window.cuh) into a per-warp scratch, then split the (2M)^2
-//   (y, z) tap pairs among themselves and walk the 2M x taps, adding
+//   (Horner in T, window.cuh, or read from the window-weights kernel's
+//   output for the other windows) into a per-warp scratch, then split the
+//   (2M)^2 (y, z) tap pairs among themselves and walk the 2M x taps, adding
 //   v * wx * wy * wz (formed in T) into shared memory with atomicAdd.
 //   Lanes of one warp write distinct addresses, consecutive along z.
 // - The CTA then rounds its padded block, halo included, to T and adds it
@@ -45,7 +46,8 @@
 // takes twice a float one's shared memory, so the geometry chooser
 // (blocking.py) takes smaller blocks to keep several CTAs resident.
 // Values, fractions, taps and coefficients are T, accumulators double;
-// cells are int32.  There is no TF32 anywhere.
+// cells are int32.  There is no TF32 anywhere.  Only a Horner window stages
+// coefficients (ncoef > 0); the others read their taps (wtaps).
 #include <cstdint>
 
 #include "window.cuh"
@@ -68,8 +70,9 @@ template <int M, typename T, int NCOMP>
 __global__ void __launch_bounds__(kThreads) spread_3d_kernel(
     const nufft::Value<T, NCOMP>* __restrict__ vals, const int* __restrict__ cells,
     const T* __restrict__ fracs, const int* __restrict__ pstarts,
-    const T* __restrict__ coefs, T* __restrict__ grid, long long np,
-    int ncoef, int n0, int n1, int n2, int b0, int b1, int b2) {
+    const T* __restrict__ coefs, const T* __restrict__ wtaps,
+    T* __restrict__ grid, long long np, int ncoef, int n0, int n1, int n2,
+    int b0, int b1, int b2) {
   constexpr int S = 2 * M;
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
@@ -99,11 +102,7 @@ __global__ void __launch_bounds__(kThreads) spread_3d_kernel(
   const nufft::Value<T, NCOMP>* vrow = vals + (long long)chan * np;
 
   for (long long j = p_begin + warp; j < p_end; j += nwarps) {
-    for (int q = lane; q < 3 * S; q += 32) {
-      const int d = q / S;
-      const T z = T(2) * fracs[d * np + j] - T(1);
-      taps[q] = nufft::horner_tap(cs + q * ncoef, ncoef, z);
-    }
+    nufft::warp_taps<S, 3>(wtaps, cs, ncoef, fracs, np, j, lane, taps);
     __syncwarp();
     const int lx = cells[j] - ox;
     const int ly = cells[np + j] - oy;
@@ -155,7 +154,8 @@ __global__ void __launch_bounds__(kThreads) spread_3d_kernel(
 
 template <int M, typename T, int NCOMP>
 cudaError_t launch(const void* vals, const void* cells, const void* fracs,
-                   const void* pstarts, const void* coefs, void* grid,
+                   const void* pstarts, const void* coefs,
+                   const void* wtaps, void* grid,
                    long long np, int nchan, int ncoef, int n0, int n1, int n2,
                    int b0, int b1, int b2, cudaStream_t stream) {
   const size_t smem = spread_smem_bytes<T, NCOMP>(M, ncoef, b0, b1, b2);
@@ -168,29 +168,25 @@ cudaError_t launch(const void* vals, const void* cells, const void* fracs,
       static_cast<const nufft::Value<T, NCOMP>*>(vals),
       static_cast<const int*>(cells), static_cast<const T*>(fracs),
       static_cast<const int*>(pstarts), static_cast<const T*>(coefs),
+      static_cast<const T*>(wtaps),
       static_cast<T*>(grid), np, ncoef, n0, n1, n2, b0, b1, b2);
   return cudaGetLastError();
 }
 
 template <typename T, int NCOMP>
 int dispatch(const void* vals, const void* cells, const void* fracs,
-             const void* pstarts, const void* coefs, void* grid, long long np,
+             const void* pstarts, const void* coefs,
+             const void* wtaps, void* grid, long long np,
              int nchan, int m, int ncoef, int n0, int n1, int n2, int b0,
              int b1, int b2, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NUFFT_SPREAD_CASE(MM)                                                \
   case MM:                                                                   \
     return (int)launch<MM, T, NCOMP>(vals, cells, fracs, pstarts, coefs,     \
-                                     grid, np, nchan, ncoef, n0, n1, n2, b0, \
-                                     b1, b2, s);
+                                     wtaps, grid, np, nchan, ncoef, n0, n1,   \
+                                     n2, b0, b1, b2, s);
   switch (m) {
-    NUFFT_SPREAD_CASE(2)
-    NUFFT_SPREAD_CASE(3)
-    NUFFT_SPREAD_CASE(4)
-    NUFFT_SPREAD_CASE(5)
-    NUFFT_SPREAD_CASE(6)
-    NUFFT_SPREAD_CASE(7)
-    NUFFT_SPREAD_CASE(8)
+    NUFFT_FOR_EACH_M(NUFFT_SPREAD_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -201,16 +197,20 @@ int dispatch(const void* vals, const void* cells, const void* fracs,
 
 // vals (nchan, np) values in bin-sorted order (complex: re, im interleaved);
 // cells (3, np) int32 and fracs (3, np) T, sorted; pstarts (nblocks + 1,)
-// int32; coefs (3, 2m, ncoef) T; grid (nchan, n0, n1, n2) values, zeroed by
-// the caller.  T is float for *_f32, double for *_f64.  Launches on
-// `stream`, does not synchronise, allocates nothing.
+// int32; coefs (3, 2m, ncoef) T, or ncoef = 0 and no coefficients for a
+// window other than kHorner, whose taps come in wtaps (D, 2m, np) T
+// (window_weights.cu), null for kHorner;
+// grid (nchan, n0, n1, n2) values, zeroed by the caller.  T is float for
+// *_f32, double for *_f64.  Launches on `stream`, does not synchronise,
+// allocates nothing.
 #define NUFFT_SPREAD_ENTRY(NAME, T, NCOMP)                                    \
   extern "C" int NAME(const void* vals, const void* cells, const void* fracs, \
-                      const void* pstarts, const void* coefs, void* grid,     \
+                      const void* pstarts, const void* coefs,                 \
+                      const void* wtaps, void* grid,             \
                       long long np, int nchan, int m, int ncoef, int n0,      \
                       int n1, int n2, int b0, int b1, int b2, void* stream) { \
-    return dispatch<T, NCOMP>(vals, cells, fracs, pstarts, coefs, grid, np,   \
-                              nchan, m, ncoef, n0, n1, n2, b0, b1, b2,        \
+    return dispatch<T, NCOMP>(vals, cells, fracs, pstarts, coefs, wtaps, grid,  \
+                              np, nchan, m, ncoef, n0, n1, n2, b0, b1, b2,    \
                               stream);                                        \
   }
 

@@ -313,6 +313,62 @@ def eval_window_frac(kd: KernelData, evalmode: EvaluationMode, X: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# The window as the CUDA kernels read it
+# ---------------------------------------------------------------------------
+
+#: The kernels' tap evaluators (``csrc/window.cuh:WindowKind``): Horner on
+#: the piecewise-polynomial coefficients for (B)KB FastApproximation, the
+#: direct (B)KB formulas, one exp per node for the Gaussian in both modes,
+#: de Boor for the B-spline in both modes.
+WINDOW_KINDS = {"horner": 0, "kb_direct": 1, "bkb_direct": 2, "gaussian": 3,
+                "bspline": 4}
+
+
+def window_evaluator(kd: KernelData, evalmode: EvaluationMode) -> str:
+    """The key of ``WINDOW_KINDS`` that evaluates ``kd`` in ``evalmode``."""
+    if kd.kind in ("kb", "bkb"):
+        return "horner" if isinstance(evalmode, FastApproximation) else f"{kd.kind}_direct"
+    if kd.kind in ("gaussian", "bspline"):
+        return kd.kind
+    raise ValueError(f"unknown kernel kind {kd.kind}")
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowPack:
+    """The per-dimension scalars of a plan's window that the window-weights
+    kernel reads (``csrc/window.cuh:WindowParams``), as Python floats; it
+    rounds them to its scalar type.  ``kind`` indexes ``WINDOW_KINDS``."""
+
+    kind: int
+    beta: tuple
+    inv_peak: tuple
+    pref: tuple  # BKB Direct: beta / (-expm1(-2 beta) / 2)
+    exp_mbeta: tuple  # BKB Direct: e^-beta, the value at beta s == 0
+    inv_tau: tuple  # Gaussian
+    dx: tuple
+
+
+def window_pack(kernel_data, evalmode: EvaluationMode) -> WindowPack:
+    """The window scalars of every dimension of a plan (all dims share one
+    kernel family and mode)."""
+    kinds = {window_evaluator(kd, evalmode) for kd in kernel_data}
+    if len(kinds) != 1:
+        raise ValueError(f"dimensions disagree on the window: {sorted(kinds)}")
+    bkb = [kd.kind == "bkb" for kd in kernel_data]
+    return WindowPack(
+        kind=WINDOW_KINDS[kinds.pop()],
+        beta=tuple(float(kd.beta) for kd in kernel_data),
+        inv_peak=tuple(1.0 / kd.peak for kd in kernel_data),
+        pref=tuple(kd.beta / (-0.5 * math.expm1(-2.0 * kd.beta)) if b else 0.0
+                   for kd, b in zip(kernel_data, bkb)),
+        exp_mbeta=tuple(math.exp(-kd.beta) if b else 0.0
+                        for kd, b in zip(kernel_data, bkb)),
+        inv_tau=tuple(1.0 / kd.tau if kd.tau else 0.0 for kd in kernel_data),
+        dx=tuple(float(kd.dx) for kd in kernel_data),
+    )
+
+
+# ---------------------------------------------------------------------------
 # Fourier coefficients phi_hat(k)
 # ---------------------------------------------------------------------------
 

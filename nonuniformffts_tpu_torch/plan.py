@@ -21,11 +21,14 @@ from .ops import deconvolve, windows
 from .ops.kernels.blocked import check_kernel_support
 from .ops.kernels.common import VALUE_TYPES, coefficient_stack
 from .ops.windows import (
+    WINDOW_KINDS,
     AbstractKernel,
     BackwardsKaiserBesselKernel,
     EvaluationMode,
     FastApproximation,
     KernelData,
+    WindowPack,
+    window_pack,
 )
 from .utils.misc import next_fast_len
 
@@ -118,6 +121,11 @@ class Plan:
         if self.is_real:
             return self.shape_over[:-1] + (self.shape_over[-1] // 2 + 1,)
         return self.shape_over
+
+    @property
+    def window(self) -> WindowPack:
+        """The window's scalars as the CUDA kernels read them."""
+        return window_pack(self.kernel_data, self.evalmode)
 
     @property
     def num_points(self) -> Optional[int]:
@@ -307,7 +315,9 @@ def PlanNUFFT(
             )
         if block_dims is None:
             _, scalar_bytes, ncomp = VALUE_TYPES[tdtype]
-            block_dims = choose_geometry(shape_over, m, scalar_bytes, ncomp)
+            horner = window_pack(kernel_data, kernel_evalmode).kind == WINDOW_KINDS["horner"]
+            block_dims = choose_geometry(shape_over, m, scalar_bytes, ncomp,
+                                         ncoef=m + 4 if horner else 0)
         block_dims = tuple(int(b) for b in block_dims)
         if len(block_dims) != D:
             raise ValueError(f"block_dims {block_dims} must have {D} entries")

@@ -3,8 +3,10 @@ Kaiser-Bessel window's direct evaluation (src/Kernels/kaiser_bessel.jl:
 196-210).
 
 The JAX package also carries a Chebyshev form (``besseli0_poly``) for
-evaluation inside its Pallas kernels; the CUDA kernels do not evaluate the
-direct mode yet (ROADMAP queue 2, K3), so only the torch function is here.
+evaluation inside its Pallas kernels, because Mosaic cannot lower a Bessel
+primitive.  The CUDA kernels call the CUDA math library's
+``cyl_bessel_i0f`` / ``cyl_bessel_i0`` (``csrc/window.cuh``); this torch
+function is their plain twin.
 """
 
 from __future__ import annotations

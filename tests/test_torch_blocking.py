@@ -133,9 +133,12 @@ def test_spread_smem_bytes_by_dimension():
     (``csrc/spread_<D>d.cu:spread_smem_bytes``): 2D and 3D hold double
     accumulator planes over the padded block, the coefficient stack and 16
     warps' D x 2M taps; 1D holds the coefficients and an int32 start table
-    of B + 1 entries."""
+    of B + 1 entries.  A window without a coefficient stack (ncoef = 0)
+    stages none."""
     assert spread_smem_bytes((8, 8, 12), 4, 8, 4, 2) == 8 * 2 * 15 * 15 * 19 + 4 * (24 * 8 + 16 * 24)
     assert spread_smem_bytes((48, 96), 4, 8, 4, 2) == 8 * 2 * 55 * 103 + 4 * (16 * 8 + 16 * 16)
     assert spread_smem_bytes((48, 96), 4, 8, 8, 1) == 8 * 55 * 103 + 8 * (16 * 8 + 16 * 16)
+    assert spread_smem_bytes((48, 96), 4, 0, 8, 1) == 8 * 55 * 103 + 8 * 16 * 16
     assert spread_smem_bytes((1024,), 4, 8, 4, 2) == 4 * 8 * 8 + 4 * 1025
     assert spread_smem_bytes((1024,), 8, 12, 8, 1) == 8 * 16 * 12 + 4 * 1025
+    assert spread_smem_bytes((1024,), 10, 0, 8, 2) == 4 * 1025

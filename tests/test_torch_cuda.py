@@ -101,3 +101,64 @@ def test_kernels_match_plain_versions(cuda_device, shape, block_dims, m, dtype):
     assert g_k.dtype == g_p.dtype == plan.dtype
     assert _rel_err(g_k, g_p) <= tol
     assert _rel_err(v_k, v_p) <= tol
+
+
+WINDOWS = [
+    ("KaiserBesselKernel", "FastApproximation"),
+    ("KaiserBesselKernel", "Direct"),
+    ("BackwardsKaiserBesselKernel", "FastApproximation"),
+    ("BackwardsKaiserBesselKernel", "Direct"),
+    ("GaussianKernel", "FastApproximation"),
+    ("GaussianKernel", "Direct"),
+    ("BSplineKernel", "FastApproximation"),
+    ("BSplineKernel", "Direct"),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("m", [3, 10])
+@pytest.mark.parametrize("shape", [(24, 24, 24), (64, 48), (4096,)], ids=str)
+@pytest.mark.parametrize("window", WINDOWS, ids=lambda w: f"{w[0]}-{w[1]}")
+def test_window_kernels_match_plain_versions(cuda_device, window, shape, m, dtype):
+    """Every window in both modes, at m = 3 and m = 10 (sigma = 2), each
+    entry point against its plain version.  The plain fast Gaussian uses
+    fast Gaussian gridding, the kernels one exp per node: they agree to
+    rounding."""
+    rng = np.random.default_rng(m + 17)
+    D = len(shape)
+    kernel, mode = (getattr(tnufft, n)() for n in window)
+    plan = tnufft.PlanNUFFT(dtype, shape, m=m, sigma=2.0, ntransforms=2, kernel=kernel,
+                            kernel_evalmode=mode, spread_method="blocked",
+                            device=cuda_device)
+    real = np.dtype(dtype).type(0).real.dtype
+    pts = rng.uniform(-1.0, 7.0, (D, 5_000)).astype(real)
+    pts[:, :20] = np.nextafter(real.type(2 * np.pi), real.type(0))
+    plan = tnufft.set_points(plan, torch.from_numpy(pts).to(cuda_device))
+    vp = torch.from_numpy(_values(rng, dtype, (2, 5_000))).to(cuda_device)
+    grid = torch.from_numpy(_values(rng, dtype, (2,) + plan.shape_over)).to(cuda_device)
+    spread = blocked.entry_point("spread", plan)
+    interp = blocked.entry_point("interp", plan)
+    weights = blocked.WEIGHTS_ENTRY[plan.real_dtype]
+    horner = blocked.kernel_coefs(plan)[0] is not None
+    before = dict(blocked.LAUNCHES)
+    g_k = blocked.spread_blocked(plan, vp)
+    v_k = blocked.interpolate_blocked(plan, grid)
+    torch.cuda.synchronize()
+    assert blocked.LAUNCHES[spread] == before[spread] + 1
+    assert blocked.LAUNCHES[interp] == before[interp] + 1
+    assert blocked.LAUNCHES[weights] == before[weights] + (0 if horner else 2)
+    g_p = blocked.spread_blocked_plain(plan, vp)
+    v_p = blocked.interpolate_blocked_plain(plan, grid)
+    tol = KERNEL_TOL[np.dtype(real).itemsize]
+    assert torch.isfinite(torch.view_as_real(g_k) if g_k.is_complex() else g_k).all()
+    assert _rel_err(g_k, g_p) <= tol
+    assert _rel_err(v_k, v_p) <= tol
+    if not horner:  # K3 against its plain version, the kernels' tap twin
+        w_k = blocked.window_weights_blocked(plan)
+        assert w_k.shape == (D, 2 * m, 5_000)
+        assert _rel_err(w_k, blocked.window_weights_blocked_plain(plan)) <= tol
+
+
+def test_m_above_10_raises(cuda_device):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tnufft.PlanNUFFT(np.complex64, (64, 64), m=11, sigma=2.0, device=cuda_device)

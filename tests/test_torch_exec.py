@@ -202,16 +202,20 @@ def test_unported_surface_raises():
     cb = tnufft.NUFFTCallbacks(uniform=lambda w, i: w)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tnufft.exec_type1(plan, np.zeros(3, np.complex64), callbacks=cb)
-    # The CUDA kernels take 1-3D (B)KB FastApproximation plans only.
+    # The CUDA kernels take 1-3D plans of every window in both modes, m up
+    # to 10; m = 11 is refused naming ROADMAP.
     for dtype, shape in ((np.float64, (16, 16)), (np.float32, (40,))):
         blocked.check_kernel_support(tnufft.PlanNUFFT(
             dtype, shape, spread_method="blocked", device="cpu"))
     for dtype, shape, kw in ((np.complex128, (8, 8, 8), dict(kernel_evalmode=tnufft.Direct())),
                              (np.float64, (16, 16), dict(kernel_evalmode=tnufft.Direct())),
-                             (np.complex64, (40,), dict(kernel=tnufft.GaussianKernel()))):
-        p = tnufft.PlanNUFFT(dtype, shape, spread_method="blocked", device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            blocked.check_kernel_support(p)
+                             (np.complex64, (40,), dict(kernel=tnufft.GaussianKernel())),
+                             (np.float32, (40,), dict(kernel=tnufft.BSplineKernel(), m=10))):
+        blocked.check_kernel_support(tnufft.PlanNUFFT(
+            dtype, shape, spread_method="blocked", device="cpu", **kw))
+    p = tnufft.PlanNUFFT(np.complex64, (40,), m=11, spread_method="blocked", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        blocked.check_kernel_support(p)
     if torch.cuda.is_available():
         assert tnufft.PlanNUFFT(np.complex64, (16,)).device.type == "cuda"
     else:

@@ -44,6 +44,10 @@ _DRIVE = textwrap.dedent("""
         u = nufft.exec_type1(plan, v)
         assert tuple(u.shape) == plan.spectral_shape
         assert nufft.exec_type2(plan, u).dtype == plan.dtype
+    for window in sorted(nufft.WINDOWS):
+        p = nufft.plan_nfft(rng.uniform(-0.5, 0.5, (2, 30)), (8, 8), window=window,
+                            reltol=1e-6, device="cpu", spread_method="blocked")
+        assert tuple((p.H @ (p @ np.ones((8, 8), np.complex128))).shape) == (8, 8)
     bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not bad, bad
     print("ISOLATED OK")

@@ -83,7 +83,7 @@ def test_blocked_wrappers_on_cpu_run_plain_versions(dtype):
     blocked.reset_launch_counts()
     grid = blocked.spread_blocked(tp, torch.from_numpy(v))
     vals = blocked.interpolate_blocked(tp, torch.from_numpy(g))
-    assert len(blocked.LAUNCHES) == 24 and not any(blocked.LAUNCHES.values())
+    assert len(blocked.LAUNCHES) == 26 and not any(blocked.LAUNCHES.values())
     want_g = j_spread(jp.kernel_data, jp.evalmode, jp.shape_over,
                       jnp.asarray(pts), jnp.asarray(v))
     want_v = j_interp(jp.kernel_data, jp.evalmode, jnp.asarray(g),
@@ -113,15 +113,18 @@ def test_coefficient_stack_matches_jax():
 
 
 def test_kernel_support_checks():
-    """What the CUDA kernels do not take is refused, not run elsewhere."""
+    """What the CUDA kernels do not take is refused, not run elsewhere:
+    the Direct mode and m = 10 are taken, m = 11 raises naming ROADMAP."""
     tp = tnufft.PlanNUFFT(np.complex64, (16, 16, 16), m=4, sigma=1.5,
                           spread_method="blocked", device="cpu")
     blocked.check_kernel_support(tp)
+    blocked.check_kernel_support(dataclasses.replace(tp, evalmode=tnufft.Direct()))
+    blocked.check_kernel_support(tnufft.PlanNUFFT(
+        np.complex64, (16, 16, 16), m=10, sigma=2.0, spread_method="blocked", device="cpu"))
     bad = [
         (dataclasses.replace(tp, shape=(16,) * 4), NotImplementedError, "4D"),
         (dataclasses.replace(tp, dtype=torch.bfloat16), NotImplementedError, "bfloat16"),
-        (dataclasses.replace(tp, evalmode=tnufft.Direct()), NotImplementedError, "FastApprox"),
-        (dataclasses.replace(tp, m=9), NotImplementedError, "m in 2..8"),
+        (dataclasses.replace(tp, m=11), NotImplementedError, "m in 2..10.*ROADMAP"),
         (dataclasses.replace(tp, block_dims=(24, 24, 24)), ValueError, "shared memory"),
     ]
     for plan, exc, match in bad:
