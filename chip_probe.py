@@ -20,6 +20,14 @@ registers) replaced: a shared-memory accumulator with the warp's lanes over
 kernel is written below, built by this script with nvcc into
 ``build/chip_probe/`` and used nowhere else; ``"scatter_ms"`` in the JSON
 line.  Needs one CUDA device; exits non-zero without one.
+
+    python3 chip_probe.py --gloo
+
+instead asks which ``torch.distributed`` calls the gloo backend runs on CUDA
+tensors: two gloo ranks on cuda:0 try each call on CUDA tensors and print
+whether it ran and gave the right values, or the error it raised
+(``nonuniformffts_tpu_torch/parallel/comm.py:GLOO_CUDA_OPS`` is read from
+it; the library itself decides by the backend's name, never by an error).
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import json
 import math
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -139,6 +148,94 @@ def _scatter(lib, plan, vp):
     return grid
 
 
+GLOO_CALLS = ("all_to_all_single", "all_reduce", "all_gather", "all_gather_into_tensor",
+              "broadcast", "send_recv", "batch_isend_irecv", "reduce_scatter_tensor")
+
+
+def _gloo_call(call: str, rank: int) -> bool:
+    """Run one torch.distributed call on CUDA tensors between two ranks;
+    whether the result is right."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    base = torch.arange(8, dtype=torch.float64, device=dev)
+    x, peer = base + 100 * rank, 1 - rank
+    if call == "all_to_all_single":
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        return torch.equal(out, torch.cat([base[4 * rank : 4 * rank + 4] + 100 * s
+                                           for s in range(2)]))
+    if call == "all_reduce":
+        dist.all_reduce(x)
+        return torch.equal(x, 2 * base + 100)
+    if call == "all_gather":
+        outs = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(outs, x)
+        return all(torch.equal(o, base + 100 * s) for s, o in enumerate(outs))
+    if call == "all_gather_into_tensor":
+        out = torch.empty(16, dtype=x.dtype, device=dev)
+        dist.all_gather_into_tensor(out, x)
+        return torch.equal(out, torch.cat([base, base + 100]))
+    if call == "broadcast":
+        dist.broadcast(x, 0)
+        return torch.equal(x, base)
+    if call == "send_recv":
+        if rank == 0:
+            dist.send(x, 1)
+            return True
+        y = torch.empty_like(x)
+        dist.recv(y, 0)
+        return torch.equal(y, base)
+    if call == "batch_isend_irecv":
+        y = torch.empty_like(x)
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer),
+                                           dist.P2POp(dist.irecv, y, peer)]):
+            req.wait()
+        return torch.equal(y, base + 100 * peer)
+    out = torch.empty(4, dtype=x.dtype, device=dev)  # reduce_scatter_tensor
+    dist.reduce_scatter_tensor(out, x)
+    return torch.equal(out, 2 * base[4 * rank : 4 * rank + 4] + 100)
+
+
+def _gloo_rank(rank: int, call: str, rdv: str) -> None:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=30))
+    try:
+        ok = _gloo_call(call, rank)
+        torch.cuda.synchronize()
+        print(f"  gloo {call} rank {rank}: {'ran, right' if ok else 'ran, WRONG'}", flush=True)
+    except RuntimeError as e:  # what this probe asks
+        print(f"  gloo {call} rank {rank}: {type(e).__name__}: {str(e)[:160]}", flush=True)
+    dist.destroy_process_group()
+
+
+def probe_gloo() -> None:
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    for call in GLOO_CALLS:
+        with tempfile.TemporaryDirectory() as tmp:
+            ctx = mp.start_processes(_gloo_rank, args=(call, f"{tmp}/rendezvous"), nprocs=2,
+                                     join=False, start_method="spawn")
+            deadline = time.monotonic() + 90
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                    print(f"  gloo {call}: no answer in 90 s", flush=True)
+                    break
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -146,6 +243,8 @@ def main(argv=None) -> int:
     parser.add_argument("--np", type=int, nargs="+", default=None)
     parser.add_argument("--dtype", nargs="+",
                         default=["complex64", "complex128", "float32", "float64"])
+    parser.add_argument("--gloo", action="store_true",
+                        help="probe which gloo calls take CUDA tensors, and stop")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
 
@@ -153,6 +252,9 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is False: this script needs a GPU")
+    if args.gloo:
+        probe_gloo()
+        return 0
 
     import nonuniformffts_tpu_torch as nufft
     from chip_smoke import cuda_time_ms, nvidia_smi_line, rel_l2

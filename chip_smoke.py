@@ -47,7 +47,25 @@ Phases, in order; the first failure raises and the script exits non-zero:
     16,777,216 points in [-1/2, 1/2)^3, complex128, the default reltol 1e-9
     (m = 6, sigma = 2), windows kaiser_bessel, gauss and spline: forward and
     adjoint times, and their errors against exact NFFT-convention sums at
-    4,096 points and 64 modes.
+    4,096 points and 64 modes;
+13. the two multi-device modes (``nonuniformffts_tpu_torch.parallel``) at
+    N = 256^3, m = 4, sigma = 1.5, BKB FastApproximation, 16,777,216 uniform
+    points: first K8a / K8b (``csrc/relayout.cu``) against their plain
+    versions at the spatial run's transpose shapes, complex64 and
+    complex128, bit for bit, timed beside the library call that computes
+    the same copy; then four gloo ranks spawned on the one card (cuda:0)
+    drive ``SpatialNUFFT`` (n = 4, complex64 and complex128;
+    ``capacity_factor=1.25``), the same at n = 2 on a two-rank group
+    (complex64), and ``exec_type{1,2}_sharded`` (n = 4, complex64); then
+    ``SpatialNUFFT`` on an NCCL group of one rank in this process.  Each
+    row: set_points / exec_type1 / exec_type2 (CUDA-event medians of 3 after
+    one warm-up, per rank), the host time of one more call with the time
+    in collectives, launch counts per rank (K1, K2, K8a and K8b must each
+    launch on the spatial path), err1 / err2 against exact sums, agreement
+    with the single-card plan on the same points (<= 1e-5 complex64,
+    <= 1e-12 complex128), and which collectives went through host memory.
+    The ranks share one card: the times are the port's per-rank cost plus
+    gloo's host transport, not a scaling result.
 
 Each main-path row sets every launch count to 0 just before it drives the
 path and reads the counts just after; a kernel of the path that was not
@@ -57,12 +75,14 @@ float32-accumulation diagnostic (ROADMAP queue 3, P2) re-spreads the
 complex64 rho = 1 row's own float32 values and fractions, widened to
 float64, with the float64 kernel and a Z2Z FFT, and prints that err1 beside
 the float32 err1 of three calls.  The line before the last is one JSON
-object with each of the 26 kernel entry points (24 spread and
-interpolation, two window-weights): launches on its main path, its error
-against its plain version, both times, the least time the card could take
-for the same work (``bound_ms``) and what bounds it, and a ``windows`` map
-with the same numbers under each window mode and m of phases 10-11; the
-last line is ``{"ok": true, "device": {...}}``.
+object with each of the 30 kernel entry points (24 spread and
+interpolation, two window-weights, four relayouts): launches on its main
+path, its error against its plain version, both times, the least time the
+card could take for the same work (``bound_ms``) and what bounds it, the
+library call's time (``library_ms``, the relayouts only), a ``windows`` map
+with the same numbers under each window mode and m of phases 10-11, and
+for the relayouts a ``shapes`` map; the last line is ``{"ok": true,
+"device": {...}}``.
 
 Tolerances: kernels against plain versions <= 1e-5 relative L2 in float32
 (atomics add in a run-dependent order; ~1e-7 expected) and <= 1e-12 in
@@ -109,6 +129,10 @@ ACC_SHAPES, NP_ACC = ((64,) * 3, (256, 256), (4096,)), 200_000  # phase 5
 SIGMA_W = 2.0  # phases 10-12
 NP_M10, M10_SHAPES = 50_000, ((32,) * 3, (128, 128), (4096,))  # phase 11
 NFFT_RELTOL, NP_NFFT = 1e-9, 16_777_216  # phase 12
+# Phase 13: the spatial run's points, ranks, lane slack, repetitions, and
+# the agreement with the single-card plan by the bytes of a real scalar.
+NP_SPATIAL, SPATIAL_RANKS, SPATIAL_CAPACITY, SPATIAL_REPS = 16_777_216, 4, 1.25, 3
+SPATIAL_AGREE = {8: 1e-5, 16: 1e-12}
 REPS = 5
 ERR_MODES = 64
 ERR_POINTS = 4096
@@ -141,6 +165,11 @@ KERNELS = {
     **{f"nufft_window_weights_{t}": dict(source=f"{_CSRC}/window_weights.cu",
                                          replaces="nonuniformffts_tpu/ops/pallas/common.py:120")
        for t in ("f32", "f64")},
+    # K8a / K8b: the block-interleave relayouts, the pack and unpack around
+    # the spatial mode's slab transposes.
+    **{f"nufft_relayout_to_{d}_{t}": dict(source=f"{_CSRC}/relayout.cu",
+                                          replaces=f"nonuniformffts_tpu/ops/pallas/common.py:{line}")
+       for d, line in (("grid", 438), ("blocks", 490)) for t in ("f32", "f64")},
 }
 # Window modes by label: (kernel class, evaluation mode).
 WINDOW_MODES = {
@@ -897,6 +926,341 @@ def phase_nfft(seed: int, record):
     log("  results " + json.dumps(rows))
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the multi-device modes on torch.distributed, K8a / K8b
+# ---------------------------------------------------------------------------
+
+
+def _relayout_cases(dtype, shape, n: int):
+    """The transposes of the spatial run at ``shape`` over ``n`` ranks, one
+    channel: (entry point, label, input, block dims).  K8b packs the type-1
+    slab (1, N0l, K1, K2) rank-major; K8a unpacks the type-2 all_to_all
+    (n, N0l, K1l, K2) and the type-1 all_gather (n, K0, K1l, K2)."""
+    import torch
+
+    from nonuniformffts_tpu_torch.ops.kernels import relayout
+
+    plan = _plan(dtype, shape, 4, 1.5)
+    n0l, k1l = plan.shape_over[0] // n, shape[1] // n
+    tail = tuple(shape[2:])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    slab = _random_values(gen, (1, n0l, shape[1]) + tail, plan.dtype, dev)
+    blocks_t2 = _random_values(gen, (1, 1, n, 1, n0l, k1l) + tail, plan.dtype, dev)
+    blocks_t1 = _random_values(gen, (1, 1, n, 1, shape[0], k1l) + tail, plan.dtype, dev)
+    return [
+        (relayout.entry_point("blocks", plan.dtype), "type-1 pack", slab, (n0l, k1l) + tail),
+        (relayout.entry_point("grid", plan.dtype), "type-2 unpack", blocks_t2,
+         (n0l, k1l) + tail),
+        (relayout.entry_point("grid", plan.dtype), "type-1 gather unpack", blocks_t1,
+         (shape[0], k1l) + tail),
+    ]
+
+
+def compare_relayouts(dtype, shape, n: int, reps: int = 20):
+    """K8a / K8b at the spatial run's transpose shapes against their plain
+    versions (exact equality) and against one PyTorch call computing the
+    same function (``reshape``, ``permute``, ``contiguous``), timed in turns
+    (plain, kernel, kernel, plain; the library call between). The headline
+    of each entry point is its first shape."""
+    import torch
+
+    from nonuniformffts_tpu_torch.ops.kernels import relayout
+
+    results = {}
+    for name, label, x, bd in _relayout_cases(dtype, shape, n):
+        D = len(bd)
+        if "blocks" in name:
+            nb = tuple(g // b for g, b in zip(x.shape[1:], bd))
+            split = (x.shape[0],) + tuple(v for p in zip(nb, bd) for v in p)
+            perm = (0,) + tuple(1 + 2 * d for d in range(D)) + tuple(2 + 2 * d for d in range(D))
+            kern = lambda: relayout.relayout_to_blocks(x, bd)
+            plain = lambda: relayout.relayout_to_blocks_plain(x, bd)
+            library = lambda: x.reshape(split).permute(perm).contiguous()
+        else:
+            grid = (x.shape[0],) + tuple(b * k for b, k in zip(x.shape[1 : 1 + D], bd))
+            perm = (0,) + tuple(v for d in range(D) for v in (1 + d, 1 + D + d))
+            kern = lambda: relayout.relayout_to_grid(x, bd)
+            plain = lambda: relayout.relayout_to_grid_plain(x, bd)
+            library = lambda: x.permute(perm).reshape(grid)
+        p1, want = cuda_time_ms(plain, reps=reps)
+        k1, got = cuda_time_ms(kern, reps=reps)
+        l1, lib = cuda_time_ms(library, reps=reps)
+        k2, _ = cuda_time_ms(kern, reps=reps)
+        p2, _ = cuda_time_ms(plain, reps=reps)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(lib, want)):
+            raise AssertionError(f"{name} ({label}) differs from its plain version")
+        nbytes = 2 * x.numel() * x.element_size()
+        res = dict(max_abs_err=0.0, rel_l2=0.0, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                   library_ms=l1, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+                   shape=list(x.shape), block_dims=list(bd))
+        log(f"  {name} {label} {tuple(x.shape)} / {bd}: equal to plain; kernel "
+            f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library {l1:.4f} ms, "
+            f"bound {res['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB)")
+        results.setdefault(name, dict(res, shapes={}))["shapes"][label] = res
+        del got, want, lib
+    return results
+
+
+def _launch_counts():
+    from nonuniformffts_tpu_torch.ops.kernels import blocked, relayout
+
+    return {**blocked.LAUNCHES, **relayout.LAUNCHES}
+
+
+def _reset_launch_counts():
+    from nonuniformffts_tpu_torch.ops.kernels import blocked, relayout
+
+    blocked.reset_launch_counts()
+    relayout.reset_launch_counts()
+
+
+def _global_inputs(dtype, np_total: int, seed: int):
+    """The run's points and values, made alike on every rank."""
+    import torch
+
+    dev = torch.device("cuda")
+    real = torch.float32 if np.dtype(dtype) == np.complex64 else torch.float64
+    gen = torch.Generator(device=dev).manual_seed(seed + 130)
+    pts = _uniform_points(gen, 3, np_total, real, dev)
+    vp = _random_values(gen, (np_total,), torch.complex64 if real == torch.float32
+                        else torch.complex128, dev)
+    return pts, vp
+
+
+def _timed_collectives(fn):
+    """One more call of ``fn`` with the collective timer on: (host ms of the
+    call, ms in collectives)."""
+    import torch
+
+    from nonuniformffts_tpu_torch.parallel import comm
+
+    comm.TIMER = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    total = 1e3 * (time.perf_counter() - t0)
+    spent = 1e3 * sum(comm.TIMER.values())
+    comm.TIMER = None
+    return total, spent
+
+
+def spatial_row(label: str, dtype, group, shape, np_total: int, seed: int,
+                reps: int = SPATIAL_REPS):
+    """``SpatialNUFFT`` at ``shape`` over ``group``: set_points -> exec_type1 ->
+    exec_type2 on this rank's share of ``np_total`` uniform points, timed
+    (CUDA-event medians), with launch counts, the collectives' share,
+    err1 / err2 against exact sums and agreement with the single-card plan
+    on the same points.  Raises if a check fails."""
+    import torch
+    import torch.distributed as dist
+
+    import nonuniformffts_tpu_torch as nufft
+    from nonuniformffts_tpu_torch import execution as ex
+    from nonuniformffts_tpu_torch.parallel import SpatialNUFFT, comm
+
+    dev = torch.device("cuda")
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    npl = np_total // n
+    pts, vp = _global_inputs(dtype, np_total, seed)
+    sl = slice(me * npl, (me + 1) * npl)
+    v_ch = ex.to_channels(vp[sl][None], 1)
+    a, u_np = _rank1_spectrum(shape, False, seed)
+    u_spec = torch.as_tensor(u_np, device=dev).to(vp.dtype)
+    u_ch = ex.to_channels(u_spec[None], 1)
+    sp = SpatialNUFFT(dtype, shape, group=group, m=4, sigma=1.5, capacity_factor=SPATIAL_CAPACITY,
+                      kernel=nufft.BackwardsKaiserBesselKernel(),
+                      kernel_evalmode=nufft.FastApproximation(), device=dev)
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t_set, st = cuda_time_ms(lambda: sp.set_points(pts[:, sl]), reps=reps)
+    t_t1, u = cuda_time_ms(lambda: sp.exec_type1(st, v_ch), reps=reps)
+    t_t2, v2 = cuda_time_ms(lambda: sp.exec_type2(st, u_ch), reps=reps)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _launch_counts().items() if v}
+    names = entry_points(st.local) + [
+        f"nufft_relayout_to_{d}_{'f32' if vp.dtype == torch.complex64 else 'f64'}"
+        for d in ("grid", "blocks")]
+    if min(counts.get(k, 0) for k in names) < 1:
+        raise AssertionError(f"{label}: a kernel of the spatial path was not launched: {counts}")
+    share = {k: _timed_collectives(fn) for k, fn in (
+        ("set_points", lambda: sp.set_points(pts[:, sl])),
+        ("exec_type1", lambda: sp.exec_type1(st, v_ch)),
+        ("exec_type2", lambda: sp.exec_type2(st, u_ch)))}
+    uc = ex.from_channels(u, 1)[0]
+    v2c = ex.from_channels(v2, 1)[0]
+    if not (torch.isfinite(torch.view_as_real(uc)).all() and torch.isfinite(v2c).all()):
+        raise AssertionError(f"{label}: non-finite output")
+    e1 = _err1(pts, vp, uc, shape, False, seed)
+    e2 = _err2(pts[:, sl], v2c, a, False, seed)
+    slab_block_dims, cap = list(st.local.block_dims), st.cap
+    del st
+    torch.cuda.empty_cache()
+    plan = nufft.set_points(_plan(dtype, shape, 4, 1.5), pts)
+    agree1 = rel_l2(uc, nufft.exec_type1(plan, vp))
+    agree2 = rel_l2(v2c, nufft.exec_type2(plan, u_spec)[sl])
+    del plan
+    torch.cuda.empty_cache()
+    tol = SPATIAL_AGREE[np.dtype(dtype).itemsize]
+    for what, value, limit in (("err1", e1, ERR_TOL), ("err2", e2, ERR_TOL),
+                               ("type-1 vs single card", agree1, tol),
+                               ("type-2 vs single card", agree2, tol)):
+        if not value <= limit:
+            raise AssertionError(f"{label} rank {me}: {what} = {value:.3e} exceeds {limit:.0e}")
+    return dict(label=label, n=n, rank=me, np_rank=npl, backend=comm.backend(group),
+                set_points_ms=t_set, exec_type1_ms=t_t1, exec_type2_ms=t_t2,
+                host_and_collective_ms=share, err1=e1, err2=e2, vs_single=[agree1, agree2],
+                launches=counts, staged=list(comm.staged_ops(group)),
+                host_staged=dict(comm.HOST_STAGED), ext_shape=list(sp.ext_shape_over),
+                block_dims=slab_block_dims, cap=cap)
+
+
+def sharded_row(label: str, dtype, group, shape, np_total: int, seed: int,
+                reps: int = SPATIAL_REPS):
+    """``exec_type{1,2}_sharded`` at ``shape`` with this rank's share of
+    ``np_total`` points (a local set_points inside each call), as
+    ``spatial_row``."""
+    import torch
+    import torch.distributed as dist
+
+    import nonuniformffts_tpu_torch as nufft
+    from nonuniformffts_tpu_torch import execution as ex
+    from nonuniformffts_tpu_torch.parallel import comm, exec_type1_sharded, exec_type2_sharded
+    from nonuniformffts_tpu_torch.parallel import shard_points
+
+    dev = torch.device("cuda")
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    pts, vp = _global_inputs(dtype, np_total, seed)
+    pts_l, v_l = shard_points(pts, ex.to_channels(vp[None], 1), group=group, device=dev)
+    sl = slice(me * (np_total // n), (me + 1) * (np_total // n))
+    a, u_np = _rank1_spectrum(shape, False, seed)
+    u_spec = torch.as_tensor(u_np, device=dev).to(vp.dtype)
+    u_ch = ex.to_channels(u_spec[None], 1)
+    plan = _plan(dtype, shape, 4, 1.5)
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t_t1, u = cuda_time_ms(lambda: exec_type1_sharded(plan, pts_l, v_l, group=group), reps=reps)
+    t_t2, v2 = cuda_time_ms(lambda: exec_type2_sharded(plan, pts_l, u_ch, group=group),
+                            reps=reps)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _launch_counts().items() if v}
+    if min(counts.get(k, 0) for k in entry_points(plan)) < 1:
+        raise AssertionError(f"{label}: a kernel of the point-sharded path was not launched")
+    share = {k: _timed_collectives(fn) for k, fn in (
+        ("exec_type1", lambda: exec_type1_sharded(plan, pts_l, v_l, group=group)),
+        ("exec_type2", lambda: exec_type2_sharded(plan, pts_l, u_ch, group=group)))}
+    uc = ex.from_channels(u, 1)[0]
+    v2c = ex.from_channels(v2, 1)[0]
+    e1 = _err1(pts, vp, uc, shape, False, seed)
+    e2 = _err2(pts_l, v2c, a, False, seed)
+    single = nufft.set_points(plan, pts)
+    agree1 = rel_l2(uc, nufft.exec_type1(single, vp))
+    agree2 = rel_l2(v2c, nufft.exec_type2(single, u_spec)[sl])
+    del single
+    torch.cuda.empty_cache()
+    tol = SPATIAL_AGREE[np.dtype(dtype).itemsize]
+    for what, value, limit in (("err1", e1, ERR_TOL), ("err2", e2, ERR_TOL),
+                               ("type-1 vs single card", agree1, tol),
+                               ("type-2 vs single card", agree2, tol)):
+        if not value <= limit:
+            raise AssertionError(f"{label} rank {me}: {what} = {value:.3e} exceeds {limit:.0e}")
+    return dict(label=label, n=n, rank=me, exec_type1_ms=t_t1, exec_type2_ms=t_t2,
+                host_and_collective_ms=share, err1=e1, err2=e2, vs_single=[agree1, agree2],
+                launches=counts)
+
+
+def _spatial_rank(rank: int, n: int, rdv: str, out_dir: str, shape, np_total: int, seed: int):
+    """One gloo rank of phase 13 on cuda:0: the spatial rows at n = 4
+    (complex64, complex128) and n = 2 (ranks 0 and 1, complex64), then the
+    point-sharded row at n = 4.  Writes its rows to ``out_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=600))
+    rows = []
+    for dtype in (np.complex64, np.complex128):
+        rows.append(spatial_row(f"spatial n=4 {np.dtype(dtype).name}", dtype, None, shape,
+                                np_total, seed))
+        dist.barrier()
+    pair = dist.new_group([0, 1])
+    if rank < 2:
+        rows.append(spatial_row("spatial n=2 complex64", np.complex64, pair, shape, np_total,
+                                seed))
+    dist.barrier()
+    rows.append(sharded_row("point-sharded n=4 complex64", np.complex64, None, shape, np_total,
+                            seed))
+    dist.barrier()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rows))
+    dist.destroy_process_group()
+
+
+def _log_rows(rows):
+    by_label = collections.defaultdict(list)
+    for r in rows:
+        by_label[r["label"]].append(r)
+    for label, rs in by_label.items():
+        mx = {k: max(r[k] for r in rs) for k in ("set_points_ms", "exec_type1_ms",
+                                                 "exec_type2_ms", "err1", "err2") if k in rs[0]}
+        agree = [max(r["vs_single"][i] for r in rs) for i in (0, 1)]
+        log(f"  {label} ({rs[0].get('backend', 'gloo')}, max over {len(rs)} ranks): "
+            + ", ".join(f"{k} {v:.4g}" for k, v in mx.items())
+            + f", vs single card {agree[0]:.3e} / {agree[1]:.3e}")
+        for r in rs:
+            share = ", ".join(f"{k} {t:.1f} ms host, {c:.1f} ms in collectives"
+                              for k, (t, c) in r["host_and_collective_ms"].items())
+            log(f"    rank {r['rank']}: {share}; launches {r['launches']}"
+                + (f"; staged through the host: {r['staged']} {r['host_staged']}"
+                   if "staged" in r else ""))
+
+
+def phase_parallel(seed: int, record, compared):
+    """Phase 13: K8a / K8b against their plain versions at the spatial run's
+    transpose shapes; then the two multi-device modes with four gloo ranks
+    sharing the one card (spatial n = 4 complex64 and complex128, n = 2
+    complex64, point-sharded n = 4), and the spatial mode on an NCCL group
+    of one rank in this process."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    log(f"== phase 13: multi-device modes, N = {'x'.join(map(str, SHAPE_3D))}, "
+        f"{NP_SPATIAL:,} points, m = 4, sigma = 1.5; K8a / K8b")
+    for dtype in (np.complex64, np.complex128):
+        for name, res in compare_relayouts(dtype, SHAPE_3D, SPATIAL_RANKS).items():
+            compared[name] = res
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(_spatial_rank, args=(SPATIAL_RANKS, f"{tmp}/rendezvous", tmp, SHAPE_3D,
+                                                NP_SPATIAL, seed),
+                           nprocs=SPATIAL_RANKS, start_method="spawn")
+        log(f"  {SPATIAL_RANKS} gloo ranks on cuda:0 (one card shared; gloo's host transport) "
+            f"finished in {time.perf_counter() - t0:.1f} s")
+        rows = [r for k in range(SPATIAL_RANKS)
+                for r in json.loads(Path(tmp, f"rank{k}.json").read_text())]
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl", rank=0, world_size=1)
+        try:
+            rows.append(spatial_row("spatial n=1 complex64", np.complex64, None, SHAPE_3D,
+                                    NP_SPATIAL, seed))
+        finally:
+            dist.destroy_process_group()
+    _log_rows(rows)
+    for r in rows:
+        record((r["launches"], {}))
+    log("  results " + json.dumps(rows))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -942,6 +1306,7 @@ def main(argv=None) -> int:
     phase_windows(args.seed, record, windows)
     phase_m10(args.seed, record, windows)
     phase_nfft(args.seed, record)
+    phase_parallel(args.seed, record, compared)
 
     # K3's headline numbers: KB Direct at 1M points in phase 10 (float32
     # taps from complex64, float64 from complex128).
@@ -955,9 +1320,10 @@ def main(argv=None) -> int:
              max_abs_err=compared[name]["max_abs_err"], rel_l2=compared[name]["rel_l2"],
              ms=compared[name]["ms"], plain_ms=compared[name]["plain_ms"],
              bound_ms=compared[name]["bound_ms"], bound_by=compared[name]["bound_by"],
-             library_ms=None,
+             library_ms=compared[name].get("library_ms"),
              windows={mode: {k: res[k] for k in ("rel_l2", "ms", "plain_ms", "bound_ms")}
-                      for mode, res in sorted(windows[name].items())})
+                      for mode, res in sorted(windows[name].items())},
+             **({"shapes": compared[name]["shapes"]} if "shapes" in compared[name] else {}))
         for name in KERNELS
     ]
     log(f"run time {time.perf_counter() - t0:.1f} s")

@@ -9,8 +9,10 @@ CUDA kernels ``nufft_spread_<D>d_<type>`` and ``nufft_interp_<D>d_<type>``
 (``csrc/``, built with nvcc at first use) for 1D, 2D and 3D plans, in
 native float64 for 64-bit plans, for all four windows in both evaluation
 modes and m = 2..10.  ``NFFTPlan`` / ``plan_nfft`` / ``nfft`` /
-``nfft_adjoint`` speak the NFFT convention.  Plans run on the card unless
-``device='cpu'``.
+``nfft_adjoint`` speak the NFFT convention; ``exec_type{1,2}_channels``
+the real channel form.  ``parallel`` holds the two multi-device modes on
+``torch.distributed`` (``SpatialNUFFT``, ``exec_type{1,2}_sharded``).  Plans
+run on the card unless ``device='cpu'``.
 
 Quick start::
 
@@ -24,7 +26,7 @@ Quick start::
 """
 
 from .callbacks import NUFFTCallbacks
-from .execution import exec_type1, exec_type2
+from .execution import exec_type1, exec_type1_channels, exec_type2, exec_type2_channels
 from .ops.windows import (
     BackwardsKaiserBesselKernel,
     BSplineKernel,
@@ -44,6 +46,8 @@ __all__ = [
     "set_points",
     "exec_type1",
     "exec_type2",
+    "exec_type1_channels",
+    "exec_type2_channels",
     "NUFFTCallbacks",
     "KaiserBesselKernel",
     "BackwardsKaiserBesselKernel",

@@ -177,3 +177,44 @@ def exec_type2(plan: Plan, uhat, callbacks: NUFFTCallbacks = None) -> torch.Tens
     grid = t2_fft_stage(plan, spec)
     vp = t2_interp_stage(plan, grid)
     return vp if had_axis else vp[0]
+
+
+# ---------------------------------------------------------------------------
+# Public API: the channel form (JAX package's execution.py:703-738)
+# ---------------------------------------------------------------------------
+
+
+def to_channels(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """A complex tensor as real channels: a (re, im) axis of size 2 inserted
+    at ``axis`` (a copy; ``view_as_real`` puts it last)."""
+    return torch.movedim(torch.view_as_real(x), -1, axis).contiguous()
+
+
+def from_channels(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Inverse of :func:`to_channels`: the (re, im) axis at ``axis`` folded
+    into a complex tensor."""
+    if x.shape[axis] != 2:
+        raise ValueError(f"channel axis {axis} has size {x.shape[axis]}, not 2")
+    return torch.view_as_complex(torch.movedim(x, axis, -1).contiguous())
+
+
+def exec_type1_channels(plan: Plan, vp_ch, callbacks: NUFFTCallbacks = None) -> torch.Tensor:
+    """Channel-form type 1.  ``vp_ch`` (of the plan's real dtype): real plans
+    ``(Np,)`` / ``(C, Np)``; complex plans ``(2, Np)`` / ``(C, 2, Np)`` with
+    channel 0 the real part and 1 the imaginary part.  Returns the real
+    spectrum ``(2,) + spectral_shape`` / ``(C, 2) + spectral_shape``."""
+    _check_points(plan)
+    vp_ch = _as_plan_tensor(vp_ch, plan, plan.real_dtype, "channel values")
+    vp = vp_ch if plan.is_real else from_channels(vp_ch, vp_ch.ndim - 2)
+    uhat = exec_type1(plan, vp, callbacks)
+    return to_channels(uhat, uhat.ndim - plan.ndim)
+
+
+def exec_type2_channels(plan: Plan, uhat_ch, callbacks: NUFFTCallbacks = None) -> torch.Tensor:
+    """Channel-form type 2.  ``uhat_ch``: ``(2,) + spectral_shape`` /
+    ``(C, 2) + spectral_shape`` of the plan's real dtype.  Returns real plans'
+    ``(Np,)`` / ``(C, Np)``, complex plans' ``(2, Np)`` / ``(C, 2, Np)``."""
+    _check_points(plan)
+    uhat_ch = _as_plan_tensor(uhat_ch, plan, plan.real_dtype, "channel spectrum")
+    vp = exec_type2(plan, from_channels(uhat_ch, uhat_ch.ndim - plan.ndim - 1), callbacks)
+    return vp if plan.is_real else to_channels(vp, vp.ndim - 1)

@@ -32,7 +32,7 @@ def interpolate_cells(
     np_ = cells.shape[1]
     gflat = grid.reshape(C, -1)
     out = torch.empty((C, np_), dtype=grid.dtype, device=grid.device)
-    step = np_ if chunk_size is None else max(int(chunk_size), 1)
+    step = max(np_, 1) if chunk_size is None else max(int(chunk_size), 1)
     for s in range(0, np_, step):
         lin, w = linear_stencil_cells(
             kernel_data, evalmode, cells[:, s : s + step], fracs[:, s : s + step]

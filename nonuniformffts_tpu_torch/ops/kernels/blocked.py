@@ -206,9 +206,11 @@ def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
     C, np_ = vp.shape
     if np_ != plan.num_points:
         raise ValueError(f"{np_} values for {plan.num_points} points")
-    vals = vp[:, plan.sort_perm].contiguous()
     grid = torch.zeros((C,) + tuple(plan.shape_over), dtype=vp.dtype,
                        device=vp.device)
+    if np_ == 0:  # a rank of the spatial mode may own no point
+        return grid
+    vals = vp[:, plan.sort_perm].contiguous()
     name = entry_point("spread", plan)
     fn = getattr(build.load(), name)
     coefs, wtaps, wtaps_ptr, ncoef = _launch_args(plan)

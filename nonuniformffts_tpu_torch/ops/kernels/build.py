@@ -8,11 +8,14 @@ import), goes to ``build/nonuniformffts_tpu_torch/`` at the repository
 root, and is redone when a hash of the sources and flags changes.  What
 ``ptxas -v`` says of each kernel (registers, spills, shared memory), and
 when each compile finished, is kept beside the library in ``ptxas.log``.
+Processes that start together (the ranks of a ``torchrun`` job) take a file
+lock around the build: one of them compiles, the others wait and load.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -28,6 +31,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "nonuniformffts_tpu_torch"
 LIB_NAME = "libnufft_kernels.so"
 PTXAS_LOG = BUILD_DIR / "ptxas.log"
+LOCK_PATH = BUILD_DIR / "build.lock"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v")
@@ -67,6 +71,10 @@ for _d in KERNEL_DIMS:
         # n_0..n_{D-1}, normfactor, stream
         _SIGNATURES[f"nufft_interp_{_d}d_{_vt}"] = _HEAD + [_I] * _d + [ctypes.c_double, _P]
 for _vt in ("f32", "f64"):
+    # src, dst, cr, n0, n1, n2, b0, b1, b2, stream (csrc/relayout.cu)
+    for _dir in ("grid", "blocks"):
+        _SIGNATURES[f"nufft_relayout_to_{_dir}_{_vt}"] = [_P, _P] + [_I] * 7 + [_P]
+for _vt in ("f32", "f64"):
     # fracs, window, out, np, ndim, m, stream
     _SIGNATURES[f"nufft_window_weights_{_vt}"] = [
         _P, ctypes.POINTER(WindowParams), _P, ctypes.c_longlong, _I, _I, _P]
@@ -99,13 +107,28 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library matches the sources.
-    Returns the library path."""
+    Returns the library path.  Holds ``LOCK_PATH`` while it checks and
+    builds, so that of several processes only the first compiles."""
     lib_path = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = source_hash()
     if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(LOCK_PATH, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
+                return lib_path
+            _compile(lib_path)
+            stamp.write_text(digest)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return lib_path
+
+
+def _compile(lib_path: Path) -> None:
+    """Compile every source once per value type, all at once, and link."""
     nvcc = _nvcc()
     cu, _ = _sources()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -145,8 +168,6 @@ def build() -> Path:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
         os.replace(out, lib_path)
-    stamp.write_text(digest)
-    return lib_path
 
 
 def load() -> ctypes.CDLL:

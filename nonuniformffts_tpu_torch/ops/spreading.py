@@ -40,7 +40,7 @@ def spread_cells(
     grid = torch.zeros((C, ntot), dtype=acc_dtype, device=vp.device)
     # index_add_ on the (re, im) view: real accumulation on every device.
     acc = torch.view_as_real(grid) if grid.is_complex() else grid
-    step = np_ if chunk_size is None else max(int(chunk_size), 1)
+    step = max(np_, 1) if chunk_size is None else max(int(chunk_size), 1)
     for s in range(0, np_, step):
         lin, w = linear_stencil_cells(
             kernel_data, evalmode, cells[:, s : s + step], fracs[:, s : s + step]

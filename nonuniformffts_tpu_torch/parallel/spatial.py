@@ -1,0 +1,378 @@
+"""Spatially sharded multi-device NUFFT: the oversampled grid split over the
+ranks of a ``torch.distributed`` group.
+
+Counterpart of ``nonuniformffts_tpu/parallel/spatial.py`` with one engine,
+the JAX package's split engine (its ``:763-818`` and ``:879-945``) on
+cuFFT.  Per-rank memory is O(grid / n):
+
+- rank ``r`` of ``n`` owns the grid planes ``[r N0l, (r + 1) N0l)`` along
+  dim 0 (``N0l = N0 / n``) and, after the transposes, the spectral columns
+  ``[r K1l, (r + 1) K1l)`` along dim 1;
+- ``set_points`` routes each point's (cell, fraction) to its owner rank with
+  one capacity-bounded all_to_all (overflow is detected on every rank and
+  raised, never dropped) and bin-sorts the received points for a local plan
+  over the rank's *extended slab*, the planes ``[r N0l - (M - 1), (r + 1)
+  N0l + M)`` padded up to a multiple of 8: every window node of a point the
+  rank owns lies inside it, so the spread and interpolation kernels (K1/K2,
+  K4/K5 in 2D) never wrap in dim 0 and need no change;
+- type 1: route the values, spread into the extended slab, add the M - 1
+  leading and M trailing halo planes into the neighbours' slabs (a
+  point-to-point exchange with the two neighbours), FFT and truncate dims
+  1.., pack rank-major (K8b), all_to_all, FFT and truncate dim 0,
+  deconvolve (the dim-1 factor sliced), and for ``spectrum='replicated'``
+  all_gather the dim-1 shards and unpack them (K8a);
+- type 2 mirrors it: slice the dim-1 shard and deconvolve, pad and
+  inverse-FFT dim 0, all_to_all, unpack (K8a), pad and inverse-FFT dims
+  1.., gather the halo planes from the neighbours, interpolate, and route
+  the values back to the caller's order.
+
+The block-form engine of the JAX package (the MXU matmul DFT with the halo
+fold in its factors) is a TPU device and has no counterpart: ``engine``
+accepts ``'auto'``, ``'split'`` and ``'blockform'`` for call-site parity and
+``engine`` reports ``'split'``; ``spectrum='sharded'`` splits spectral dim 1.
+
+Each process passes its own points and values (``(D, Np_l)``, the same
+``Np_l`` on every rank) and gets its own values back; spectra are in the
+channel form, ``(C, 2) + spectral_shape`` replicated or ``(C, 2, K0, K1l,
+..)`` for this rank's dim-1 shard.  With ``ntransforms > 1`` the
+transposes run one channel at a time (K8's layout keeps the channel axis
+leading, which is rank-major only for one channel); the all_gather folds
+the channels into dim 0 and stays one call.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+import torch.distributed as dist
+
+from .. import execution as ex
+from ..blocking import bin_sort, cells_and_fracs, choose_geometry
+from ..ops.deconvolve import pad_axis, truncate_axis
+from ..ops.kernels.blocked import check_kernel_support, interpolate_blocked, spread_blocked
+from ..ops.kernels.common import VALUE_TYPES
+from ..ops.kernels.relayout import relayout_to_blocks, relayout_to_grid
+from ..ops.windows import WINDOW_KINDS, window_pack
+from ..plan import Plan, PlanNUFFT, _canonicalise_points, _identity, _as_real_tensor
+from . import comm
+
+#: The extended slab's planes are padded up to a multiple of this, so that
+#: the geometry chooser finds block dims that divide them.
+SLAB_ALIGN = 8
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SpatialPoints:
+    """One rank's routed point state."""
+
+    send_idx: torch.Tensor  # (n * cap,) local point index of each send slot
+    send_pos: torch.Tensor  # (Np_l,) send slot of each local point
+    recv_idx: torch.Tensor  # (Nv,) receive slots that hold a point
+    local: Plan  # extended-slab plan over the Nv received points
+    cap: int  # points per (src, dst) lane
+    num_points: int  # Np over all ranks
+
+
+class SpatialNUFFT:
+    """Grid-sharded NUFFT over a ``torch.distributed`` group (default: the
+    default group), one process per rank.
+
+    Parameters mirror :func:`PlanNUFFT` (``device`` included: the card by
+    default); additionally ``capacity_factor`` (routing slack: each (src
+    rank -> dst rank) lane holds up to ``capacity_factor * Np_l / n``
+    points; heavier skew raises a ValueError at set_points on every rank),
+    ``engine`` and ``spectrum`` (``'replicated'`` or ``'sharded'``).
+    """
+
+    def __init__(self, dtype, shape, *, group=None, capacity_factor: float = 4.0,
+                 engine: str = "auto", spectrum: str = "replicated", **plan_kw):
+        if spectrum not in ("replicated", "sharded"):
+            raise ValueError(f"unknown spectrum layout {spectrum!r}")
+        if engine not in ("auto", "blockform", "split"):
+            raise ValueError(f"unknown SpatialNUFFT engine {engine!r}")
+        if engine == "split" and plan_kw.get("fft_variant", "split") != "split":
+            raise ValueError(
+                "SpatialNUFFT engine='split' requires fft_variant='split': the "
+                "distributed DFT interleaves truncation/padding with the "
+                f"collective transposes (got fft_variant={plan_kw['fft_variant']!r})"
+            )
+        self.group = group
+        self.n = n = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.capacity_factor = float(capacity_factor)
+        self.spectrum = spectrum
+        self.engine = "split"
+        plan_kw.setdefault("spread_method", "blocked")
+        base = PlanNUFFT(dtype, shape, **plan_kw)
+        if base.ndim < 2:
+            raise ValueError("spatial sharding needs >= 2 dimensions")
+        n0, m = base.shape_over[0], base.m
+        if n0 % n or n0 // n < m:
+            # Each slab must be at least M planes thick: a window's halo
+            # then reaches only the neighbouring slabs.
+            raise ValueError(
+                f"cannot split {n0} grid planes into block rows divisible by {n} chips"
+            )
+        if base.shape_over[1] % n or base.shape[1] % n:
+            raise ValueError(
+                f"dim-1 sizes ({base.shape[1]}, oversampled "
+                f"{base.shape_over[1]}) must divide by the mesh size {n}"
+            )
+        k1 = base.spectral_shape[1]
+        if k1 % n:
+            if spectrum == "sharded":
+                raise ValueError(
+                    f"spectrum='sharded' needs spectral dim 1 ({k1}) divisible by "
+                    f"the mesh size {n}"
+                )
+            raise ValueError(
+                f"the slab transposes need spectral dim 1 ({k1}) divisible by the "
+                f"mesh size {n}"
+            )
+        self.base = base
+        self.n0_local = n0 // n
+        self.k1_local = k1 // n
+        planes = self.n0_local + 2 * m - 1
+        self.ext_shape_over = (-(-planes // SLAB_ALIGN) * SLAB_ALIGN,) + base.shape_over[1:]
+        _, scalar_bytes, ncomp = VALUE_TYPES[base.dtype]
+        horner = window_pack(base.kernel_data, base.evalmode).kind == WINDOW_KINDS["horner"]
+        kd0 = dataclasses.replace(base.kernel_data[0], n=self.ext_shape_over[0])
+        self._slab_plan = dataclasses.replace(
+            base,
+            shape_over=self.ext_shape_over,
+            block_dims=choose_geometry(self.ext_shape_over, m, scalar_bytes, ncomp,
+                                       ncoef=m + 4 if horner else 0),
+            kernel_data=(kd0,) + base.kernel_data[1:],
+            spread_method="blocked",
+            # The slab's own shape_over would inflate the FFT normalisation by
+            # n: interpolation keeps the global grid's.
+            normfactor_override=base.normfactor,
+        )
+        if base.device.type == "cuda":
+            check_kernel_support(self._slab_plan)
+
+    @property
+    def spectrum_shard_dim(self) -> int:
+        """The spectral dimension ``spectrum='sharded'`` splits: dim 1, which
+        the distributed DFT shards after its transpose."""
+        return 1
+
+    def _capacity(self, np_local: int) -> int:
+        cap = int(math.ceil(self.capacity_factor * np_local / self.n))
+        return max(-(-cap // 8) * 8, 8)
+
+    # -- set_points -----------------------------------------------------------
+    def set_points(self, points) -> SpatialPoints:
+        """Route this rank's points to their owner ranks and build the local
+        slab plan.  ``points``: any format :func:`set_points` accepts, this
+        rank's ``(D, Np_l)``, with the same ``Np_l`` on every rank."""
+        base, n, me, group = self.base, self.n, self.rank, self.group
+        D = base.ndim
+        pts = _canonicalise_points(points, D, base.real_dtype, base.device)
+        npl = int(pts.shape[1])
+        counts_all = comm.all_gather(torch.tensor([npl], device=base.device), group).view(-1)
+        np_total = int(counts_all.sum())
+        if bool((counts_all != npl).any()):
+            raise ValueError(
+                f"number of points {np_total} must divide by mesh size {n}: every "
+                f"rank passes the same number (got {counts_all.tolist()})"
+            )
+        cap = self._capacity(npl)
+        if base.point_transform is not _identity:
+            pts = base.point_transform(pts)
+        cells, fracs = cells_and_fracs(base.kernel_data, pts)
+        dest = torch.clamp(torch.div(cells[0], self.n0_local, rounding_mode="floor"),
+                           0, n - 1).to(torch.int64)
+        sdest, perm = torch.sort(dest, stable=True)
+        counts = torch.bincount(dest, minlength=n)
+        starts = torch.cumsum(counts, 0) - counts
+        overflow = (counts > cap).any().to(torch.int64).reshape(1)
+        if int(comm.all_reduce(overflow, group)) > 0:
+            raise ValueError(
+                "point routing overflow: a (src, dst) chip lane exceeded its "
+                f"capacity ({cap} points). The point distribution is too "
+                f"skewed for capacity_factor={self.capacity_factor}; increase it."
+            )
+        slot = torch.arange(n * cap, device=pts.device)
+        d_of, r = slot // cap, slot % cap
+        sidx = torch.clamp(starts[d_of] + r, 0, max(npl - 1, 0))
+        send_idx = perm[sidx] if npl else torch.zeros_like(slot)
+        send_pos = torch.empty(npl, dtype=torch.int64, device=pts.device)
+        send_pos[perm] = sdest * cap + torch.arange(npl, device=pts.device) - starts[sdest]
+
+        # One all_to_all each for the lane counts, cells and fractions.
+        recv_counts = comm.all_to_all(counts.view(n, 1), group).view(n, 1)
+        recv_idx = torch.nonzero(
+            (torch.arange(cap, device=pts.device)[None, :] < recv_counts).reshape(-1)
+        ).view(-1)
+        cells_r = self._route(cells, send_idx, cap)[:, recv_idx]
+        fracs_r = self._route(fracs, send_idx, cap)[:, recv_idx]
+        # Global dim-0 cell -> extended-slab cell: its window starts at
+        # plane c0 - (M - 1) >= r N0l - (M - 1), the slab's first plane.
+        cells_r[0] -= me * self.n0_local - (base.m - 1)
+        cells_s, fracs_s, perm_l, pstarts = bin_sort(
+            cells_r.contiguous(), fracs_r.contiguous(), self.ext_shape_over,
+            self._slab_plan.block_dims,
+        )
+        local = dataclasses.replace(
+            self._slab_plan, cells_sorted=cells_s, fracs_sorted=fracs_s,
+            sort_perm=perm_l, pstarts=pstarts, num_points_static=int(recv_idx.numel()),
+        )
+        return SpatialPoints(send_idx=send_idx, send_pos=send_pos, recv_idx=recv_idx,
+                             local=local, cap=cap, num_points=np_total)
+
+    def _route(self, x: torch.Tensor, send_idx: torch.Tensor, cap: int) -> torch.Tensor:
+        """(R, Np_l) rows in local order -> (R, n cap) rows at the owner ranks'
+        receive slots (slot ``s cap + k``: the ``k``-th point from rank ``s``)."""
+        R = x.shape[0]
+        send = x[:, send_idx].reshape(R, self.n, cap).transpose(0, 1)
+        return comm.all_to_all(send, self.group).transpose(0, 1).reshape(R, -1)
+
+    def _unroute(self, vals: torch.Tensor, st: SpatialPoints) -> torch.Tensor:
+        """(C, Nv) values of the received points -> (C, Np_l) at the source
+        ranks, in their original order."""
+        C = vals.shape[0]
+        full = vals.new_zeros((C, self.n * st.cap))
+        full[:, st.recv_idx] = vals
+        back = comm.all_to_all(full.reshape(C, self.n, st.cap).transpose(0, 1), self.group)
+        return back.transpose(0, 1).reshape(C, -1)[:, st.send_pos]
+
+    # -- helpers of the distributed DFT --------------------------------------
+    def _deconvolve(self, x: torch.Tensor) -> torch.Tensor:
+        """Scale (C, K0, K1l, ..) by 1/phi_hat per dim, dim 1 sliced."""
+        base = self.base
+        for d, ph in enumerate(base.phihat_inv):
+            if d == 1:
+                ph = ph[self.rank * self.k1_local:(self.rank + 1) * self.k1_local]
+            shape = [1] * x.ndim
+            shape[1 + d] = ph.shape[0]
+            x = x * ph.reshape(shape)
+        return x
+
+    def _check_channels(self, x: torch.Tensor, tail: Tuple[int, ...], what: str):
+        C = self.base.ntransforms
+        lead = (C,) if self.base.is_real and what == "values" else (C, 2)
+        if tuple(x.shape[: len(lead)]) != lead or tuple(x.shape[len(lead):]) != tail:
+            raise ValueError(
+                f"{what} of shape {tuple(x.shape)}; expected {lead + tail} "
+                f"(ntransforms={C})"
+            )
+
+    # -- transforms -----------------------------------------------------------
+    def exec_type1(self, state: SpatialPoints, v_ch) -> torch.Tensor:
+        """Distributed type 1.  ``v_ch``: this rank's channel values, ``(C, 2,
+        Np_l)`` (complex plans) or ``(C, Np_l)`` (real plans).  Returns the
+        channel-form spectrum ``(C, 2) + spectral_shape`` (replicated) or this
+        rank's dim-1 shard ``(C, 2, K0, K1l, ..)`` (``spectrum='sharded'``)."""
+        base, n, group, m = self.base, self.n, self.group, self.base.m
+        D, C = base.ndim, base.ntransforms
+        v_ch = _as_real_tensor(v_ch, base.real_dtype, base.device)
+        self._check_channels(v_ch, (int(state.send_pos.numel()),), "values")
+        v = v_ch if base.is_real else ex.from_channels(v_ch, 1)
+        v = self._route(v, state.send_idx, state.cap)[:, state.recv_idx]
+
+        # Spread into the extended slab; add the halo planes into the
+        # neighbours' slabs.
+        ext = spread_blocked(state.local, v)
+        n0l = self.n0_local
+        own = ext[:, m - 1 : m - 1 + n0l]
+        from_next, from_prev = comm.neighbour_exchange(
+            ext[:, : m - 1], ext[:, m - 1 + n0l : n0l + 2 * m - 1], group)
+        if m > 1:
+            own[:, n0l - (m - 1):] += from_next
+        own[:, :m] += from_prev
+
+        # FFT and truncate dims 1..; the dim-0 transpose; FFT and truncate
+        # dim 0.
+        dims = tuple(range(2, D + 1))
+        x = torch.fft.rfftn(own, dim=dims) if base.is_real else torch.fft.fftn(own, dim=dims)
+        for d in range(1, D):
+            x = truncate_axis(x, 1 + d, base.index_ranges[d])
+        k1l, tail = self.k1_local, tuple(base.spectral_shape[2:])
+        cols = torch.empty((C, n * n0l, k1l) + tail, dtype=x.dtype, device=x.device)
+        for c in range(C):
+            packed = relayout_to_blocks(x[c : c + 1], (n0l, k1l) + tail)
+            cols[c] = comm.all_to_all(packed.reshape((n, n0l, k1l) + tail), group).reshape(
+                (n * n0l, k1l) + tail)
+        y = truncate_axis(torch.fft.fft(cols, dim=1), 1, base.index_ranges[0])
+        y = self._deconvolve(y * base.normfactor)
+        if self.spectrum == "sharded":
+            return ex.to_channels(y, 1)
+
+        # Gather the dim-1 shards: (n, C, K0, K1l, ..) is block-major with
+        # blocks (C K0, K1l, ..) along dim 1.
+        K0 = y.shape[1]
+        gathered = comm.all_gather(y, group)
+        spec = relayout_to_grid(
+            gathered.reshape((1, 1, n) + (1,) * (D - 2) + (C * K0, k1l) + tail),
+            (C * K0, k1l) + tail,
+        ).reshape((C,) + base.spectral_shape)
+        return ex.to_channels(spec, 1)
+
+    def exec_type2(self, state: SpatialPoints, uhat_ch) -> torch.Tensor:
+        """Distributed type 2.  ``uhat_ch``: the channel-form spectrum in the
+        plan's layout (replicated, or this rank's dim-1 shard).  Returns this
+        rank's ``(C, 2, Np_l)`` / ``(C, Np_l)`` channel values in its original
+        point order."""
+        base, n, group, m, me = self.base, self.n, self.group, self.base.m, self.rank
+        D, C = base.ndim, base.ntransforms
+        spec = list(base.spectral_shape)
+        if self.spectrum == "sharded":
+            spec[1] = self.k1_local
+        uhat_ch = _as_real_tensor(uhat_ch, base.real_dtype, base.device)
+        self._check_channels(uhat_ch, tuple(spec), "spectrum")
+        u = ex.from_channels(uhat_ch, 1)
+        n0l, k1l, tail = self.n0_local, self.k1_local, tuple(base.spectral_shape[2:])
+        if self.spectrum == "replicated":
+            u = u[:, :, me * k1l : (me + 1) * k1l]
+        u = self._deconvolve(u)
+        z = torch.fft.ifft(pad_axis(u, 1, base.index_ranges[0], base.shape_over[0]),
+                           dim=1, norm="forward")
+        rows = torch.empty((C, n0l, n * k1l) + tail, dtype=z.dtype, device=z.device)
+        for c in range(C):
+            recv = comm.all_to_all(z[c].reshape((n, n0l, k1l) + tail), group)
+            rows[c] = relayout_to_grid(
+                recv.reshape((1, 1, n) + (1,) * (D - 2) + (n0l, k1l) + tail),
+                (n0l, k1l) + tail,
+            )[0]
+        x = rows
+        for d in range(1, D):
+            x = pad_axis(x, 1 + d, base.index_ranges[d], base.spectral_shape_over[d])
+        dims = tuple(range(2, D + 1))
+        if base.is_real:
+            slab = torch.fft.irfftn(x, s=base.shape_over[1:], dim=dims, norm="forward")
+        else:
+            slab = torch.fft.ifftn(x, dim=dims, norm="forward")
+
+        # The extended slab: the neighbours' halo planes around our own.
+        ext = slab.new_zeros((C,) + self.ext_shape_over)
+        ext[:, m - 1 : m - 1 + n0l] = slab
+        from_next, from_prev = comm.neighbour_exchange(
+            slab[:, :m], slab[:, n0l - (m - 1):] if m > 1 else slab[:, :0], group)
+        ext[:, m - 1 + n0l : n0l + 2 * m - 1] = from_next
+        ext[:, : m - 1] = from_prev
+        vals = interpolate_blocked(state.local, ext)
+        back = self._unroute(vals, state)
+        return back if base.is_real else ex.to_channels(back, 1)
+
+    def collective_bytes(self) -> dict:
+        """Estimated bytes a rank sends per transform, by stage (the JAX
+        package's split-engine formula): the all_to_all transposes move
+        ~(n-1)/n of the truncated grid, the all_gather (n-1)/n of the
+        spectrum."""
+        base, n = self.base, self.n
+        fs = torch.empty((), dtype=base.real_dtype).element_size()
+        C = base.ntransforms
+        cr = C if base.is_real else 2 * C
+        spec_bytes = cr * math.prod(base.spectral_shape) * fs
+        grid_bytes = cr * math.prod(base.shape_over) * fs
+        t = int(grid_bytes / base.sigma ** (base.ndim - 1) * (n - 1) / n)
+        return {
+            "engine": self.engine, "spectrum": self.spectrum, "n": n,
+            "t1_transpose_all_to_all": t, "t2_transpose_all_to_all": t,
+            "t1_spectrum_all_gather": (0 if self.spectrum == "sharded"
+                                       else int(spec_bytes * (n - 1) / n)),
+        }

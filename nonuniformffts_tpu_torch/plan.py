@@ -88,6 +88,9 @@ class Plan:
     sort_perm: Optional[torch.Tensor] = None  # (Np,) int64, blocked
     pstarts: Optional[torch.Tensor] = None  # (nblocks + 1,) int32, blocked
     num_points_static: Optional[int] = None
+    # A slab plan of the spatial mode (parallel/spatial.py) keeps the global
+    # grid's FFT normalisation, which its own shape_over would misstate.
+    normfactor_override: Optional[float] = None
 
     @property
     def ndim(self) -> int:
@@ -136,6 +139,8 @@ class Plan:
     @property
     def normfactor(self) -> float:
         """FFT normalisation ``prod(2pi / N~)`` (NonuniformFFTs.jl:181)."""
+        if self.normfactor_override is not None:
+            return self.normfactor_override
         out = 1.0
         for n in self.shape_over:
             out *= TWO_PI / n

@@ -162,3 +162,38 @@ def test_window_kernels_match_plain_versions(cuda_device, window, shape, m, dtyp
 def test_m_above_10_raises(cuda_device):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tnufft.PlanNUFFT(np.complex64, (64, 64), m=11, sigma=2.0, device=cuda_device)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128], ids=str)
+@pytest.mark.parametrize(
+    "grid_shape,block_dims",
+    [((3, 24), (6,)), ((2, 12, 40), (4, 8)), ((1, 96, 64), (96, 16)),
+     ((3, 12, 20, 40), (4, 5, 8)), ((2, 24, 64, 32), (24, 16, 32)), ((5, 7, 9, 6), (7, 3, 2))],
+    ids=str,
+)
+def test_relayout_kernels_equal_plain_versions(cuda_device, grid_shape, block_dims, dtype):
+    """K8b (grid -> block-major) and K8a (the inverse) against their plain
+    versions, bit for bit; D = 1 launches nothing."""
+    from nonuniformffts_tpu_torch.ops.kernels import relayout
+
+    gen = torch.Generator(device=cuda_device).manual_seed(len(grid_shape))
+    g = torch.randn(grid_shape, dtype=dtype, device=cuda_device, generator=gen)
+    D = len(block_dims)
+    before = dict(relayout.LAUNCHES)
+    b = relayout.relayout_to_blocks(g, block_dims)
+    back = relayout.relayout_to_grid(b, block_dims)
+    torch.cuda.synchronize()
+    launched = 0 if D == 1 else 1
+    for direction in ("grid", "blocks"):
+        name = relayout.entry_point(direction, dtype)
+        assert relayout.LAUNCHES[name] == before[name] + launched
+    assert torch.equal(b, relayout.relayout_to_blocks_plain(g, block_dims))
+    assert torch.equal(back, relayout.relayout_to_grid_plain(b, block_dims))
+    assert torch.equal(back, g)
+
+
+def test_relayout_kernels_refuse_real_tensors(cuda_device):
+    from nonuniformffts_tpu_torch.ops.kernels import relayout
+
+    with pytest.raises(TypeError, match="no relayout kernel"):
+        relayout.relayout_to_blocks(torch.zeros((1, 8, 8), device=cuda_device), (4, 4))

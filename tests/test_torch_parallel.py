@@ -1,0 +1,177 @@
+"""The port's two multi-device modes (``nonuniformffts_tpu_torch.parallel``)
+on gloo ranks on the CPU, against the JAX package's.
+
+Mirrors ``tests/test_spatial.py`` and ``tests/test_sharding.py``.  The rank
+processes (``torch_parallel_workers.py``, spawned; they import torch and the
+port only) run every case in one spawn per group size, n = 4, 2 and 1, and
+save what they compute; the tests here compute JAX's results in this process
+from the same numpy-seeded inputs.  Two cases meet JAX's own
+``SpatialNUFFT(engine='split')`` on the 8-device CPU mesh (3D complex128
+replicated, and ``spectrum='sharded'``); the others meet JAX's single-device
+plan on its reference path, to which JAX's tests hold its spatial mode.  The
+point-sharded mode meets JAX's ``exec_type{1,2}_sharded`` on a 4-device
+mesh.  Tolerance: JAX's own, rtol 1e-10 and atol 1e-12
+(``test_spatial.py:67``).
+"""
+
+import numpy as np
+import pytest
+
+import jax
+from jax.sharding import Mesh
+
+import nonuniformffts_tpu as jnufft
+from nonuniformffts_tpu.execution import exec_type1_channels, exec_type2_channels
+from nonuniformffts_tpu.parallel import SpatialNUFFT as JaxSpatialNUFFT
+from nonuniformffts_tpu.parallel import exec_type1_sharded, exec_type2_sharded, make_mesh
+from nonuniformffts_tpu.parallel import shard_points as jax_shard_points
+from torch_parallel_workers import CASES, SHARDED_CASES, case_inputs, run_ranks
+
+TOL = dict(rtol=1e-10, atol=1e-12)
+N4 = ("c128_n4", "c128_sharded", "f64_r2c", "c128_2d", "skewed", "ntransforms",
+      "f64_sharded", "errors", "pts_c128", "pts_f64")
+N2 = ("c128_n2", "f64_r2c_n2")
+N1 = ("c128_n1_fftshift",)
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """The results of every case, by group size and name."""
+    out = {}
+    for n, names in ((4, N4), (2, N2), (1, N1)):
+        out[n] = run_ranks(n, names, str(tmp_path_factory.mktemp(f"ranks{n}")))
+    return out
+
+
+def _results(ranks, n, name):
+    res = ranks[n][name]
+    for r, x in enumerate(res):
+        assert "failed" not in x, f"rank {r}:\n{x['failed']}"
+    return res
+
+
+def _single_reference(name, n):
+    """JAX's single-device plan (reference path) on all of the case's points:
+    its channel spectrum and its type-2 values of that spectrum."""
+    case = CASES[name]
+    kw = {k: v for k, v in case["spatial"].items() if k not in ("capacity_factor", "spectrum")}
+    pts, v_ch = case_inputs(name, n)
+    plan = jnufft.set_points(
+        jnufft.PlanNUFFT(case["dtype"], case["shape"], spread_method="reference",
+                         fft_method="xla", **kw),
+        pts)
+    u = np.asarray(exec_type1_channels(plan, v_ch))
+    return u, np.asarray(exec_type2_channels(plan, u))
+
+
+def _shard(u, rank, k1l):
+    return u[:, :, :, rank * k1l : (rank + 1) * k1l]
+
+
+def _check_against(res, u_ref, v2_ref, n, sharded=False):
+    for r, x in enumerate(res):
+        np_ = v2_ref.shape[-1] // n
+        want_u = _shard(u_ref, r, x["k1_local"]) if sharded else u_ref
+        np.testing.assert_allclose(x["u"].numpy(), want_u, **TOL)
+        np.testing.assert_allclose(x["v2"].numpy(), v2_ref[..., r * np_ : (r + 1) * np_], **TOL)
+
+
+def _jax_spatial(name, n, **kw):
+    """JAX's split-engine SpatialNUFFT (interpret mode) on an n-device mesh."""
+    case = CASES[name]
+    sp_kw = {k: v for k, v in case["spatial"].items() if k != "capacity_factor"}
+    mesh = Mesh(np.asarray(jax.devices()[:n]), ("grid",))
+    sp = JaxSpatialNUFFT(case["dtype"], case["shape"], mesh=mesh, interpret=True,
+                         engine="split", **sp_kw, **kw)
+    pts, v_ch = case_inputs(name, n)
+    st = sp.set_points(pts)
+    u = np.asarray(sp.exec_type1(st, v_ch))
+    return u, np.asarray(sp.exec_type2(st, sp.exec_type1(st, v_ch)))
+
+
+def test_complex128_n4_matches_jax_spatial(ranks):
+    res = _results(ranks, 4, "c128_n4")
+    u, v2 = _jax_spatial("c128_n4", 4)
+    _check_against(res, u, v2, 4)
+    assert all(x["engine"] == "split" and x["shard_dim"] == 1 for x in res)
+
+
+def test_spectrum_sharded_matches_jax_spatial_and_replicated(ranks):
+    res = _results(ranks, 4, "c128_sharded")
+    u, v2 = _jax_spatial("c128_sharded", 4)  # the global array of the shards
+    _check_against(res, u, v2, 4, sharded=True)
+    u_rep, v2_rep = _single_reference("c128_sharded", 4)
+    _check_against(res, u_rep, v2_rep, 4, sharded=True)
+    k1l = res[0]["k1_local"]
+    assert tuple(res[0]["u"].shape) == (1, 2, 16, k1l, 16) and k1l == 4
+    b = res[0]["bytes"]
+    assert b["spectrum"] == "sharded" and b["n"] == 4 and b["t1_spectrum_all_gather"] == 0
+
+
+@pytest.mark.parametrize("name", ["f64_r2c", "c128_2d", "skewed", "ntransforms"])
+def test_spatial_n4_matches_single_device(ranks, name):
+    _check_against(_results(ranks, 4, name), *_single_reference(name, 4), 4)
+
+
+def test_real_spectrum_sharded_matches_single_device(ranks):
+    _check_against(_results(ranks, 4, "f64_sharded"), *_single_reference("f64_sharded", 4), 4,
+                   sharded=True)
+
+
+@pytest.mark.parametrize("name", N2)
+def test_spatial_n2_matches_single_device(ranks, name):
+    """Two ranks: both neighbours of a rank are the same rank."""
+    _check_against(_results(ranks, 2, name), *_single_reference(name, 2), 2)
+
+
+def test_spatial_n1_fftshift_matches_single_device(ranks):
+    """One rank: the halo wraps onto the rank's own slab; fftshift order."""
+    _check_against(_results(ranks, 1, "c128_n1_fftshift"),
+                   *_single_reference("c128_n1_fftshift", 1), 1)
+
+
+def test_collective_bytes_split_formula(ranks):
+    b = _results(ranks, 4, "c128_n4")[0]["bytes"]
+    grid = 2 * 24 ** 3 * 8  # (re, im) x oversampled grid x float64
+    assert b["t1_transpose_all_to_all"] == int(grid / 1.5 ** 2 * 3 / 4)
+    assert b["t1_spectrum_all_gather"] == int(2 * 16 ** 3 * 8 * 3 / 4)
+
+
+ERRORS = {
+    "ndim": ">= 2 dimensions",
+    "spectrum": "unknown spectrum layout",
+    "engine": "unknown SpatialNUFFT engine",
+    "variant": "requires fft_variant='split'",
+    "slab": "cannot split 16 grid planes",
+    "dim1": "must divide by the mesh size",
+    "indivisible": "spectral dim",
+    "npoints": "divide by mesh size",
+    "overflow": "overflow",
+}
+
+
+@pytest.mark.parametrize("key", sorted(ERRORS))
+def test_errors_raise_on_every_rank(ranks, key):
+    """Validation errors, the unequal point counts and the routing overflow
+    raise the same ValueError on every rank, none hangs, and the group
+    still works after them."""
+    res = _results(ranks, 4, "errors")
+    for x in res:
+        assert x[key] is not None and ERRORS[key] in x[key], x[key]
+        assert np.isfinite(x["ok_after"]) and x["ok_after"] > 0
+
+
+@pytest.mark.parametrize("name", sorted(SHARDED_CASES))
+def test_point_sharded_matches_jax(ranks, name):
+    res = _results(ranks, 4, name)
+    case = SHARDED_CASES[name]
+    pts, v_ch = case_inputs(name, 4)
+    mesh = make_mesh(4)
+    plan = jnufft.PlanNUFFT(case["dtype"], case["shape"], sigma=2.0, fft_method="xla")
+    pts_d, v_d = jax_shard_points(mesh, pts, v_ch)
+    u = np.asarray(exec_type1_sharded(plan, pts_d, v_d, mesh=mesh))
+    v2 = np.asarray(exec_type2_sharded(plan, pts_d, u, mesh=mesh))
+    for r, x in enumerate(res):
+        np.testing.assert_allclose(x["u"].numpy(), u, **TOL)
+        np_ = case["np_rank"]
+        np.testing.assert_allclose(x["v2"].numpy(), v2[..., r * np_ : (r + 1) * np_], **TOL)

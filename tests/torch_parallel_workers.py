@@ -1,0 +1,163 @@
+"""Rank processes of ``tests/test_torch_parallel.py``: gloo ranks on the CPU
+that drive the port's two multi-device modes and save what they compute.
+
+This module imports numpy, torch and the port only (no JAX): each spawned
+rank imports it.  Every case makes its global inputs from a numpy seed with
+:func:`case_inputs`, which the test process calls too to compute JAX's
+results, and takes its own slice of the points.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+#: The spatial-mode cases: ``spatial`` holds the keyword arguments of
+#: ``SpatialNUFFT``, ``np_rank`` the points of each rank, ``C`` the
+#: transforms.  A real 2D plan has no case: its halved dim 1 (N1 / 2 + 1)
+#: is odd whenever N1 divides by an even group size, so the dim-1 transpose
+#: cannot split it (``_errors`` checks that it raises).
+CASES = {
+    "c128_n4": dict(dtype=np.complex128, shape=(16, 16, 16), np_rank=64, spatial=dict(m=4, sigma=1.5)),
+    "c128_sharded": dict(dtype=np.complex128, shape=(16, 16, 16), np_rank=64,
+                         spatial=dict(m=4, sigma=1.5, spectrum="sharded")),
+    "f64_r2c": dict(dtype=np.float64, shape=(16, 16, 16), np_rank=64, spatial=dict(m=4, sigma=1.5)),
+    "c128_2d": dict(dtype=np.complex128, shape=(32, 32), np_rank=100, spatial=dict(m=4, sigma=2.0)),
+    "skewed": dict(dtype=np.complex128, shape=(16, 16, 16), np_rank=64,
+                   spatial=dict(m=4, sigma=1.5, capacity_factor=4.0)),
+    "ntransforms": dict(dtype=np.complex128, shape=(16, 16, 16), np_rank=48, C=2,
+                        spatial=dict(m=4, sigma=1.5, ntransforms=2)),
+    "f64_sharded": dict(dtype=np.float64, shape=(16, 16, 12), np_rank=60,
+                        spatial=dict(m=4, sigma=2.0, spectrum="sharded")),
+    "c128_n2": dict(dtype=np.complex128, shape=(16, 16, 16), np_rank=80, spatial=dict(m=4, sigma=1.5)),
+    "f64_r2c_n2": dict(dtype=np.float64, shape=(12, 16, 10), np_rank=80, spatial=dict(m=5, sigma=2.0)),
+    "c128_n1_fftshift": dict(dtype=np.complex128, shape=(16, 12, 16), np_rank=200,
+                             spatial=dict(m=4, sigma=1.5, fftshift=True)),
+}
+#: The point-sharded cases (``exec_type{1,2}_sharded``).
+SHARDED_CASES = {
+    "pts_c128": dict(dtype=np.complex128, shape=(24, 18), np_rank=50),
+    "pts_f64": dict(dtype=np.float64, shape=(24, 18), np_rank=50),
+}
+
+
+def case_inputs(name: str, n: int):
+    """Global points (D, n Np_l) and channel values (C, [2,] n Np_l) of a case."""
+    case = {**CASES, **SHARDED_CASES}[name]
+    rng = np.random.default_rng(sum(map(ord, name)) + n)
+    D, np_ = len(case["shape"]), n * case["np_rank"]
+    pts = rng.uniform(0, 2 * np.pi, (D, np_))
+    if name == "skewed":
+        pts[0] = rng.uniform(0, 0.3, np_)  # everything in rank 0's slab
+    C = case.get("C", 1)
+    real = np.dtype(case["dtype"]).kind == "f"
+    v_ch = rng.standard_normal((C, np_) if real else (C, 2, np_))
+    return pts, v_ch
+
+
+def _rank_slice(x, rank, n):
+    np_ = x.shape[-1] // n
+    return x[..., rank * np_ : (rank + 1) * np_]
+
+
+def _spatial_case(name, n, rank):
+    from nonuniformffts_tpu_torch.parallel import SpatialNUFFT
+
+    case = CASES[name]
+    pts, v_ch = case_inputs(name, n)
+    sp = SpatialNUFFT(case["dtype"], case["shape"], device="cpu", **case["spatial"])
+    st = sp.set_points(_rank_slice(pts, rank, n))
+    u = sp.exec_type1(st, _rank_slice(v_ch, rank, n))
+    return dict(u=u, v2=sp.exec_type2(st, u), bytes=sp.collective_bytes(),
+                engine=sp.engine, shard_dim=sp.spectrum_shard_dim, k1_local=sp.k1_local)
+
+
+def _sharded_case(name, n, rank):
+    import nonuniformffts_tpu_torch as nufft
+    from nonuniformffts_tpu_torch.parallel import exec_type1_sharded, exec_type2_sharded, shard_points
+
+    case = SHARDED_CASES[name]
+    pts, v_ch = case_inputs(name, n)
+    plan = nufft.PlanNUFFT(case["dtype"], case["shape"], sigma=2.0, device="cpu")
+    pts_l, v_l = shard_points(torch.from_numpy(pts), torch.from_numpy(v_ch), device="cpu")
+    u = exec_type1_sharded(plan, pts_l, v_l)
+    return dict(u=u, v2=exec_type2_sharded(plan, pts_l, u))
+
+
+def _errors(n, rank):
+    """The message of each validation error, per rank."""
+    from nonuniformffts_tpu_torch.parallel import SpatialNUFFT
+
+    out = {}
+
+    def catch(key, fn):
+        try:
+            fn()
+            out[key] = None
+        except ValueError as e:
+            out[key] = str(e)
+
+    kw = dict(device="cpu", m=4, sigma=1.5)
+    catch("ndim", lambda: SpatialNUFFT(np.complex128, (64,), **kw))
+    catch("spectrum", lambda: SpatialNUFFT(np.complex128, (32, 32), spectrum="cols", **kw))
+    catch("engine", lambda: SpatialNUFFT(np.complex128, (32, 32), engine="fast", **kw))
+    catch("variant", lambda: SpatialNUFFT(np.complex128, (32, 32), engine="split",
+                                          fft_variant="pruned", **kw))
+    catch("slab", lambda: SpatialNUFFT(np.complex128, (8, 8, 8), device="cpu", m=6, sigma=2.0))
+    catch("dim1", lambda: SpatialNUFFT(np.complex128, (32, 30), **kw))
+    catch("indivisible", lambda: SpatialNUFFT(np.float64, (32, 32), spectrum="sharded", **kw))
+    sp = SpatialNUFFT(np.complex128, (32, 32), **kw)
+    rng = np.random.default_rng(3)
+    catch("npoints", lambda: sp.set_points(rng.uniform(0, 6, (2, 100 + (rank == 0)))))
+    over = SpatialNUFFT(np.complex128, (16, 16, 16), capacity_factor=0.5, **kw)
+    pts = rng.uniform(0, 2 * np.pi, (3, 64))
+    pts[0] = 0.1  # every rank routes everything to rank 0
+    catch("overflow", lambda: over.set_points(pts))
+    out["ok_after"] = float(sp.exec_type1(sp.set_points(rng.uniform(0, 6, (2, 100))),
+                                          rng.standard_normal((1, 2, 100))).abs().sum())
+    return out
+
+
+def worker(rank, n, rdv, out_dir, names):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=60))
+    for name in names:
+        try:
+            if name == "errors":
+                res = _errors(n, rank)
+            elif name in SHARDED_CASES:
+                res = _sharded_case(name, n, rank)
+            else:
+                res = _spatial_case(name, n, rank)
+        except Exception:  # recorded for the test of this case
+            res = dict(failed=traceback.format_exc())
+            print(f"rank {rank}, case {name}:\n{res['failed']}", file=sys.stderr, flush=True)
+        torch.save(res, os.path.join(out_dir, f"{name}.{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_ranks(n: int, names, out_dir: str, timeout: float = 240.0):
+    """Spawn ``n`` gloo ranks that run ``names``; returns ``{name: [result of
+    rank 0, ..]}``.  A rank still running after ``timeout`` seconds is
+    killed and the call raises ``TimeoutError``."""
+    ctx = mp.start_processes(worker, args=(n, os.path.join(out_dir, "rendezvous"), out_dir,
+                                           list(names)),
+                             nprocs=n, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{n} ranks still running after {timeout} s")
+    return {name: [torch.load(os.path.join(out_dir, f"{name}.{r}.pt"), weights_only=False)
+                   for r in range(n)] for name in names}
