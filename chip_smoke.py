@@ -51,19 +51,25 @@ Phases, in order; the first failure raises and the script exits non-zero:
 13. the two multi-device modes (``nonuniformffts_tpu_torch.parallel``) at
     N = 256^3, m = 4, sigma = 1.5, BKB FastApproximation, 16,777,216 uniform
     points: first K8a / K8b (``csrc/relayout.cu``) against their plain
-    versions at the spatial run's transpose shapes, complex64 and
-    complex128, bit for bit, timed beside the library call that computes
-    the same copy; then four gloo ranks spawned on the one card (cuda:0)
-    drive ``SpatialNUFFT`` (n = 4, complex64 and complex128;
-    ``capacity_factor=1.25``), the same at n = 2 on a two-rank group
-    (complex64), and ``exec_type{1,2}_sharded`` (n = 4, complex64); then
-    ``SpatialNUFFT`` on an NCCL group of one rank in this process.  Each
-    row: set_points / exec_type1 / exec_type2 (CUDA-event medians of 3 after
-    one warm-up, per rank), the host time of one more call with the time
-    in collectives, launch counts per rank (K1, K2, K8a and K8b must each
-    launch on the spatial path), err1 / err2 against exact sums, agreement
-    with the single-card plan on the same points (<= 1e-5 complex64,
-    <= 1e-12 complex128), and which collectives went through host memory.
+    versions, bit for bit, on ragged shapes that reach the register and
+    element paths and at the spatial run's five relayout shapes, complex64
+    and complex128, each timed as 50 calls back to back over three input
+    buffers (kernel, plain version and the library call that computes the
+    same copy, in turns) and as one wrapper call; then four gloo ranks
+    spawned on the one card (cuda:0) drive ``SpatialNUFFT`` (block form,
+    the default engine; n = 4 complex64 and complex128, n = 4 complex64
+    with ``spectrum='sharded'``; ``capacity_factor=1.25``), the same at
+    n = 2 on a two-rank group (complex64), and ``exec_type{1,2}_sharded``
+    (n = 4, complex64); then ``SpatialNUFFT`` on an NCCL group of one rank
+    in this process, replicated and sharded.  Each row: set_points /
+    exec_type1 / exec_type2 (CUDA-event medians of 3 after one warm-up, per
+    rank), the host time of one more call with the time in collectives,
+    launch counts per rank (K1, K2, K8a and K8b must each launch on the
+    spatial path), err1 (a sharded row's at modes of its own rows of dim
+    0) / err2 against exact sums, agreement with the single-card plan on
+    the same points (a sharded row's dim-0 shard against the single card's
+    rows; <= 1e-5 complex64, <= 1e-12 complex128), and which collectives
+    went through host memory.
     The ranks share one card: the times are the port's per-rank cost plus
     gloo's host transport, not a scaling result.
 
@@ -81,8 +87,9 @@ path, its error against its plain version, both times, the least time the
 card could take for the same work (``bound_ms``) and what bounds it, the
 library call's time (``library_ms``, the relayouts only), a ``windows`` map
 with the same numbers under each window mode and m of phases 10-11, and
-for the relayouts a ``shapes`` map; the last line is ``{"ok": true,
-"device": {...}}``.
+for the relayouts a ``shapes`` map (each shape's kernel ``ms`` from calls
+back to back beside ``call_ms``, one wrapper call); the last line is
+``{"ok": true, "device": {...}}``.
 
 Tolerances: kernels against plain versions <= 1e-5 relative L2 in float32
 (atomics add in a run-dependent order; ~1e-7 expected) and <= 1e-12 in
@@ -488,11 +495,14 @@ def phase_kernels(seed: int):
 # ---------------------------------------------------------------------------
 
 
-def _err1(pts, v, uhat, shape, real: bool, seed: int, modes: int = ERR_MODES) -> float:
+def _err1(pts, v, uhat, shape, real: bool, seed: int, modes: int = ERR_MODES,
+          rows=None) -> float:
     """Type-1 output against exact float64 sums at ``modes`` random modes,
     computed on the card in point chunks (bench.py:measure_t1_error).  Real plans store
     k = 0..+N/2 on the halved LAST axis: the Nyquist index is POSITIVE there
-    (bench.py:336-347), while the full axes fold index N/2 to -N/2."""
+    (bench.py:336-347), while the full axes fold index N/2 to -N/2.  With
+    ``rows`` (start, stop) the modes come from those indices of dim 0 and
+    ``uhat`` holds only them (a dim-0 shard)."""
     import torch
 
     D = len(shape)
@@ -500,6 +510,8 @@ def _err1(pts, v, uhat, shape, real: bool, seed: int, modes: int = ERR_MODES) ->
     kidx = np.stack([rng.integers(0, n, modes) for n in shape], axis=1)
     if real:
         kidx[:, -1] = rng.integers(0, shape[-1] // 2 + 1, modes)
+    if rows is not None:
+        kidx[:, 0] = rng.integers(rows[0], rows[1], modes)
     n = np.array(shape)
     kval = np.where(kidx >= (n + 1) // 2, kidx - n, kidx).astype(np.float64)
     if real:
@@ -511,6 +523,8 @@ def _err1(pts, v, uhat, shape, real: bool, seed: int, modes: int = ERR_MODES) ->
     for s in range(0, pts.shape[1], step):
         ph = k @ pts[:, s : s + step].to(torch.float64)
         exact += torch.exp(-1j * ph) @ v[s : s + step]
+    if rows is not None:
+        kidx[:, 0] -= rows[0]
     ki = torch.as_tensor(kidx, device=uhat.device)
     got = uhat[tuple(ki[:, d] for d in range(D))].to(torch.complex128)
     return rel_l2(got, exact)
@@ -932,74 +946,140 @@ def phase_nfft(seed: int, record):
 
 
 def _relayout_cases(dtype, shape, n: int):
-    """The transposes of the spatial run at ``shape`` over ``n`` ranks, one
+    """The relayouts of the spatial run at ``shape`` over ``n`` ranks, one
     channel: (entry point, label, input, block dims).  K8b packs the type-1
-    slab (1, N0l, K1, K2) rank-major; K8a unpacks the type-2 all_to_all
-    (n, N0l, K1l, K2) and the type-1 all_gather (n, K0, K1l, K2)."""
+    slab (1, N0l, K1p, K2) rank-major and, for block form's sharded
+    spectrum, the type-2 dim-0 shard (1, K0l, K1p, K2); K8a unpacks the
+    type-2 all_to_all (n, N0l, K1l, K2), the type-1 all_gather (n, K0, K1l,
+    K2) and block form's type-1 dim-0 unshard (n, K0l, K1l, K2)."""
     import torch
 
     from nonuniformffts_tpu_torch.ops.kernels import relayout
 
     plan = _plan(dtype, shape, 4, 1.5)
-    n0l, k1l = plan.shape_over[0] // n, shape[1] // n
+    n0l, k1l, k0l = plan.shape_over[0] // n, -(-shape[1] // n), shape[0] // n
     tail = tuple(shape[2:])
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
-    slab = _random_values(gen, (1, n0l, shape[1]) + tail, plan.dtype, dev)
-    blocks_t2 = _random_values(gen, (1, 1, n, 1, n0l, k1l) + tail, plan.dtype, dev)
-    blocks_t1 = _random_values(gen, (1, 1, n, 1, shape[0], k1l) + tail, plan.dtype, dev)
+    blocks, grid = relayout.entry_point("blocks", plan.dtype), relayout.entry_point("grid", plan.dtype)
+
+    def rand(*dims):
+        return _random_values(gen, dims, plan.dtype, dev)
+
     return [
-        (relayout.entry_point("blocks", plan.dtype), "type-1 pack", slab, (n0l, k1l) + tail),
-        (relayout.entry_point("grid", plan.dtype), "type-2 unpack", blocks_t2,
-         (n0l, k1l) + tail),
-        (relayout.entry_point("grid", plan.dtype), "type-1 gather unpack", blocks_t1,
+        (blocks, "type-1 pack", rand(1, n0l, n * k1l, *tail), (n0l, k1l) + tail),
+        (grid, "type-2 unpack", rand(1, 1, n, 1, n0l, k1l, *tail), (n0l, k1l) + tail),
+        (grid, "type-1 gather unpack", rand(1, 1, n, 1, shape[0], k1l, *tail),
          (shape[0], k1l) + tail),
+        (grid, "type-1 dim-0 unshard", rand(1, 1, n, 1, k0l, k1l, *tail), (k0l, k1l) + tail),
+        (blocks, "type-2 dim-0 pack", rand(1, k0l, n * k1l, *tail), (k0l, k1l) + tail),
     ]
 
 
-def compare_relayouts(dtype, shape, n: int, reps: int = 20):
-    """K8a / K8b at the spatial run's transpose shapes against their plain
-    versions (exact equality) and against one PyTorch call computing the
-    same function (``reshape``, ``permute``, ``contiguous``), timed in turns
-    (plain, kernel, kernel, plain; the library call between). The headline
-    of each entry point is its first shape."""
+#: Ragged relayouts (grid shape with CR, block dims) that reach the register
+#: path (runs shorter than 4 KB or not whole 16-byte vectors; B2 = 1 is the
+#: element path in complex64) and a TMA path whose runs end in a partial
+#: chunk; checked against the plain versions, not timed.
+RAGGED_RELAYOUTS = (((3, 12, 10, 6), (4, 5, 3)), ((2, 12, 9), (4, 3)), ((2, 6, 5, 4), (3, 5, 1)),
+                    ((1, 96, 64), (96, 16)), ((1, 8, 40, 300), (4, 10, 300)))
+RELAYOUT_LAUNCHES = 50
+
+
+def _back_to_back_ms(fn, inputs, count: int = RELAYOUT_LAUNCHES) -> float:
+    """ms per call of ``count`` calls of ``fn`` back to back between two
+    events, cycling over ``inputs`` (more bytes than the 50 MB L2)."""
+    import torch
+
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(count):
+        fn(inputs[i % len(inputs)])
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / count
+
+
+def check_ragged_relayouts(dtype) -> None:
+    """K8a / K8b equal to their plain versions, bit for bit, on
+    ``RAGGED_RELAYOUTS`` and on an input that is only 8-byte aligned."""
     import torch
 
     from nonuniformffts_tpu_torch.ops.kernels import relayout
 
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cdtype = torch.complex64 if np.dtype(dtype) == np.complex64 else torch.complex128
+    cases = [(torch.randn(g, generator=gen, device="cuda", dtype=cdtype), bd)
+             for g, bd in RAGGED_RELAYOUTS]
+    if cdtype == torch.complex64:
+        cases.append((torch.randn(1 + 2 * 8 * 64, generator=gen, device="cuda",
+                                  dtype=cdtype)[1:].view(2, 8, 64), (4, 16)))
+    for g, bd in cases:
+        b = relayout.relayout_to_blocks(g, bd)
+        back = relayout.relayout_to_grid(b, bd)
+        torch.cuda.synchronize()
+        if not (torch.equal(b, relayout.relayout_to_blocks_plain(g, bd))
+                and torch.equal(back, g)):
+            raise AssertionError(f"K8 differs from its plain version at {tuple(g.shape)} / {bd}")
+        geom = relayout.run_geometry(tuple(g.shape), bd)
+        log(f"  ragged {cdtype} {tuple(g.shape)} / {bd}: runs {geom.runs} x {geom.run_len}, "
+            f"data_ptr % 16 = {g.data_ptr() % 16}: equal to plain")
+
+
+def compare_relayouts(dtype, shape, n: int, reps: int = 20):
+    """K8a / K8b at the spatial run's relayout shapes against their plain
+    versions (exact equality) and against one PyTorch call computing the
+    same function (``reshape``, ``permute``, ``contiguous``).  Each is timed
+    as ``RELAYOUT_LAUNCHES`` calls back to back over three input buffers
+    (ms per call: ``ms`` for the kernel, ``plain_ms``, ``library_ms``), in
+    turns (plain, kernel, kernel, plain; the library call between), and the
+    kernel also as one wrapper call between two events (``call_ms``, median
+    of ``reps``).  The headline of each entry point is its first shape."""
+    import torch
+
+    from nonuniformffts_tpu_torch.ops.kernels import relayout
+
+    check_ragged_relayouts(dtype)
     results = {}
     for name, label, x, bd in _relayout_cases(dtype, shape, n):
         D = len(bd)
+        xs = [x, x.clone(), x.clone()]
         if "blocks" in name:
             nb = tuple(g // b for g, b in zip(x.shape[1:], bd))
             split = (x.shape[0],) + tuple(v for p in zip(nb, bd) for v in p)
             perm = (0,) + tuple(1 + 2 * d for d in range(D)) + tuple(2 + 2 * d for d in range(D))
-            kern = lambda: relayout.relayout_to_blocks(x, bd)
-            plain = lambda: relayout.relayout_to_blocks_plain(x, bd)
-            library = lambda: x.reshape(split).permute(perm).contiguous()
+            kern = lambda t: relayout.relayout_to_blocks(t, bd)
+            plain = lambda t: relayout.relayout_to_blocks_plain(t, bd)
+            library = lambda t: t.reshape(split).permute(perm).contiguous()
         else:
             grid = (x.shape[0],) + tuple(b * k for b, k in zip(x.shape[1 : 1 + D], bd))
             perm = (0,) + tuple(v for d in range(D) for v in (1 + d, 1 + D + d))
-            kern = lambda: relayout.relayout_to_grid(x, bd)
-            plain = lambda: relayout.relayout_to_grid_plain(x, bd)
-            library = lambda: x.permute(perm).reshape(grid)
-        p1, want = cuda_time_ms(plain, reps=reps)
-        k1, got = cuda_time_ms(kern, reps=reps)
-        l1, lib = cuda_time_ms(library, reps=reps)
-        k2, _ = cuda_time_ms(kern, reps=reps)
-        p2, _ = cuda_time_ms(plain, reps=reps)
+            kern = lambda t: relayout.relayout_to_grid(t, bd)
+            plain = lambda t: relayout.relayout_to_grid_plain(t, bd)
+            library = lambda t: t.permute(perm).reshape(grid)
+        p1 = _back_to_back_ms(plain, xs)
+        k1 = _back_to_back_ms(kern, xs)
+        l1 = _back_to_back_ms(library, xs)
+        k2 = _back_to_back_ms(kern, xs)
+        p2 = _back_to_back_ms(plain, xs)
+        call, got = cuda_time_ms(lambda: kern(x), reps=reps)
+        want, lib = plain(x), library(x)
         torch.cuda.synchronize()
         if not (torch.equal(got, want) and torch.equal(lib, want)):
             raise AssertionError(f"{name} ({label}) differs from its plain version")
         nbytes = 2 * x.numel() * x.element_size()
-        res = dict(max_abs_err=0.0, rel_l2=0.0, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                   library_ms=l1, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
-                   shape=list(x.shape), block_dims=list(bd))
-        log(f"  {name} {label} {tuple(x.shape)} / {bd}: equal to plain; kernel "
-            f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library {l1:.4f} ms, "
-            f"bound {res['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB)")
+        geom = relayout.run_geometry(tuple(want.shape if "grid" in name else x.shape), bd)
+        res = dict(max_abs_err=0.0, rel_l2=0.0, ms=(k1 + k2) / 2, call_ms=call,
+                   plain_ms=(p1 + p2) / 2, library_ms=l1,
+                   bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+                   shape=list(x.shape), block_dims=list(bd), runs=[geom.runs, geom.run_len])
+        log(f"  {name} {label} {tuple(x.shape)} / {bd}, runs {geom.runs} x {geom.run_len}: "
+            f"equal to plain; kernel {k1:.4f} / {k2:.4f} ms, one call {call:.4f} ms, plain "
+            f"{p1:.4f} / {p2:.4f} ms, library {l1:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB)")
         results.setdefault(name, dict(res, shapes={}))["shapes"][label] = res
-        del got, want, lib
+        del got, want, lib, xs
     return results
 
 
@@ -1048,12 +1128,15 @@ def _timed_collectives(fn):
 
 
 def spatial_row(label: str, dtype, group, shape, np_total: int, seed: int,
-                reps: int = SPATIAL_REPS):
+                reps: int = SPATIAL_REPS, spectrum: str = "replicated"):
     """``SpatialNUFFT`` at ``shape`` over ``group``: set_points -> exec_type1 ->
     exec_type2 on this rank's share of ``np_total`` uniform points, timed
     (CUDA-event medians), with launch counts, the collectives' share,
     err1 / err2 against exact sums and agreement with the single-card plan
-    on the same points.  Raises if a check fails."""
+    on the same points.  With ``spectrum='sharded'`` (block form: this
+    rank's rows of spectral dim 0) type 1 is held against the single card's
+    rows and type 2 takes this rank's rows of the spectrum; err1 samples
+    modes of those rows.  Raises if a check fails."""
     import torch
     import torch.distributed as dist
 
@@ -1069,10 +1152,14 @@ def spatial_row(label: str, dtype, group, shape, np_total: int, seed: int,
     v_ch = ex.to_channels(vp[sl][None], 1)
     a, u_np = _rank1_spectrum(shape, False, seed)
     u_spec = torch.as_tensor(u_np, device=dev).to(vp.dtype)
-    u_ch = ex.to_channels(u_spec[None], 1)
     sp = SpatialNUFFT(dtype, shape, group=group, m=4, sigma=1.5, capacity_factor=SPATIAL_CAPACITY,
                       kernel=nufft.BackwardsKaiserBesselKernel(),
-                      kernel_evalmode=nufft.FastApproximation(), device=dev)
+                      kernel_evalmode=nufft.FastApproximation(), device=dev, spectrum=spectrum)
+    rows = slice(None)
+    if spectrum == "sharded":
+        rows = slice(me * sp.k0_local, (me + 1) * sp.k0_local)
+        assert sp.spectrum_shard_dim == 0, sp.engine
+    u_ch = ex.to_channels(u_spec[None, rows], 1)
     torch.cuda.synchronize()
     _reset_launch_counts()
     t_set, st = cuda_time_ms(lambda: sp.set_points(pts[:, sl]), reps=reps)
@@ -1093,13 +1180,14 @@ def spatial_row(label: str, dtype, group, shape, np_total: int, seed: int,
     v2c = ex.from_channels(v2, 1)[0]
     if not (torch.isfinite(torch.view_as_real(uc)).all() and torch.isfinite(v2c).all()):
         raise AssertionError(f"{label}: non-finite output")
-    e1 = _err1(pts, vp, uc, shape, False, seed)
+    e1 = _err1(pts, vp, uc, shape, False, seed,
+               rows=None if spectrum == "replicated" else (rows.start, rows.stop))
     e2 = _err2(pts[:, sl], v2c, a, False, seed)
     slab_block_dims, cap = list(st.local.block_dims), st.cap
     del st
     torch.cuda.empty_cache()
     plan = nufft.set_points(_plan(dtype, shape, 4, 1.5), pts)
-    agree1 = rel_l2(uc, nufft.exec_type1(plan, vp))
+    agree1 = rel_l2(uc, nufft.exec_type1(plan, vp)[rows])
     agree2 = rel_l2(v2c, nufft.exec_type2(plan, u_spec)[sl])
     del plan
     torch.cuda.empty_cache()
@@ -1110,6 +1198,7 @@ def spatial_row(label: str, dtype, group, shape, np_total: int, seed: int,
         if not value <= limit:
             raise AssertionError(f"{label} rank {me}: {what} = {value:.3e} exceeds {limit:.0e}")
     return dict(label=label, n=n, rank=me, np_rank=npl, backend=comm.backend(group),
+                engine=sp.engine, spectrum=spectrum, uhat_shape=list(uc.shape),
                 set_points_ms=t_set, exec_type1_ms=t_t1, exec_type2_ms=t_t2,
                 host_and_collective_ms=share, err1=e1, err2=e2, vs_single=[agree1, agree2],
                 launches=counts, staged=list(comm.staged_ops(group)),
@@ -1173,8 +1262,9 @@ def sharded_row(label: str, dtype, group, shape, np_total: int, seed: int,
 
 def _spatial_rank(rank: int, n: int, rdv: str, out_dir: str, shape, np_total: int, seed: int):
     """One gloo rank of phase 13 on cuda:0: the spatial rows at n = 4
-    (complex64, complex128) and n = 2 (ranks 0 and 1, complex64), then the
-    point-sharded row at n = 4.  Writes its rows to ``out_dir``."""
+    (complex64, complex128, complex64 sharded) and n = 2 (ranks 0 and 1,
+    complex64), then the point-sharded row at n = 4.  Writes its rows to
+    ``out_dir``."""
     import datetime
 
     import torch
@@ -1191,6 +1281,9 @@ def _spatial_rank(rank: int, n: int, rdv: str, out_dir: str, shape, np_total: in
         rows.append(spatial_row(f"spatial n=4 {np.dtype(dtype).name}", dtype, None, shape,
                                 np_total, seed))
         dist.barrier()
+    rows.append(spatial_row("spatial n=4 complex64 sharded", np.complex64, None, shape, np_total,
+                            seed, spectrum="sharded"))
+    dist.barrier()
     pair = dist.new_group([0, 1])
     if rank < 2:
         rows.append(spatial_row("spatial n=2 complex64", np.complex64, pair, shape, np_total,
@@ -1223,11 +1316,12 @@ def _log_rows(rows):
 
 
 def phase_parallel(seed: int, record, compared):
-    """Phase 13: K8a / K8b against their plain versions at the spatial run's
-    transpose shapes; then the two multi-device modes with four gloo ranks
-    sharing the one card (spatial n = 4 complex64 and complex128, n = 2
-    complex64, point-sharded n = 4), and the spatial mode on an NCCL group
-    of one rank in this process."""
+    """Phase 13: K8a / K8b against their plain versions at ragged shapes and
+    the spatial run's relayout shapes; then the two multi-device modes with
+    four gloo ranks sharing the one card (spatial n = 4 complex64,
+    complex128 and complex64 sharded, n = 2 complex64, point-sharded
+    n = 4), and the spatial mode on an NCCL group of one rank in this
+    process, replicated and sharded."""
     import tempfile
 
     import torch
@@ -1253,6 +1347,8 @@ def phase_parallel(seed: int, record, compared):
         try:
             rows.append(spatial_row("spatial n=1 complex64", np.complex64, None, SHAPE_3D,
                                     NP_SPATIAL, seed))
+            rows.append(spatial_row("spatial n=1 complex64 sharded", np.complex64, None,
+                                    SHAPE_3D, NP_SPATIAL, seed, spectrum="sharded"))
         finally:
             dist.destroy_process_group()
     _log_rows(rows)

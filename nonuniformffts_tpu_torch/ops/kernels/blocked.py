@@ -87,7 +87,7 @@ def check_kernel_support(plan) -> None:
         raise NotImplementedError(
             f"the CUDA kernels are instantiated for m in "
             f"{KERNEL_M_RANGE.start}..{KERNEL_M_RANGE.stop - 1}, got m={plan.m} "
-            "(10 is the JAX package's documented maximum; ROADMAP queue 2)"
+            "(10 is the JAX package's documented maximum)"
         )
     _, ncoef = kernel_coefs(plan)
     _, scalar_bytes, ncomp = VALUE_TYPES[plan.dtype]

@@ -71,9 +71,10 @@ for _d in KERNEL_DIMS:
         # n_0..n_{D-1}, normfactor, stream
         _SIGNATURES[f"nufft_interp_{_d}d_{_vt}"] = _HEAD + [_I] * _d + [ctypes.c_double, _P]
 for _vt in ("f32", "f64"):
-    # src, dst, cr, n0, n1, n2, b0, b1, b2, stream (csrc/relayout.cu)
+    # src, dst, runs, run_len, n0, b0, n1, b1, nb2, stream (csrc/relayout.cu)
     for _dir in ("grid", "blocks"):
-        _SIGNATURES[f"nufft_relayout_to_{_dir}_{_vt}"] = [_P, _P] + [_I] * 7 + [_P]
+        _SIGNATURES[f"nufft_relayout_to_{_dir}_{_vt}"] = (
+            [_P, _P, ctypes.c_longlong, ctypes.c_longlong] + [_I] * 5 + [_P])
 for _vt in ("f32", "f64"):
     # fracs, window, out, np, ndim, m, stream
     _SIGNATURES[f"nufft_window_weights_{_vt}"] = [
@@ -127,18 +128,19 @@ def build() -> Path:
     return lib_path
 
 
-def _compile(lib_path: Path) -> None:
-    """Compile every source once per value type, all at once, and link."""
+def _compile(lib_path: Path, sources=None, flags=(), log_path: Path = PTXAS_LOG) -> None:
+    """Compile every source (default: all of ``csrc/``) once per value type,
+    all at once, with ``flags`` added, and link into ``lib_path``."""
     nvcc = _nvcc()
-    cu, _ = _sources()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    cu = _sources()[0] if sources is None else [CSRC_DIR / name for name in sources]
+    with tempfile.TemporaryDirectory(dir=lib_path.parent) as tmp:
         t0 = time.perf_counter()
         jobs = []
         for src in cu:
             for idx, vt in enumerate(VALUE_SUFFIXES):
                 obj = Path(tmp) / f"{src.stem}_{vt}.o"
                 log = open(Path(tmp) / f"{src.stem}_{vt}.log", "w+")
-                cmd = [nvcc, *COMPILE_FLAGS, f"-DNUFFT_ONLY={idx}", f"-I{CSRC_DIR}",
+                cmd = [nvcc, *COMPILE_FLAGS, *flags, f"-DNUFFT_ONLY={idx}", f"-I{CSRC_DIR}",
                        "-c", "-o", str(obj), str(src)]
                 proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True)
                 jobs.append((f"{src.name} [{vt}]", obj, proc, log))
@@ -156,10 +158,10 @@ def _compile(lib_path: Path) -> None:
             logs.append(f"--- {name} ({done[name]:.1f} s)\n{err}")
             if proc.returncode != 0:
                 failed.append(f"{name}: nvcc exit {proc.returncode}\n{err}")
-        PTXAS_LOG.write_text("\n".join(logs))
+        log_path.write_text("\n".join(logs))
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        out = Path(tmp) / LIB_NAME
+        out = Path(tmp) / lib_path.name
         res = subprocess.run(
             [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out),
              *(str(obj) for _, obj, _, _ in jobs)],
@@ -170,14 +172,41 @@ def _compile(lib_path: Path) -> None:
         os.replace(out, lib_path)
 
 
+def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the signature of each entry point it exports."""
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def build_variants(variants, sources=("relayout.cu",)):
+    """Build ``sources`` (file names in ``csrc/``) once for each variant, a
+    name mapped to extra nvcc flags (``-D`` values of a source's tunables),
+    all variants at once, each into its own library under
+    ``BUILD_DIR/variants/``; returns ``{name: loaded library}``.  For timing
+    design alternatives (``chip_probe.py --relayout``); the package itself
+    loads :func:`load`'s library only."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    paths = {}
+    for i, name in enumerate(variants):
+        d = BUILD_DIR / "variants" / str(i)
+        d.mkdir(parents=True, exist_ok=True)
+        paths[name] = d / LIB_NAME
+    with ThreadPoolExecutor(len(variants)) as pool:
+        for f in [pool.submit(_compile, paths[name], sources, tuple(flags),
+                              paths[name].parent / "ptxas.log")
+                  for name, flags in variants.items()]:
+            f.result()
+    return {name: _typed(ctypes.CDLL(str(path))) for name, path in paths.items()}
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built if needed and loaded once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _typed(ctypes.CDLL(str(build())))
     return _lib

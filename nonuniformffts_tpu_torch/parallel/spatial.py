@@ -1,13 +1,21 @@
 """Spatially sharded multi-device NUFFT: the oversampled grid split over the
 ranks of a ``torch.distributed`` group.
 
-Counterpart of ``nonuniformffts_tpu/parallel/spatial.py`` with one engine,
-the JAX package's split engine (its ``:763-818`` and ``:879-945``) on
-cuFFT.  Per-rank memory is O(grid / n):
+Counterpart of ``nonuniformffts_tpu/parallel/spatial.py``.  The JAX package
+has two engines there, and ``engine`` chooses between them as it does
+(:func:`jax_engine`): block form (``'blockform'``, what ``'auto'`` picks
+for every z-form plan) and split.  The port computes both engines' results
+and spectrum layouts with one algorithm, the split engine's slab
+transposes (the JAX package's ``:763-818`` and ``:879-945``) on cuFFT; the
+block-form engine's MXU factor-matrix DFT, with the halo fold in its
+factors, is a TPU device and has no counterpart.  Per-rank memory is
+O(grid / n):
 
 - rank ``r`` of ``n`` owns the grid planes ``[r N0l, (r + 1) N0l)`` along
   dim 0 (``N0l = N0 / n``) and, after the transposes, the spectral columns
-  ``[r K1l, (r + 1) K1l)`` along dim 1;
+  ``[r K1l, (r + 1) K1l)`` along dim 1, where ``K1l = ceil(K1 / n)``:
+  spectral dim 1 is padded with zero modes to ``K1p = n K1l`` around the
+  transposes and cropped after, so that any K1 splits;
 - ``set_points`` routes each point's (cell, fraction) to its owner rank with
   one capacity-bounded all_to_all (overflow is detected on every rank and
   raised, never dropped) and bin-sorts the received points for a local plan
@@ -18,26 +26,31 @@ cuFFT.  Per-rank memory is O(grid / n):
 - type 1: route the values, spread into the extended slab, add the M - 1
   leading and M trailing halo planes into the neighbours' slabs (a
   point-to-point exchange with the two neighbours), FFT and truncate dims
-  1.., pack rank-major (K8b), all_to_all, FFT and truncate dim 0,
-  deconvolve (the dim-1 factor sliced), and for ``spectrum='replicated'``
-  all_gather the dim-1 shards and unpack them (K8a);
-- type 2 mirrors it: slice the dim-1 shard and deconvolve, pad and
-  inverse-FFT dim 0, all_to_all, unpack (K8a), pad and inverse-FFT dims
-  1.., gather the halo planes from the neighbours, interpolate, and route
-  the values back to the caller's order.
+  1.., pad dim 1 to K1p, pack rank-major (K8b), all_to_all, FFT and
+  truncate dim 0, deconvolve (the dim-1 factor padded and sliced); for
+  ``spectrum='replicated'`` all_gather the dim-1 shards and unpack them
+  (K8a); for ``spectrum='sharded'`` the split engine returns the dim-1
+  shard, and block form turns it into the dim-0 shard ``[r K0l, (r + 1)
+  K0l)`` (``K0l = K0 / n``) with one more all_to_all and an unpack (K8a);
+- type 2 mirrors it: take the dim-1 shard (sliced from a replicated
+  spectrum; from a block-form dim-0 shard by a pack, K8b, and an
+  all_to_all) and deconvolve, pad and inverse-FFT dim 0, all_to_all, unpack
+  (K8a), crop dim 1 to K1, pad and inverse-FFT dims 1.., gather the halo
+  planes from the neighbours, interpolate, and route the values back to the
+  caller's order.
 
-The block-form engine of the JAX package (the MXU matmul DFT with the halo
-fold in its factors) is a TPU device and has no counterpart: ``engine``
-accepts ``'auto'``, ``'split'`` and ``'blockform'`` for call-site parity and
-``engine`` reports ``'split'``; ``spectrum='sharded'`` splits spectral dim 1.
+``engine`` and ``spectrum_shard_dim`` report what the JAX package reports
+(``'blockform'`` and 0, or ``'split'`` and 1), and the split engine
+refuses what the JAX package's refuses (dim 1 of the grid not divisible by
+n).
 
 Each process passes its own points and values (``(D, Np_l)``, the same
 ``Np_l`` on every rank) and gets its own values back; spectra are in the
-channel form, ``(C, 2) + spectral_shape`` replicated or ``(C, 2, K0, K1l,
-..)`` for this rank's dim-1 shard.  With ``ntransforms > 1`` the
-transposes run one channel at a time (K8's layout keeps the channel axis
-leading, which is rank-major only for one channel); the all_gather folds
-the channels into dim 0 and stays one call.
+channel form, ``(C, 2) + spectral_shape`` replicated, or this rank's shard
+``(C, 2, K0l, K1, ..)`` (block form) / ``(C, 2, K0, K1l, ..)`` (split).
+With ``ntransforms > 1`` the transposes run one channel at a time (K8's
+layout keeps the channel axis leading, which is rank-major only for one
+channel); the all_gather folds the channels into dim 0 and stays one call.
 """
 
 from __future__ import annotations
@@ -76,6 +89,33 @@ class SpatialPoints:
     num_points: int  # Np over all ranks
 
 
+def jax_engine(engine: str, ndim: int, shape_over, plan_kw) -> str:
+    """The engine the JAX package's ``SpatialNUFFT`` runs for these
+    arguments: ``'blockform'`` for a z-form plan (blocked spread, matmul FFT
+    with the pruned variant, D >= 2, precision != 'double'; its
+    ``parallel/spatial.py:136-160`` and ``plan.py:560-590``; ``'auto'`` sets
+    the pruned variant and the matmul FFT unless they are given), else
+    ``'split'``.  ``engine='blockform'`` on any other plan raises the JAX
+    package's error."""
+    if engine == "split":
+        return "split"
+    variant = plan_kw.get("fft_variant", "pruned")
+    if variant == "auto":
+        variant = "pruned" if max(shape_over) <= 1024 else "split"
+    if (plan_kw.get("spread_method", "blocked") == "blocked"
+            and plan_kw.get("fft_method", "matmul") in ("matmul", None)  # None: matmul on a TPU
+            and variant == "pruned" and ndim >= 2
+            and plan_kw.get("precision", "highest") != "double"):
+        return "blockform"
+    if engine == "blockform":
+        raise ValueError(
+            "engine='blockform' needs the z-form kernels (blocked spread, matmul FFT "
+            "with the pruned variant, D >= 2, precision != 'double'); got "
+            "kernel_form='yz'"
+        )
+    return "split"
+
+
 class SpatialNUFFT:
     """Grid-sharded NUFFT over a ``torch.distributed`` group (default: the
     default group), one process per rank.
@@ -84,7 +124,10 @@ class SpatialNUFFT:
     default); additionally ``capacity_factor`` (routing slack: each (src
     rank -> dst rank) lane holds up to ``capacity_factor * Np_l / n``
     points; heavier skew raises a ValueError at set_points on every rank),
-    ``engine`` and ``spectrum`` (``'replicated'`` or ``'sharded'``).
+    ``engine`` (``'auto'``, ``'blockform'`` or ``'split'``, chosen and
+    checked as the JAX package does; both run the port's slab transposes)
+    and ``spectrum`` (``'replicated'`` or ``'sharded'`` along
+    ``spectrum_shard_dim``).
     """
 
     def __init__(self, dtype, shape, *, group=None, capacity_factor: float = 4.0,
@@ -104,9 +147,9 @@ class SpatialNUFFT:
         self.rank = dist.get_rank(group)
         self.capacity_factor = float(capacity_factor)
         self.spectrum = spectrum
-        self.engine = "split"
         plan_kw.setdefault("spread_method", "blocked")
         base = PlanNUFFT(dtype, shape, **plan_kw)
+        self.engine = jax_engine(engine, base.ndim, base.shape_over, plan_kw)
         if base.ndim < 2:
             raise ValueError("spatial sharding needs >= 2 dimensions")
         n0, m = base.shape_over[0], base.m
@@ -116,25 +159,34 @@ class SpatialNUFFT:
             raise ValueError(
                 f"cannot split {n0} grid planes into block rows divisible by {n} chips"
             )
-        if base.shape_over[1] % n or base.shape[1] % n:
+        k1 = base.spectral_shape[1]
+        # The JAX package's split engine shards dim 1 evenly; block form
+        # never shards it (the port pads it around its transposes).
+        if self.engine == "split" and (base.shape_over[1] % n or base.shape[1] % n):
             raise ValueError(
                 f"dim-1 sizes ({base.shape[1]}, oversampled "
                 f"{base.shape_over[1]}) must divide by the mesh size {n}"
             )
-        k1 = base.spectral_shape[1]
-        if k1 % n:
-            if spectrum == "sharded":
+        if spectrum == "sharded":
+            d = self.spectrum_shard_dim
+            if base.spectral_shape[d] % n:
                 raise ValueError(
-                    f"spectrum='sharded' needs spectral dim 1 ({k1}) divisible by "
-                    f"the mesh size {n}"
+                    f"spectrum='sharded' needs spectral dim {d} "
+                    f"({base.spectral_shape[d]}) divisible by the mesh size {n}"
                 )
+        if self.engine == "split" and k1 % n:
             raise ValueError(
-                f"the slab transposes need spectral dim 1 ({k1}) divisible by the "
-                f"mesh size {n}"
+                f"the split engine's transposes need spectral dim 1 ({k1}) divisible "
+                f"by the mesh size {n}"
             )
         self.base = base
         self.n0_local = n0 // n
-        self.k1_local = k1 // n
+        self.k1_local = -(-k1 // n)
+        self.k0_local = base.spectral_shape[0] // n
+        # Dim 1's deconvolution factors on this rank's columns, the padding
+        # (zero modes) included.
+        ph1 = _pad_to(base.phihat_inv[1], 0, n * self.k1_local)
+        self._phihat1 = ph1[self.rank * self.k1_local:(self.rank + 1) * self.k1_local]
         planes = self.n0_local + 2 * m - 1
         self.ext_shape_over = (-(-planes // SLAB_ALIGN) * SLAB_ALIGN,) + base.shape_over[1:]
         _, scalar_bytes, ncomp = VALUE_TYPES[base.dtype]
@@ -156,9 +208,10 @@ class SpatialNUFFT:
 
     @property
     def spectrum_shard_dim(self) -> int:
-        """The spectral dimension ``spectrum='sharded'`` splits: dim 1, which
-        the distributed DFT shards after its transpose."""
-        return 1
+        """The spectral dimension ``spectrum='sharded'`` splits, as in the
+        JAX package: dim 0 for block form, dim 1 for the split engine (whose
+        distributed DFT is dim-1-sharded after its transpose)."""
+        return 0 if self.engine == "blockform" else 1
 
     def _capacity(self, np_local: int) -> int:
         cap = int(math.ceil(self.capacity_factor * np_local / self.n))
@@ -243,10 +296,9 @@ class SpatialNUFFT:
     # -- helpers of the distributed DFT --------------------------------------
     def _deconvolve(self, x: torch.Tensor) -> torch.Tensor:
         """Scale (C, K0, K1l, ..) by 1/phi_hat per dim, dim 1 sliced."""
-        base = self.base
-        for d, ph in enumerate(base.phihat_inv):
+        for d, ph in enumerate(self.base.phihat_inv):
             if d == 1:
-                ph = ph[self.rank * self.k1_local:(self.rank + 1) * self.k1_local]
+                ph = self._phihat1
             shape = [1] * x.ndim
             shape[1 + d] = ph.shape[0]
             x = x * ph.reshape(shape)
@@ -265,8 +317,9 @@ class SpatialNUFFT:
     def exec_type1(self, state: SpatialPoints, v_ch) -> torch.Tensor:
         """Distributed type 1.  ``v_ch``: this rank's channel values, ``(C, 2,
         Np_l)`` (complex plans) or ``(C, Np_l)`` (real plans).  Returns the
-        channel-form spectrum ``(C, 2) + spectral_shape`` (replicated) or this
-        rank's dim-1 shard ``(C, 2, K0, K1l, ..)`` (``spectrum='sharded'``)."""
+        channel-form spectrum ``(C, 2) + spectral_shape`` (replicated) or, for
+        ``spectrum='sharded'``, this rank's shard along ``spectrum_shard_dim``:
+        ``(C, 2, K0l, K1, ..)`` (block form) or ``(C, 2, K0, K1l, ..)``."""
         base, n, group, m = self.base, self.n, self.group, self.base.m
         D, C = base.ndim, base.ntransforms
         v_ch = _as_real_tensor(v_ch, base.real_dtype, base.device)
@@ -291,6 +344,7 @@ class SpatialNUFFT:
         x = torch.fft.rfftn(own, dim=dims) if base.is_real else torch.fft.fftn(own, dim=dims)
         for d in range(1, D):
             x = truncate_axis(x, 1 + d, base.index_ranges[d])
+        x = _pad_to(x, 2, n * self.k1_local)
         k1l, tail = self.k1_local, tuple(base.spectral_shape[2:])
         cols = torch.empty((C, n * n0l, k1l) + tail, dtype=x.dtype, device=x.device)
         for c in range(C):
@@ -299,35 +353,60 @@ class SpatialNUFFT:
                 (n * n0l, k1l) + tail)
         y = truncate_axis(torch.fft.fft(cols, dim=1), 1, base.index_ranges[0])
         y = self._deconvolve(y * base.normfactor)
-        if self.spectrum == "sharded":
+        K0, K1 = base.spectral_shape[:2]
+        if self.spectrum == "sharded" and self.engine == "split":
             return ex.to_channels(y, 1)
+        if self.spectrum == "sharded":
+            # Dim-1 shards -> dim-0 shards: rows [s K0l, (s + 1) K0l) go to
+            # rank s; what arrives is block-major with blocks (K0l, K1l, ..)
+            # along dim 1.
+            k0l = self.k0_local
+            rows = torch.empty((C, k0l, K1) + tail, dtype=y.dtype, device=y.device)
+            for c in range(C):
+                recv = comm.all_to_all(y[c].reshape((n, k0l, k1l) + tail), group)
+                rows[c] = relayout_to_grid(
+                    recv.reshape((1, 1, n) + (1,) * (D - 2) + (k0l, k1l) + tail),
+                    (k0l, k1l) + tail,
+                )[0, :, :K1]
+            return ex.to_channels(rows, 1)
 
         # Gather the dim-1 shards: (n, C, K0, K1l, ..) is block-major with
         # blocks (C K0, K1l, ..) along dim 1.
-        K0 = y.shape[1]
         gathered = comm.all_gather(y, group)
         spec = relayout_to_grid(
             gathered.reshape((1, 1, n) + (1,) * (D - 2) + (C * K0, k1l) + tail),
             (C * K0, k1l) + tail,
-        ).reshape((C,) + base.spectral_shape)
+        ).reshape((C, K0, n * k1l) + tail)[:, :, :K1]
         return ex.to_channels(spec, 1)
 
     def exec_type2(self, state: SpatialPoints, uhat_ch) -> torch.Tensor:
         """Distributed type 2.  ``uhat_ch``: the channel-form spectrum in the
-        plan's layout (replicated, or this rank's dim-1 shard).  Returns this
+        plan's layout (replicated, or this rank's shard as
+        :meth:`exec_type1` returns it).  Returns this
         rank's ``(C, 2, Np_l)`` / ``(C, Np_l)`` channel values in its original
         point order."""
         base, n, group, m, me = self.base, self.n, self.group, self.base.m, self.rank
         D, C = base.ndim, base.ntransforms
         spec = list(base.spectral_shape)
         if self.spectrum == "sharded":
-            spec[1] = self.k1_local
+            spec[self.spectrum_shard_dim] //= n
         uhat_ch = _as_real_tensor(uhat_ch, base.real_dtype, base.device)
         self._check_channels(uhat_ch, tuple(spec), "spectrum")
         u = ex.from_channels(uhat_ch, 1)
         n0l, k1l, tail = self.n0_local, self.k1_local, tuple(base.spectral_shape[2:])
+        K1 = base.spectral_shape[1]
         if self.spectrum == "replicated":
-            u = u[:, :, me * k1l : (me + 1) * k1l]
+            u = _pad_to(u[:, :, me * k1l : (me + 1) * k1l], 2, k1l)
+        elif self.engine == "blockform":
+            # Dim-0 shard -> dim-1 shard: pack dim 1 rank-major (K8b), and
+            # rank s's block goes to rank s.
+            k0l = self.k0_local
+            cols = torch.empty((C, n * k0l, k1l) + tail, dtype=u.dtype, device=u.device)
+            for c in range(C):
+                packed = relayout_to_blocks(_pad_to(u[c : c + 1], 2, n * k1l), (k0l, k1l) + tail)
+                cols[c] = comm.all_to_all(packed.reshape((n, k0l, k1l) + tail), group).reshape(
+                    (n * k0l, k1l) + tail)
+            u = cols
         u = self._deconvolve(u)
         z = torch.fft.ifft(pad_axis(u, 1, base.index_ranges[0], base.shape_over[0]),
                            dim=1, norm="forward")
@@ -338,7 +417,7 @@ class SpatialNUFFT:
                 recv.reshape((1, 1, n) + (1,) * (D - 2) + (n0l, k1l) + tail),
                 (n0l, k1l) + tail,
             )[0]
-        x = rows
+        x = rows[:, :, :K1]
         for d in range(1, D):
             x = pad_axis(x, 1 + d, base.index_ranges[d], base.spectral_shape_over[d])
         dims = tuple(range(2, D + 1))
@@ -359,20 +438,34 @@ class SpatialNUFFT:
         return back if base.is_real else ex.to_channels(back, 1)
 
     def collective_bytes(self) -> dict:
-        """Estimated bytes a rank sends per transform, by stage (the JAX
-        package's split-engine formula): the all_to_all transposes move
-        ~(n-1)/n of the truncated grid, the all_gather (n-1)/n of the
-        spectrum."""
+        """Bytes this rank sends in each collective of one transform, as the
+        port runs them (both engines): each all_to_all keeps one of its n
+        blocks, the all_gather sends this rank's dim-1 shard to the n - 1
+        others, and block form's sharded spectrum adds one all_to_all a
+        transform (``t1_unshard_all_to_all``, ``t2_shard_all_to_all``).
+        The JAX package's block-form formula counts a psum the port does
+        not run; only ``engine`` and ``spectrum_shard_dim`` follow it."""
         base, n = self.base, self.n
-        fs = torch.empty((), dtype=base.real_dtype).element_size()
-        C = base.ntransforms
-        cr = C if base.is_real else 2 * C
-        spec_bytes = cr * math.prod(base.spectral_shape) * fs
-        grid_bytes = cr * math.prod(base.shape_over) * fs
-        t = int(grid_bytes / base.sigma ** (base.ndim - 1) * (n - 1) / n)
-        return {
-            "engine": self.engine, "spectrum": self.spectrum, "n": n,
-            "t1_transpose_all_to_all": t, "t2_transpose_all_to_all": t,
-            "t1_spectrum_all_gather": (0 if self.spectrum == "sharded"
-                                       else int(spec_bytes * (n - 1) / n)),
-        }
+        csize = torch.empty((), dtype=base.complex_dtype).element_size()
+        col = base.ntransforms * self.k1_local * math.prod(base.spectral_shape[2:]) * csize
+        transpose = (n - 1) * self.n0_local * col
+        out = {"engine": self.engine, "spectrum": self.spectrum, "n": n,
+               "t1_transpose_all_to_all": transpose, "t2_transpose_all_to_all": transpose,
+               "t1_spectrum_all_gather": 0}
+        K0 = base.spectral_shape[0]
+        if self.spectrum == "replicated":
+            out["t1_spectrum_all_gather"] = (n - 1) * K0 * col
+        elif self.engine == "blockform":
+            out["t1_unshard_all_to_all"] = out["t2_shard_all_to_all"] = (
+                (n - 1) * self.k0_local * col)
+        return out
+
+
+def _pad_to(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``x`` with zeros appended along ``dim`` up to ``size``."""
+    extra = size - x.shape[dim]
+    if extra == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = extra
+    return torch.cat([x, x.new_zeros(shape)], dim)

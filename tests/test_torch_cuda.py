@@ -160,7 +160,7 @@ def test_window_kernels_match_plain_versions(cuda_device, window, shape, m, dtyp
 
 
 def test_m_above_10_raises(cuda_device):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="documented maximum"):
         tnufft.PlanNUFFT(np.complex64, (64, 64), m=11, sigma=2.0, device=cuda_device)
 
 
@@ -168,12 +168,16 @@ def test_m_above_10_raises(cuda_device):
 @pytest.mark.parametrize(
     "grid_shape,block_dims",
     [((3, 24), (6,)), ((2, 12, 40), (4, 8)), ((1, 96, 64), (96, 16)),
-     ((3, 12, 20, 40), (4, 5, 8)), ((2, 24, 64, 32), (24, 16, 32)), ((5, 7, 9, 6), (7, 3, 2))],
+     ((3, 12, 20, 40), (4, 5, 8)), ((2, 24, 64, 32), (24, 16, 32)), ((5, 7, 9, 6), (7, 3, 2)),
+     ((3, 12, 10, 6), (4, 5, 3)), ((2, 12, 9), (4, 3)), ((2, 6, 5, 4), (3, 5, 1)),
+     ((1, 8, 40, 300), (4, 10, 300)), ((2, 8, 4, 600), (2, 4, 600))],
     ids=str,
 )
 def test_relayout_kernels_equal_plain_versions(cuda_device, grid_shape, block_dims, dtype):
     """K8b (grid -> block-major) and K8a (the inverse) against their plain
-    versions, bit for bit; D = 1 launches nothing."""
+    versions, bit for bit, on every path of the kernels: TMA runs (with a
+    partial last chunk; whole blocks), 16-byte and 8-byte register runs, the
+    element path (B2 = 1); D = 1 launches nothing."""
     from nonuniformffts_tpu_torch.ops.kernels import relayout
 
     gen = torch.Generator(device=cuda_device).manual_seed(len(grid_shape))
@@ -190,6 +194,19 @@ def test_relayout_kernels_equal_plain_versions(cuda_device, grid_shape, block_di
     assert torch.equal(b, relayout.relayout_to_blocks_plain(g, block_dims))
     assert torch.equal(back, relayout.relayout_to_grid_plain(b, block_dims))
     assert torch.equal(back, g)
+
+
+def test_relayout_kernels_take_an_8_byte_aligned_input(cuda_device):
+    """A complex64 view that starts 8 bytes past a 16-byte boundary runs the
+    8-byte register path and still equals the plain version."""
+    from nonuniformffts_tpu_torch.ops.kernels import relayout
+
+    base = torch.randn(1 + 2 * 8 * 64, dtype=torch.complex64, device=cuda_device)
+    g = base[1:].view(2, 8, 64)
+    assert g.data_ptr() % 16 == 8
+    b = relayout.relayout_to_blocks(g, (4, 16))
+    assert torch.equal(b, relayout.relayout_to_blocks_plain(g, (4, 16)))
+    assert torch.equal(relayout.relayout_to_grid(b, (4, 16)), g)
 
 
 def test_relayout_kernels_refuse_real_tensors(cuda_device):

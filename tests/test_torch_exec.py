@@ -203,7 +203,7 @@ def test_unported_surface_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tnufft.exec_type1(plan, np.zeros(3, np.complex64), callbacks=cb)
     # The CUDA kernels take 1-3D plans of every window in both modes, m up
-    # to 10; m = 11 is refused naming ROADMAP.
+    # to 10; m = 11 is refused naming the JAX package's documented maximum.
     for dtype, shape in ((np.float64, (16, 16)), (np.float32, (40,))):
         blocked.check_kernel_support(tnufft.PlanNUFFT(
             dtype, shape, spread_method="blocked", device="cpu"))
@@ -214,7 +214,7 @@ def test_unported_surface_raises():
         blocked.check_kernel_support(tnufft.PlanNUFFT(
             dtype, shape, spread_method="blocked", device="cpu", **kw))
     p = tnufft.PlanNUFFT(np.complex64, (40,), m=11, spread_method="blocked", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="documented maximum"):
         blocked.check_kernel_support(p)
     if torch.cuda.is_available():
         assert tnufft.PlanNUFFT(np.complex64, (16,)).device.type == "cuda"

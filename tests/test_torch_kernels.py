@@ -114,7 +114,8 @@ def test_coefficient_stack_matches_jax():
 
 def test_kernel_support_checks():
     """What the CUDA kernels do not take is refused, not run elsewhere:
-    the Direct mode and m = 10 are taken, m = 11 raises naming ROADMAP."""
+    the Direct mode and m = 10 are taken, m = 11 raises naming the JAX
+    package's documented maximum."""
     tp = tnufft.PlanNUFFT(np.complex64, (16, 16, 16), m=4, sigma=1.5,
                           spread_method="blocked", device="cpu")
     blocked.check_kernel_support(tp)
@@ -124,9 +125,20 @@ def test_kernel_support_checks():
     bad = [
         (dataclasses.replace(tp, shape=(16,) * 4), NotImplementedError, "4D"),
         (dataclasses.replace(tp, dtype=torch.bfloat16), NotImplementedError, "bfloat16"),
-        (dataclasses.replace(tp, m=11), NotImplementedError, "m in 2..10.*ROADMAP"),
+        (dataclasses.replace(tp, m=11), NotImplementedError, "m in 2..10.*documented maximum"),
         (dataclasses.replace(tp, block_dims=(24, 24, 24)), ValueError, "shared memory"),
     ]
     for plan, exc, match in bad:
         with pytest.raises(exc, match=match):
             blocked.check_kernel_support(plan)
+
+
+def test_m_above_10_names_no_queue():
+    """m = 11 is refused at the JAX package's documented maximum, not sent
+    to a work queue."""
+    plan = tnufft.PlanNUFFT(np.complex128, (16, 16), m=11, sigma=2.0,
+                            spread_method="blocked", device="cpu")
+    with pytest.raises(NotImplementedError) as err:
+        blocked.check_kernel_support(plan)
+    msg = str(err.value)
+    assert "got m=11" in msg and "documented maximum" in msg and "ROADMAP" not in msg

@@ -85,6 +85,73 @@ def test_relayouts_equal_jax_pallas_and_xla(D, geometry, cr, dtype):
     assert torch.equal(_from_jax_form(jcommon.relayout_to_grid(want_b, block_dims), g), g)
 
 
+# (grid shape with CR, block dims): 2D and 3D, CR 1-3, each run case: B2 < N2
+# (runs of B2), B2 = N2 with B1 < N1 (runs of B1 B2), whole blocks.
+RUN_SHAPES = [
+    ((2, 6, 8, 9), (3, 4, 3)), ((3, 12, 10, 6), (4, 5, 3)), ((3, 8, 10), (4, 5)),
+    ((1, 8, 12, 6), (4, 3, 6)), ((2, 6, 9), (3, 9)), ((1, 12, 10, 7), (4, 5, 7)),
+    ((2, 8, 4, 6), (2, 4, 6)), ((3, 4, 7), (4, 7)), ((1, 6, 4, 5), (6, 4, 5)),
+]
+# Every relayout of the spatial mode's run at 256^3, n = 4 (chip_smoke.py
+# phase 13): direction, grid shape with CR, block dims.
+SPATIAL_SITES = {
+    "type-1 pack": ("blocks", (1, 96, 256, 256), (96, 64, 256)),
+    "type-2 unpack": ("grid", (1, 96, 256, 256), (96, 64, 256)),
+    "type-1 gather unpack": ("grid", (1, 256, 256, 256), (256, 64, 256)),
+    "type-1 dim-0 unshard": ("grid", (1, 64, 256, 256), (64, 64, 256)),
+    "type-2 dim-0 pack": ("blocks", (1, 64, 256, 256), (64, 64, 256)),
+}
+
+
+def _run_copy(x: torch.Tensor, out_shape, geom, to_grid: bool) -> torch.Tensor:
+    """The kernels' copy, run by run: run ``r`` of ``run_len`` elements at
+    grid offset ``r run_len`` and block-major offset ``block_runs(r)
+    run_len``."""
+    src, out, L = x.reshape(-1), x.new_empty(out_shape), geom.run_len
+    dst = out.view(-1)
+    for r, b in enumerate(relayout.block_runs(geom, torch.arange(geom.runs)).tolist()):
+        g, k = slice(r * L, (r + 1) * L), slice(b * L, (b + 1) * L)
+        if to_grid:
+            dst[g] = src[k]
+        else:
+            dst[k] = src[g]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128], ids=str)
+@pytest.mark.parametrize("grid_shape,block_dims", RUN_SHAPES, ids=str)
+def test_run_copy_equals_plain_relayouts(grid_shape, block_dims, dtype):
+    geom = relayout.run_geometry(grid_shape, block_dims)
+    assert geom.runs * geom.run_len == np.prod(grid_shape)
+    g = torch.randn(grid_shape, dtype=dtype, generator=torch.Generator().manual_seed(7))
+    b = relayout.relayout_to_blocks_plain(g, block_dims)
+    assert torch.equal(_run_copy(g, b.shape, geom, to_grid=False), b)
+    assert torch.equal(_run_copy(b, g.shape, geom, to_grid=True), g)
+
+
+def test_run_geometry_cases():
+    """The longest stretch contiguous on both sides, by case."""
+    assert relayout.run_geometry((2, 6, 8, 9), (3, 4, 3))[:2] == (2 * 6 * 8 * 3, 3)
+    assert relayout.run_geometry((1, 8, 12, 6), (4, 3, 6))[:2] == (8 * 4, 18)
+    assert relayout.run_geometry((2, 8, 4, 6), (2, 4, 6))[:2] == (2 * 4, 48)
+    assert relayout.run_geometry((3, 4, 7), (4, 7))[:2] == (3, 28)
+
+
+@pytest.mark.parametrize("site", sorted(SPATIAL_SITES))
+def test_run_copy_at_spatial_call_sites(site):
+    """Each relayout of the spatial mode at phase 13's size (runs of 64 x
+    256 elements) as a run-by-run copy of element indices."""
+    direction, grid_shape, block_dims = SPATIAL_SITES[site]
+    geom = relayout.run_geometry(grid_shape, block_dims)
+    assert geom.run_len == 64 * 256 and geom.runs == np.prod(grid_shape) // (64 * 256)
+    idx = torch.arange(int(np.prod(grid_shape)), dtype=torch.int32).reshape(grid_shape)
+    b = relayout.relayout_to_blocks_plain(idx, block_dims)
+    if direction == "blocks":
+        assert torch.equal(_run_copy(idx, b.shape, geom, to_grid=False), b)
+    else:
+        assert torch.equal(_run_copy(b, idx.shape, geom, to_grid=True), idx)
+
+
 def test_relayout_rejects_mismatched_block_dims():
     g = torch.zeros((1, 8, 6))
     with pytest.raises(ValueError, match="must divide"):

@@ -22,13 +22,23 @@ import torch.multiprocessing as mp
 
 #: The spatial-mode cases: ``spatial`` holds the keyword arguments of
 #: ``SpatialNUFFT``, ``np_rank`` the points of each rank, ``C`` the
-#: transforms.  A real 2D plan has no case: its halved dim 1 (N1 / 2 + 1)
-#: is odd whenever N1 divides by an even group size, so the dim-1 transpose
-#: cannot split it (``_errors`` checks that it raises).
+#: transforms.  ``engine='auto'`` picks block form for all of them but
+#: ``c128_sharded`` and ``f64_sharded_split`` (the split engine, dim-1
+#: shards); a real 2D plan's
+#: halved dim 1 (N1 / 2 + 1) and ``c128_30``'s dim 1 are padded around the
+#: transposes.
 CASES = {
     "c128_n4": dict(dtype=np.complex128, shape=(16, 16, 16), np_rank=64, spatial=dict(m=4, sigma=1.5)),
     "c128_sharded": dict(dtype=np.complex128, shape=(16, 16, 16), np_rank=64,
-                         spatial=dict(m=4, sigma=1.5, spectrum="sharded")),
+                         spatial=dict(m=4, sigma=1.5, spectrum="sharded", engine="split")),
+    "c128_sharded_auto": dict(dtype=np.complex128, shape=(16, 16, 16), np_rank=64,
+                              spatial=dict(m=4, sigma=1.5, spectrum="sharded")),
+    "c128_30": dict(dtype=np.complex128, shape=(32, 30), np_rank=100, spatial=dict(m=4, sigma=1.5)),
+    "f64_2d": dict(dtype=np.float64, shape=(24, 20), np_rank=100, spatial=dict(m=4, sigma=2.0)),
+    "f64_2d_sharded": dict(dtype=np.float64, shape=(32, 32), np_rank=100,
+                           spatial=dict(m=4, sigma=1.5, spectrum="sharded")),
+    "ntransforms_sharded": dict(dtype=np.complex128, shape=(16, 14, 16), np_rank=48, C=2,
+                                spatial=dict(m=4, sigma=1.5, ntransforms=2, spectrum="sharded")),
     "f64_r2c": dict(dtype=np.float64, shape=(16, 16, 16), np_rank=64, spatial=dict(m=4, sigma=1.5)),
     "c128_2d": dict(dtype=np.complex128, shape=(32, 32), np_rank=100, spatial=dict(m=4, sigma=2.0)),
     "skewed": dict(dtype=np.complex128, shape=(16, 16, 16), np_rank=64,
@@ -37,10 +47,30 @@ CASES = {
                         spatial=dict(m=4, sigma=1.5, ntransforms=2)),
     "f64_sharded": dict(dtype=np.float64, shape=(16, 16, 12), np_rank=60,
                         spatial=dict(m=4, sigma=2.0, spectrum="sharded")),
+    "f64_sharded_split": dict(dtype=np.float64, shape=(16, 16, 12), np_rank=60,
+                              spatial=dict(m=4, sigma=2.0, spectrum="sharded", engine="split")),
     "c128_n2": dict(dtype=np.complex128, shape=(16, 16, 16), np_rank=80, spatial=dict(m=4, sigma=1.5)),
     "f64_r2c_n2": dict(dtype=np.float64, shape=(12, 16, 10), np_rank=80, spatial=dict(m=5, sigma=2.0)),
     "c128_n1_fftshift": dict(dtype=np.complex128, shape=(16, 12, 16), np_rank=200,
                              spatial=dict(m=4, sigma=1.5, fftshift=True)),
+}
+#: Construction-only cases of the engine choice: (dtype, shape, keyword
+#: arguments of ``SpatialNUFFT``), all at m = 4, sigma = 1.5.
+ENGINE_CASES = {
+    "c64_auto": (np.complex64, (16, 16, 16), {}),
+    "c128_auto": (np.complex128, (16, 16, 16), {}),
+    "f64_auto_sharded": (np.float64, (16, 16, 16), dict(spectrum="sharded")),
+    "c128_2d_30": (np.complex128, (32, 30), {}),
+    "c128_variant_auto": (np.complex128, (16, 16, 16), dict(fft_variant="auto")),
+    "c64_double": (np.complex64, (16, 16, 16), dict(precision="double")),
+    "c128_variant_split": (np.complex128, (16, 16, 16), dict(fft_variant="split")),
+    "c128_xla": (np.complex128, (16, 16, 16), dict(fft_method="xla")),
+    "c128_split": (np.complex128, (16, 16, 16), dict(engine="split")),
+    "c128_blockform": (np.complex128, (16, 16, 16), dict(engine="blockform")),
+    "c64_blockform_double": (np.complex64, (16, 16, 16),
+                             dict(engine="blockform", precision="double")),
+    "c64_blockform_variant_split": (np.complex64, (16, 16, 16),
+                                    dict(engine="blockform", fft_variant="split")),
 }
 #: The point-sharded cases (``exec_type{1,2}_sharded``).
 SHARDED_CASES = {
@@ -77,7 +107,23 @@ def _spatial_case(name, n, rank):
     st = sp.set_points(_rank_slice(pts, rank, n))
     u = sp.exec_type1(st, _rank_slice(v_ch, rank, n))
     return dict(u=u, v2=sp.exec_type2(st, u), bytes=sp.collective_bytes(),
-                engine=sp.engine, shard_dim=sp.spectrum_shard_dim, k1_local=sp.k1_local)
+                engine=sp.engine, shard_dim=sp.spectrum_shard_dim, k1_local=sp.k1_local,
+                k0_local=sp.k0_local)
+
+
+def _engines():
+    """``(engine, spectrum_shard_dim)`` of each construction-only case, or
+    the message of the ValueError it raises."""
+    from nonuniformffts_tpu_torch.parallel import SpatialNUFFT
+
+    out = {}
+    for key, (dtype, shape, kw) in ENGINE_CASES.items():
+        try:
+            sp = SpatialNUFFT(dtype, shape, device="cpu", m=4, sigma=1.5, **kw)
+            out[key] = (sp.engine, sp.spectrum_shard_dim)
+        except ValueError as e:
+            out[key] = str(e)
+    return out
 
 
 def _sharded_case(name, n, rank):
@@ -106,14 +152,21 @@ def _errors(n, rank):
             out[key] = str(e)
 
     kw = dict(device="cpu", m=4, sigma=1.5)
+    if n == 2:
+        # 50 grid planes split in two, but the 33 modes of spectral dim 0
+        # do not (the JAX package's test_spatial.py:302).
+        catch("dim0", lambda: SpatialNUFFT(np.complex128, (33, 32, 32), spectrum="sharded",
+                                           **kw))
+        return out
     catch("ndim", lambda: SpatialNUFFT(np.complex128, (64,), **kw))
     catch("spectrum", lambda: SpatialNUFFT(np.complex128, (32, 32), spectrum="cols", **kw))
     catch("engine", lambda: SpatialNUFFT(np.complex128, (32, 32), engine="fast", **kw))
     catch("variant", lambda: SpatialNUFFT(np.complex128, (32, 32), engine="split",
                                           fft_variant="pruned", **kw))
     catch("slab", lambda: SpatialNUFFT(np.complex128, (8, 8, 8), device="cpu", m=6, sigma=2.0))
-    catch("dim1", lambda: SpatialNUFFT(np.complex128, (32, 30), **kw))
-    catch("indivisible", lambda: SpatialNUFFT(np.float64, (32, 32), spectrum="sharded", **kw))
+    catch("dim1", lambda: SpatialNUFFT(np.complex128, (32, 30), engine="split", **kw))
+    catch("indivisible", lambda: SpatialNUFFT(np.float64, (32, 32), spectrum="sharded",
+                                              engine="split", **kw))
     sp = SpatialNUFFT(np.complex128, (32, 32), **kw)
     rng = np.random.default_rng(3)
     catch("npoints", lambda: sp.set_points(rng.uniform(0, 6, (2, 100 + (rank == 0)))))
@@ -134,6 +187,8 @@ def worker(rank, n, rdv, out_dir, names):
         try:
             if name == "errors":
                 res = _errors(n, rank)
+            elif name == "engines":
+                res = _engines()
             elif name in SHARDED_CASES:
                 res = _sharded_case(name, n, rank)
             else:
