@@ -29,6 +29,22 @@ whether it ran and gave the right values, or the error it raised
 (``nonuniformffts_tpu_torch/parallel/comm.py:GLOO_CUDA_OPS`` is read from
 it; the library itself decides by the backend's name, never by an error).
 
+    python3 chip_probe.py --spread3d [--dtype T ...] [--np N ...]
+
+instead times the 3D spread kernel (``csrc/spread_3d.cu``, FP64 tensor
+cores) against the shared-memory design it replaced (a CAS loop a tap,
+written below as ``_CAS_SPREAD_3D_SRC``, built into ``build/chip_probe/``)
+in turns on the same points, then its variants (other MMA shapes, batches
+of 32 points; ``build.py:build_variants``) and the geometries around the
+chooser's pick, at N = 256^3 for each dtype at its main-path Np and at
+16,777,216 (``probe_spread3d``).
+
+    python3 chip_probe.py --spread3d-parts [--dtype T ...] [--np N ...]
+
+times the same kernel beside copies of its source with one phase taken
+out (the MMAs, the dense operand build, the tap evaluation, the flush;
+``SPREAD3D_PARTS``), to show where its time goes.
+
     python3 chip_probe.py --relayout
 
 instead times the relayout kernels K8a / K8b (``csrc/relayout.cu``) as
@@ -56,6 +72,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -134,17 +151,29 @@ ENTRY(scatter_real_f64, double, 1)
 """
 
 
-def _probe_library(stem: str, text: str) -> ctypes.CDLL:
-    """Build the probe's own CUDA source ``text`` into ``build/chip_probe/``."""
+def _probe_library(stem: str, text: str, flags=()) -> ctypes.CDLL:
+    """Build the probe's own CUDA source ``text`` into ``build/chip_probe/``,
+    with ``flags`` added to nvcc's; what ``ptxas -v`` says goes to
+    ``<stem>.ptxas.log`` there."""
     from nonuniformffts_tpu_torch.ops.kernels import build
 
     out = ROOT / "build" / "chip_probe"
     out.mkdir(parents=True, exist_ok=True)
     src, lib = out / f"{stem}.cu", out / f"lib{stem}.so"
     src.write_text(text)
-    subprocess.run([build._nvcc(), *build.ARCH_FLAGS, "-O3", "-std=c++17", "-shared",
-                    "-Xcompiler", "-fPIC", "-o", str(lib), str(src)], check=True)
+    res = subprocess.run([build._nvcc(), *build.ARCH_FLAGS, "-O3", "-std=c++17", "-shared",
+                          "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags, "-o", str(lib),
+                          str(src)], capture_output=True, text=True)
+    (out / f"{stem}.ptxas.log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {stem}:\n{res.stderr[-4000:]}")
     return ctypes.CDLL(str(lib))
+
+
+def _m4_registers(text: str) -> str:
+    """Registers of the M = 4 spread_3d instantiations in a ptxas log."""
+    regs = re.findall(r"spread_3d_kernelILi4E([fd])Li(\d)E.*?Used (\d+) registers", text, re.S)
+    return ", ".join(f"<{t}, {n}> {r}" for t, n, r in regs)
 
 
 def _scatter(lib, plan, vp):
@@ -496,6 +525,431 @@ def probe_relayout() -> None:
             del xs, out, want
 
 
+# --spread3d: the 3D spread kernel's shared-memory design, which the
+# tensor-core kernel (csrc/spread_3d.cu) replaced.  One CTA of 512 threads
+# per (block, transform) zeroes a padded block of double accumulators in
+# shared memory; each warp takes one point at a time, its lanes split the
+# (2M)^2 (y, z) tap pairs and walk the 2M x taps with a shared-memory
+# atomicAdd each (a compare-and-swap loop on sm_90), and the CTA adds the
+# padded block into the grid with one global atomicAdd a scalar.  Built by
+# this script with nvcc into build/chip_probe/ and used nowhere else; same
+# C interface as the library's entry points, named cas_spread_3d_*.
+_CAS_SPREAD_3D_SRC = r"""
+#include <cstdint>
+
+#include "window.cuh"
+
+namespace {
+
+constexpr int kThreads = 512;
+using Acc = double;
+
+template <typename T, int NCOMP>
+size_t spread_smem_bytes(int m, int ncoef, int b0, int b1, int b2) {
+  const size_t s = 2 * m;
+  const size_t pv = (size_t)(b0 + s - 1) * (b1 + s - 1) * (b2 + s - 1);
+  const size_t ntaps = 3 * s;
+  return sizeof(Acc) * NCOMP * pv + sizeof(T) * (ntaps * ncoef + (kThreads / 32) * ntaps);
+}
+
+template <int M, typename T, int NCOMP>
+__global__ void __launch_bounds__(kThreads) cas_spread_3d_kernel(
+    const nufft::Value<T, NCOMP>* __restrict__ vals, const int* __restrict__ cells,
+    const T* __restrict__ fracs, const int* __restrict__ pstarts,
+    const T* __restrict__ coefs, const T* __restrict__ wtaps,
+    T* __restrict__ grid, long long np, int ncoef, int n0, int n1, int n2,
+    int b0, int b1, int b2) {
+  constexpr int S = 2 * M;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int bid = blockIdx.x;
+  const int chan = blockIdx.y;
+  const int p_begin = pstarts[bid];
+  const int p_end = pstarts[bid + 1];
+  if (p_begin == p_end) return;  // uniform across the CTA
+
+  const int pd1 = b1 + S - 1, pd2 = b2 + S - 1;
+  const int plane = pd1 * pd2;
+  const int pv = (b0 + S - 1) * plane;
+  Acc* acc = reinterpret_cast<Acc*>(smem_raw);      // NCOMP planes of pv
+  T* cs = reinterpret_cast<T*>(acc + NCOMP * pv);   // (3, S, ncoef)
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  T* taps = cs + 3 * S * ncoef + warp * 3 * S;  // this warp's (3, S)
+
+  for (int i = tid; i < NCOMP * pv; i += blockDim.x) acc[i] = Acc(0);
+  for (int i = tid; i < 3 * S * ncoef; i += blockDim.x) cs[i] = coefs[i];
+  __syncthreads();
+
+  const int nb1 = n1 / b1, nb2 = n2 / b2;
+  const int ox = (bid / (nb1 * nb2)) * b0;
+  const int oy = ((bid / nb2) % nb1) * b1;
+  const int oz = (bid % nb2) * b2;
+  const nufft::Value<T, NCOMP>* vrow = vals + (long long)chan * np;
+
+  for (long long j = p_begin + warp; j < p_end; j += nwarps) {
+    nufft::warp_taps<S, 3>(wtaps, cs, ncoef, fracs, np, j, lane, taps);
+    __syncwarp();
+    const int lx = cells[j] - ox;
+    const int ly = cells[np + j] - oy;
+    const int lz = cells[2 * np + j] - oz;
+    const nufft::Value<T, NCOMP> v = vrow[j];
+    for (int q = lane; q < S * S; q += 32) {
+      const int iy = q / S, iz = q - iy * S;
+      const T wyz = taps[S + iy] * taps[2 * S + iz];
+      T vw[NCOMP];
+#pragma unroll
+      for (int k = 0; k < NCOMP; ++k) vw[k] = v.c[k] * wyz;
+      int idx = (lx * pd1 + ly + iy) * pd2 + lz + iz;
+#pragma unroll
+      for (int ix = 0; ix < S; ++ix) {
+        const T wx = taps[ix];
+#pragma unroll
+        for (int k = 0; k < NCOMP; ++k) atomicAdd(acc + k * pv + idx, Acc(vw[k] * wx));
+        idx += plane;
+      }
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // Periodic global add of the padded block: padded index i along a dim is
+  // grid node origin - (M - 1) + i.
+  T* g = grid + (long long)chan * n0 * n1 * n2 * NCOMP;
+  for (int i = tid; i < pv; i += blockDim.x) {
+    Acc a[NCOMP];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < NCOMP; ++k) {
+      a[k] = acc[k * pv + i];
+      any = any || a[k] != Acc(0);
+    }
+    if (!any) continue;
+    const int i0 = i / plane;
+    const int r = i - i0 * plane;
+    const int i1 = r / pd2;
+    const int i2 = r - i1 * pd2;
+    const int gx = nufft::wrap_index(ox - (M - 1) + i0, n0);
+    const int gy = nufft::wrap_index(oy - (M - 1) + i1, n1);
+    const int gz = nufft::wrap_index(oz - (M - 1) + i2, n2);
+    const long long off = NCOMP * (((long long)gx * n1 + gy) * n2 + gz);
+#pragma unroll
+    for (int k = 0; k < NCOMP; ++k) atomicAdd(g + off + k, T(a[k]));
+  }
+}
+
+template <int M, typename T, int NCOMP>
+cudaError_t launch(const void* vals, const void* cells, const void* fracs,
+                   const void* pstarts, const void* coefs,
+                   const void* wtaps, void* grid,
+                   long long np, int nchan, int ncoef, int n0, int n1, int n2,
+                   int b0, int b1, int b2, cudaStream_t stream) {
+  const size_t smem = spread_smem_bytes<T, NCOMP>(M, ncoef, b0, b1, b2);
+  cudaError_t err = cudaFuncSetAttribute(
+      cas_spread_3d_kernel<M, T, NCOMP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 blocks((n0 / b0) * (n1 / b1) * (n2 / b2), nchan);
+  cas_spread_3d_kernel<M, T, NCOMP><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const nufft::Value<T, NCOMP>*>(vals),
+      static_cast<const int*>(cells), static_cast<const T*>(fracs),
+      static_cast<const int*>(pstarts), static_cast<const T*>(coefs),
+      static_cast<const T*>(wtaps),
+      static_cast<T*>(grid), np, ncoef, n0, n1, n2, b0, b1, b2);
+  return cudaGetLastError();
+}
+
+template <typename T, int NCOMP>
+int dispatch(const void* vals, const void* cells, const void* fracs,
+             const void* pstarts, const void* coefs,
+             const void* wtaps, void* grid, long long np,
+             int nchan, int m, int ncoef, int n0, int n1, int n2, int b0,
+             int b1, int b2, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NUFFT_SPREAD_CASE(MM)                                                \
+  case MM:                                                                   \
+    return (int)launch<MM, T, NCOMP>(vals, cells, fracs, pstarts, coefs,     \
+                                     wtaps, grid, np, nchan, ncoef, n0, n1,   \
+                                     n2, b0, b1, b2, s);
+  switch (m) {
+    NUFFT_FOR_EACH_M(NUFFT_SPREAD_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NUFFT_SPREAD_CASE
+}
+
+}  // namespace
+
+// The library kernels' C interface (csrc/spread_3d.cu).
+#define NUFFT_SPREAD_ENTRY(NAME, T, NCOMP)                                    \
+  extern "C" int NAME(const void* vals, const void* cells, const void* fracs, \
+                      const void* pstarts, const void* coefs,                 \
+                      const void* wtaps, void* grid,             \
+                      long long np, int nchan, int m, int ncoef, int n0,      \
+                      int n1, int n2, int b0, int b1, int b2, void* stream) { \
+    return dispatch<T, NCOMP>(vals, cells, fracs, pstarts, coefs, wtaps, grid,  \
+                              np, nchan, m, ncoef, n0, n1, n2, b0, b1, b2,    \
+                              stream);                                        \
+  }
+
+#if NUFFT_WANT(0)
+NUFFT_SPREAD_ENTRY(cas_spread_3d_f32, float, 2)
+#endif
+#if NUFFT_WANT(1)
+NUFFT_SPREAD_ENTRY(cas_spread_3d_f64, double, 2)
+#endif
+#if NUFFT_WANT(2)
+NUFFT_SPREAD_ENTRY(cas_spread_3d_real_f32, float, 1)
+#endif
+#if NUFFT_WANT(3)
+NUFFT_SPREAD_ENTRY(cas_spread_3d_real_f64, double, 1)
+#endif
+"""
+
+#: The geometry chooser's 3D picks at grid 384^3, m = 4 for the
+#: shared-memory design (its cost model: halo x bank conflicts / CTAs).
+CAS_PICKS = {"complex64": (8, 8, 8), "complex128": (8, 8, 12),
+             "float32": (12, 12, 16), "float64": (12, 12, 16)}
+#: Geometries the tensor-core kernel is also timed at (grid 384^3).
+SPREAD3D_GEOMETRIES = ((8, 8, 8), (8, 6, 8), (6, 8, 8), (8, 8, 6), (4, 8, 8), (8, 4, 8),
+                       (8, 8, 4), (4, 4, 8), (6, 6, 8), (8, 8, 12), (8, 12, 8),
+                       (8, 8, 16), (16, 8, 8), (24, 8, 8), (32, 8, 8), (12, 12, 16))
+#: Variants of the tensor-core kernel (-D values of csrc/spread_3d.cu's
+#: tunables), built by build.py:build_variants.
+SPREAD3D_VARIANTS = {"m8n8k4": ["-DNUFFT_SPREAD3D_ATOM_ROWS=8", "-DNUFFT_SPREAD3D_K=4"],
+                     "m16n8k4": ["-DNUFFT_SPREAD3D_K=4"],
+                     "batch32": ["-DNUFFT_SPREAD3D_BATCH=32"]}
+SPREAD3D_NP = {"complex64": 1_000_000, "float32": 1_000_000,
+               "complex128": 1_677_722, "float64": 1_677_722}
+
+
+def _raw_spread(lib, prefix: str, plan, vals):
+    """One launch of a 3D spread entry point (``prefix`` + value suffix) of
+    ``lib`` on the plan's sorted state, ``vals`` already in sorted order;
+    returns the grid."""
+    import torch
+
+    from nonuniformffts_tpu_torch.ops.kernels import build
+    from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES
+
+    name = prefix + VALUE_TYPES[plan.dtype][0]
+    fn = getattr(lib, name)
+    fn.argtypes = build._SIGNATURES["nufft_spread_3d_" + VALUE_TYPES[plan.dtype][0]]
+    grid = torch.zeros((1,) + plan.shape_over, dtype=vals.dtype, device=vals.device)
+    err = fn(vals.data_ptr(), plan.cells_sorted.data_ptr(), plan.fracs_sorted.data_ptr(),
+             plan.pstarts.data_ptr(), plan.coefs.data_ptr(), 0, grid.data_ptr(),
+             plan.num_points, 1, plan.m, plan.coefs.shape[-1], *plan.shape_over,
+             *plan.block_dims, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return grid
+
+
+def probe_spread3d(seed: int, dtypes, nps) -> None:
+    """The tensor-core 3D spread kernel against the shared-memory design it
+    replaced, in turns (old, new, new, old), two passes, on the same points
+    and values: the old kernel at its chooser's pick (``CAS_PICKS``), the
+    new one at its own pick and at the old pick (the old kernel's sorted
+    points).  Then the new kernel at ``SPREAD3D_GEOMETRIES`` (in order and
+    reversed) and its variants at the pick (``SPREAD3D_VARIANTS``: the
+    m8n8k4 and m16n8k4 MMAs, batches of 32 points).  Also err1 against exact
+    sums (``chip_smoke._err1``) of each kernel's grid through the plan's FFT
+    and deconvolution, three calls each.
+    3D, N = 256^3 (grid 384^3), m = 4, sigma = 1.5, BKB FastApproximation,
+    uniform points; CUDA events, median of 5 after one warm-up.  One JSON
+    line a dtype and Np, with the card's name and power limit."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from chip_smoke import _err1, cuda_time_ms, nvidia_smi_line, rel_l2
+    from nonuniformffts_tpu_torch import execution as ex
+    from nonuniformffts_tpu_torch.ops.kernels import blocked, build
+
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    cas = _probe_library("cas_spread_3d", _CAS_SPREAD_3D_SRC, ("-I", str(build.CSRC_DIR)))
+    variants = build.build_variants(SPREAD3D_VARIANTS, sources=("spread_3d.cu",))
+    shipped = build.load()
+    logs = {"shipped": build.PTXAS_LOG}
+    logs.update({k: build.BUILD_DIR / "variants" / str(i) / "ptxas.log"
+                 for i, k in enumerate(SPREAD3D_VARIANTS)})
+    for k, path in logs.items():
+        print(f"ptxas {k}: {_m4_registers(path.read_text())}", flush=True)
+    for name in dtypes:
+        dtype = np.dtype(name)
+        plan0 = nufft.PlanNUFFT(dtype, SHAPES[3], m=4, sigma=1.5,
+                                spread_method="blocked", device=dev)
+        tol = 1e-5 if plan0.real_dtype == torch.float32 else 1e-12
+        for np_ in nps or (SPREAD3D_NP[name], 16_777_216):
+            gen = torch.Generator(device=dev).manual_seed(seed + np_)
+            pts = torch.rand((3, np_), generator=gen, device=dev,
+                             dtype=plan0.real_dtype) * (2 * math.pi)
+            vp = torch.randn((1, np_), generator=gen, device=dev, dtype=plan0.dtype)
+            plans = {g: nufft.set_points(dataclasses.replace(plan0, block_dims=g), pts)
+                     for g in dict.fromkeys((plan0.block_dims, CAS_PICKS[name]))}
+            sorted_vals = {g: vp[:, p.sort_perm].contiguous() for g, p in plans.items()}
+            old_g, new_g = CAS_PICKS[name], plan0.block_dims
+            runs = {
+                "cas": lambda: _raw_spread(cas, "cas_spread_3d_", plans[old_g],
+                                           sorted_vals[old_g]),
+                "new": lambda: _raw_spread(shipped, "nufft_spread_3d_", plans[new_g],
+                                           sorted_vals[new_g]),
+                "new_at_cas_pick": lambda: _raw_spread(shipped, "nufft_spread_3d_",
+                                                       plans[old_g], sorted_vals[old_g]),
+            }
+            want = blocked.spread_blocked_plain(
+                dataclasses.replace(plans[new_g], chunk_size=1 << 16), vp)
+            times = {k: [] for k in runs}
+            for _ in range(2):
+                for k in ("cas", "new", "new_at_cas_pick", "new_at_cas_pick", "new", "cas"):
+                    ms, got = cuda_time_ms(runs[k])
+                    times[k].append(ms)
+                    err = rel_l2(got, want)
+                    if not err <= tol:
+                        raise AssertionError(f"{name} {np_} {k}: rel L2 {err:.3e} vs plain")
+                    del got
+            line = {"probe": "spread3d", "card": card, "dtype": name, "np": np_,
+                    "chosen": list(new_g), "cas_pick": list(old_g),
+                    "ms": {k: sum(t) / len(t) for k, t in times.items()}}
+            line["speedup"] = line["ms"]["cas"] / line["ms"]["new"]
+            # err1 of both kernels' grids through the plan's FFT and
+            # deconvolution, three calls each: float grids take their adds in
+            # a run-dependent order, so err1 varies from call to call.
+            line["err1"] = {}
+            for k, lib, prefix, g in (("cas", cas, "cas_spread_3d_", old_g),
+                                      ("new", shipped, "nufft_spread_3d_", new_g)):
+                p = plans[g]
+                line["err1"][k] = [
+                    _err1(pts, vp[0], ex.t1_deconv_stage(p, ex.t1_fft_stage(
+                        p, _raw_spread(lib, prefix, p, sorted_vals[g])))[0],
+                        SHAPES[3], p.is_real, seed)
+                    for _ in range(3)]
+            # The variants at the pick, in turns with the shipped kernel; a
+            # variant that disagrees with the plain version is reported with
+            # its error and not timed.
+            vt = {k: [] for k in ("shipped", *SPREAD3D_VARIANTS)}
+            line["variants_err"] = {}
+            for order in (list(vt), list(vt)[::-1]):
+                for k in order:
+                    if line["variants_err"].get(k, 0.0) > tol:
+                        continue
+                    lib = shipped if k == "shipped" else variants[k]
+                    ms, got = cuda_time_ms(lambda: _raw_spread(
+                        lib, "nufft_spread_3d_", plans[new_g], sorted_vals[new_g]))
+                    err = rel_l2(got, want)
+                    line["variants_err"][k] = err
+                    if k == "shipped" and not err <= tol:
+                        raise AssertionError(f"{name} {np_}: rel L2 {err:.3e} vs plain")
+                    if err <= tol:
+                        vt[k].append(ms)
+                    del got
+            line["variants_ms"] = {k: sum(t) / len(t) for k, t in vt.items() if t}
+            del plans, sorted_vals, want
+            torch.cuda.empty_cache()
+            # The geometries, in order and reversed (one plan at a time).
+            dims = [g for g in dict.fromkeys((new_g,) + SPREAD3D_GEOMETRIES)
+                    if all(n % b == 0 for n, b in zip(plan0.shape_over, g))]
+            gt = {g: [] for g in dims}
+            for order in (dims, dims[::-1]):
+                for g in order:
+                    plan = nufft.set_points(dataclasses.replace(plan0, block_dims=g), pts)
+                    vals = vp[:, plan.sort_perm].contiguous()
+                    ms, _ = cuda_time_ms(lambda: _raw_spread(shipped, "nufft_spread_3d_",
+                                                             plan, vals))
+                    gt[g].append(ms)
+                    del plan, vals
+                    torch.cuda.empty_cache()
+            line["geometries_ms"] = {"x".join(map(str, g)): sum(t) / len(t)
+                                     for g, t in gt.items()}
+            print(json.dumps(line), flush=True)
+
+
+#: Copies of csrc/spread_3d.cu with one phase taken out, for
+#: ``--spread3d-parts``: each maps a line of the source to its replacement.
+#: Their grids are wrong; only their times and registers are read.  Without
+#: the flush the compiler drops the accumulators too (40 registers against
+#: 128), so "no_flush" times neither; "flush_sum" keeps them live.
+SPREAD3D_PARTS = {
+    "no_mma": {"mma_f64(acc[c][r], a[r], b);": "acc[c][r][0] += a[r][0] * b[0];"},
+    "no_dense": {"for (int e = warp; e < dense; e += nwarps) {":
+                 "for (int e = warp; e < 0; e += nwarps) {"},
+    "no_taps": {"for (int e = warp; e < 3 * S; e += nwarps) {":
+                "for (int e = warp; e < 0; e += nwarps) {"},
+    "no_flush": {"    if (!active) continue;\n\n    // Flush.": "    continue;\n\n    // Flush."},
+    # The flush's complex64 / complex128 reductions as plain stores, and as
+    # no write at all (a store under a condition that never holds).
+    "flush_stores": {"  red_v2(p, float(re), float(im));":
+                     "  *reinterpret_cast<float2*>(p) = make_float2(float(re), float(im));",
+                     "  atomicAdd(p, re);\n  atomicAdd(p + 1, im);": "  p[0] = re;\n  p[1] = im;"},
+    # The accumulators kept live by one conditional write of their sum, in
+    # place of the flush's code.
+    "flush_sum": {"    if (!active) continue;\n\n    // Flush.":
+                  "    if (!active) continue;\n    {\n      double sum = 0.0;\n"
+                  "#pragma unroll\n      for (int c = 0; c < kColTiles; ++c)\n"
+                  "#pragma unroll\n        for (int r = 0; r < kRowTiles; ++r)\n"
+                  "#pragma unroll\n          for (int e = 0; e < 2 * kHalves; ++e) sum += acc[c][r][e];\n"
+                  "      if (sum == 1.25e-300) gch[tid] = T(sum);\n    }\n    continue;\n\n    // Flush."},
+    "flush_no_write": {"  red_v2(p, float(re), float(im));":
+                       "  if (re == 1.25e-300) p[0] = float(im);",
+                       "  atomicAdd(p, re);\n  atomicAdd(p + 1, im);":
+                       "  if (re == 1.25e-300) p[0] = im;"},
+}
+
+
+def probe_spread3d_parts(seed: int, dtypes, nps) -> None:
+    """Where the 3D spread kernel's time goes: the shipped kernel and copies
+    of its source with one phase taken out (``SPREAD3D_PARTS``: the MMAs,
+    the dense operand build, the tap evaluation, the flush), each built by
+    this script into ``build/chip_probe/``, timed in turns at the chooser's
+    pick on the same sorted points (CUDA events, median of 5, two passes).
+    One JSON line a dtype and Np."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from chip_smoke import cuda_time_ms, nvidia_smi_line
+    from nonuniformffts_tpu_torch.ops.kernels import build
+
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    src = (build.CSRC_DIR / "spread_3d.cu").read_text()
+    libs = {"shipped": build.load()}
+    for name, edits in SPREAD3D_PARTS.items():
+        text = src
+        for old, new in edits.items():
+            if old not in text:
+                raise AssertionError(f"{name}: {old!r} not in spread_3d.cu")
+            text = text.replace(old, new)
+        libs[name] = _probe_library(f"spread3d_{name}", text, ("-I", str(build.CSRC_DIR)))
+        log = ROOT / "build" / "chip_probe" / f"spread3d_{name}.ptxas.log"
+        print(f"ptxas {name}: {_m4_registers(log.read_text())}", flush=True)
+    for name in dtypes:
+        dtype = np.dtype(name)
+        plan0 = nufft.PlanNUFFT(dtype, SHAPES[3], m=4, sigma=1.5,
+                                spread_method="blocked", device=dev)
+        for np_ in nps or (SPREAD3D_NP[name], 16_777_216):
+            gen = torch.Generator(device=dev).manual_seed(seed + np_)
+            pts = torch.rand((3, np_), generator=gen, device=dev,
+                             dtype=plan0.real_dtype) * (2 * math.pi)
+            vp = torch.randn((1, np_), generator=gen, device=dev, dtype=plan0.dtype)
+            plan = nufft.set_points(plan0, pts)
+            vals = vp[:, plan.sort_perm].contiguous()
+            times = {k: [] for k in libs}
+            for order in (list(libs), list(libs)[::-1]):
+                for k in order:
+                    ms, _ = cuda_time_ms(lambda: _raw_spread(libs[k], "nufft_spread_3d_",
+                                                             plan, vals))
+                    times[k].append(ms)
+            print(json.dumps({"probe": "spread3d_parts", "card": card, "dtype": name,
+                              "np": np_, "block_dims": list(plan.block_dims),
+                              "ms": {k: sum(t) / len(t) for k, t in times.items()}}),
+                  flush=True)
+            del plan, vals
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -507,6 +961,11 @@ def main(argv=None) -> int:
                         help="probe which gloo calls take CUDA tensors, and stop")
     parser.add_argument("--relayout", action="store_true",
                         help="time the relayout kernels' design variants, and stop")
+    parser.add_argument("--spread3d", action="store_true",
+                        help="time the 3D spread kernel against the design it replaced, "
+                             "its variants and geometries, and stop")
+    parser.add_argument("--spread3d-parts", action="store_true",
+                        help="time the 3D spread kernel with each phase taken out, and stop")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
 
@@ -519,6 +978,12 @@ def main(argv=None) -> int:
         return 0
     if args.relayout:
         probe_relayout()
+        return 0
+    if args.spread3d:
+        probe_spread3d(args.seed, args.dtype, args.np)
+        return 0
+    if args.spread3d_parts:
+        probe_spread3d_parts(args.seed, args.dtype, args.np)
         return 0
 
     import nonuniformffts_tpu_torch as nufft

@@ -9,8 +9,10 @@ Phases, in order; the first failure raises and the script exits non-zero:
    power limit; requires ``torch.cuda.is_available()``;
 2. build: compiles the CUDA kernels from ``nonuniformffts_tpu_torch/csrc``
    (one nvcc per source, dimension and value type, all at once), prints each
-   kernel's registers and spills from ``ptxas -v`` and the atomic
-   instructions its SASS holds (``cuobjdump -sass``);
+   kernel's registers and spills from ``ptxas -v`` and the atomic and DMMA
+   (FP64 tensor-core) instructions its SASS holds (``cuobjdump -sass``);
+   every 3D spread instantiation must hold DMMA and no shared-memory
+   atomic;
 3. the 3D complex64 kernels against their plain PyTorch versions on the
    card: a 64^3 plan (grid 96^3), 200,000 uniform points;
 4. the 3D complex64 main path at full size: N = 256^3, m = 4, sigma = 1.5,
@@ -304,18 +306,31 @@ def report_ptxas(text: str) -> None:
 
 
 def report_sass_atomics(lib_path: Path) -> None:
-    """The atomic instructions of each kernel's SASS: a shared-memory add
-    compiled to a compare-and-swap loop shows as ATOMS.CAST.SPIN."""
+    """The atomic and FP64 tensor-core instructions of each kernel's SASS: a
+    shared-memory add compiled to a compare-and-swap loop shows as
+    ATOMS.CAST.SPIN, an ``mma.sync .f64`` as DMMA.  The 3D spread kernel
+    contracts on the tensor cores and adds in registers: an instantiation
+    without DMMA or with a shared-memory atomic fails the phase."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         log("  cuobjdump: not found, SASS not read")
         return
     sass = run([tool, "-sass", str(lib_path)])
+    wrong = []
     for part in re.split(r"\n\s+Function : ", sass)[1:]:
         name, body = part.split("\n", 1)
-        ops = collections.Counter(re.findall(r"\b((?:ATOMS|ATOMG|REDG|RED|ATOM)\.[A-Z0-9.]+)", body))
-        log(f"  sass {_kernel_label(name.strip())}: "
+        label = _kernel_label(name.strip())
+        ops = collections.Counter(re.findall(
+            r"\b((?:ATOMS|ATOMG|REDG|RED|ATOM)\.[A-Za-z0-9.]+|DMMA(?:\.[A-Za-z0-9.]+)?)", body))
+        log(f"  sass {label}: "
             + (", ".join(f"{k} x{v}" for k, v in sorted(ops.items())) or "no atomics"))
+        if label.startswith("spread_3d<") and (
+                any(k.startswith("ATOMS") for k in ops)
+                or not any(k.startswith("DMMA") for k in ops)):
+            wrong.append(label)
+    if wrong:
+        raise AssertionError("3D spread instantiations with a shared-memory atomic or "
+                             f"without DMMA: {wrong}")
 
 
 def phase_build():

@@ -17,6 +17,7 @@ its block's padded window (reference: src/blocking/gpu.jl:145-160).
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -30,6 +31,7 @@ from .ops.kernels.common import (
     spread_bank_conflicts,
     spread_ctas_per_sm,
     spread_smem_bytes,
+    spread_tiles,
 )
 from .ops.stencil import cells_and_fracs
 
@@ -54,6 +56,43 @@ BLOCKS_PER_SM_1D = 16
 #: Longest 1D block considered (its start table takes 4 B a cell).
 MAX_BLOCK_1D = 16_384
 
+# The 3D chooser's cost model (``csrc/spread_3d.cu``), fitted to the
+# geometry sweep of ``chip_probe.py --spread3d`` (14 geometries, four dtypes,
+# two densities at grid 384^3; mean error 12%, PERF.md): a non-empty block
+# costs a fixed time and each of its points a time per staged row (its
+# 3 x 2M taps and the dense operand rows), once a pass, over the CTAs an SM
+# holds at once (two at most: the sweep's range).  The MMAs, the warps and
+# the flush took no weight of their own.
+#: Seconds of one non-empty block, a pass.
+SPREAD3D_BLOCK_S = 6.18e-8
+#: Seconds to stage one point into one row, a pass.
+SPREAD3D_POINT_ROW_S = 1.22e-11
+#: Points per oversampled cell the model is summed over: the 3D main path's
+#: two point counts at grid 384^3 (1M and 16,777,216, rho = 1).
+SPREAD3D_DENSITIES = (1_000_000 / 384 ** 3, 16_777_216 / 384 ** 3)
+#: Largest 3D block dim considered.
+MAX_BLOCK_3D = 64
+
+
+def spread3d_cost(block_dims: Sequence[int], m: int, ncomp: int,
+                  scalar_bytes: int = 4) -> float:
+    """Modelled seconds per oversampled grid cell of the 3D spread kernel at
+    ``block_dims``, summed over ``SPREAD3D_DENSITIES`` (uniform points, so
+    a block of V cells holds Poisson(rho V) points)."""
+    t = spread_tiles(block_dims, m, ncomp)
+    vol = 1
+    for b in block_dims:
+        vol *= b
+    ctas = min(spread_ctas_per_sm(scalar_bytes, ncomp, m, 3, 32 * t.warps), 2)
+    rows = 6 * m + t.rows + t.padded[1] + 8 * t.z_tiles
+    cost = 0.0
+    for rho in SPREAD3D_DENSITIES:
+        lam = rho * vol  # points a block
+        full = -math.expm1(-lam)  # share of blocks holding a point
+        cost += full / vol / ctas * t.passes * (
+            SPREAD3D_BLOCK_S + SPREAD3D_POINT_ROW_S * lam / full * rows)
+    return cost
+
 
 def choose_geometry(shape_over: Sequence[int], m: int, scalar_bytes: int = 4,
                     ncomp: int = 2, ncoef: int = None) -> Tuple[int, ...]:
@@ -70,11 +109,19 @@ def choose_geometry(shape_over: Sequence[int], m: int, scalar_bytes: int = 4,
     SM, or into as many blocks as the grid allows.  At 1,572,864 cells that
     is 512 cells, 3,072 blocks.
 
-    2D and 3D (a padded block of ``ncomp`` double planes in shared memory,
+    3D (``csrc/spread_3d.cu``, a tensor-core contraction per block with
+    its sums in registers): among candidates up to ``MAX_BLOCK_3D`` cells a
+    dim with at least two blocks per SM (264 blocks, so the grid fills the
+    card), the lowest ``spread3d_cost`` wins, ties going to the wider last
+    dim: larger blocks stage more rows a point and may take more passes
+    (``spread_tiles``) or fewer CTAs an SM; smaller ones make more blocks.
+    At grid 384^3, m = 4: (8, 8, 8) for complex values, (16, 8, 8) for real
+    ones.
+
+    2D (a padded block of ``ncomp`` double planes in shared memory,
     ``ACC_BYTES``): among candidates up to 128 cells a dim with at least two
-    blocks per SM (264 blocks, so the grid fills the card), the lowest
-    estimated cost ``halo_ratio * conflicts / ctas`` wins, ties going to the
-    wider last dim (coalesced flush rows):
+    blocks per SM, the lowest estimated cost ``halo_ratio * conflicts /
+    ctas`` wins, ties going to the wider last dim (coalesced flush rows):
 
     - ``halo_ratio = prod(B + 2M - 1) / prod(B)``: every padded cell of a
       non-empty block costs a global atomic add in the flush;
@@ -97,12 +144,18 @@ def choose_geometry(shape_over: Sequence[int], m: int, scalar_bytes: int = 4,
         want = BLOCKS_PER_SM_1D * NUM_SMS
         return (max((b for b in range(1, min(n, MAX_BLOCK_1D) + 1) if n % b == 0),
                     key=lambda b: (min(n // b, want), b)),)
-    cta_cap = spread_ctas_per_sm(scalar_bytes, ncomp, m, D)
-    per_dim = [[b for b in range(1, min(n, 128) + 1) if n % b == 0]
-               for n in shape_over]
     total = 1
     for n in shape_over:
         total *= n
+    if D == 3:
+        per_dim = [[b for b in range(1, min(n, MAX_BLOCK_3D) + 1) if n % b == 0]
+                   for n in shape_over]
+        return max(itertools.product(*per_dim),
+                   key=lambda dims: (total // (dims[0] * dims[1] * dims[2]) >= 2 * NUM_SMS,
+                                     -spread3d_cost(dims, m, ncomp, scalar_bytes), dims[-1]))
+    cta_cap = spread_ctas_per_sm(scalar_bytes, ncomp, m, D)
+    per_dim = [[b for b in range(1, min(n, 128) + 1) if n % b == 0]
+               for n in shape_over]
     best, best_score = None, None
     for dims in itertools.product(*per_dim):
         smem = spread_smem_bytes(dims, m, ncoef, scalar_bytes, ncomp)

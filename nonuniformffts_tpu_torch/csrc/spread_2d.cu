@@ -13,15 +13,16 @@
 // program accumulated its block into a (CR * pd0, pd1) buffer by dense
 // weight-matrix contractions on the MXU, wrote the padded blocks out, and a
 // separate overlap_add pass (relayout to the grid plus halo adds) folded
-// them into the grid.  Here the design is K1's (spread_3d.cu) without the x
-// loop:
+// them into the grid.  Here each CTA accumulates its block in shared
+// memory (spread_3d.cu contracts on the FP64 tensor cores instead; the same
+// design would serve here, ROADMAP queue 2):
 //
 // - One CTA per (spatial block, transform); the block's points are a
 //   contiguous range of the bin-sorted arrays (pstarts).  An empty block
 //   returns before touching shared memory.
 // - The CTA zeroes a padded (B0+2M-1)(B1+2M-1) accumulator in dynamic shared
-//   memory, NCOMP planes of double, for float values too (as K1: ROADMAP
-//   queue 3, P2).
+//   memory, NCOMP planes of double, for float values too (ROADMAP queue 3,
+//   P2).
 // - Each warp takes one point at a time: its lanes evaluate the 2 x 2M taps
 //   (Horner in T, window.cuh, or read from the window-weights kernel's
 //   output for the other windows) into a per-warp scratch, then split the

@@ -9,65 +9,186 @@
 // Replaces nonuniformffts_tpu/ops/pallas/blocked.py:_spread_kernel_z (the
 // Pallas kernel launched by spread_blocked, complex and real rows) and
 // nonuniformffts_tpu/ops/pallas/blocked_ds.py:_spread_kernel_ds (launched
-// by spread_blocked_ds).  On the TPU each program owned one spatial block,
-// built dense per-dimension weight matrices and contracted them with the
-// point batch on the MXU into a padded block; the halo merge lived in the
-// DFT factors.  The ds kernel did the same with float64 emulated as (hi, lo)
-// float32 pairs, ds Horner taps and int8 limb contractions.  Here the card
-// has native FP64, so one template serves both precisions:
+// by spread_blocked_ds).  On the TPU each program owned one spatial block
+// and contracted dense per-dimension weight matrices with the point batch
+// on the MXU into a padded block; the ds kernel did the same with float64
+// emulated as (hi, lo) float32 pairs.  Here the same contraction runs on
+// Hopper's FP64 tensor cores (mma.sync m16n8k8 .f64), in native double for
+// every value type:
 //
 // - One CTA per (spatial block, transform).  The block's points are a
-//   contiguous range of the bin-sorted arrays (pstarts).  An empty block
-//   returns before touching shared memory.
-// - The CTA zeroes a padded (B0+2M-1)(B1+2M-1)(B2+2M-1) accumulator in
-//   dynamic shared memory, NCOMP planes of double (re and im for complex
-//   values, one plane for real values), so the lanes of a warp hit
-//   consecutive words.  The accumulator is double for float values too: at
-//   rho = 1 a cell sums ~150 terms, and float32 sums put err1 at 1.8e-6
-//   against 1.5e-6 for the JAX package's float32 kernels, which sum each
-//   128-point batch inside one matmul (ROADMAP queue 3, P2).
-// - Each warp takes one point at a time.  Its lanes evaluate the 3 x 2M taps
-//   (Horner in T, window.cuh, or read from the window-weights kernel's
-//   output for the other windows) into a per-warp scratch, then split the
-//   (2M)^2 (y, z) tap pairs among themselves and walk the 2M x taps, adding
-//   v * wx * wy * wz (formed in T) into shared memory with atomicAdd.
-//   Lanes of one warp write distinct addresses, consecutive along z.
-// - The CTA then rounds its padded block, halo included, to T and adds it
-//   into the global grid with periodic wrap and global atomicAdd.  This
-//   replaces the TPU's halo merge inside the DFT factors: there is no
-//   separate fold pass.
+//   contiguous range of the bin-sorted arrays (pstarts); an empty block
+//   returns at once.  With padded dims pd = B + 2M - 1, the block's sum is
+//     G (NCOMP pd0 x pd1 pd2) += A (NCOMP pd0 x P) . B (P x pd1 pd2),
+//   A[(i, k), p] = v_p[k] wx_p[i - lx_p], B[p, (j, l)] = wy_p[j - ly_p]
+//   wz_p[l - lz_p] (zero outside the point's 2M taps), with lx, ly, lz the
+//   point's cell relative to the block's origin.  Rows are (i, k), k
+//   fastest; columns (j, l) with l padded to a multiple of 8, so an
+//   n-tile of 8 columns lies in one z row of the padded block.
+// - G is cut into units of 32 rows x 4 n-tiles (ops/kernels/common.py:
+//   spread_tiles).  A warp keeps one unit in registers (32 doubles a lane)
+//   across all the block's points; a CTA runs up to 16 warps, and a block
+//   with more units than that walks its points once per pass of 16.  The
+//   main path's blocks take one pass (complex64 at (8, 8, 8): 8 units).
+// - Points come in batches of 64, staged by all threads in two steps.
+//   First the compact taps (one thread a point, dim and tap: Horner in T on
+//   the staged coefficient stack for (B)KB FastApproximation, else the taps
+//   of the window-weights kernel, wtaps), the values and the local cells,
+//   in double.  Then the dense operands: A's rows and the y and z taps at
+//   every padded row, a column a point, zero outside the point's taps.
+//   Points are the fastest index of every staged array, so the stores hit
+//   consecutive words, and operand rows lie kStride doubles apart, so a
+//   fragment's 8 rows x 4 points fall on distinct bank pairs.
+// - Each warp then walks the batch eight points (one k = 8 step) at a
+//   time.  Its lanes' operand offsets are fixed for the unit, so a step is
+//   shared loads of the A fragments (serving the unit's 4 n-tiles), two
+//   loads and a multiply per B fragment element (serving its row tiles) and
+//   the MMAs: no index arithmetic, no branch on the data, no shared-memory
+//   atomic.  Three __syncthreads a batch.
+// - The flush adds each lane's accumulators into the grid with periodic
+//   wrap, skipping cells no point reached.  A lane holds two neighbouring
+//   cells of one z row; for complex values re and im sit in lanes 4 apart,
+//   and one shuffle gives each lane one whole cell.  A complex64 cell goes
+//   in one vector reduction (red.global.add.v2.f32), as do two float32
+//   cells where they are contiguous and aligned; double grids use the
+//   native scalar f64 reduction.
 //
-// What bounds it on the H100: the shared-memory atomics, NCOMP (2M)^3 adds
-// per point (1024 at M = 4 for complex values, each a 64-bit
-// compare-and-swap loop), and at low density the global atomics of the
-// block flush (about 2-3x the grid at the chosen geometry).  The design
-// keeps the per-point atomics conflict-free within a warp and in shared
-// memory; the flush skips cells no point reached.  A double padded block
-// takes twice a float one's shared memory, so the geometry chooser
-// (blocking.py) takes smaller blocks to keep several CTAs resident.
-// Values, fractions, taps and coefficients are T, accumulators double;
-// cells are int32.  There is no TF32 anywhere.  Only a Horner window stages
-// coefficients (ncoef > 0); the others read their taps (wtaps).
+// What bounds it on the H100: the FP64 tensor cores on the dense product
+// (NCOMP pd0 rounded to the MMA's rows, times pd1 times pd2 rounded to 8,
+// FMAs a point; 7,680 at the complex64 main path's (8, 8, 8), against
+// 1,024 useful), the instructions that feed them, and at low density the
+// flush's global reductions over the halo.  On the card the staging and
+// the latency of each block's short phases weigh more than the MMAs
+// (chip_probe.py --spread3d-parts, PERF.md).  A first form that built each
+// fragment element from compact taps (index arithmetic and a window test
+// per element) and skipped the tiles a step's points miss ran 1.7x slower
+// at rho = 1.  Products and sums are double: float values and taps are
+// widened on their way into shared memory, so there is no TF32 anywhere and
+// float32 plans keep the double sums that ROADMAP queue 3, P2 asked for.
+// The MMA shape is NUFFT_SPREAD3D_ATOM_ROWS x 8 x NUFFT_SPREAD3D_K:
+// m16n8k8 (sm_90, the default: 7-11% faster than m16n8k4 at rho = 1 and
+// 1-3% at the main path's smaller Np), m16n8k4 or m8n8k4 (sm_80);
+// chip_probe.py --spread3d times them.  A k = 8 step carries the work of an
+// unrolled pair of k = 4 steps: unrolled itself, it spilled at 128 registers.
 #include <cstdint>
+#include <type_traits>
 
 #include "window.cuh"
 
+#ifndef NUFFT_SPREAD3D_ATOM_ROWS
+#define NUFFT_SPREAD3D_ATOM_ROWS 16
+#endif
+#ifndef NUFFT_SPREAD3D_K
+#define NUFFT_SPREAD3D_K 8
+#endif
+#ifndef NUFFT_SPREAD3D_BATCH
+#define NUFFT_SPREAD3D_BATCH 64
+#endif
+
 namespace {
 
-constexpr int kThreads = 512;  // ops/kernels/common.py:SPREAD_THREADS
-using Acc = double;            // ops/kernels/common.py:ACC_BYTES
+// Must match ops/kernels/common.py:SPREAD3D_*.
+constexpr int kMaxWarps = 16;                          // SPREAD3D_MAX_WARPS
+constexpr int kBatch = NUFFT_SPREAD3D_BATCH;           // SPREAD3D_BATCH
+constexpr int kAtomRows = NUFFT_SPREAD3D_ATOM_ROWS;    // SPREAD3D_ATOM_ROWS
+constexpr int kK = NUFFT_SPREAD3D_K;                   // points an MMA takes
+constexpr int kUnitRows = 32;                          // SPREAD3D_UNIT_ROWS
+constexpr int kColTiles = 4;                           // SPREAD3D_UNIT_COL_TILES
+constexpr int kRowTiles = kUnitRows / kAtomRows;
+constexpr int kHalves = kAtomRows / 8;  // 8-row halves of one MMA tile
+constexpr int kQuads = kK / 4;          // 4-point quarters of one MMA's k
+// Doubles from one dense operand row to the next: 4 past the batch, so the
+// 8 rows x 4 points of a fragment load fall on distinct bank pairs.
+constexpr int kStride = kBatch + 4;
+static_assert((kAtomRows == 8 && kK == 4) || (kAtomRows == 16 && (kK == 4 || kK == 8)),
+              "mma.sync f64: m8n8k4, m16n8k4 or m16n8k8");
+static_assert(kBatch % kK == 0, "a batch is whole k-steps");
 
-// Must match ops/kernels/common.py:spread_smem_bytes.
+// The tile geometry of one padded block (ops/kernels/common.py:spread_tiles).
+struct Tiles {
+  int pd0, pd1, pd2;
+  int row_tiles;   // ceil(NCOMP pd0 / kAtomRows)
+  int z_tiles;     // ceil(pd2 / 8): n-tiles of one z row
+  int col_tiles;   // pd1 z_tiles
+  int col_groups;  // ceil(col_tiles / kColTiles)
+  int units;       // ceil(row_tiles / kRowTiles) col_groups
+};
+
+template <int NCOMP>
+__host__ __device__ inline Tiles tiles_of(int m, int b0, int b1, int b2) {
+  Tiles t;
+  t.pd0 = b0 + 2 * m - 1;
+  t.pd1 = b1 + 2 * m - 1;
+  t.pd2 = b2 + 2 * m - 1;
+  t.row_tiles = (NCOMP * t.pd0 + kAtomRows - 1) / kAtomRows;
+  t.z_tiles = (t.pd2 + 7) / 8;
+  t.col_tiles = t.pd1 * t.z_tiles;
+  t.col_groups = (t.col_tiles + kColTiles - 1) / kColTiles;
+  t.units = ((t.row_tiles + kRowTiles - 1) / kRowTiles) * t.col_groups;
+  return t;
+}
+
+// Must match ops/kernels/common.py:spread_smem_bytes (3D): the dense
+// operands of one batch (A's rows, the y and z taps at every padded row, a
+// column a point, rows kStride doubles apart), the batch's compact taps and
+// values (double) and local cells (int32), then the (3, 2M, ncoef)
+// coefficient stack in T.
 template <typename T, int NCOMP>
 size_t spread_smem_bytes(int m, int ncoef, int b0, int b1, int b2) {
+  const Tiles t = tiles_of<NCOMP>(m, b0, b1, b2);
   const size_t s = 2 * m;
-  const size_t pv = (size_t)(b0 + s - 1) * (b1 + s - 1) * (b2 + s - 1);
-  const size_t ntaps = 3 * s;
-  return sizeof(Acc) * NCOMP * pv + sizeof(T) * (ntaps * ncoef + (kThreads / 32) * ntaps);
+  const size_t dense = (size_t)t.row_tiles * kAtomRows + t.pd1 + 8 * t.z_tiles;
+  return sizeof(double) * (kStride * dense + (3 * s + NCOMP) * kBatch) +
+         sizeof(int) * 3 * kBatch + sizeof(T) * 3 * s * ncoef;
+}
+
+// D += A B on the FP64 tensor cores.  Lane (g, t) = (lane / 4, lane % 4)
+// holds A[g + 8h][t + 4q] as a[q * kHalves + h], B[t + 4q][g] as b[q], and
+// D[g + 8h][2t + e] as d[2h + e].  m8n8k4 (sm_80): h, q = 0;
+// m16n8k4 and m16n8k8 (sm_90): h = 0, 1 and q = 0 or 0, 1.
+__device__ __forceinline__ void mma_f64(double (&d)[2], const double (&a)[1],
+                                        const double (&b)[1]) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a[0]), "d"(b[0]));
+}
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[2],
+                                        const double (&b)[1]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+}
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// Hopper's vector reduction into global memory (sm_90, global only): one
+// instruction adds two floats, a complex64 cell or two float32 cells.
+__device__ __forceinline__ void red_v2(float* p, float a, float b) {
+  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};\n" ::"l"(__cvta_generic_to_global(p)),
+               "f"(a), "f"(b)
+               : "memory");
+}
+
+// Adds a complex cell's sums (re, im) into the grid at p.
+__device__ __forceinline__ void add_complex(float* p, double re, double im) {
+  red_v2(p, float(re), float(im));
+}
+__device__ __forceinline__ void add_complex(double* p, double re, double im) {
+  atomicAdd(p, re);
+  atomicAdd(p + 1, im);
 }
 
 template <int M, typename T, int NCOMP>
-__global__ void __launch_bounds__(kThreads) spread_3d_kernel(
+__global__ void __launch_bounds__(kMaxWarps * 32) spread_3d_kernel(
     const nufft::Value<T, NCOMP>* __restrict__ vals, const int* __restrict__ cells,
     const T* __restrict__ fracs, const int* __restrict__ pstarts,
     const T* __restrict__ coefs, const T* __restrict__ wtaps,
@@ -76,79 +197,207 @@ __global__ void __launch_bounds__(kThreads) spread_3d_kernel(
   constexpr int S = 2 * M;
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
+  const int nb1 = n1 / b1, nb2 = n2 / b2;
   const int bid = blockIdx.x;
-  const int chan = blockIdx.y;
   const int p_begin = pstarts[bid];
   const int p_end = pstarts[bid + 1];
   if (p_begin == p_end) return;  // uniform across the CTA
 
-  const int pd1 = b1 + S - 1, pd2 = b2 + S - 1;
-  const int plane = pd1 * pd2;
-  const int pv = (b0 + S - 1) * plane;
-  Acc* acc = reinterpret_cast<Acc*>(smem_raw);      // NCOMP planes of pv
-  T* cs = reinterpret_cast<T*>(acc + NCOMP * pv);   // (3, S, ncoef)
+  const Tiles tl = tiles_of<NCOMP>(M, b0, b1, b2);
+  const int rows = tl.row_tiles * kAtomRows, zrow = 8 * tl.z_tiles;
+  const int dense = rows + tl.pd1 + zrow;
+  double* s_a = reinterpret_cast<double*>(smem_raw);  // (rows, kStride): A
+  double* s_wy = s_a + rows * kStride;                 // (pd1, kStride): y taps
+  double* s_wz = s_wy + tl.pd1 * kStride;              // (zrow, kStride): z taps
+  double* s_tap = s_wz + zrow * kStride;               // (3, S, kBatch)
+  double* s_v = s_tap + 3 * S * kBatch;                // (NCOMP, kBatch)
+  int* s_lc = reinterpret_cast<int*>(s_v + NCOMP * kBatch);  // (3, kBatch)
+  T* s_cs = reinterpret_cast<T*>(s_lc + 3 * kBatch);         // (3, S, ncoef)
+
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  T* taps = cs + 3 * S * ncoef + warp * 3 * S;  // this warp's (3, S)
+  const int g = lane >> 2, t4 = lane & 3;
+  for (int i = tid; i < 3 * S * ncoef; i += blockDim.x) s_cs[i] = coefs[i];
 
-  for (int i = tid; i < NCOMP * pv; i += blockDim.x) acc[i] = Acc(0);
-  for (int i = tid; i < 3 * S * ncoef; i += blockDim.x) cs[i] = coefs[i];
-  __syncthreads();
-
-  const int nb1 = n1 / b1, nb2 = n2 / b2;
   const int ox = (bid / (nb1 * nb2)) * b0;
   const int oy = ((bid / nb2) % nb1) * b1;
   const int oz = (bid % nb2) * b2;
-  const nufft::Value<T, NCOMP>* vrow = vals + (long long)chan * np;
+  const nufft::Value<T, NCOMP>* vrow = vals + (long long)blockIdx.y * np;
+  T* gch = grid + (long long)blockIdx.y * n0 * n1 * n2 * NCOMP;
 
-  for (long long j = p_begin + warp; j < p_end; j += nwarps) {
-    nufft::warp_taps<S, 3>(wtaps, cs, ncoef, fracs, np, j, lane, taps);
-    __syncwarp();
-    const int lx = cells[j] - ox;
-    const int ly = cells[np + j] - oy;
-    const int lz = cells[2 * np + j] - oz;
-    const nufft::Value<T, NCOMP> v = vrow[j];
-    for (int q = lane; q < S * S; q += 32) {
-      const int iy = q / S, iz = q - iy * S;
-      const T wyz = taps[S + iy] * taps[2 * S + iz];
-      T vw[NCOMP];
+  for (int first_unit = 0; first_unit < tl.units; first_unit += nwarps) {
+    const int unit = first_unit + warp;
+    const bool active = unit < tl.units;  // uniform across the warp
+    const int rt0 = (unit / tl.col_groups) * kRowTiles;
+    const int ct0 = (unit % tl.col_groups) * kColTiles;
+    const int nr = min(kRowTiles, tl.row_tiles - rt0);  // this unit's row tiles
+    const int nc = min(kColTiles, tl.col_tiles - ct0);  // and n-tiles
+    // Each lane's operand offsets, fixed for the unit: A row 8h + g of row
+    // tile r, the y row j and z row l0 + g of n-tile c; point t4 of a step.
+    int a_off[kRowTiles][kHalves], y_off[kColTiles], z_off[kColTiles];
 #pragma unroll
-      for (int k = 0; k < NCOMP; ++k) vw[k] = v.c[k] * wyz;
-      int idx = (lx * pd1 + ly + iy) * pd2 + lz + iz;
+    for (int r = 0; r < kRowTiles; ++r)
 #pragma unroll
-      for (int ix = 0; ix < S; ++ix) {
-        const T wx = taps[ix];
+      for (int h = 0; h < kHalves; ++h)
+        a_off[r][h] = r < nr ? ((rt0 + r) * kAtomRows + 8 * h + g) * kStride + t4 : t4;
 #pragma unroll
-        for (int k = 0; k < NCOMP; ++k) atomicAdd(acc + k * pv + idx, Acc(vw[k] * wx));
-        idx += plane;
+    for (int c = 0; c < kColTiles; ++c) {
+      const int ct = c < nc ? ct0 + c : 0;
+      const int j = ct / tl.z_tiles;
+      y_off[c] = j * kStride + t4;
+      z_off[c] = (8 * (ct - j * tl.z_tiles) + g) * kStride + t4;
+    }
+    double acc[kColTiles][kRowTiles][2 * kHalves];
+#pragma unroll
+    for (int c = 0; c < kColTiles; ++c)
+#pragma unroll
+      for (int r = 0; r < kRowTiles; ++r)
+#pragma unroll
+        for (int e = 0; e < 2 * kHalves; ++e) acc[c][r][e] = 0.0;
+
+    for (int p0 = p_begin; p0 < p_end; p0 += kBatch) {
+      const int nb = min(kBatch, p_end - p0);
+      const int nbr = (nb + kK - 1) / kK * kK;  // whole k-steps; the extra points are zero
+      __syncthreads();  // the coefficients are in; the last batch is done
+      // Stage 1: the batch's taps (a warp a (dim, tap) row, a lane a point:
+      // the global reads coalesce and the shared stores hit consecutive
+      // words), values and local cells.
+      for (int e = warp; e < 3 * S; e += nwarps) {
+        const int d = e / S, tap = e - d * S;
+        const T* cs_t = s_cs + e * ncoef;
+        for (int p = lane; p < nbr; p += 32) {
+          const long long j = (long long)p0 + p;
+          double w = 0.0;
+          if (p < nb)
+            w = double(nufft::point_tap<S>(wtaps, cs_t, ncoef, fracs[d * np + j], np, j, d, tap));
+          s_tap[e * kBatch + p] = w;
+        }
+      }
+      for (int p = tid; p < nbr; p += blockDim.x) {
+        nufft::Value<T, NCOMP> v{};
+        int lc[3] = {0, 0, 0};
+        if (p < nb) {
+          v = vrow[p0 + p];
+          lc[0] = cells[p0 + p] - ox;
+          lc[1] = cells[np + p0 + p] - oy;
+          lc[2] = cells[2 * np + p0 + p] - oz;
+        }
+#pragma unroll
+        for (int k = 0; k < NCOMP; ++k) s_v[k * kBatch + p] = double(v.c[k]);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) s_lc[d * kBatch + p] = lc[d];
+      }
+      __syncthreads();
+      // Stage 2: the dense operands, a column a point: A[(i, k), p] =
+      // v_p[k] wx_p[i - lx_p], and the y and z taps at their padded rows,
+      // zero outside the point's 2M taps.  A warp a row.
+      for (int e = warp; e < dense; e += nwarps) {
+        if (e < rows) {
+          const int i = e / NCOMP, k = e - i * NCOMP;
+          for (int p = lane; p < nbr; p += 32) {
+            const int t = i - s_lc[p];
+            s_a[e * kStride + p] = (unsigned)t < (unsigned)S
+                                       ? s_tap[t * kBatch + p] * s_v[k * kBatch + p]
+                                       : 0.0;
+          }
+        } else {
+          const bool y = e < rows + tl.pd1;
+          const int row = y ? e - rows : e - rows - tl.pd1;
+          const int* lc = s_lc + (y ? kBatch : 2 * kBatch);
+          const double* tp = s_tap + (y ? S : 2 * S) * kBatch;
+          double* dst = (y ? s_wy : s_wz) + row * kStride;
+          for (int p = lane; p < nbr; p += 32) {
+            const int t = row - lc[p];
+            dst[p] = (unsigned)t < (unsigned)S ? tp[t * kBatch + p] : 0.0;
+          }
+        }
+      }
+      __syncthreads();
+      if (!active) continue;
+
+#pragma unroll 1
+      for (int p = 0; p < nbr; p += kK) {
+        double a[kRowTiles][kQuads * kHalves];
+#pragma unroll
+        for (int r = 0; r < kRowTiles; ++r)
+#pragma unroll
+          for (int q = 0; q < kQuads; ++q)
+#pragma unroll
+            for (int h = 0; h < kHalves; ++h) a[r][q * kHalves + h] = s_a[a_off[r][h] + p + 4 * q];
+#pragma unroll
+        for (int c = 0; c < kColTiles; ++c) {
+          if (c >= nc) break;
+          double b[kQuads];
+#pragma unroll
+          for (int q = 0; q < kQuads; ++q)
+            b[q] = s_wy[y_off[c] + p + 4 * q] * s_wz[z_off[c] + p + 4 * q];
+#pragma unroll
+          for (int r = 0; r < kRowTiles; ++r) {
+            if (r >= nr) break;
+            mma_f64(acc[c][r], a[r], b);
+          }
+        }
       }
     }
-    __syncwarp();
-  }
-  __syncthreads();
+    if (!active) continue;
 
-  // Periodic global add of the padded block: padded index i along a dim is
-  // grid node origin - (M - 1) + i.
-  T* g = grid + (long long)chan * n0 * n1 * n2 * NCOMP;
-  for (int i = tid; i < pv; i += blockDim.x) {
-    Acc a[NCOMP];
-    bool any = false;
+    // Flush.  Lane (g, t4) of tile (rt, ct) holds rows 8h + g, columns
+    // l, l + 1 with l = l0 + 2 t4; padded index i along a dim is grid node
+    // origin - (M - 1) + i.  Complex: rows 2i and 2i + 1 (lanes 4 apart)
+    // hold re and im of cell row i, and one shuffle gives the even lane
+    // cell l and the odd lane cell l + 1, one reduction each.  Real: a lane
+    // adds its two cells, in one reduction where they are contiguous and
+    // aligned.  Cells of zeros (no point reached them) are skipped.
+    // Each of the lane's cells' offset in its x plane, or -1 outside the
+    // padded block: complex, its one cell; real, cells l and l + 1.
+    const int zbase = oz - (M - 1);
+    int yz[kColTiles][2];
+    bool pair[kColTiles];  // real: both cells valid and contiguous
 #pragma unroll
-    for (int k = 0; k < NCOMP; ++k) {
-      a[k] = acc[k * pv + i];
-      any = any || a[k] != Acc(0);
+    for (int c = 0; c < kColTiles; ++c) {
+      const int ct = c < nc ? ct0 + c : 0;
+      const int j = ct / tl.z_tiles;
+      const int l = 8 * (ct - j * tl.z_tiles) + 2 * t4 + (NCOMP == 2 ? (g & 1) : 0);
+      const int gy = nufft::wrap_index(oy - (M - 1) + j, n1) * n2;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        yz[c][e] = l + e < tl.pd2 ? gy + nufft::wrap_index(zbase + l + e, n2) : -1;
+      pair[c] = yz[c][0] >= 0 && yz[c][1] == yz[c][0] + 1;
     }
-    if (!any) continue;
-    const int i0 = i / plane;
-    const int r = i - i0 * plane;
-    const int i1 = r / pd2;
-    const int i2 = r - i1 * pd2;
-    const int gx = nufft::wrap_index(ox - (M - 1) + i0, n0);
-    const int gy = nufft::wrap_index(oy - (M - 1) + i1, n1);
-    const int gz = nufft::wrap_index(oz - (M - 1) + i2, n2);
-    const long long off = NCOMP * (((long long)gx * n1 + gy) * n2 + gz);
 #pragma unroll
-    for (int k = 0; k < NCOMP; ++k) atomicAdd(g + off + k, T(a[k]));
+    for (int r = 0; r < kRowTiles; ++r) {
+      if (r >= nr) break;
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h) {
+        const int i = ((rt0 + r) * kAtomRows + 8 * h + g) / NCOMP;
+        const bool xok = i < tl.pd0;
+        T* plane = gch + (long long)NCOMP * n1 * n2 * nufft::wrap_index(ox - (M - 1) + (xok ? i : 0), n0);
+#pragma unroll
+        for (int c = 0; c < kColTiles; ++c) {
+          if (c >= nc) break;
+          const double d0 = acc[c][r][2 * h], d1 = acc[c][r][2 * h + 1];
+          if constexpr (NCOMP == 2) {
+            const bool odd = g & 1;
+            const double got = __shfl_xor_sync(0xffffffffu, odd ? d0 : d1, 4);
+            const double re = odd ? got : d0, im = odd ? d1 : got;
+            if (xok && yz[c][0] >= 0 && (re != 0.0 || im != 0.0))
+              add_complex(plane + 2 * yz[c][0], re, im);
+          } else {
+            if (!xok) continue;
+            T* p0 = plane + yz[c][0];
+            if constexpr (std::is_same<T, float>::value) {
+              if (pair[c] && d0 != 0.0 && d1 != 0.0 &&
+                  (reinterpret_cast<uintptr_t>(p0) & 7) == 0) {
+                red_v2(p0, float(d0), float(d1));
+                continue;
+              }
+            }
+            if (yz[c][0] >= 0 && d0 != 0.0) atomicAdd(p0, T(d0));
+            if (yz[c][1] >= 0 && d1 != 0.0) atomicAdd(plane + yz[c][1], T(d1));
+          }
+        }
+      }
+    }
   }
 }
 
@@ -163,8 +412,13 @@ cudaError_t launch(const void* vals, const void* cells, const void* fracs,
       spread_3d_kernel<M, T, NCOMP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  // As few passes over the points as 16 warps allow, the units spread
+  // evenly over them (ops/kernels/common.py:spread_tiles).
+  const Tiles tl = tiles_of<NCOMP>(M, b0, b1, b2);
+  const int passes = (tl.units + kMaxWarps - 1) / kMaxWarps;
+  const int warps = (tl.units + passes - 1) / passes;
   const dim3 blocks((n0 / b0) * (n1 / b1) * (n2 / b2), nchan);
-  spread_3d_kernel<M, T, NCOMP><<<blocks, kThreads, smem, stream>>>(
+  spread_3d_kernel<M, T, NCOMP><<<blocks, 32 * warps, smem, stream>>>(
       static_cast<const nufft::Value<T, NCOMP>*>(vals),
       static_cast<const int*>(cells), static_cast<const T*>(fracs),
       static_cast<const int*>(pstarts), static_cast<const T*>(coefs),

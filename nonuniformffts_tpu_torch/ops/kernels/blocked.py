@@ -1,5 +1,6 @@
 """Blocked fast path: wrappers around the hand-written CUDA kernels, each
-with its plain PyTorch version: spread K4 (1D, 2D) and K1/K6a (3D),
+with its plain PyTorch version: spread K4 (1D, 2D) and K1/K6a (3D, on the
+FP64 tensor cores),
 interpolate K5 (1D, 2D) and K2/K6b (3D), and the window taps K3.
 
 Counterpart of ``nonuniformffts_tpu/ops/pallas/blocked.py`` and
@@ -78,7 +79,8 @@ def kernel_coefs(plan):
 def check_kernel_support(plan) -> None:
     """Raise unless the CUDA kernels take this plan (1-3D, complex or real
     of 32 or 64 bits, any window in either mode, M in 2..10, the spread
-    CTA's shared memory within the card's)."""
+    CTA's shared memory within the card's: in 3D one staged batch, so any
+    block dims)."""
     if plan.ndim not in KERNEL_DIMS:
         raise NotImplementedError(f"no CUDA kernel takes {plan.ndim}D plans")
     if plan.dtype not in VALUE_TYPES:

@@ -1,7 +1,9 @@
 """Shared pieces of the hand-written kernels' Python side: the coefficient
 stack they read, the plain version of their tap evaluation, the value types
-they are instantiated for, the geometry limits of the card, and the
-shared-memory footprint of the spread kernel.
+they are instantiated for, the geometry limits of the card, the
+shared-memory footprint of the spread kernels and the tile geometry of the
+3D spread kernel (``spread_tiles``), which the kernel and the block
+geometry chooser share.
 
 Counterpart of ``nonuniformffts_tpu/ops/pallas/common.py``.  The TPU
 kernels placed the 2M taps of each point into dense weight matrices for the
@@ -13,6 +15,7 @@ the coefficient stack and the tap evaluation (``window_weights`` here,
 from __future__ import annotations
 
 import collections
+import dataclasses
 import math
 from typing import Sequence, Tuple
 
@@ -30,19 +33,40 @@ SM_SMEM_BYTES = 233_472
 SMEM_RESERVED_PER_CTA = 1024
 #: Registers of one SM.
 SM_REGISTERS = 65_536
-#: Threads per CTA of the 2D and 3D spread kernels (``csrc/spread_{2,3}d.cu:
-#: kThreads``).
+#: Threads per CTA of the 2D spread kernel (``csrc/spread_2d.cu:kThreads``).
 SPREAD_THREADS = 512
 #: Half-supports M the kernels are instantiated for (``csrc/window.cuh:
 #: NUFFT_FOR_EACH_M``); 10 is the JAX package's documented maximum.
 KERNEL_M_RANGE = range(2, 11)
 #: Dimensions the kernels are instantiated for (``csrc/{spread,interp}_<D>d.cu``).
 KERNEL_DIMS = (1, 2, 3)
-#: Bytes of one scalar of the spread kernels' sums (``csrc/spread_<D>d.cu:
-#: Acc``): double for every value type, since float32 sums of the ~150 terms
-#: a cell takes at rho = 1 in 3D cost err1 more than the JAX package's
-#: float32 kernels do (ROADMAP queue 3, P2).
+#: Bytes of one scalar of the spread kernels' sums (``csrc/spread_<D>d.cu``):
+#: double for every value type, since float32 sums of the ~150 terms a cell
+#: takes at rho = 1 in 3D cost err1 more than the JAX package's float32
+#: kernels do (ROADMAP queue 3, P2).
 ACC_BYTES = 8
+
+# The 3D spread kernel's tiles (``csrc/spread_3d.cu``, which must match).  A
+# padded block's sum is the product G (NCOMP pd0 x pd1 pd2') of the block's
+# points, on the FP64 tensor cores: rows (i, k) with the value component k
+# fastest, columns (j, l) with l padded to a multiple of 8 (pd2'), so that
+# an n-tile of 8 columns is one z row's run.  G is cut into units of
+# ``SPREAD3D_UNIT_ROWS`` rows x ``SPREAD3D_UNIT_COL_TILES`` n-tiles, one unit
+# a warp, kept in registers (32 doubles a lane) across the block's points.
+#: Rows of one MMA tile (``NUFFT_SPREAD3D_ATOM_ROWS``): 16 for
+#: ``mma.sync.m16n8k8.f64``, which ran faster than m16n8k4 and m8n8k4 at
+#: rho = 1 (PERF.md).
+SPREAD3D_ATOM_ROWS = 16
+#: Rows and n-tiles (8 columns each) of one warp's unit.
+SPREAD3D_UNIT_ROWS = 32
+SPREAD3D_UNIT_COL_TILES = 4
+#: Warps of one CTA at most; a block with more units walks its points once
+#: per pass of this many.
+SPREAD3D_MAX_WARPS = 16
+#: Points staged in shared memory at a time (a multiple of the MMA's k = 8),
+#: and the doubles from one staged operand row to the next.
+SPREAD3D_BATCH = 64
+SPREAD3D_STRIDE = SPREAD3D_BATCH + 4
 
 #: The kernels' value types by the plan's dtype: the entry-point suffix
 #: (``nufft_spread_<D>d_<suffix>``), the bytes of one scalar and the scalars
@@ -54,16 +78,17 @@ VALUE_TYPES = {
     torch.float64: ("real_f64", 8, 1),
 }
 
-#: Registers per thread of each 2D and 3D spread-kernel instantiation (with
-#: double accumulators), by (D, scalar bytes, components) and then
-#: M = 2..10, as ``ptxas -v`` gave them for sm_90a (CUDA 12.9, PERF.md).
-#: One instantiation serves every window.  The 1D kernel has no shared
-#: accumulator and its chooser no CTA term, so it has no row.
+#: Registers per thread of each spread-kernel instantiation, by (D, scalar
+#: bytes, components) and then M = 2..10, as ``ptxas -v`` gave them for
+#: sm_90a (CUDA 12.9, PERF.md).  One instantiation serves every window.  The
+#: 1D kernel has no shared accumulator and its chooser no CTA term, so it has
+#: no row.  2D: the shared-memory accumulator kernel; 3D: the tensor-core
+#: kernel, whose 32 doubles of a warp's unit take 64 of them.
 SPREAD_REGISTERS = {
-    (3, 4, 2): (32, 54, 32, 32, 32, 32, 32, 32, 32),
-    (3, 8, 2): (40, 58, 40, 40, 40, 40, 40, 40, 40),
-    (3, 4, 1): (32, 40, 40, 32, 32, 32, 32, 32, 32),
-    (3, 8, 1): (32, 44, 40, 38, 32, 38, 32, 32, 32),
+    (3, 4, 2): (128,) * 9,
+    (3, 8, 2): (128,) * 9,
+    (3, 4, 1): (128,) * 9,
+    (3, 8, 1): (128,) * 9,
     (2, 4, 2): (32, 53, 40, 57, 40, 40, 31, 38, 38),
     (2, 8, 2): (32, 54, 40, 58, 47, 47, 40, 47, 47),
     (2, 4, 1): (32, 40, 40, 40, 40, 36, 40, 40, 40),
@@ -78,30 +103,83 @@ def entry_point_name(kind: str, ndim: int, dtype: torch.dtype) -> str:
     return f"nufft_{kind}_{ndim}d_{VALUE_TYPES[dtype][0]}"
 
 
-def spread_ctas_per_sm(scalar_bytes: int, ncomp: int, m: int, ndim: int = 3) -> int:
-    """Resident 2D/3D spread CTAs per SM that the register file allows
-    (registers go to a warp in multiples of 256, so 8 per thread): K1 runs
-    faster with several CTAs resident than with one (PERF.md)."""
+def spread_registers(scalar_bytes: int, ncomp: int, m: int, ndim: int) -> int:
+    """Registers a thread of the spread kernel takes, rounded to the 8 a
+    warp is given at a time (256 a warp)."""
     # A plan beyond the instantiated M runs only its plain version, on the
     # CPU; its geometry takes the largest M's row.
     m = min(m, KERNEL_M_RANGE.stop - 1)
     regs = SPREAD_REGISTERS[(ndim, scalar_bytes, ncomp)][m - KERNEL_M_RANGE.start]
-    regs = -(-regs // 8) * 8
-    return max(SM_REGISTERS // (regs * SPREAD_THREADS), 1)
+    return -(-regs // 8) * 8
+
+
+def spread_ctas_per_sm(scalar_bytes: int, ncomp: int, m: int, ndim: int = 3,
+                       threads: int = SPREAD_THREADS) -> int:
+    """Resident spread CTAs of ``threads`` threads per SM that the register
+    file allows: the 2D kernel runs faster with several CTAs resident than
+    with one (PERF.md); a 3D CTA's threads come from ``spread_tiles``."""
+    regs = spread_registers(scalar_bytes, ncomp, m, ndim)
+    return max(SM_REGISTERS // (regs * threads), 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpreadTiles:
+    """The tile geometry of one padded block in the 3D spread kernel
+    (``csrc/spread_3d.cu:Tiles`` and its launch)."""
+
+    padded: Tuple[int, int, int]
+    row_tiles: int   # ceil(NCOMP pd0 / SPREAD3D_ATOM_ROWS)
+    z_tiles: int     # ceil(pd2 / 8): the n-tiles of one z row
+    col_tiles: int   # pd1 z_tiles
+    units: int       # row groups x column groups, one warp's each
+    passes: int      # walks over the block's points
+    warps: int       # warps of one CTA
+
+    @property
+    def rows(self) -> int:
+        """Rows of G the MMAs cover, padding included."""
+        return self.row_tiles * SPREAD3D_ATOM_ROWS
+
+    @property
+    def cols(self) -> int:
+        """Columns of G the MMAs cover, padding included."""
+        return self.col_tiles * 8
+
+    @property
+    def dense_fmas(self) -> int:
+        """FMAs of one point through every tile, before the kernel skips
+        the tiles no point of a k-step reaches."""
+        return self.rows * self.cols
+
+
+def spread_tiles(block_dims: Sequence[int], m: int, ncomp: int) -> SpreadTiles:
+    """The 3D spread kernel's tiles for ``block_dims`` (three dims), M = m
+    and values of ``ncomp`` scalars: as few passes as ``SPREAD3D_MAX_WARPS``
+    warps allow, the units spread evenly over the warps."""
+    pd = padded_block_dims(block_dims, m)
+    row_tiles = -(-ncomp * pd[0] // SPREAD3D_ATOM_ROWS)
+    z_tiles = -(-pd[2] // 8)
+    col_tiles = pd[1] * z_tiles
+    row_groups = -(-row_tiles // (SPREAD3D_UNIT_ROWS // SPREAD3D_ATOM_ROWS))
+    units = row_groups * -(-col_tiles // SPREAD3D_UNIT_COL_TILES)
+    passes = -(-units // SPREAD3D_MAX_WARPS)
+    return SpreadTiles(pd, row_tiles, z_tiles, col_tiles, units, passes,
+                       -(-units // passes))
 
 
 def spread_bank_conflicts(pd_last: int, m: int, word_bytes: int) -> int:
     """Most lanes of one warp that hit the same shared-memory bank in the 2D
-    and 3D spread kernels' tap loop (``csrc/spread_{2,3}d.cu``): lane ``q``
-    adds to word ``(q // 2M) * pd_last + q % 2M`` of an accumulator plane of
+    spread kernel's tap loop (``csrc/spread_2d.cu``): lane ``q`` adds to
+    word ``(q // 2M) * pd_last + q % 2M`` of an accumulator plane of
     ``word_bytes`` words (``ACC_BYTES``), where ``pd_last`` is the padded
-    last block dim (lanes over (y, z) tap pairs in 3D, (x, y) pairs in 2D).
-    4-byte words serve the 32 lanes from 32 banks; 8-byte words serve each
-    half-warp from 16 bank pairs.  Each conflict serialises a
-    compare-and-swap loop (PERF.md): K1 ran 3x slower at pd_last = 31 (4
-    lanes a bank) than at 23 (2) with float accumulators.  The 1D kernel
-    (``csrc/spread_1d.cu``) has no shared accumulator: its lanes read
-    consecutive words of a start table, one lane a bank."""
+    last block dim (lanes over (x, y) tap pairs).  4-byte words serve the 32
+    lanes from 32 banks; 8-byte words serve each half-warp from 16 bank
+    pairs.  Each conflict serialises a compare-and-swap loop (PERF.md): a 3D
+    kernel of the same design ran 3x slower at pd_last = 31 (4 lanes a bank)
+    than at 23 (2) with float accumulators.  The 3D kernel adds in
+    registers and the 1D kernel (``csrc/spread_1d.cu``) has no shared
+    accumulator: its lanes read consecutive words of a start table, one lane
+    a bank."""
     S = 2 * m
     lanes = 32 if word_bytes == 4 else 16
     worst = 1
@@ -143,15 +221,25 @@ def spread_smem_bytes(block_dims: Sequence[int], m: int, ncoef: int,
     ``ncoef`` is 0 for a window without a coefficient stack (any but (B)KB
     FastApproximation): nothing is staged for it.
 
-    2D and 3D: ``ncomp`` accumulator planes of ``ACC_BYTES`` scalars over
-    the padded block, then the ``(D, 2M, ncoef)`` coefficient stack and each
-    warp's D x 2M taps of ``scalar_bytes`` each.  1D: the ``(2M, ncoef)``
-    coefficients and an int32 start table of B + 1 entries; the sums live
-    in registers."""
+    3D: the dense operands of one staged batch of ``SPREAD3D_BATCH`` points
+    (A's rows, the y and z taps at every padded row: ``SpreadTiles.rows +
+    pd1 + cols / pd1`` rows of ``SPREAD3D_STRIDE`` doubles), the batch's
+    compact 3 x 2M taps and ``ncomp`` values in double and its local cells
+    in int32, then the ``(3, 2M, ncoef)`` coefficient stack; the sums live
+    in registers.  2D: ``ncomp`` accumulator planes of ``ACC_BYTES``
+    scalars over the padded block, then the ``(2, 2M, ncoef)`` coefficient
+    stack and each warp's 2 x 2M taps of ``scalar_bytes`` each.  1D: the
+    ``(2M, ncoef)`` coefficients and an int32 start table of B + 1 entries;
+    the sums live in registers."""
     D = len(block_dims)
     ntaps = D * 2 * m
     if D == 1:
         return scalar_bytes * ntaps * ncoef + 4 * (int(block_dims[0]) + 1)
+    if D == 3:
+        t = spread_tiles(block_dims, m, ncomp)
+        dense = t.rows + t.padded[1] + 8 * t.z_tiles
+        return (8 * (SPREAD3D_STRIDE * dense + (ntaps + ncomp) * SPREAD3D_BATCH)
+                + 4 * 3 * SPREAD3D_BATCH + scalar_bytes * ntaps * ncoef)
     pv = 1
     for p in padded_block_dims(block_dims, m):
         pv *= p

@@ -17,10 +17,12 @@ from nonuniformffts_tpu_torch.ops.kernels.common import (
     NUM_SMS,
     SM_SMEM_BYTES,
     SMEM_RESERVED_PER_CTA,
+    SPREAD3D_MAX_WARPS,
     VALUE_TYPES,
     spread_bank_conflicts,
     spread_ctas_per_sm,
     spread_smem_bytes,
+    spread_tiles,
 )
 from torch_port_utils import random_points
 
@@ -76,15 +78,19 @@ def test_choose_geometry_fits_hopper(shape_over, m):
 
 
 def test_main_path_geometry():
-    """At the benchmark point (grid 384^3, m = 4) at least three spread CTAs
-    fit an SM's shared memory and register file with their double
-    accumulators (16 bytes a complex cell), at a halo ratio below 6.7."""
+    """At the benchmark point (grid 384^3, m = 4, complex64) the 3D spread
+    kernel holds the whole padded block in the registers of one pass of at
+    most 16 warps, at least two of its CTAs fit an SM's register file and
+    shared memory, and its dense product stays within 8x the 1,024 useful
+    FMAs a point at a halo ratio below 10."""
     bd = blocking.choose_geometry((384, 384, 384), 4)
+    t = spread_tiles(bd, 4, 2)
+    assert t.passes == 1 and t.warps <= SPREAD3D_MAX_WARPS
     smem = spread_smem_bytes(bd, 4, 8)
-    assert spread_ctas_per_sm(4, 2, 4) >= 3
-    assert SM_SMEM_BYTES // (smem + SMEM_RESERVED_PER_CTA) >= 3
-    padded = np.prod([b + 7 for b in bd])
-    assert padded / np.prod(bd) < 6.7
+    assert spread_ctas_per_sm(4, 2, 4, 3, 32 * t.warps) >= 2
+    assert SM_SMEM_BYTES // (smem + SMEM_RESERVED_PER_CTA) >= 2
+    assert t.dense_fmas <= 8 * 2 * 8 ** 3
+    assert np.prod(t.padded) / np.prod(bd) < 10
 
 
 @pytest.mark.parametrize(
@@ -99,15 +105,20 @@ def test_spread_bank_conflicts(pd_last, m, scalar_bytes, want):
 
 
 def test_float32_geometry_avoids_four_way_conflicts():
-    """At grid 384^3, m = 4, the float32 and complex64 picks keep the tap
-    loop at two lanes a bank of the double accumulator; with float words a
-    last block dim of 24 (padded 31) put four there (K1 measured 1.8-3x
-    slower, PERF.md)."""
+    """The 2D spread kernel's tap loop (shared-memory adds, each a
+    compare-and-swap loop) stays at two lanes a bank of the double
+    accumulator for the float32 and complex64 picks at the 2D main path's
+    grid 6144^2, m = 4; with float words a last block dim of 24 (padded 31)
+    put four there (a 3D kernel of that design ran 1.8-3x slower, PERF.md).
+    The 3D kernel has no such loop: its float32 pick at grid 384^3 is the
+    cost model's, one pass."""
     for ncomp in (1, 2):
-        bd = blocking.choose_geometry((384, 384, 384), 4, 4, ncomp)
+        bd = blocking.choose_geometry((6144, 6144), 4, 4, ncomp)
         assert spread_bank_conflicts(bd[-1] + 7, 4, ACC_BYTES) == 2
     assert spread_bank_conflicts(31, 4, 4) == 4
-    assert blocking.choose_geometry((384, 384, 384), 4, 4, 1) == (12, 12, 16)
+    bd = blocking.choose_geometry((384, 384, 384), 4, 4, 1)
+    assert bd == (24, 8, 8)
+    assert spread_tiles(bd, 4, 1).passes == 1
 
 
 @pytest.mark.parametrize("dtype", list(VALUE_TYPES), ids=str)
@@ -130,12 +141,22 @@ def test_lowdim_main_path_geometry(shape_over, dtype):
 
 def test_spread_smem_bytes_by_dimension():
     """The shared-memory footprint the spread sources allocate
-    (``csrc/spread_<D>d.cu:spread_smem_bytes``): 2D and 3D hold double
-    accumulator planes over the padded block, the coefficient stack and 16
-    warps' D x 2M taps; 1D holds the coefficients and an int32 start table
-    of B + 1 entries.  A window without a coefficient stack (ncoef = 0)
-    stages none."""
-    assert spread_smem_bytes((8, 8, 12), 4, 8, 4, 2) == 8 * 2 * 15 * 15 * 19 + 4 * (24 * 8 + 16 * 24)
+    (``csrc/spread_<D>d.cu:spread_smem_bytes``): 3D stages the dense
+    operands of a batch of 64 points (A's rows rounded to the MMA tile, pd1
+    y rows and pd2 rounded to 8 z rows, 68 doubles a row), the batch's
+    compact 3 x 2M taps and values in double, three int32 cells a point and
+    the coefficient stack; 2D holds double accumulator planes over the
+    padded block, the coefficient stack and 16 warps' D x 2M taps; 1D holds
+    the coefficients and an int32 start table of B + 1 entries.  A window
+    without a coefficient stack (ncoef = 0) stages none."""
+    cells = 4 * 3 * 64
+    # (8, 8, 12), m = 4, complex: 32 A rows, 15 y rows, 24 z rows.
+    assert spread_smem_bytes((8, 8, 12), 4, 8, 4, 2) == (
+        8 * (68 * (32 + 15 + 24) + (24 + 2) * 64) + cells + 4 * 24 * 8)
+    assert spread_smem_bytes((12, 12, 16), 4, 8, 8, 2) == (
+        8 * (68 * (48 + 19 + 24) + (24 + 2) * 64) + cells + 8 * 24 * 8)
+    assert spread_smem_bytes((8, 8, 8), 10, 0, 8, 1) == (
+        8 * (68 * (32 + 27 + 32) + (60 + 1) * 64) + cells)
     assert spread_smem_bytes((48, 96), 4, 8, 4, 2) == 8 * 2 * 55 * 103 + 4 * (16 * 8 + 16 * 16)
     assert spread_smem_bytes((48, 96), 4, 8, 8, 1) == 8 * 55 * 103 + 8 * (16 * 8 + 16 * 16)
     assert spread_smem_bytes((48, 96), 4, 0, 8, 1) == 8 * 55 * 103 + 8 * 16 * 16

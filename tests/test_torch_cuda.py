@@ -159,6 +159,61 @@ def test_window_kernels_match_plain_versions(cuda_device, window, shape, m, dtyp
         assert _rel_err(w_k, blocked.window_weights_blocked_plain(plan)) <= tol
 
 
+# The 3D spread kernel's edges (csrc/spread_3d.cu): (shape, sigma, m,
+# block_dims, transforms, where the points lie).
+SPREAD_3D_CASES = {
+    # pd0 = 12 (not a multiple of 8), pd2 = 13 (odd): ragged row and n-tiles.
+    "ragged": ((20, 24, 16), 1.5, 4, (5, 4, 6), 1, "uniform"),
+    # n2 = 27: z rows start on odd cells, so float pairs meet the vector
+    # reduction's alignment edge on every other row.
+    "odd_n2": ((20, 16, 18), 1.5, 4, (5, 6, 3), 1, "uniform"),
+    "m2": ((16, 16, 16), 2.0, 2, None, 1, "uniform"),
+    # (8, 8, 8) at m = 10: several units a warp's worth, so several passes.
+    "m10_passes": ((16, 16, 16), 2.0, 10, (8, 8, 8), 1, "uniform"),
+    "three_transforms": ((20, 24, 16), 1.5, 4, None, 3, "uniform"),
+    "empty_blocks": ((32, 32, 32), 1.5, 4, None, 1, "corner"),
+    # complex64's main-path block dims, whatever the dtype.
+    "blocks_888": ((32, 32, 32), 1.5, 4, (8, 8, 8), 1, "uniform"),
+    # Half the points within 0.3 of a face, so every face's halo wraps.
+    "wrapped_faces": ((20, 24, 16), 1.5, 4, None, 2, "faces"),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("case", list(SPREAD_3D_CASES))
+def test_spread_3d_matches_plain_version(cuda_device, case, dtype):
+    """Each 3D spread entry point (the tensor-core kernel) against its plain
+    version on the kernel's edge cases, with its launch count moving."""
+    shape, sigma, m, block_dims, C, where = SPREAD_3D_CASES[case]
+    rng = np.random.default_rng(len(case))
+    real = np.dtype(dtype).type(0).real.dtype
+    np_ = 6_000
+    if where == "uniform":
+        pts = rng.uniform(-1.0, 7.0, (3, np_))
+    elif where == "corner":  # one octant: most blocks hold no point
+        pts = rng.uniform(0.0, np.pi / 2, (3, np_))
+    else:
+        pts = rng.uniform(-0.3, 0.3, (3, np_))
+        pts[:, ::2] = rng.uniform(0.0, 2 * np.pi, (3, np_ // 2))
+    pts = pts.astype(real)
+    plan = tnufft.PlanNUFFT(dtype, shape, m=m, sigma=sigma, ntransforms=C,
+                            spread_method="blocked", block_dims=block_dims,
+                            device=cuda_device)
+    plan = tnufft.set_points(plan, torch.from_numpy(pts).to(cuda_device))
+    if where == "corner":
+        assert (plan.pstarts[1:] == plan.pstarts[:-1]).any()
+    vp = torch.from_numpy(_values(rng, dtype, (C, np_))).to(cuda_device)
+    name = blocked.entry_point("spread", plan)
+    assert name.startswith("nufft_spread_3d_")
+    before = blocked.LAUNCHES[name]
+    g_k = blocked.spread_blocked(plan, vp)
+    torch.cuda.synchronize()
+    assert blocked.LAUNCHES[name] == before + 1
+    g_p = blocked.spread_blocked_plain(plan, vp)
+    assert g_k.dtype == g_p.dtype == plan.dtype
+    assert _rel_err(g_k, g_p) <= KERNEL_TOL[np.dtype(real).itemsize]
+
+
 def test_m_above_10_raises(cuda_device):
     with pytest.raises(NotImplementedError, match="documented maximum"):
         tnufft.PlanNUFFT(np.complex64, (64, 64), m=11, sigma=2.0, device=cuda_device)
