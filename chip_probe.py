@@ -45,6 +45,17 @@ times the same kernel beside copies of its source with one phase taken
 out (the MMAs, the dense operand build, the tap evaluation, the flush;
 ``SPREAD3D_PARTS``), to show where its time goes.
 
+    python3 chip_probe.py --interp3d [--dtype T ...] [--np N ...]
+
+times the 3D interpolation kernel (``csrc/interp_3d.cu``: staged windows,
+a lane group a point) against the per-point kernel it replaced (written
+below as ``_POINT_INTERP_3D_SRC``), in turns on the same points, and its
+``-D`` variants (``INTERP3D_VARIANTS``), all built for M = 4 into
+``build/chip_probe/``, at N = 256^3 for each dtype at its main-path Np,
+167,772 and 16,777,216 points (``probe_interp3d``);
+``--interp3d-parts`` times copies of its source with one phase taken out
+(``INTERP3D_PARTS``).
+
     python3 chip_probe.py --relayout
 
 instead times the relayout kernels K8a / K8b (``csrc/relayout.cu``) as
@@ -73,6 +84,7 @@ import dataclasses
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -898,6 +910,421 @@ SPREAD3D_PARTS = {
 }
 
 
+# The 3D interpolation kernel the staged-window design replaced (the first
+# csrc/interp_3d.cu): a thread per sorted point gathering its (2M)^3 window
+# from global memory with periodic wrap, and the C interface it had (no
+# pstarts, no block dims).  Built by --interp3d into build/chip_probe/.
+_POINT_INTERP_3D_SRC = r"""
+#include <cstdint>
+
+#include "window.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// TAPS: the window's taps come in wtaps (window_weights.cu), else by
+// Horner's rule.  The two instantiations keep the Horner one's registers at
+// what it needs alone: one kernel for both took 172 registers at M = 4 in
+// 3D double, against 128, and halved the resident CTAs.
+template <int M, typename T, int NCOMP, bool TAPS>
+__global__ void __launch_bounds__(kThreads) point_interp_3d_kernel(
+    const nufft::Value<T, NCOMP>* __restrict__ grid,
+    const int* __restrict__ cells, const T* __restrict__ fracs,
+    const long long* __restrict__ perm, const T* __restrict__ coefs,
+    const T* __restrict__ wtaps, nufft::Value<T, NCOMP>* __restrict__ out,
+    long long np, int nchan, int ncoef, int n0, int n1, int n2,
+    double normfactor) {
+  constexpr int S = 2 * M;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* cs = reinterpret_cast<T*>(smem_raw);  // (3, S, ncoef)
+  for (int i = threadIdx.x; i < 3 * S * ncoef; i += blockDim.x)
+    cs[i] = coefs[i];
+  __syncthreads();
+
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= np) return;
+
+  T wy[S], wz[S];
+  int iy[S], iz[S];
+  if constexpr (TAPS) {
+#pragma unroll
+    for (int t = 0; t < S; ++t) {
+      wy[t] = wtaps[(S + t) * np + j];
+      wz[t] = wtaps[(2 * S + t) * np + j];
+    }
+  } else {
+    nufft::horner_taps<S>(cs + S * ncoef, ncoef, fracs[np + j], wy);
+    nufft::horner_taps<S>(cs + 2 * S * ncoef, ncoef, fracs[2 * np + j], wz);
+  }
+  const int cx = cells[j] - (M - 1);
+  const int cy = cells[np + j] - (M - 1);
+  const int cz = cells[2 * np + j] - (M - 1);
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+    iy[t] = nufft::wrap_index(cy + t, n1);
+    iz[t] = nufft::wrap_index(cz + t, n2);
+  }
+  const T fx = fracs[j];
+  const long long dest = perm[j];
+  const long long volume = (long long)n0 * n1 * n2;
+  const T nf = T(normfactor);
+
+  for (int c = 0; c < nchan; ++c) {
+    const nufft::Value<T, NCOMP>* g = grid + c * volume;
+    T acc[NCOMP] = {};
+    // The x loop stays rolled: unrolling all (2M)^3 taps spills registers
+    // from M = 6 on and takes minutes to compile at M = 8.
+#pragma unroll 1
+    for (int a = 0; a < S; ++a) {
+      T wx;
+      if constexpr (TAPS) {
+        wx = wtaps[a * np + j];
+      } else {
+        wx = nufft::horner_tap(cs + a * ncoef, ncoef, T(2) * fx - T(1));
+      }
+      const long long xrow = (long long)nufft::wrap_index(cx + a, n0) * n1;
+      T ax[NCOMP] = {};
+#pragma unroll
+      for (int b = 0; b < S; ++b) {
+        const nufft::Value<T, NCOMP>* row = g + (xrow + iy[b]) * n2;
+        T r[NCOMP] = {};
+#pragma unroll
+        for (int e = 0; e < S; ++e) {
+          const nufft::Value<T, NCOMP> val = row[iz[e]];
+#pragma unroll
+          for (int k = 0; k < NCOMP; ++k) r[k] = nufft::fma_t(val.c[k], wz[e], r[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < NCOMP; ++k) ax[k] = nufft::fma_t(r[k], wy[b], ax[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < NCOMP; ++k) acc[k] = nufft::fma_t(ax[k], wx, acc[k]);
+    }
+    nufft::Value<T, NCOMP> res;
+#pragma unroll
+    for (int k = 0; k < NCOMP; ++k) res.c[k] = acc[k] * nf;
+    out[c * np + dest] = res;
+  }
+}
+
+template <int M, typename T, int NCOMP>
+cudaError_t launch(const void* grid, const void* cells, const void* fracs,
+                   const void* perm, const void* coefs,
+                   const void* wtaps, void* out,
+                   long long np, int nchan, int ncoef, int n0, int n1, int n2,
+                   double normfactor, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * 3 * 2 * M * ncoef;
+  const long long nblocks = (np + kThreads - 1) / kThreads;
+  auto kernel = wtaps ? point_interp_3d_kernel<M, T, NCOMP, true>
+                      : point_interp_3d_kernel<M, T, NCOMP, false>;
+  kernel<<<(unsigned)nblocks, kThreads, smem, stream>>>(
+      static_cast<const nufft::Value<T, NCOMP>*>(grid),
+      static_cast<const int*>(cells), static_cast<const T*>(fracs),
+      static_cast<const long long*>(perm), static_cast<const T*>(coefs),
+      static_cast<const T*>(wtaps),
+      static_cast<nufft::Value<T, NCOMP>*>(out), np, nchan, ncoef, n0, n1,
+      n2, normfactor);
+  return cudaGetLastError();
+}
+
+template <typename T, int NCOMP>
+int dispatch(const void* grid, const void* cells, const void* fracs,
+             const void* perm, const void* coefs,
+             const void* wtaps, void* out, long long np,
+             int nchan, int m, int ncoef, int n0, int n1, int n2,
+             double normfactor, void* stream) {
+  if (np == 0) return (int)cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NUFFT_INTERP_CASE(MM)                                               \
+  case MM:                                                                  \
+    return (int)launch<MM, T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, \
+                                     out, np, nchan, ncoef, n0, n1, n2,     \
+                                     normfactor, s);
+  switch (m) {
+    NUFFT_FOR_EACH_M(NUFFT_INTERP_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NUFFT_INTERP_CASE
+}
+
+}  // namespace
+
+// The C interface the library's kernel had before it staged blocks.
+// grid (nchan, n0, n1, n2) values (complex: re, im interleaved); cells
+// (3, np) int32 and fracs (3, np) T in bin-sorted order; perm (np,) int64,
+// the original index of each sorted point; coefs (3, 2m, ncoef) T, or
+// ncoef = 0 and no coefficients for a window other than kHorner, whose taps
+// come in wtaps (3, 2m, np) T (window_weights.cu), null for kHorner; out
+// (nchan, np) values in original point order.  T is float for *_f32, double
+// for *_f64; normfactor is a double for both.  Launches on `stream`, does
+// not synchronise, allocates nothing.
+#define NUFFT_INTERP_ENTRY(NAME, T, NCOMP)                                    \
+  extern "C" int NAME(const void* grid, const void* cells, const void* fracs, \
+                      const void* perm, const void* coefs,                    \
+                      const void* wtaps, void* out,              \
+                      long long np, int nchan, int m, int ncoef, int n0,      \
+                      int n1, int n2, double normfactor, void* stream) {      \
+    return dispatch<T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, out, np,  \
+                              nchan, m, ncoef, n0, n1, n2, normfactor,        \
+                              stream);                                        \
+  }
+
+#if NUFFT_WANT(0)
+NUFFT_INTERP_ENTRY(point_interp_3d_f32, float, 2)
+#endif
+#if NUFFT_WANT(1)
+NUFFT_INTERP_ENTRY(point_interp_3d_f64, double, 2)
+#endif
+#if NUFFT_WANT(2)
+NUFFT_INTERP_ENTRY(point_interp_3d_real_f32, float, 1)
+#endif
+#if NUFFT_WANT(3)
+NUFFT_INTERP_ENTRY(point_interp_3d_real_f64, double, 1)
+#endif
+"""
+
+
+#: Variants of the staged-window interpolation kernel (-D values of
+#: csrc/interp_3d.cu's tunables), each for every value type: the threshold
+#: below which a block is read from global memory (s; 0: every block staged,
+#: "all": none), register caps for 2, 3 and 4 resident CTAs an SM (c), tap
+#: batches (b), CTAs of 128 threads.
+_S, _C, _B = "-DNUFFT_INTERP3D_SPARSE=", "-DNUFFT_INTERP3D_MIN_CTAS=", "-DNUFFT_INTERP3D_BATCH="
+INTERP3D_VARIANTS = {"s0": [_S + "0"], "s32": [_S + "32"], "s128": [_S + "128"],
+                     "sall": [_S + "(1 << 30)"], "c2": [_C + "2"], "c3": [_C + "3"],
+                     "c4": [_C + "4"], "b64": [_B + "64"], "b128": [_B + "128"],
+                     "b256": [_B + "256"],
+                     "threads128": ["-DNUFFT_INTERP3D_THREADS=128", _C + "6"]}
+#: Point counts at N = 256^3 beside each dtype's main-path Np (SPREAD3D_NP):
+#: rho = 0.01 and rho = 1.
+INTERP3D_EXTRA_NP = (167_772, 16_777_216)
+
+
+def _m4_only(text: str) -> str:
+    """A kernel source instantiated for M = 4 alone (a quick build)."""
+    anchor = '#include "window.cuh"\n'
+    return text.replace(anchor, anchor + "#undef NUFFT_FOR_EACH_M\n"
+                        "#define NUFFT_FOR_EACH_M(CASE) CASE(4)\n", 1)
+
+
+def _interp_registers(text: str) -> str:
+    """Registers and spill stores of the M = 4 3D interpolation
+    instantiations in a ptxas log."""
+    regs = re.findall(r"interp_3d_kernelILi4E([fd])Li(\d)ELb([01])E.*?(\d+) bytes spill stores"
+                      r".*?Used (\d+) registers", text, re.S)
+    return ", ".join(f"<{t}, {n}{', taps' if b == '1' else ''}> {r} (spills {sp} B)"
+                     for t, n, b, sp, r in regs)
+
+
+def _raw_interp(lib, name: str, plan, grid, staged: bool = True):
+    """One launch of the 3D interpolation entry point ``name`` of ``lib`` on
+    the plan's sorted state (BKB Fast, one transform): the staged kernel's
+    C interface, or with ``staged`` False the per-point kernel's."""
+    import torch
+
+    from nonuniformffts_tpu_torch.ops.kernels import build
+    from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES
+
+    fn = getattr(lib, name)
+    sig = build._SIGNATURES["nufft_interp_3d_" + VALUE_TYPES[plan.dtype][0]]
+    # the per-point kernel: no pstarts, no block dims
+    fn.argtypes = sig if staged else sig[:4] + sig[5:15] + sig[18:]
+    out = torch.empty((1, plan.num_points), dtype=grid.dtype, device=grid.device)
+    blocks = ((plan.pstarts.data_ptr(),), plan.block_dims) if staged else ((), ())
+    err = fn(grid.data_ptr(), plan.cells_sorted.data_ptr(), plan.fracs_sorted.data_ptr(),
+             plan.sort_perm.data_ptr(), *blocks[0], plan.coefs.data_ptr(), 0, out.data_ptr(),
+             plan.num_points, 1, plan.m, plan.coefs.shape[-1], *plan.shape_over,
+             *blocks[1], float(plan.normfactor), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out
+
+
+def probe_interp3d(seed: int, dtypes, nps) -> None:
+    """The staged-window 3D interpolation kernel against the per-point kernel
+    it replaced (``_POINT_INTERP_3D_SRC``), in turns (old, new, new, old),
+    two passes, on the same sorted points and grid, both held against the
+    plain version; then its variants (``INTERP3D_VARIANTS``) in turns with
+    the shipped build.  The old kernel and the variants are built for M = 4
+    alone into ``build/chip_probe/``.  3D, N = 256^3 (grid 384^3), m = 4,
+    sigma = 1.5, BKB FastApproximation, uniform points, the chooser's block
+    dims; each dtype at its main-path Np, at rho = 0.01 and at rho = 1
+    (``INTERP3D_EXTRA_NP``); CUDA events, median of 5 after one warm-up.
+    One JSON line a dtype and Np, with the card's name and power limit, the
+    bound (``chip_smoke.kernel_bound``) and the points a block."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from chip_smoke import cuda_time_ms, kernel_bound, nvidia_smi_line, rel_l2
+    from nonuniformffts_tpu_torch.ops.kernels import blocked, build
+    from nonuniformffts_tpu_torch.ops.kernels.common import INTERP3D_THREADS, VALUE_TYPES
+
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    new_src = _m4_only((build.CSRC_DIR / "interp_3d.cu").read_text())
+    inc = ("-I", str(build.CSRC_DIR))
+    jobs = {"old": (_m4_only(_POINT_INTERP_3D_SRC), inc),
+            **{k: (new_src, inc + tuple(f)) for k, f in INTERP3D_VARIANTS.items()}}
+    shipped = build.load()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {k: pool.submit(_probe_library, f"interp3d_{k}", text, flags)
+                   for k, (text, flags) in jobs.items()}
+        libs = {k: f.result() for k, f in futures.items()}
+    print(f"ptxas shipped ({INTERP3D_THREADS} threads): "
+          f"{_interp_registers(build.PTXAS_LOG.read_text())}", flush=True)
+    for k in jobs:
+        log = ROOT / "build" / "chip_probe" / f"interp3d_{k}.ptxas.log"
+        print(f"ptxas {k}: {_interp_registers(log.read_text())}", flush=True)
+    for name in dtypes:
+        dtype = np.dtype(name)
+        plan0 = nufft.PlanNUFFT(dtype, SHAPES[3], m=4, sigma=1.5,
+                                spread_method="blocked", device=dev)
+        tol = 1e-5 if plan0.real_dtype == torch.float32 else 1e-12
+        entry = "nufft_interp_3d_" + VALUE_TYPES[plan0.dtype][0]
+        for np_ in nps or (SPREAD3D_NP[name],) + INTERP3D_EXTRA_NP:
+            gen = torch.Generator(device=dev).manual_seed(seed + np_)
+            pts = torch.rand((3, np_), generator=gen, device=dev,
+                             dtype=plan0.real_dtype) * (2 * math.pi)
+            plan = nufft.set_points(plan0, pts)
+            grid = torch.randn((1,) + plan.shape_over, generator=gen, device=dev,
+                               dtype=plan0.dtype)
+            want = blocked.interpolate_blocked_plain(
+                dataclasses.replace(plan, chunk_size=1 << 16), grid)
+            counts = (plan.pstarts[1:] - plan.pstarts[:-1]).float()
+            runs = {"old": lambda: _raw_interp(libs["old"], "point_" + entry[6:], plan, grid,
+                                               staged=False),
+                    "new": lambda: _raw_interp(shipped, entry, plan, grid)}
+            runs.update({k: (lambda lib=libs[k]: _raw_interp(lib, entry, plan, grid))
+                         for k in INTERP3D_VARIANTS})
+            times = {k: [] for k in runs}
+            errs = {}
+            order = ["old", "new", "new", "old"]
+            variant_order = ["new", *INTERP3D_VARIANTS]
+            for rnd in range(2):
+                for k in order + (variant_order if rnd == 0 else variant_order[::-1]):
+                    ms, got = cuda_time_ms(runs[k])
+                    err = rel_l2(got, want)
+                    errs[k] = max(errs.get(k, 0.0), err)
+                    if k in ("old", "new") and not err <= tol:
+                        raise AssertionError(f"{name} {np_} {k}: rel L2 {err:.3e} vs plain")
+                    times[k].append(ms)
+                    del got
+            same = torch.equal(runs["old"](), runs["new"]())  # the same FMAs in the same order
+            bound_ms, bound_by = kernel_bound("interp", plan, 1)
+            line = {"probe": "interp3d", "card": card, "dtype": name, "np": np_,
+                    "block_dims": list(plan.block_dims),
+                    "points_a_block": {"mean_nonempty": float(counts[counts > 0].mean()),
+                                       "max": int(counts.max()),
+                                       "empty_share": float((counts == 0).float().mean())},
+                    "ms": {k: statistics.median(t) for k, t in times.items()},
+                    "rel_l2": errs, "old_equals_new": same, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+            line["speedup"] = line["ms"]["old"] / line["ms"]["new"]
+            print(json.dumps(line), flush=True)
+            del plan, grid, want, pts
+            torch.cuda.empty_cache()
+
+
+#: Copies of csrc/interp_3d.cu with one phase taken out, for
+#: ``--interp3d-parts``: each maps a line of the source to its replacement.
+#: Their values are wrong; only their times and registers are read.
+INTERP3D_PARTS = {
+    "no_stage": {"for (int l = l0; l < w.pd2; l += 32) cp_async":
+                 "for (int l = l0; l < 0; l += 32) cp_async"},
+    "no_taps": {"s_tap[row * kBatch + p] = tap<M, T, TAPS>(cs, ncoef, "
+                "fracs[d * np + pb + p], wtaps, np,":
+                "s_tap[row * kBatch + p] = T(0.1) * T(d + 1);\n"
+                "      (void)tap<M, T, TAPS>(cs, ncoef, T(0), wtaps, np,"},
+    "no_loads": {"[&](int a, int k) { return base[a * w.plane + k * L::kRows * w.pitch]; });":
+                 "[&](int a, int k) { V v; v.c[0] = T(a + k); return v; });"},
+    "no_reduce": {"for (int off = L::kPerPoint / 2; off >= 1; off /= 2)":
+                  "for (int off = 0; off >= 1; off /= 2)"},
+    "no_out": {"            *dst = res;": "            if (res.c[0] == T(1.25e-30)) *dst = res;"},
+}
+INTERP3D_PARTS["no_cells"] = {
+    "            const int lx = cells[pb + p] - ox;": "            const int lx = (pb + p) & 7;",
+    "            s_pt[kBatch + p] = lx * w.plane + (cells[np + pb + p] - oy) * w.pitch +\n"
+    "                               (cells[2 * np + pb + p] - oz);":
+    "            s_pt[kBatch + p] = lx * w.plane + ((p >> 3) & 7) * w.pitch + (p & 7);"}
+INTERP3D_PARTS["no_contract"] = {
+    "          contract_batch<T, NCOMP, L>(nb, s_res, [&](int p) {\n"
+    "            if (p >= nb || ze >= S) return V{};":
+    "          if (nb < 0) contract_batch<T, NCOMP, L>(nb, s_res, [&](int p) {\n"
+    "            if (p >= nb || ze >= S) return V{};"}
+# All of the window's copy, the taps and the window's loads out at once: the
+# CTAs' skeleton; then also without the output and the cells' loads.
+INTERP3D_PARTS["skeleton"] = {k: v for part in ("no_stage", "no_taps", "no_loads")
+                              for k, v in INTERP3D_PARTS[part].items()}
+INTERP3D_PARTS["skeleton_no_out"] = {**INTERP3D_PARTS["skeleton"], **INTERP3D_PARTS["no_out"]}
+INTERP3D_PARTS["skeleton_no_cells"] = {**INTERP3D_PARTS["skeleton_no_out"],
+                                       **INTERP3D_PARTS["no_cells"]}
+
+
+def probe_interp3d_parts(seed: int, dtypes, nps) -> None:
+    """Where the 3D interpolation kernel's time goes: the shipped source
+    and copies with one phase taken out (``INTERP3D_PARTS``: the window's
+    copy, the taps, the window's loads, the lanes' reduction), each built
+    for M = 4 into ``build/chip_probe/``, timed in turns on the same sorted
+    points (CUDA events, median of 5, two passes).  One JSON line a dtype
+    and Np."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from chip_smoke import cuda_time_ms, nvidia_smi_line
+    from nonuniformffts_tpu_torch.ops.kernels import build
+    from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES
+
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    src = _m4_only((build.CSRC_DIR / "interp_3d.cu").read_text())
+    texts = {"shipped": src}
+    for name, edits in INTERP3D_PARTS.items():
+        text = src
+        for old, new in edits.items():
+            if old not in text:
+                raise AssertionError(f"{name}: {old!r} not in interp_3d.cu")
+            text = text.replace(old, new)
+        texts[name] = text
+    inc = ("-I", str(build.CSRC_DIR))
+    with ThreadPoolExecutor(len(texts)) as pool:
+        futures = {k: pool.submit(_probe_library, f"interp3d_part_{k}", t, inc)
+                   for k, t in texts.items()}
+        libs = {k: f.result() for k, f in futures.items()}
+    for k in texts:
+        log = ROOT / "build" / "chip_probe" / f"interp3d_part_{k}.ptxas.log"
+        print(f"ptxas {k}: {_interp_registers(log.read_text())}", flush=True)
+    for name in dtypes:
+        plan0 = nufft.PlanNUFFT(np.dtype(name), SHAPES[3], m=4, sigma=1.5,
+                                spread_method="blocked", device=dev)
+        entry = "nufft_interp_3d_" + VALUE_TYPES[plan0.dtype][0]
+        for np_ in nps or (SPREAD3D_NP[name], 16_777_216):
+            gen = torch.Generator(device=dev).manual_seed(seed + np_)
+            pts = torch.rand((3, np_), generator=gen, device=dev,
+                             dtype=plan0.real_dtype) * (2 * math.pi)
+            plan = nufft.set_points(plan0, pts)
+            grid = torch.randn((1,) + plan.shape_over, generator=gen, device=dev,
+                               dtype=plan0.dtype)
+            times = {k: [] for k in libs}
+            for order in (list(libs), list(libs)[::-1]):
+                for k in order:
+                    ms, _ = cuda_time_ms(lambda: _raw_interp(libs[k], entry, plan, grid))
+                    times[k].append(ms)
+            print(json.dumps({"probe": "interp3d_parts", "card": card, "dtype": name,
+                              "np": np_, "block_dims": list(plan.block_dims),
+                              "ms": {k: sum(t) / len(t) for k, t in times.items()}}),
+                  flush=True)
+            del plan, grid, pts
+            torch.cuda.empty_cache()
+
+
 def probe_spread3d_parts(seed: int, dtypes, nps) -> None:
     """Where the 3D spread kernel's time goes: the shipped kernel and copies
     of its source with one phase taken out (``SPREAD3D_PARTS``: the MMAs,
@@ -964,6 +1391,12 @@ def main(argv=None) -> int:
     parser.add_argument("--spread3d", action="store_true",
                         help="time the 3D spread kernel against the design it replaced, "
                              "its variants and geometries, and stop")
+    parser.add_argument("--interp3d", action="store_true",
+                        help="time the 3D interpolation kernel against the design it "
+                             "replaced and its variants, and stop")
+    parser.add_argument("--interp3d-parts", action="store_true",
+                        help="time the 3D interpolation kernel with each phase taken out, "
+                             "and stop")
     parser.add_argument("--spread3d-parts", action="store_true",
                         help="time the 3D spread kernel with each phase taken out, and stop")
     args = parser.parse_args(argv)
@@ -981,6 +1414,12 @@ def main(argv=None) -> int:
         return 0
     if args.spread3d:
         probe_spread3d(args.seed, args.dtype, args.np)
+        return 0
+    if args.interp3d:
+        probe_interp3d(args.seed, args.dtype, args.np)
+        return 0
+    if args.interp3d_parts:
+        probe_interp3d_parts(args.seed, args.dtype, args.np)
         return 0
     if args.spread3d_parts:
         probe_spread3d_parts(args.seed, args.dtype, args.np)

@@ -14,7 +14,9 @@ Phases, in order; the first failure raises and the script exits non-zero:
    every 3D spread instantiation must hold DMMA and no shared-memory
    atomic;
 3. the 3D complex64 kernels against their plain PyTorch versions on the
-   card: a 64^3 plan (grid 96^3), 200,000 uniform points;
+   card: a 64^3 plan (grid 96^3), 200,000 uniform points, and the
+   interpolation kernel's branch for blocks below ``INTERP3D_SPARSE``
+   points (read from global memory, not staged) at 2,000 points;
 4. the 3D complex64 main path at full size: N = 256^3, m = 4, sigma = 1.5,
    backwards Kaiser-Bessel, FastApproximation, ``spread_method='blocked'``,
    for Np = 1,000,000 and 16,777,216: ``set_points`` -> ``exec_type1`` ->
@@ -48,8 +50,9 @@ Phases, in order; the first failure raises and the script exits non-zero:
 12. the NFFT adapter at full width: ``plan_nfft`` in 3D at N = 256^3,
     16,777,216 points in [-1/2, 1/2)^3, complex128, the default reltol 1e-9
     (m = 6, sigma = 2), windows kaiser_bessel, gauss and spline: forward and
-    adjoint times, and their errors against exact NFFT-convention sums at
-    4,096 points and 64 modes;
+    adjoint times, their errors against exact NFFT-convention sums at
+    4,096 points and 64 modes, and the plan's interpolation kernel against
+    its plain version;
 13. the two multi-device modes (``nonuniformffts_tpu_torch.parallel``) at
     N = 256^3, m = 4, sigma = 1.5, BKB FastApproximation, 16,777,216 uniform
     points: first K8a / K8b (``csrc/relayout.cu``) against their plain
@@ -67,7 +70,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
     exec_type1 / exec_type2 (CUDA-event medians of 3 after one warm-up, per
     rank), the host time of one more call with the time in collectives,
     launch counts per rank (K1, K2, K8a and K8b must each launch on the
-    spatial path), err1 (a sharded row's at modes of its own rows of dim
+    spatial path), each rank's slab-plan interpolation kernel against its
+    plain version, err1 (a sharded row's at modes of its own rows of dim
     0) / err2 against exact sums, agreement with the single-card plan on
     the same points (a sharded row's dim-0 shard against the single card's
     rows; <= 1e-5 complex64, <= 1e-12 complex128), and which collectives
@@ -487,6 +491,7 @@ def phase_kernels(seed: int):
 
     import nonuniformffts_tpu_torch as nufft
     from nonuniformffts_tpu_torch.ops.kernels import blocked
+    from nonuniformffts_tpu_torch.ops.kernels.common import INTERP3D_SPARSE
 
     log("== phase 3: complex64 kernels against their plain versions (64^3, 200,000 points)")
     dev = torch.device("cuda")
@@ -503,6 +508,17 @@ def phase_kernels(seed: int):
     log(f"  launches { {n: blocked.LAUNCHES[n] for n in names} }")
     if min(blocked.LAUNCHES[n] for n in names) < 1:
         raise AssertionError("a kernel was not launched in phase 3")
+    # 2,000 points over the same blocks: every block holds fewer than
+    # INTERP3D_SPARSE points, so the interpolation kernel reads them from
+    # global memory rather than staging them.
+    sparse = nufft.set_points(plan, _uniform_points(gen, 3, 2_000, torch.float32, dev))
+    counts = sparse.pstarts[1:] - sparse.pstarts[:-1]
+    log(f"  2,000 points: {int(((counts > 0) & (counts < INTERP3D_SPARSE)).sum())} blocks "
+        f"read from global memory, {int((counts >= INTERP3D_SPARSE).sum())} staged")
+    err = rel_l2(blocked.interpolate_blocked(sparse, grid),
+                 blocked.interpolate_blocked_plain(sparse, grid))
+    log(f"  {blocked.entry_point('interp', sparse)} on sparse blocks: rel L2 {err:.3e}")
+    check("interp on sparse blocks vs plain", err, KERNEL_TOL[4])
 
 
 # ---------------------------------------------------------------------------
@@ -939,6 +955,14 @@ def phase_nfft(seed: int, record):
         e_fwd = rel_l2(fx[sel], exact_fwd)
         e_adj = rel_l2(fh[tuple(torch.as_tensor(kidx[:, d], device=dev) for d in range(3))],
                        exact_adj)
+        # The forward transform's interpolation kernel against its plain version.
+        g = _random_values(gen, (1,) + tuple(plan.plan.shape_over), torch.complex128, dev)
+        e_interp = rel_l2(blocked.interpolate_blocked(plan.plan, g),
+                          blocked.interpolate_blocked_plain(
+                              dataclasses.replace(plan.plan, chunk_size=PLAIN_CHUNK), g))
+        del g
+        check(f"{blocked.entry_point('interp', plan.plan)} vs plain ({window})", e_interp,
+              KERNEL_TOL[8])
         kind = type(plan.plan.kernel).__name__
         tol = 10 * NFFT_RELTOL if window == "kaiser_bessel" else 3 * error_budget(kind, 6)
         log(f"  {window} ({kind}): grid {plan.plan.shape_over}, block_dims "
@@ -949,7 +973,8 @@ def phase_nfft(seed: int, record):
         rows.append(dict(window=window, m=plan.plan.m, sigma=plan.plan.sigma,
                          block_dims=plan.plan.block_dims,
                          plan_ms=t_plan, forward_ms=t_fwd, adjoint_ms=t_adj,
-                         forward_err=e_fwd, adjoint_err=e_adj, launches=counts))
+                         forward_err=e_fwd, adjoint_err=e_adj, interp_vs_plain=e_interp,
+                         launches=counts))
         del plan, fx, fh
         torch.cuda.empty_cache()
     log("  results " + json.dumps(rows))
@@ -1157,6 +1182,7 @@ def spatial_row(label: str, dtype, group, shape, np_total: int, seed: int,
 
     import nonuniformffts_tpu_torch as nufft
     from nonuniformffts_tpu_torch import execution as ex
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
     from nonuniformffts_tpu_torch.parallel import SpatialNUFFT, comm
 
     dev = torch.device("cuda")
@@ -1198,8 +1224,14 @@ def spatial_row(label: str, dtype, group, shape, np_total: int, seed: int,
     e1 = _err1(pts, vp, uc, shape, False, seed,
                rows=None if spectrum == "replicated" else (rows.start, rows.stop))
     e2 = _err2(pts[:, sl], v2c, a, False, seed)
+    # The slab plan's interpolation kernel against its plain version.
+    gen = torch.Generator(device=dev).manual_seed(seed + me)
+    g_slab = _random_values(gen, (1,) + tuple(st.local.shape_over), vp.dtype, dev)
+    slab_interp = rel_l2(blocked.interpolate_blocked(st.local, g_slab),
+                         blocked.interpolate_blocked_plain(
+                             dataclasses.replace(st.local, chunk_size=PLAIN_CHUNK), g_slab))
     slab_block_dims, cap = list(st.local.block_dims), st.cap
-    del st
+    del st, g_slab
     torch.cuda.empty_cache()
     plan = nufft.set_points(_plan(dtype, shape, 4, 1.5), pts)
     agree1 = rel_l2(uc, nufft.exec_type1(plan, vp)[rows])
@@ -1209,13 +1241,16 @@ def spatial_row(label: str, dtype, group, shape, np_total: int, seed: int,
     tol = SPATIAL_AGREE[np.dtype(dtype).itemsize]
     for what, value, limit in (("err1", e1, ERR_TOL), ("err2", e2, ERR_TOL),
                                ("type-1 vs single card", agree1, tol),
-                               ("type-2 vs single card", agree2, tol)):
+                               ("type-2 vs single card", agree2, tol),
+                               ("slab interpolation kernel vs plain", slab_interp,
+                                KERNEL_TOL[np.dtype(dtype).itemsize // 2])):
         if not value <= limit:
             raise AssertionError(f"{label} rank {me}: {what} = {value:.3e} exceeds {limit:.0e}")
     return dict(label=label, n=n, rank=me, np_rank=npl, backend=comm.backend(group),
                 engine=sp.engine, spectrum=spectrum, uhat_shape=list(uc.shape),
                 set_points_ms=t_set, exec_type1_ms=t_t1, exec_type2_ms=t_t2,
                 host_and_collective_ms=share, err1=e1, err2=e2, vs_single=[agree1, agree2],
+                slab_interp_vs_plain=slab_interp,
                 launches=counts, staged=list(comm.staged_ops(group)),
                 host_staged=dict(comm.HOST_STAGED), ext_shape=list(sp.ext_shape_over),
                 block_dims=slab_block_dims, cap=cap)
@@ -1231,6 +1266,7 @@ def sharded_row(label: str, dtype, group, shape, np_total: int, seed: int,
 
     import nonuniformffts_tpu_torch as nufft
     from nonuniformffts_tpu_torch import execution as ex
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
     from nonuniformffts_tpu_torch.parallel import comm, exec_type1_sharded, exec_type2_sharded
     from nonuniformffts_tpu_torch.parallel import shard_points
 
@@ -1259,6 +1295,14 @@ def sharded_row(label: str, dtype, group, shape, np_total: int, seed: int,
     v2c = ex.from_channels(v2, 1)[0]
     e1 = _err1(pts, vp, uc, shape, False, seed)
     e2 = _err2(pts_l, v2c, a, False, seed)
+    # The rank's interpolation kernel against its plain version on its points.
+    local = nufft.set_points(plan, pts_l)
+    gen = torch.Generator(device=dev).manual_seed(seed + me)
+    g_loc = _random_values(gen, (1,) + tuple(local.shape_over), vp.dtype, dev)
+    slab_interp = rel_l2(blocked.interpolate_blocked(local, g_loc),
+                         blocked.interpolate_blocked_plain(
+                             dataclasses.replace(local, chunk_size=PLAIN_CHUNK), g_loc))
+    del local, g_loc
     single = nufft.set_points(plan, pts)
     agree1 = rel_l2(uc, nufft.exec_type1(single, vp))
     agree2 = rel_l2(v2c, nufft.exec_type2(single, u_spec)[sl])
@@ -1267,11 +1311,14 @@ def sharded_row(label: str, dtype, group, shape, np_total: int, seed: int,
     tol = SPATIAL_AGREE[np.dtype(dtype).itemsize]
     for what, value, limit in (("err1", e1, ERR_TOL), ("err2", e2, ERR_TOL),
                                ("type-1 vs single card", agree1, tol),
-                               ("type-2 vs single card", agree2, tol)):
+                               ("type-2 vs single card", agree2, tol),
+                               ("interpolation kernel vs plain", slab_interp,
+                                KERNEL_TOL[np.dtype(dtype).itemsize // 2])):
         if not value <= limit:
             raise AssertionError(f"{label} rank {me}: {what} = {value:.3e} exceeds {limit:.0e}")
     return dict(label=label, n=n, rank=me, exec_type1_ms=t_t1, exec_type2_ms=t_t2,
                 host_and_collective_ms=share, err1=e1, err2=e2, vs_single=[agree1, agree2],
+                interp_vs_plain=slab_interp,
                 launches=counts)
 
 

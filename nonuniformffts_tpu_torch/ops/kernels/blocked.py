@@ -1,7 +1,7 @@
 """Blocked fast path: wrappers around the hand-written CUDA kernels, each
 with its plain PyTorch version: spread K4 (1D, 2D) and K1/K6a (3D, on the
-FP64 tensor cores),
-interpolate K5 (1D, 2D) and K2/K6b (3D), and the window taps K3.
+FP64 tensor cores), interpolate K5 (1D, 2D) and K2/K6b (3D, from each
+block's window staged in shared memory), and the window taps K3.
 
 Counterpart of ``nonuniformffts_tpu/ops/pallas/blocked.py`` and
 ``blocked_ds.py``.  Both wrappers read the plan's bin-sorted point state
@@ -37,6 +37,7 @@ from .common import (
     MAX_SMEM_BYTES,
     VALUE_TYPES,
     entry_point_name,
+    interp_tiles,
     spread_smem_bytes,
     window_weights,
 )
@@ -78,9 +79,10 @@ def kernel_coefs(plan):
 
 def check_kernel_support(plan) -> None:
     """Raise unless the CUDA kernels take this plan (1-3D, complex or real
-    of 32 or 64 bits, any window in either mode, M in 2..10, the spread
-    CTA's shared memory within the card's: in 3D one staged batch, so any
-    block dims)."""
+    of 32 or 64 bits, any window in either mode, M in 2..10, the spread and
+    interpolation CTAs' shared memory within the card's: in 3D one staged
+    batch of the spread and one x plane of the interpolation window a pass,
+    so any block dims)."""
     if plan.ndim not in KERNEL_DIMS:
         raise NotImplementedError(f"no CUDA kernel takes {plan.ndim}D plans")
     if plan.dtype not in VALUE_TYPES:
@@ -97,7 +99,13 @@ def check_kernel_support(plan) -> None:
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"block_dims {plan.block_dims} need {smem} B of shared memory "
-            f"per CTA, above the {MAX_SMEM_BYTES} B a Hopper CTA can use"
+            f"per spread CTA, above the {MAX_SMEM_BYTES} B a Hopper CTA can use"
+        )
+    if plan.ndim == 3 and not interp_tiles(plan.block_dims, plan.m, ncoef, scalar_bytes,
+                                           ncomp).passes:
+        raise ValueError(
+            f"block_dims {plan.block_dims}: one x plane of the padded window does "
+            f"not fit the {MAX_SMEM_BYTES} B of shared memory a Hopper CTA can use"
         )
 
 
@@ -273,11 +281,14 @@ def interpolate_blocked(plan, grid: torch.Tensor) -> torch.Tensor:
     coefs, wtaps, wtaps_ptr, ncoef = _launch_args(plan)
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
+        # The 3D kernel walks the blocks (csrc/interp_3d.cu).
+        pstarts, dims = (((plan.pstarts.data_ptr(),), plan.block_dims) if plan.ndim == 3
+                         else ((), ()))
         err = fn(
             grid.data_ptr(), plan.cells_sorted.data_ptr(),
-            plan.fracs_sorted.data_ptr(), plan.sort_perm.data_ptr(),
+            plan.fracs_sorted.data_ptr(), plan.sort_perm.data_ptr(), *pstarts,
             coefs, wtaps_ptr, out.data_ptr(), np_, C, plan.m, ncoef,
-            *plan.shape_over, float(plan.normfactor), stream,
+            *plan.shape_over, *dims, float(plan.normfactor), stream,
         )
     _raise_on_error(name, err)
     LAUNCHES[name] += 1

@@ -1,9 +1,10 @@
 """Shared pieces of the hand-written kernels' Python side: the coefficient
 stack they read, the plain version of their tap evaluation, the value types
 they are instantiated for, the geometry limits of the card, the
-shared-memory footprint of the spread kernels and the tile geometry of the
+shared-memory footprint of the spread kernels, the tile geometry of the
 3D spread kernel (``spread_tiles``), which the kernel and the block
-geometry chooser share.
+geometry chooser share, and the staged window and lane groups of the 3D
+interpolation kernel (``interp_tiles``, ``interp_lanes``).
 
 Counterpart of ``nonuniformffts_tpu/ops/pallas/common.py``.  The TPU
 kernels placed the 2M taps of each point into dense weight matrices for the
@@ -67,6 +68,22 @@ SPREAD3D_MAX_WARPS = 16
 #: and the doubles from one staged operand row to the next.
 SPREAD3D_BATCH = 64
 SPREAD3D_STRIDE = SPREAD3D_BATCH + 4
+
+# The 3D interpolation kernel (``csrc/interp_3d.cu``, which must match): a
+# CTA stages each dense block's padded window in shared memory, after a
+# batch's sums, the coefficient table (ncoef, 3, span), a batch's taps
+# (3, 2M, batch) and int32 cells (3, batch), the blocks' point ranges and
+# three int32 offset tables (one entry per padded index of each dim); a
+# group of lanes contracts each point.
+#: Threads of one interpolation CTA (``NUFFT_INTERP3D_THREADS``).
+INTERP3D_THREADS = 256
+#: Blocks with fewer points are read from global memory instead of staged
+#: (``NUFFT_INTERP3D_SPARSE``).
+INTERP3D_SPARSE = 64
+#: Most spatial blocks one CTA covers (``csrc/interp_3d.cu:kMaxGroup``).
+INTERP3D_MAX_GROUP = 64
+#: Bytes of one shared-memory wavefront (32 banks of 4 bytes).
+WAVEFRONT_BYTES = 128
 
 #: The kernels' value types by the plan's dtype: the entry-point suffix
 #: (``nufft_spread_<D>d_<suffix>``), the bytes of one scalar and the scalars
@@ -165,6 +182,75 @@ def spread_tiles(block_dims: Sequence[int], m: int, ncomp: int) -> SpreadTiles:
     passes = -(-units // SPREAD3D_MAX_WARPS)
     return SpreadTiles(pd, row_tiles, z_tiles, col_tiles, units, passes,
                        -(-units // passes))
+
+
+@dataclasses.dataclass(frozen=True)
+class InterpLanes:
+    """The lanes that contract one point in the 3D interpolation kernel
+    (``csrc/interp_3d.cu:Lanes``): lane ``q`` of a point takes z tap
+    ``q % span`` of window rows ``q // span + rows * k``, ``k < steps``."""
+
+    span: int       # z taps a group spans: 2M rounded up to a power of two, >= 4
+    per_point: int  # lanes a point: a wavefront's cells, at least span
+    rows: int       # window rows one load instruction reads
+    steps: int      # rows a lane walks
+
+
+def interp_batch(m: int, scalar_bytes: int = 4, ncomp: int = 2) -> int:
+    """Points whose taps the 3D interpolation CTA holds at a time
+    (``csrc/interp_3d.cu:batch_of``): 128 for complex values, 64 for
+    float64, 256 for float32, halved while the (3, 2M, batch) taps exceed
+    64 KB."""
+    batch = 128 if ncomp == 2 else 64 if scalar_bytes == 8 else 256
+    while batch * 6 * m * scalar_bytes > 65536:
+        batch //= 2
+    return batch
+
+
+def interp_lanes(m: int, scalar_bytes: int = 4, ncomp: int = 2) -> InterpLanes:
+    span = next(s for s in (4, 8, 16, 32) if s >= 2 * m)
+    per_point = max(span, WAVEFRONT_BYTES // (scalar_bytes * ncomp))
+    rows = per_point // span
+    return InterpLanes(span, per_point, rows, -(-2 * m // rows))
+
+
+@dataclasses.dataclass(frozen=True)
+class InterpTiles:
+    """The staged window of one padded block in the 3D interpolation kernel
+    (``csrc/interp_3d.cu:Window``)."""
+
+    padded: Tuple[int, int, int]
+    pitch: int   # cells from one staged z row to the next
+    planes: int  # x planes staged a pass
+    passes: int  # passes over the window's x planes; 0 if one plane does not fit
+    smem: int    # dynamic shared memory of one CTA, bytes
+
+
+def interp_tiles(block_dims: Sequence[int], m: int, ncoef: int, scalar_bytes: int = 4,
+                 ncomp: int = 2) -> InterpTiles:
+    """The 3D interpolation kernel's window for ``block_dims`` (three dims),
+    M = m, ``ncoef`` coefficients a tap (0 for a window without a
+    coefficient stack) and values of ``ncomp`` scalars of ``scalar_bytes``:
+    the padded window in as few x-slab passes as the 227 KB allow, the
+    planes spread evenly over the passes.  The z pitch is the least >= pd2
+    that equals ``interp_lanes(..).span`` modulo a wavefront's cells where
+    the span is fewer, so that the rows one load instruction of a point
+    reads fall on distinct banks (pd2 otherwise)."""
+    pd = padded_block_dims(block_dims, m)
+    cells = WAVEFRONT_BYTES // (scalar_bytes * ncomp)
+    span = interp_lanes(m, scalar_bytes, ncomp).span
+    pitch = pd[2] + (span - pd[2]) % cells if span < cells else pd[2]
+    # a batch's sums, the coefficient table, a batch's taps and cells, the
+    # blocks' point ranges, the offset tables
+    batch = interp_batch(m, scalar_bytes, ncomp)
+    head = (scalar_bytes * (ncomp * batch + ncoef * 3 * span + 3 * 2 * m * batch)
+            + 4 * (3 * batch + INTERP3D_MAX_GROUP + 1 + sum(pd)))
+    head = -(-head // 16) * 16
+    plane_bytes = scalar_bytes * ncomp * pd[1] * pitch
+    fit = max(MAX_SMEM_BYTES - head, 0) // plane_bytes
+    passes = -(-pd[0] // fit) if fit else 0
+    planes = -(-pd[0] // passes) if passes else 0
+    return InterpTiles(pd, pitch, planes, passes, head + plane_bytes * planes)
 
 
 def spread_bank_conflicts(pd_last: int, m: int, word_bytes: int) -> int:

@@ -15,6 +15,7 @@ import torch
 
 import nonuniformffts_tpu_torch as tnufft
 from nonuniformffts_tpu_torch.ops.kernels import blocked
+from nonuniformffts_tpu_torch.ops.kernels.common import INTERP3D_SPARSE, INTERP3D_THREADS
 
 torch.set_num_threads(1)
 
@@ -212,6 +213,71 @@ def test_spread_3d_matches_plain_version(cuda_device, case, dtype):
     g_p = blocked.spread_blocked_plain(plan, vp)
     assert g_k.dtype == g_p.dtype == plan.dtype
     assert _rel_err(g_k, g_p) <= KERNEL_TOL[np.dtype(real).itemsize]
+
+
+# The 3D interpolation kernel's edges (csrc/interp_3d.cu): the spread's, with
+# 40,000 points so that most blocks are staged (>= INTERP3D_SPARSE points),
+# and (shape, sigma, m, block_dims, transforms, where, points):
+INTERP_3D_CASES = {
+    **{k: v + (40_000,) for k, v in SPREAD_3D_CASES.items()},
+    # 27 blocks of ~740 points: more points in a block than a CTA has threads.
+    "dense": ((16, 16, 16), 1.5, 4, (8, 8, 8), 1, "uniform", 20_000),
+    # 216 blocks of ~0.7 points, all read from global memory; half of 3,000
+    # points in one block (staged), the rest ~7 a block (read from global
+    # memory).
+    "sparse_gather": ((32, 32, 32), 1.5, 4, (8, 8, 8), 1, "uniform", 150),
+    "sparse_mixed": ((32, 32, 32), 1.5, 4, (8, 8, 8), 2, "clustered", 3_000),
+    # A grid smaller than the padded window: 35 cells of a 32-cell dim.
+    "grid_below_window": ((16, 16, 16), 2.0, 10, (16, 16, 16), 1, "uniform", 6_000),
+    # Taps from K3 (a window without coefficients) on ragged blocks.
+    "k3_taps": ((20, 24, 16), 1.5, 4, (5, 4, 6), 1, "gaussian", 40_000),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("case", list(INTERP_3D_CASES))
+def test_interp_3d_matches_plain_version(cuda_device, case, dtype):
+    """Each 3D interpolation entry point (the staged-window kernel) against
+    its plain version on the kernel's edge cases, with its launch count
+    moving: x-slab passes (m = 10, complex128), empty blocks, blocks on
+    both sides of the gather threshold, more points than threads."""
+    shape, sigma, m, block_dims, C, where, np_ = INTERP_3D_CASES[case]
+    rng = np.random.default_rng(len(case) + 7)
+    real = np.dtype(dtype).type(0).real.dtype
+    if where in ("uniform", "gaussian"):
+        pts = rng.uniform(-1.0, 7.0, (3, np_))
+    elif where == "corner":
+        pts = rng.uniform(0.0, np.pi / 2, (3, np_))
+    elif where == "clustered":
+        pts = rng.uniform(0.0, 2 * np.pi, (3, np_))
+        pts[:, ::2] = rng.uniform(0.1, 0.9, (3, np_ // 2))
+    else:
+        pts = rng.uniform(-0.3, 0.3, (3, np_))
+        pts[:, ::2] = rng.uniform(0.0, 2 * np.pi, (3, np_ // 2))
+    pts = pts.astype(real)
+    kw = dict(kernel=tnufft.GaussianKernel()) if where == "gaussian" else {}
+    plan = tnufft.PlanNUFFT(dtype, shape, m=m, sigma=sigma, ntransforms=C,
+                            spread_method="blocked", block_dims=block_dims,
+                            device=cuda_device, **kw)
+    plan = tnufft.set_points(plan, torch.from_numpy(pts).to(cuda_device))
+    counts = plan.pstarts[1:] - plan.pstarts[:-1]
+    if case == "dense":
+        assert int(counts.max()) > INTERP3D_THREADS
+    if case == "sparse_gather":
+        assert int(counts.max()) < INTERP3D_SPARSE
+    if case == "sparse_mixed":
+        assert int(counts.max()) >= INTERP3D_SPARSE
+        assert int(((counts > 0) & (counts < INTERP3D_SPARSE)).sum()) > 100
+    grid = torch.from_numpy(_values(rng, dtype, (C,) + plan.shape_over)).to(cuda_device)
+    name = blocked.entry_point("interp", plan)
+    assert name.startswith("nufft_interp_3d_")
+    before = blocked.LAUNCHES[name]
+    v_k = blocked.interpolate_blocked(plan, grid)
+    torch.cuda.synchronize()
+    assert blocked.LAUNCHES[name] == before + 1
+    v_p = blocked.interpolate_blocked_plain(plan, grid)
+    assert v_k.dtype == v_p.dtype == plan.dtype and v_k.shape == (C, np_)
+    assert _rel_err(v_k, v_p) <= KERNEL_TOL[np.dtype(real).itemsize]
 
 
 def test_m_above_10_raises(cuda_device):
