@@ -45,6 +45,18 @@ times the same kernel beside copies of its source with one phase taken
 out (the MMAs, the dense operand build, the tap evaluation, the flush;
 ``SPREAD3D_PARTS``), to show where its time goes.
 
+    python3 chip_probe.py --spread2d [--spread2d-parts] [--dtype T ...] [--np N ...]
+
+times the 2D spread kernel (``csrc/spread_2d.cu``, FP64 tensor cores, a
+warp a block) against the shared-memory design it replaced (a CAS loop a
+tap, written below as ``_CAS_SPREAD_2D_SRC``) in turns on the same points,
+with err1 of both, the t2 interpolation at both designs' block geometries
+and the kernel's ``-D`` variants (``SPREAD2D_VARIANTS``), at N = 4096^2 for
+each dtype at its main-path Np, 16,777,216 and rho = 0.01; then the
+geometry sweep at 1M and 16,777,216 points and the fit of the 2D chooser's
+cost model (``probe_spread2d``).  ``--spread2d-parts`` times copies of its
+source with one phase taken out (``SPREAD2D_PARTS``).
+
     python3 chip_probe.py --interp3d [--dtype T ...] [--np N ...]
 
 times the 3D interpolation kernel (``csrc/interp_3d.cu``: staged windows,
@@ -546,6 +558,33 @@ def probe_relayout() -> None:
 # padded block into the grid with one global atomicAdd a scalar.  Built by
 # this script with nvcc into build/chip_probe/ and used nowhere else; same
 # C interface as the library's entry points, named cas_spread_3d_*.
+# The shared-memory spread kernels' tap evaluation, which the probe's CAS
+# sources below add after window.cuh: the D x S taps of sorted point j into
+# one warp's scratch taps[d * S + t], lane q taking tap q of the flattened
+# (D, S) set; cs: (D, S, ncoef) coefficients.
+_CAS_WARP_TAPS = r"""
+namespace nufft {
+template <int S, int D, typename T>
+__device__ __forceinline__ void warp_taps(const T* wtaps, const T* cs,
+                                          int ncoef, const T* fracs,
+                                          long long np, long long j, int lane,
+                                          T* taps) {
+  for (int q = lane; q < D * S; q += 32) {
+    const int d = q / S;
+    taps[q] = wtaps ? wtaps[q * np + j]
+                    : horner_tap(cs + q * ncoef, ncoef, T(2) * fracs[d * np + j] - T(1));
+  }
+}
+}  // namespace nufft
+"""
+
+
+def _with_warp_taps(src: str) -> str:
+    """A CAS probe source with ``_CAS_WARP_TAPS`` after its window.cuh."""
+    anchor = '#include "window.cuh"\n'
+    return src.replace(anchor, anchor + _CAS_WARP_TAPS, 1)
+
+
 _CAS_SPREAD_3D_SRC = r"""
 #include <cstdint>
 
@@ -781,7 +820,8 @@ def probe_spread3d(seed: int, dtypes, nps) -> None:
     card = nvidia_smi_line()
     print(card, flush=True)
     dev = torch.device("cuda")
-    cas = _probe_library("cas_spread_3d", _CAS_SPREAD_3D_SRC, ("-I", str(build.CSRC_DIR)))
+    cas = _probe_library("cas_spread_3d", _with_warp_taps(_CAS_SPREAD_3D_SRC),
+                         ("-I", str(build.CSRC_DIR)))
     variants = build.build_variants(SPREAD3D_VARIANTS, sources=("spread_3d.cu",))
     shipped = build.load()
     logs = {"shipped": build.PTXAS_LOG}
@@ -879,7 +919,8 @@ def probe_spread3d(seed: int, dtypes, nps) -> None:
 
 
 #: Copies of csrc/spread_3d.cu with one phase taken out, for
-#: ``--spread3d-parts``: each maps a line of the source to its replacement.
+#: ``--spread3d-parts``: each maps a line of the source (spread_mma.cuh
+#: written in place of its include) to its replacement.
 #: Their grids are wrong; only their times and registers are read.  Without
 #: the flush the compiler drops the accumulators too (40 registers against
 #: 128), so "no_flush" times neither; "flush_sum" keeps them live.
@@ -908,6 +949,490 @@ SPREAD3D_PARTS = {
                        "  atomicAdd(p, re);\n  atomicAdd(p + 1, im);":
                        "  if (re == 1.25e-300) p[0] = im;"},
 }
+
+
+# The 2D spread kernel the tensor-core design replaced (the first
+# csrc/spread_2d.cu): a CTA a (block, transform) with its padded block in
+# shared memory as NCOMP double planes, each warp adding one point's
+# (2M)^2 tap products by atomicAdd (compare-and-swap loops in SASS), then a
+# periodic global add of the padded block.  The same C interface as the
+# shipped kernel.  Built by --spread2d into build/chip_probe/.
+_CAS_SPREAD_2D_SRC = r"""
+#include <cstdint>
+
+#include "window.cuh"
+
+namespace {
+
+constexpr int kThreads = 512;  // ops/kernels/common.py:SPREAD_THREADS
+using Acc = double;            // ops/kernels/common.py:ACC_BYTES
+
+// Must match ops/kernels/common.py:spread_smem_bytes for D = 2.
+template <typename T, int NCOMP>
+size_t spread_smem_bytes(int m, int ncoef, int b0, int b1) {
+  const size_t s = 2 * m;
+  const size_t pv = (size_t)(b0 + s - 1) * (b1 + s - 1);
+  const size_t ntaps = 2 * s;
+  return sizeof(Acc) * NCOMP * pv + sizeof(T) * (ntaps * ncoef + (kThreads / 32) * ntaps);
+}
+
+template <int M, typename T, int NCOMP>
+__global__ void __launch_bounds__(kThreads) spread_2d_kernel(
+    const nufft::Value<T, NCOMP>* __restrict__ vals, const int* __restrict__ cells,
+    const T* __restrict__ fracs, const int* __restrict__ pstarts,
+    const T* __restrict__ coefs, const T* __restrict__ wtaps,
+    T* __restrict__ grid, long long np, int ncoef, int n0, int n1, int b0,
+    int b1) {
+  constexpr int S = 2 * M;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int bid = blockIdx.x;
+  const int chan = blockIdx.y;
+  const int p_begin = pstarts[bid];
+  const int p_end = pstarts[bid + 1];
+  if (p_begin == p_end) return;  // uniform across the CTA
+
+  const int pd1 = b1 + S - 1;
+  const int pv = (b0 + S - 1) * pd1;
+  Acc* acc = reinterpret_cast<Acc*>(smem_raw);      // NCOMP planes of pv
+  T* cs = reinterpret_cast<T*>(acc + NCOMP * pv);   // (2, S, ncoef)
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  T* taps = cs + 2 * S * ncoef + warp * 2 * S;  // this warp's (2, S)
+
+  for (int i = tid; i < NCOMP * pv; i += blockDim.x) acc[i] = Acc(0);
+  for (int i = tid; i < 2 * S * ncoef; i += blockDim.x) cs[i] = coefs[i];
+  __syncthreads();
+
+  const int nb1 = n1 / b1;
+  const int ox = (bid / nb1) * b0;
+  const int oy = (bid % nb1) * b1;
+  const nufft::Value<T, NCOMP>* vrow = vals + (long long)chan * np;
+
+  for (long long j = p_begin + warp; j < p_end; j += nwarps) {
+    nufft::warp_taps<S, 2>(wtaps, cs, ncoef, fracs, np, j, lane, taps);
+    __syncwarp();
+    const int lx = cells[j] - ox;
+    const int ly = cells[np + j] - oy;
+    const nufft::Value<T, NCOMP> v = vrow[j];
+    for (int q = lane; q < S * S; q += 32) {
+      const int ix = q / S, iy = q - ix * S;
+      const T w = taps[ix] * taps[S + iy];
+      const int idx = (lx + ix) * pd1 + ly + iy;
+#pragma unroll
+      for (int k = 0; k < NCOMP; ++k) atomicAdd(acc + k * pv + idx, Acc(v.c[k] * w));
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // Periodic global add of the padded block: padded index i along a dim is
+  // grid node origin - (M - 1) + i.
+  T* g = grid + (long long)chan * n0 * n1 * NCOMP;
+  for (int i = tid; i < pv; i += blockDim.x) {
+    Acc a[NCOMP];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < NCOMP; ++k) {
+      a[k] = acc[k * pv + i];
+      any = any || a[k] != Acc(0);
+    }
+    if (!any) continue;
+    const int i0 = i / pd1;
+    const int i1 = i - i0 * pd1;
+    const int gx = nufft::wrap_index(ox - (M - 1) + i0, n0);
+    const int gy = nufft::wrap_index(oy - (M - 1) + i1, n1);
+    const long long off = NCOMP * ((long long)gx * n1 + gy);
+#pragma unroll
+    for (int k = 0; k < NCOMP; ++k) atomicAdd(g + off + k, T(a[k]));
+  }
+}
+
+template <int M, typename T, int NCOMP>
+cudaError_t launch(const void* vals, const void* cells, const void* fracs,
+                   const void* pstarts, const void* coefs,
+                   const void* wtaps, void* grid,
+                   long long np, int nchan, int ncoef, int n0, int n1, int b0,
+                   int b1, cudaStream_t stream) {
+  const size_t smem = spread_smem_bytes<T, NCOMP>(M, ncoef, b0, b1);
+  cudaError_t err = cudaFuncSetAttribute(
+      spread_2d_kernel<M, T, NCOMP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 blocks((n0 / b0) * (n1 / b1), nchan);
+  spread_2d_kernel<M, T, NCOMP><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const nufft::Value<T, NCOMP>*>(vals),
+      static_cast<const int*>(cells), static_cast<const T*>(fracs),
+      static_cast<const int*>(pstarts), static_cast<const T*>(coefs),
+      static_cast<const T*>(wtaps),
+      static_cast<T*>(grid), np, ncoef, n0, n1, b0, b1);
+  return cudaGetLastError();
+}
+
+template <typename T, int NCOMP>
+int dispatch(const void* vals, const void* cells, const void* fracs,
+             const void* pstarts, const void* coefs,
+             const void* wtaps, void* grid, long long np,
+             int nchan, int m, int ncoef, int n0, int n1, int b0, int b1,
+             void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NUFFT_SPREAD_CASE(MM)                                                \
+  case MM:                                                                   \
+    return (int)launch<MM, T, NCOMP>(vals, cells, fracs, pstarts, coefs,     \
+                                     wtaps, grid, np, nchan, ncoef, n0, n1,   \
+                                     b0, b1, s);
+  switch (m) {
+    NUFFT_FOR_EACH_M(NUFFT_SPREAD_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NUFFT_SPREAD_CASE
+}
+
+}  // namespace
+
+// vals (nchan, np) values in bin-sorted order (complex: re, im interleaved);
+// cells (2, np) int32 and fracs (2, np) T, sorted; pstarts (nblocks + 1,)
+// int32; coefs (2, 2m, ncoef) T, or ncoef = 0 and no coefficients for a
+// window other than kHorner, whose taps come in wtaps (D, 2m, np) T
+// (window_weights.cu), null for kHorner;
+// grid (nchan, n0, n1) values, zeroed by the caller.  T is float for *_f32,
+// double for *_f64.  Launches on `stream`, does not synchronise, allocates
+// nothing.
+#define NUFFT_SPREAD_ENTRY(NAME, T, NCOMP)                                    \
+  extern "C" int NAME(const void* vals, const void* cells, const void* fracs, \
+                      const void* pstarts, const void* coefs,                 \
+                      const void* wtaps, void* grid,             \
+                      long long np, int nchan, int m, int ncoef, int n0,      \
+                      int n1, int b0, int b1, void* stream) {                 \
+    return dispatch<T, NCOMP>(vals, cells, fracs, pstarts, coefs, wtaps, grid,  \
+                              np, nchan, m, ncoef, n0, n1, b0, b1, stream);   \
+  }
+
+#if NUFFT_WANT(0)
+NUFFT_SPREAD_ENTRY(cas_spread_2d_f32, float, 2)
+#endif
+#if NUFFT_WANT(1)
+NUFFT_SPREAD_ENTRY(cas_spread_2d_f64, double, 2)
+#endif
+#if NUFFT_WANT(2)
+NUFFT_SPREAD_ENTRY(cas_spread_2d_real_f32, float, 1)
+#endif
+#if NUFFT_WANT(3)
+NUFFT_SPREAD_ENTRY(cas_spread_2d_real_f64, double, 1)
+#endif
+"""
+
+#: The shared-memory design's geometry chooser's 2D picks at grid 6144^2,
+#: m = 4 (its score: halo x bank conflicts / CTAs).
+CAS_PICKS_2D = {"complex64": (48, 64), "complex128": (48, 64),
+                "float32": (64, 96), "float64": (64, 96)}
+#: Geometries the tensor-core 2D kernel is timed at for the cost model's
+#: fit (grid 6144^2; the chooser's candidates: divisors up to 128).
+SPREAD2D_GEOMETRIES = ((4, 16), (4, 32), (6, 16), (8, 8), (8, 16), (16, 8), (8, 24),
+                       (8, 32), (8, 48), (12, 16), (12, 24), (16, 16), (16, 24),
+                       (24, 16), (24, 24), (16, 32), (32, 32), (48, 64))
+#: Variants of the tensor-core 2D kernel (-D values of csrc/spread_2d.cu's
+#: tunables), built by build.py:build_variants: blocks a warp walks, the
+#: same for float and double grids.
+SPREAD2D_VARIANTS = {f"runs{r}": [f"-DNUFFT_SPREAD2D_RUNS_F32={r}", f"-DNUFFT_SPREAD2D_RUNS_F64={r}"]
+                     for r in (1, 2, 4, 8)}
+#: Main-path Np of each dtype (phase 8), then 16,777,216 and rho = 0.01.
+SPREAD2D_NP = {"complex64": 1_000_000, "float32": 1_000_000,
+               "complex128": 1_677_722, "float64": 1_677_722}
+SPREAD2D_EXTRA_NP = (16_777_216, 377_487)
+#: The densities of the cost model's fit: the main path's two point counts.
+SPREAD2D_FIT_NP = (1_000_000, 16_777_216)
+
+
+def _raw_spread_2d(lib, prefix: str, plan, vals):
+    """One launch of a 2D spread entry point (``prefix`` + value suffix) of
+    ``lib`` on the plan's sorted state, ``vals`` already in sorted order;
+    returns the grid."""
+    import torch
+
+    from nonuniformffts_tpu_torch.ops.kernels import build
+    from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES
+
+    name = prefix + VALUE_TYPES[plan.dtype][0]
+    fn = getattr(lib, name)
+    fn.argtypes = build._SIGNATURES["nufft_spread_2d_" + VALUE_TYPES[plan.dtype][0]]
+    grid = torch.zeros((1,) + plan.shape_over, dtype=vals.dtype, device=vals.device)
+    err = fn(vals.data_ptr(), plan.cells_sorted.data_ptr(), plan.fracs_sorted.data_ptr(),
+             plan.pstarts.data_ptr(), plan.coefs.data_ptr(), 0, grid.data_ptr(),
+             plan.num_points, 1, plan.m, plan.coefs.shape[-1], *plan.shape_over,
+             *plan.block_dims, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return grid
+
+
+def _registers_2d(text: str) -> str:
+    """Registers and spills of the M = 4 spread_2d instantiations in a ptxas
+    log."""
+    regs = re.findall(r"spread_2d_kernelILi4E([fd])Li(\d)E.*?(\d+) bytes spill stores.*?"
+                      r"Used (\d+) registers", text, re.S)
+    return ", ".join(f"<{t}, {n}> {r} (spill {s} B)" for t, n, s, r in regs)
+
+
+def fit_spread2d(samples):
+    """The 2D cost model's constants for one value type from the sweep:
+    ``samples`` of (block dims, m, ncomp, Np, grid cells, seconds).  Each
+    time is modelled as the sum of ``blocking.spread2d_counts`` (per cell,
+    times the grid's cells) times a constant, fitted by non-negative least
+    squares on relative errors.  Returns (constants, mean relative error)."""
+    from scipy.optimize import nnls
+
+    from nonuniformffts_tpu_torch import blocking
+
+    rows = []
+    for dims, m, ncomp, np_, cells, t in samples:
+        counts = blocking.spread2d_counts(dims, m, ncomp, np_ / cells)
+        rows.append([c * cells / t for c in counts])
+    rows = np.array(rows)
+    consts, _ = nnls(rows, np.ones(len(rows)))
+    return tuple(float(c) for c in consts), float(np.mean(np.abs(rows @ consts - 1.0)))
+
+
+def probe_spread2d(seed: int, dtypes, nps) -> None:
+    """The tensor-core 2D spread kernel against the shared-memory design it
+    replaced (``_CAS_SPREAD_2D_SRC``), in turns (old, new, new, old), two
+    passes, on the same points and values: the old kernel at its chooser's
+    pick (``CAS_PICKS_2D``), the new one at its own pick and at the old pick
+    (the old kernel's sorted points); err1 against exact sums of both
+    kernels' grids through the plan's FFT and deconvolution, three calls
+    each; the t2 interpolation stage (``csrc/interp_2d.cu``, which reads
+    in the bin sort's order) at the old and the new geometry, in turns, six
+    samples each; and the kernel's variants (``SPREAD2D_VARIANTS``) at the
+    pick, in turns with it.  At each dtype's main-path Np, 16,777,216 and
+    rho = 0.01.  Then
+    the new kernel at ``SPREAD2D_GEOMETRIES`` (in order and reversed) at
+    the two main-path densities, and the cost model fitted to them
+    (``fit_spread2d``), with the pick it makes.  2D, N = 4096^2 (grid
+    6144^2), m = 4, sigma = 1.5, BKB FastApproximation, uniform points; CUDA
+    events, median of 5 after one warm-up.  One JSON line a dtype and Np,
+    and one a dtype for the fit, with the card's name and power limit."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from chip_smoke import _err1, cuda_time_ms, nvidia_smi_line, rel_l2
+    from nonuniformffts_tpu_torch import blocking
+    from nonuniformffts_tpu_torch import execution as ex
+    from nonuniformffts_tpu_torch.ops.kernels import blocked, build
+    from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES
+
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    cas = _probe_library("cas_spread_2d", _m4_only(_with_warp_taps(_CAS_SPREAD_2D_SRC)),
+                         ("-I", str(build.CSRC_DIR)))
+    shipped = build.load()
+    variants = build.build_variants(SPREAD2D_VARIANTS, sources=("spread_2d.cu",))
+    print(f"ptxas shipped: {_registers_2d(build.PTXAS_LOG.read_text())}", flush=True)
+    print("ptxas cas: " + _registers_2d(
+        (ROOT / "build" / "chip_probe" / "cas_spread_2d.ptxas.log").read_text()), flush=True)
+    shape = SHAPES[2]
+    for name in dtypes:
+        dtype = np.dtype(name)
+        plan0 = nufft.PlanNUFFT(dtype, shape, m=4, sigma=1.5, spread_method="blocked",
+                                device=dev)
+        _, sb, ncomp = VALUE_TYPES[plan0.dtype]
+        tol = 1e-5 if sb == 4 else 1e-12
+        old_g, new_g = CAS_PICKS_2D[name], plan0.block_dims
+        cells = math.prod(plan0.shape_over)
+        for np_ in nps or (SPREAD2D_NP[name],) + SPREAD2D_EXTRA_NP:
+            gen = torch.Generator(device=dev).manual_seed(seed + np_)
+            pts = torch.rand((2, np_), generator=gen, device=dev,
+                             dtype=plan0.real_dtype) * (2 * math.pi)
+            vp = torch.randn((1, np_), generator=gen, device=dev, dtype=plan0.dtype)
+            plans = {g: nufft.set_points(dataclasses.replace(plan0, block_dims=g), pts)
+                     for g in dict.fromkeys((new_g, old_g))}
+            sorted_vals = {g: vp[:, p.sort_perm].contiguous() for g, p in plans.items()}
+            runs = {
+                "cas": lambda: _raw_spread_2d(cas, "cas_spread_2d_", plans[old_g],
+                                              sorted_vals[old_g]),
+                "new": lambda: _raw_spread_2d(shipped, "nufft_spread_2d_", plans[new_g],
+                                              sorted_vals[new_g]),
+                "new_at_cas_pick": lambda: _raw_spread_2d(shipped, "nufft_spread_2d_",
+                                                          plans[old_g], sorted_vals[old_g]),
+            }
+            want = blocked.spread_blocked_plain(
+                dataclasses.replace(plans[new_g], chunk_size=1 << 16), vp)
+            times = {k: [] for k in runs}
+            for _ in range(2):
+                for k in ("cas", "new", "new_at_cas_pick", "new_at_cas_pick", "new", "cas"):
+                    ms, got = cuda_time_ms(runs[k])
+                    times[k].append(ms)
+                    err = rel_l2(got, want)
+                    if not err <= tol:
+                        raise AssertionError(f"{name} {np_} {k}: rel L2 {err:.3e} vs plain")
+                    del got
+            line = {"probe": "spread2d", "card": card, "dtype": name, "np": np_,
+                    "chosen": list(new_g), "cas_pick": list(old_g),
+                    "ms": {k: sum(t) / len(t) for k, t in times.items()}}
+            line["speedup"] = line["ms"]["cas"] / line["ms"]["new"]
+            line["err1"] = {}
+            for k, lib, prefix, g in (("cas", cas, "cas_spread_2d_", old_g),
+                                      ("new", shipped, "nufft_spread_2d_", new_g)):
+                p = plans[g]
+                line["err1"][k] = [
+                    _err1(pts, vp[0], ex.t1_deconv_stage(p, ex.t1_fft_stage(
+                        p, _raw_spread_2d(lib, prefix, p, sorted_vals[g])))[0],
+                        shape, p.is_real, seed)
+                    for _ in range(3)]
+            # The t2 interpolation stage at both geometries, in turns.
+            grid = torch.randn((1,) + plan0.shape_over, generator=gen, device=dev,
+                               dtype=plan0.dtype)
+            it = {g: [] for g in plans}
+            for order in (list(plans), list(plans)[::-1]) * 3:
+                for g in order:
+                    ms, _ = cuda_time_ms(lambda: ex.t2_interp_stage(plans[g], grid))
+                    it[g].append(ms)
+            line["t2_interp_ms"] = {"x".join(map(str, g)): sum(t) / len(t)
+                                    for g, t in it.items()}
+            vt = {k: [] for k in ("shipped", *SPREAD2D_VARIANTS)}
+            for order in (list(vt), list(vt)[::-1]):
+                for k in order:
+                    lib = shipped if k == "shipped" else variants[k]
+                    ms, got = cuda_time_ms(lambda: _raw_spread_2d(
+                        lib, "nufft_spread_2d_", plans[new_g], sorted_vals[new_g]))
+                    err = rel_l2(got, want)
+                    if not err <= tol:
+                        raise AssertionError(f"{name} {np_} {k}: rel L2 {err:.3e} vs plain")
+                    vt[k].append(ms)
+                    del got
+            line["variants_ms"] = {k: sum(t) / len(t) for k, t in vt.items()}
+            print(json.dumps(line), flush=True)
+            del plans, sorted_vals, want, grid
+            torch.cuda.empty_cache()
+        # The geometry sweep at the two main-path densities, and the fit.
+        dims = [g for g in dict.fromkeys((new_g,) + SPREAD2D_GEOMETRIES)
+                if all(n % b == 0 for n, b in zip(plan0.shape_over, g))]
+        samples, sweep = [], {}
+        for np_ in SPREAD2D_FIT_NP:
+            gen = torch.Generator(device=dev).manual_seed(seed + np_)
+            pts = torch.rand((2, np_), generator=gen, device=dev,
+                             dtype=plan0.real_dtype) * (2 * math.pi)
+            vp = torch.randn((1, np_), generator=gen, device=dev, dtype=plan0.dtype)
+            gt = {g: [] for g in dims}
+            for order in (dims, dims[::-1]):
+                for g in order:
+                    plan = nufft.set_points(dataclasses.replace(plan0, block_dims=g), pts)
+                    vals = vp[:, plan.sort_perm].contiguous()
+                    ms, _ = cuda_time_ms(lambda: _raw_spread_2d(shipped, "nufft_spread_2d_",
+                                                                plan, vals))
+                    gt[g].append(ms)
+                    del plan, vals
+                    torch.cuda.empty_cache()
+            sweep[np_] = {"x".join(map(str, g)): sum(t) / len(t) for g, t in gt.items()}
+            samples += [(g, 4, ncomp, np_, cells, 1e-3 * sum(t) / len(t))
+                        for g, t in gt.items()]
+        consts, mean_err = fit_spread2d(samples)
+        saved = blocking.SPREAD2D_COST[(sb, ncomp)]
+        blocking.SPREAD2D_COST[(sb, ncomp)] = consts
+        pick = blocking.choose_geometry(plan0.shape_over, 4, sb, ncomp)
+        blocking.SPREAD2D_COST[(sb, ncomp)] = saved
+        print(json.dumps({"probe": "spread2d_fit", "card": card, "dtype": name,
+                          "geometries_ms": sweep, "fit": consts,
+                          "fit_mean_rel_err": mean_err, "fit_pick": list(pick),
+                          "shipped_pick": list(new_g)}), flush=True)
+
+
+#: Copies of csrc/spread_2d.cu with one phase taken out, for
+#: ``--spread2d-parts``: each maps a line of the source (spread_mma.cuh
+#: written in place of its include) to its replacement.  Their grids are
+#: wrong; only their times are read.
+SPREAD2D_PARTS = {
+    "no_mma": {"nufft::mma_f64(acc[c][r], a[r], b);": "acc[c][r][0] += a[r][0] * b[0];"},
+    # Every tap a number from z in place of Horner's rule; the staging
+    # stores stay.
+    "no_taps": {"tap_chunk<S, V>(wtaps, cs_d, ncoef, z, np, j, d, t0, w);":
+                "for (int v = 0; v < V; ++v) w[v] = z + T(t0 + v);"},
+    # No staging stores, and none of the erasing ones.
+    "no_stores": {"col[row * kStride] = double(w[v]) * scale[k];":
+                  "{ if (w[v] == T(1.25e-30)) col[row * kStride] = double(w[v]) * scale[k]; }",
+                  "col[row * kStride] = 0.0;": "if (row == -7) col[row * kStride] = 0.0;"},
+    # The flush's reductions as writes under a condition that never holds.
+    "no_flush_write": {"  red_v2(p, float(re), float(im));": "  if (re == 1.25e-300) p[0] = float(im);",
+                       "  atomicAdd(p, re);\n  atomicAdd(p + 1, im);":
+                       "  if (re == 1.25e-300) p[0] = im;",
+                       "nufft::red_v2(p0, float(d0), float(d1));":
+                       "if (d0 == 1.25e-300) p0[0] = T(d1);",
+                       "if (gy[c][0] >= 0 && d0 != 0.0) atomicAdd(p0, T(d0));":
+                       "if (d0 == 1.25e-300) p0[0] = T(d0);",
+                       "if (gy[c][1] >= 0 && d1 != 0.0) atomicAdd(line + gy[c][1], T(d1));":
+                       "if (d1 == 1.25e-300) line[0] = T(d1);"},
+}
+
+
+def _inlined_source(stem: str) -> str:
+    """``csrc/<stem>.cu`` with ``spread_mma.cuh`` written in place of its
+    include, so that a probe can edit the header's code too."""
+    from nonuniformffts_tpu_torch.ops.kernels import build
+
+    src = (build.CSRC_DIR / f"{stem}.cu").read_text()
+    header = (build.CSRC_DIR / "spread_mma.cuh").read_text().replace("#pragma once\n", "")
+    return src.replace('#include "spread_mma.cuh"\n', header)
+
+
+def probe_spread2d_parts(seed: int, dtypes, nps) -> None:
+    """Where the 2D spread kernel's time goes: the shipped kernel and copies
+    of its source with one phase taken out (``SPREAD2D_PARTS``), each built
+    by this script for M = 4 alone into ``build/chip_probe/``, timed in turns at the
+    chooser's pick on the same sorted points (CUDA events, median of 5, two
+    passes), at each dtype's main-path Np and 16,777,216.  One JSON line a
+    dtype and Np."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from chip_smoke import cuda_time_ms, nvidia_smi_line
+    from nonuniformffts_tpu_torch.ops.kernels import build
+
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    src = _m4_only(_inlined_source("spread_2d"))
+    texts = {}
+    for name, edits in SPREAD2D_PARTS.items():
+        texts[name] = src
+        for old, new in edits.items():
+            if old not in src:
+                raise AssertionError(f"{name}: {old!r} not in spread_2d.cu")
+            texts[name] = texts[name].replace(old, new)
+    libs = {"shipped": build.load()}
+    with ThreadPoolExecutor(len(texts)) as pool:
+        futures = {k: pool.submit(_probe_library, f"spread2d_{k}", text,
+                                  ("-I", str(build.CSRC_DIR)))
+                   for k, text in texts.items()}
+        libs.update({k: f.result() for k, f in futures.items()})
+    for name in texts:
+        log = ROOT / "build" / "chip_probe" / f"spread2d_{name}.ptxas.log"
+        print(f"ptxas {name}: {_registers_2d(log.read_text())}", flush=True)
+    for name in dtypes:
+        dtype = np.dtype(name)
+        plan0 = nufft.PlanNUFFT(dtype, SHAPES[2], m=4, sigma=1.5,
+                                spread_method="blocked", device=dev)
+        for np_ in nps or (SPREAD2D_NP[name], 16_777_216):
+            gen = torch.Generator(device=dev).manual_seed(seed + np_)
+            pts = torch.rand((2, np_), generator=gen, device=dev,
+                             dtype=plan0.real_dtype) * (2 * math.pi)
+            vp = torch.randn((1, np_), generator=gen, device=dev, dtype=plan0.dtype)
+            plan = nufft.set_points(plan0, pts)
+            vals = vp[:, plan.sort_perm].contiguous()
+            times = {k: [] for k in libs}
+            for order in (list(libs), list(libs)[::-1]):
+                for k in order:
+                    ms, _ = cuda_time_ms(lambda: _raw_spread_2d(libs[k], "nufft_spread_2d_",
+                                                                plan, vals))
+                    times[k].append(ms)
+            print(json.dumps({"probe": "spread2d_parts", "card": card, "dtype": name,
+                              "np": np_, "block_dims": list(plan.block_dims),
+                              "ms": {k: sum(t) / len(t) for k, t in times.items()}}),
+                  flush=True)
+            del plan, vals
+            torch.cuda.empty_cache()
 
 
 # The 3D interpolation kernel the staged-window design replaced (the first
@@ -1341,7 +1866,7 @@ def probe_spread3d_parts(seed: int, dtypes, nps) -> None:
     card = nvidia_smi_line()
     print(card, flush=True)
     dev = torch.device("cuda")
-    src = (build.CSRC_DIR / "spread_3d.cu").read_text()
+    src = _inlined_source("spread_3d")
     libs = {"shipped": build.load()}
     for name, edits in SPREAD3D_PARTS.items():
         text = src
@@ -1399,6 +1924,12 @@ def main(argv=None) -> int:
                              "and stop")
     parser.add_argument("--spread3d-parts", action="store_true",
                         help="time the 3D spread kernel with each phase taken out, and stop")
+    parser.add_argument("--spread2d", action="store_true",
+                        help="time the 2D spread kernel against the design it replaced, "
+                             "the t2 interpolation at both geometries, and the geometry "
+                             "sweep with the cost model's fit, and stop")
+    parser.add_argument("--spread2d-parts", action="store_true",
+                        help="time the 2D spread kernel with each phase taken out, and stop")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
 
@@ -1423,6 +1954,12 @@ def main(argv=None) -> int:
         return 0
     if args.spread3d_parts:
         probe_spread3d_parts(args.seed, args.dtype, args.np)
+        return 0
+    if args.spread2d or args.spread2d_parts:
+        if args.spread2d:
+            probe_spread2d(args.seed, args.dtype, args.np)
+        if args.spread2d_parts:
+            probe_spread2d_parts(args.seed, args.dtype, args.np)
         return 0
 
     import nonuniformffts_tpu_torch as nufft

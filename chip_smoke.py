@@ -11,8 +11,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
    (one nvcc per source, dimension and value type, all at once), prints each
    kernel's registers and spills from ``ptxas -v`` and the atomic and DMMA
    (FP64 tensor-core) instructions its SASS holds (``cuobjdump -sass``);
-   every 3D spread instantiation must hold DMMA and no shared-memory
-   atomic;
+   every 2D and 3D spread instantiation must hold DMMA and no
+   shared-memory atomic;
 3. the 3D complex64 kernels against their plain PyTorch versions on the
    card: a 64^3 plan (grid 96^3), 200,000 uniform points, and the
    interpolation kernel's branch for blocks below ``INTERP3D_SPARSE``
@@ -35,7 +35,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
    at Np = 1,000,000 and 16,777,216;
 8. the 2D main path, N = 4096^2 (grid 6144^2), m = 4, sigma = 1.5, all four
    dtypes: complex64 and float32 at Np = 1,000,000 and 16,777,216,
-   complex128 and float64 at 1,677,722 and 16,777,216;
+   complex128 and float64 at 1,677,722 and 16,777,216; at 16,777,216 also
+   the spread kernel against its plain version on the row's own points;
 9. the 1D main path, N = 2^20 (grid 1,572,864), m = 4, sigma = 1.5, all four
    dtypes at Np = 1,000,000 and 10,000,000;
 10. every window at the full 3D width: N = 256^3, m = 4, sigma = 2 (grid
@@ -312,9 +313,10 @@ def report_ptxas(text: str) -> None:
 def report_sass_atomics(lib_path: Path) -> None:
     """The atomic and FP64 tensor-core instructions of each kernel's SASS: a
     shared-memory add compiled to a compare-and-swap loop shows as
-    ATOMS.CAST.SPIN, an ``mma.sync .f64`` as DMMA.  The 3D spread kernel
-    contracts on the tensor cores and adds in registers: an instantiation
-    without DMMA or with a shared-memory atomic fails the phase."""
+    ATOMS.CAST.SPIN, an ``mma.sync .f64`` as DMMA.  The 2D and 3D spread
+    kernels contract on the tensor cores and add in registers: an
+    instantiation without DMMA or with a shared-memory atomic fails the
+    phase."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         log("  cuobjdump: not found, SASS not read")
@@ -328,12 +330,12 @@ def report_sass_atomics(lib_path: Path) -> None:
             r"\b((?:ATOMS|ATOMG|REDG|RED|ATOM)\.[A-Za-z0-9.]+|DMMA(?:\.[A-Za-z0-9.]+)?)", body))
         log(f"  sass {label}: "
             + (", ".join(f"{k} x{v}" for k, v in sorted(ops.items())) or "no atomics"))
-        if label.startswith("spread_3d<") and (
+        if label.startswith(("spread_2d<", "spread_3d<")) and (
                 any(k.startswith("ATOMS") for k in ops)
                 or not any(k.startswith("DMMA") for k in ops)):
             wrong.append(label)
     if wrong:
-        raise AssertionError("3D spread instantiations with a shared-memory atomic or "
+        raise AssertionError("spread instantiations with a shared-memory atomic or "
                              f"without DMMA: {wrong}")
 
 
@@ -484,6 +486,28 @@ def compare_kernels(plan, vp, grid, timed: bool, plain_chunk: int = PLAIN_CHUNK,
                              bound_ms=bound_ms, bound_by=bound_by)
         del got, want
     return results
+
+
+def check_spread_kernel(plan, vp):
+    """The plan's spread kernel against its plain version on the main
+    path's own points and values (one call each, untimed), with the bound
+    of that work."""
+    import torch
+
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    got = blocked.spread_blocked(plan, vp)
+    want = blocked.spread_blocked_plain(dataclasses.replace(plan, chunk_size=PLAIN_CHUNK), vp)
+    torch.cuda.synchronize()
+    err = rel_l2(got, want)
+    max_abs = float((got - want).abs().max())
+    bound_ms, bound_by = kernel_bound("spread", plan, vp.shape[0])
+    name = blocked.entry_point("spread", plan)
+    log(f"  {name} at Np = {plan.num_points:,}: rel L2 {err:.3e}, max abs {max_abs:.3e} "
+        f"vs plain, bound {bound_ms:.4g} ms ({bound_by})")
+    check(f"{name} rel L2 vs plain at Np={plan.num_points}", err,
+          KERNEL_TOL[torch.empty((), dtype=plan.real_dtype).element_size()])
+    return dict(rel_l2=err, max_abs_err=max_abs, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_kernels(seed: int):
@@ -674,13 +698,14 @@ def float32_accumulation_diagnostic(plan, pts, vp, err1_f32: float, seed: int):
 
 def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
               diagnose_at=None, m: int = 4, sigma: float = 1.5, window=MAIN_WINDOW,
-              err_tol: float = ERR_TOL, err_modes: int = ERR_MODES):
+              err_tol: float = ERR_TOL, err_modes: int = ERR_MODES, spread_check_np=None):
     """Drive one dtype's main path at ``shape``, ``m``, ``sigma`` and
     ``window`` (kernel class and evaluation mode names; BKB
     FastApproximation, m = 4, sigma = 1.5 by default) for each Np, holding
     err1 (at ``err_modes`` random modes) and err2 to ``err_tol``; returns (launches summed over the rows,
     kernel comparisons at ``compare_np``).  At Np = ``diagnose_at`` also
-    runs ``float32_accumulation_diagnostic``."""
+    runs ``float32_accumulation_diagnostic``, and at ``spread_check_np``
+    ``check_spread_kernel``."""
     import torch
 
     import nonuniformffts_tpu_torch as nufft
@@ -746,6 +771,8 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
         del uhat, v2
         if np_ == diagnose_at:
             row["p2"] = float32_accumulation_diagnostic(plan, pts, vp, e1, seed)
+        if np_ == spread_check_np:
+            row["spread_vs_plain"] = check_spread_kernel(plan, vp_c)
         rows.append(row)
         if np_ == compare_np:
             log("  kernels against their plain versions at this shape:")
@@ -1460,7 +1487,8 @@ def main(argv=None) -> int:
             nps = NP_1D if len(shape) == 1 else (
                 NP_64 if dtype in (np.complex128, np.float64) else NP_MAIN)
             record(main_path(f"{len(shape)}D {np.dtype(dtype).name}", dtype, shape, nps,
-                             nps[0], args.seed))
+                             nps[0], args.seed,
+                             spread_check_np=nps[-1] if len(shape) == 2 else None))
     phase_windows(args.seed, record, windows)
     phase_m10(args.seed, record, windows)
     phase_nfft(args.seed, record)

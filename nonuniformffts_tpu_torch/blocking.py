@@ -23,14 +23,9 @@ from typing import Sequence, Tuple
 import torch
 
 from .ops.kernels.common import (
-    ACC_BYTES,
-    MAX_SMEM_BYTES,
     NUM_SMS,
-    SM_SMEM_BYTES,
-    SMEM_RESERVED_PER_CTA,
-    spread_bank_conflicts,
+    spread2d_units,
     spread_ctas_per_sm,
-    spread_smem_bytes,
     spread_tiles,
 )
 from .ops.stencil import cells_and_fracs
@@ -94,14 +89,70 @@ def spread3d_cost(block_dims: Sequence[int], m: int, ncomp: int,
     return cost
 
 
+# The 2D chooser's cost model (``csrc/spread_2d.cu``), fitted to the
+# geometry sweep of ``chip_probe.py --spread2d`` (18 geometries at grid
+# 6144^2, m = 4, four dtypes, 1M and 16,777,216 points; mean error 8.5-11.8%
+# by dtype, PERF.md): the kernel's seconds on the whole card are a sum of
+# four counts, each times a constant of the value type:
+#
+# - each non-empty block's units (a warp's set-up, the unit loop and the
+#   flush's code);
+# - the cells the flush adds into the grid (those some point reached);
+# - each point's taps, once a unit (2M taps of a dimension a lane, staged);
+# - each point's MMA tiles over all units (row tiles x n-tiles; 8 points a
+#   k-step).
+#: Constants (seconds per count) by (scalar bytes, components): block-unit,
+#: flushed cell, point-unit tap, point tile.
+SPREAD2D_COST = {
+    (4, 2): (1.37e-9, 2.93e-12, 2.96e-12, 4.51e-12),
+    (8, 2): (1.60e-9, 1.15e-11, 3.85e-12, 3.16e-12),
+    (4, 1): (8.17e-10, 6.39e-12, 1.76e-12, 3.67e-12),
+    (8, 1): (1.03e-9, 8.97e-12, 3.10e-12, 3.07e-12),
+}
+#: Points per oversampled cell the model is summed over: the 2D main path's
+#: two point counts at grid 6144^2 (1M and 16,777,216).
+SPREAD2D_DENSITIES = (1_000_000 / 6144 ** 2, 16_777_216 / 6144 ** 2)
+#: Largest 2D block dim considered.
+MAX_BLOCK_2D = 128
+
+
+def _reach_counts(b: int, m: int) -> torch.Tensor:
+    """For each padded index of a block dim of ``b`` cells, how many of the
+    block's cells have it within their 2M taps."""
+    i = torch.arange(b + 2 * m - 1, dtype=torch.float64)
+    return (torch.clamp(i, max=b - 1) - torch.clamp(i - 2 * m + 1, min=0) + 1)
+
+
+def spread2d_counts(block_dims: Sequence[int], m: int, ncomp: int, rho: float):
+    """The cost model's four counts per oversampled grid cell at density
+    ``rho`` (uniform points, so a block of V cells holds Poisson(rho V)
+    points, and a padded cell reached by q of its cells is flushed with
+    probability 1 - exp(-rho q)): non-empty block-units, flushed cells,
+    point-unit taps and point tiles."""
+    u = spread2d_units(block_dims, m, ncomp)
+    vol = block_dims[0] * block_dims[1]
+    lam = rho * vol
+    full = -math.expm1(-lam)  # share of blocks holding a point
+    q = torch.outer(_reach_counts(block_dims[0], m), _reach_counts(block_dims[1], m))
+    flushed = float((-torch.expm1(-rho * q)).sum())
+    return (full * u.units / vol, flushed / vol, rho * u.units * 2 * m,
+            rho * u.row_tiles * u.col_tiles)
+
+
+def spread2d_cost(block_dims: Sequence[int], m: int, ncomp: int,
+                  scalar_bytes: int = 4) -> float:
+    """Modelled seconds per oversampled grid cell of the 2D spread kernel at
+    ``block_dims``, summed over ``SPREAD2D_DENSITIES``."""
+    consts = SPREAD2D_COST[(scalar_bytes, ncomp)]
+    return sum(c * n for rho in SPREAD2D_DENSITIES
+               for c, n in zip(consts, spread2d_counts(block_dims, m, ncomp, rho)))
+
+
 def choose_geometry(shape_over: Sequence[int], m: int, scalar_bytes: int = 4,
-                    ncomp: int = 2, ncoef: int = None) -> Tuple[int, ...]:
+                    ncomp: int = 2) -> Tuple[int, ...]:
     """Block dims for the spread kernel on an H100, for values of ``ncomp``
     scalars of ``scalar_bytes`` each (complex64: 4, 2; complex128: 8, 2;
-    float32: 4, 1; float64: 8, 1) and a window of ``ncoef`` staged
-    coefficients a tap (``m + 4`` by default, (B)KB FastApproximation; 0
-    for the other windows).  Each block dim divides its grid dim and the
-    CTA's shared memory (``spread_smem_bytes``) fits the 227 KB.
+    float32: 4, 1; float64: 8, 1).  Each block dim divides its grid dim.
 
     1D (``csrc/spread_1d.cu`` keeps its sums in registers, so shared memory
     does not bound the block): the longest block, up to ``MAX_BLOCK_1D``
@@ -115,29 +166,17 @@ def choose_geometry(shape_over: Sequence[int], m: int, scalar_bytes: int = 4,
     card), the lowest ``spread3d_cost`` wins, ties going to the wider last
     dim: larger blocks stage more rows a point and may take more passes
     (``spread_tiles``) or fewer CTAs an SM; smaller ones make more blocks.
-    At grid 384^3, m = 4: (8, 8, 8) for complex values, (16, 8, 8) for real
+    At grid 384^3, m = 4: (8, 8, 8) for complex values, (24, 8, 8) for real
     ones.
 
-    2D (a padded block of ``ncomp`` double planes in shared memory,
-    ``ACC_BYTES``): among candidates up to 128 cells a dim with at least two
-    blocks per SM, the lowest estimated cost ``halo_ratio * conflicts /
-    ctas`` wins, ties going to the wider last dim (coalesced flush rows):
-
-    - ``halo_ratio = prod(B + 2M - 1) / prod(B)``: every padded cell of a
-      non-empty block costs a global atomic add in the flush;
-    - ``conflicts``: lanes of a warp on one shared-memory bank in the tap
-      loop (``spread_bank_conflicts``), which depends on the padded last
-      dim; K1 ran 1.8x (float32) to 3x (complex64) slower at rho = 1 with
-      a last block dim of 24 (4-way) than of 16 (2-way) (PERF.md);
-    - ``ctas``: resident CTAs per SM by shared memory, counted up to what
-      the register file allows (``spread_ctas_per_sm``).  K1 ran 1.8x
-      faster at rho = 1 with three CTAs' worth of shared memory per SM than
-      with one (PERF.md): one CTA's atomics stall at its barriers
-      unless another CTA runs.  A complex cell takes 16 B, so the same cap
-      picks smaller blocks than for real values.
+    2D (``csrc/spread_2d.cu``, a warp a block, its sum a tensor-core
+    product in registers, one unit at a time; the CTA's shared memory does
+    not depend on the block): among candidates up to ``MAX_BLOCK_2D`` cells
+    a dim with at least two blocks per SM, the lowest ``spread2d_cost``
+    wins, ties going to the wider last dim: larger blocks flush fewer halo
+    cells a point but may take more units (each a walk over the block's
+    points) and more MMA tiles a point; smaller ones make more blocks.
     """
-    if ncoef is None:
-        ncoef = m + 4
     D = len(shape_over)
     if D == 1:
         n = shape_over[0]
@@ -153,29 +192,11 @@ def choose_geometry(shape_over: Sequence[int], m: int, scalar_bytes: int = 4,
         return max(itertools.product(*per_dim),
                    key=lambda dims: (total // (dims[0] * dims[1] * dims[2]) >= 2 * NUM_SMS,
                                      -spread3d_cost(dims, m, ncomp, scalar_bytes), dims[-1]))
-    cta_cap = spread_ctas_per_sm(scalar_bytes, ncomp, m, D)
-    per_dim = [[b for b in range(1, min(n, 128) + 1) if n % b == 0]
+    per_dim = [[b for b in range(1, min(n, MAX_BLOCK_2D) + 1) if n % b == 0]
                for n in shape_over]
-    best, best_score = None, None
-    for dims in itertools.product(*per_dim):
-        smem = spread_smem_bytes(dims, m, ncoef, scalar_bytes, ncomp)
-        if smem > MAX_SMEM_BYTES:
-            continue
-        ctas = min(SM_SMEM_BYTES // (smem + SMEM_RESERVED_PER_CTA), cta_cap)
-        vol, padded = 1, 1
-        for b in dims:
-            vol *= b
-            padded *= b + 2 * m - 1
-        conflicts = spread_bank_conflicts(dims[-1] + 2 * m - 1, m, ACC_BYTES)
-        score = (total // vol >= 2 * NUM_SMS, -padded / vol * conflicts / ctas,
-                 dims[-1])
-        if best_score is None or score > best_score:
-            best, best_score = tuple(dims), score
-    if best is None:
-        raise ValueError(
-            f"no block geometry fits shared memory for m={m} on grid {shape_over}"
-        )
-    return best
+    return max(itertools.product(*per_dim),
+               key=lambda dims: (total // (dims[0] * dims[1]) >= 2 * NUM_SMS,
+                                 -spread2d_cost(dims, m, ncomp, scalar_bytes), dims[-1]))
 
 
 def block_ids_from_cells(cells: torch.Tensor, shape_over, block_dims) -> torch.Tensor:

@@ -73,6 +73,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "spread_mma.cuh"
 #include "window.cuh"
 
 #ifndef NUFFT_SPREAD3D_ATOM_ROWS
@@ -142,50 +143,10 @@ size_t spread_smem_bytes(int m, int ncoef, int b0, int b1, int b2) {
          sizeof(int) * 3 * kBatch + sizeof(T) * 3 * s * ncoef;
 }
 
-// D += A B on the FP64 tensor cores.  Lane (g, t) = (lane / 4, lane % 4)
-// holds A[g + 8h][t + 4q] as a[q * kHalves + h], B[t + 4q][g] as b[q], and
-// D[g + 8h][2t + e] as d[2h + e].  m8n8k4 (sm_80): h, q = 0;
-// m16n8k4 and m16n8k8 (sm_90): h = 0, 1 and q = 0 or 0, 1.
-__device__ __forceinline__ void mma_f64(double (&d)[2], const double (&a)[1],
-                                        const double (&b)[1]) {
-  asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
-      : "+d"(d[0]), "+d"(d[1])
-      : "d"(a[0]), "d"(b[0]));
-}
-__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[2],
-                                        const double (&b)[1]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
-      "{%0, %1, %2, %3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(b[0]));
-}
-__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
-                                        const double (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
-}
-
-// Hopper's vector reduction into global memory (sm_90, global only): one
-// instruction adds two floats, a complex64 cell or two float32 cells.
-__device__ __forceinline__ void red_v2(float* p, float a, float b) {
-  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};\n" ::"l"(__cvta_generic_to_global(p)),
-               "f"(a), "f"(b)
-               : "memory");
-}
-
-// Adds a complex cell's sums (re, im) into the grid at p.
-__device__ __forceinline__ void add_complex(float* p, double re, double im) {
-  red_v2(p, float(re), float(im));
-}
-__device__ __forceinline__ void add_complex(double* p, double re, double im) {
-  atomicAdd(p, re);
-  atomicAdd(p + 1, im);
-}
+// The tensor-core product and the flush's reductions (spread_mma.cuh).
+using nufft::add_complex;
+using nufft::mma_f64;
+using nufft::red_v2;
 
 template <int M, typename T, int NCOMP>
 __global__ void __launch_bounds__(kMaxWarps * 32) spread_3d_kernel(

@@ -163,21 +163,6 @@ __device__ __forceinline__ T point_tap(const T* wtaps, const T* cs_t, int ncoef,
   return horner_tap(cs_t, ncoef, T(2) * X - T(1));
 }
 
-// The D x S taps of sorted point j into one warp's scratch taps[d * S + t]
-// (the 2D and 3D spread kernels): lane q takes tap q of the flattened
-// (D, S) set.  cs: (D, S, ncoef) coefficients.
-template <int S, int D, typename T>
-__device__ __forceinline__ void warp_taps(const T* wtaps, const T* cs,
-                                          int ncoef, const T* fracs,
-                                          long long np, long long j, int lane,
-                                          T* taps) {
-  for (int q = lane; q < D * S; q += 32) {
-    const int d = q / S;
-    taps[q] = wtaps ? wtaps[q * np + j]
-                    : horner_tap(cs + q * ncoef, ncoef, T(2) * fracs[d * np + j] - T(1));
-  }
-}
-
 // One non-uniform value or grid cell: NCOMP scalars of T (re, im for complex
 // values; one for real values), aligned so that it moves in one load.
 template <typename T, int NCOMP>

@@ -1,7 +1,8 @@
 """Blocked fast path: wrappers around the hand-written CUDA kernels, each
-with its plain PyTorch version: spread K4 (1D, 2D) and K1/K6a (3D, on the
-FP64 tensor cores), interpolate K5 (1D, 2D) and K2/K6b (3D, from each
-block's window staged in shared memory), and the window taps K3.
+with its plain PyTorch version: spread K4 (1D; 2D on the FP64 tensor cores)
+and K1/K6a (3D, on the FP64 tensor cores), interpolate K5 (1D, 2D) and
+K2/K6b (3D, from each block's window staged in shared memory), and the
+window taps K3.
 
 Counterpart of ``nonuniformffts_tpu/ops/pallas/blocked.py`` and
 ``blocked_ds.py``.  Both wrappers read the plan's bin-sorted point state

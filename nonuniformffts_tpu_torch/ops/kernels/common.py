@@ -2,9 +2,10 @@
 stack they read, the plain version of their tap evaluation, the value types
 they are instantiated for, the geometry limits of the card, the
 shared-memory footprint of the spread kernels, the tile geometry of the
-3D spread kernel (``spread_tiles``), which the kernel and the block
-geometry chooser share, and the staged window and lane groups of the 3D
-interpolation kernel (``interp_tiles``, ``interp_lanes``).
+2D and 3D spread kernels (``spread2d_units``, ``spread_tiles``), which the
+kernels and the block geometry chooser share, and the staged window and
+lane groups of the 3D interpolation kernel (``interp_tiles``,
+``interp_lanes``).
 
 Counterpart of ``nonuniformffts_tpu/ops/pallas/common.py``.  The TPU
 kernels placed the 2M taps of each point into dense weight matrices for the
@@ -15,7 +16,6 @@ the coefficient stack and the tap evaluation (``window_weights`` here,
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import math
 from typing import Sequence, Tuple
@@ -34,8 +34,6 @@ SM_SMEM_BYTES = 233_472
 SMEM_RESERVED_PER_CTA = 1024
 #: Registers of one SM.
 SM_REGISTERS = 65_536
-#: Threads per CTA of the 2D spread kernel (``csrc/spread_2d.cu:kThreads``).
-SPREAD_THREADS = 512
 #: Half-supports M the kernels are instantiated for (``csrc/window.cuh:
 #: NUFFT_FOR_EACH_M``); 10 is the JAX package's documented maximum.
 KERNEL_M_RANGE = range(2, 11)
@@ -69,6 +67,23 @@ SPREAD3D_MAX_WARPS = 16
 SPREAD3D_BATCH = 64
 SPREAD3D_STRIDE = SPREAD3D_BATCH + 4
 
+# The 2D spread kernel's units (``csrc/spread_2d.cu``, which must match): the
+# 3D kernel's product with the z factor dropped, G (NCOMP pd0 x pd1') +=
+# A B with pd1' = pd1 rounded to 8, a warp a block.  G is cut into units of
+# ``SPREAD2D_UNIT_ROWS`` rows x ``SPREAD2D_UNIT_COL_TILES`` n-tiles, which the
+# warp keeps in registers one at a time, walking the block's points once a
+# unit; each warp stages its points' dense operand rows (the unit's A rows
+# and B rows, ``SPREAD2D_STRIDE`` doubles apart) in its own slice of shared
+# memory, ``SPREAD2D_BATCH`` points at a time.
+#: Warps of one 2D spread CTA, a block each at a time (``kWarps``).
+SPREAD2D_WARPS = 8
+#: Points a warp stages at a time (two k-steps of the m16n8k8 MMA).
+SPREAD2D_BATCH = 16
+SPREAD2D_STRIDE = SPREAD2D_BATCH + 4
+#: Rows (two m16 tiles) and n-tiles (8 columns each) of one unit.
+SPREAD2D_UNIT_ROWS = 32
+SPREAD2D_UNIT_COL_TILES = 4
+
 # The 3D interpolation kernel (``csrc/interp_3d.cu``, which must match): a
 # CTA stages each dense block's padded window in shared memory, after a
 # batch's sums, the coefficient table (ncoef, 3, span), a batch's taps
@@ -95,21 +110,17 @@ VALUE_TYPES = {
     torch.float64: ("real_f64", 8, 1),
 }
 
-#: Registers per thread of each spread-kernel instantiation, by (D, scalar
-#: bytes, components) and then M = 2..10, as ``ptxas -v`` gave them for
-#: sm_90a (CUDA 12.9, PERF.md).  One instantiation serves every window.  The
-#: 1D kernel has no shared accumulator and its chooser no CTA term, so it has
-#: no row.  2D: the shared-memory accumulator kernel; 3D: the tensor-core
-#: kernel, whose 32 doubles of a warp's unit take 64 of them.
+#: Registers per thread of each 3D spread-kernel instantiation, by (D,
+#: scalar bytes, components) and then M = 2..10, as ``ptxas -v`` gave them
+#: for sm_90a (CUDA 12.9, PERF.md).  One instantiation serves every window;
+#: the 32 doubles of a warp's unit take 64 of them.  The 3D chooser counts
+#: the CTAs an SM holds by them; the 1D and 2D kernels launch CTAs of a
+#: fixed size and shared memory, so their choosers have no CTA term.
 SPREAD_REGISTERS = {
     (3, 4, 2): (128,) * 9,
     (3, 8, 2): (128,) * 9,
     (3, 4, 1): (128,) * 9,
     (3, 8, 1): (128,) * 9,
-    (2, 4, 2): (32, 53, 40, 57, 40, 40, 31, 38, 38),
-    (2, 8, 2): (32, 54, 40, 58, 47, 47, 40, 47, 47),
-    (2, 4, 1): (32, 40, 40, 40, 40, 36, 40, 40, 40),
-    (2, 8, 1): (32, 40, 36, 49, 44, 44, 32, 40, 40),
 }
 
 
@@ -130,11 +141,10 @@ def spread_registers(scalar_bytes: int, ncomp: int, m: int, ndim: int) -> int:
     return -(-regs // 8) * 8
 
 
-def spread_ctas_per_sm(scalar_bytes: int, ncomp: int, m: int, ndim: int = 3,
-                       threads: int = SPREAD_THREADS) -> int:
+def spread_ctas_per_sm(scalar_bytes: int, ncomp: int, m: int, ndim: int,
+                       threads: int) -> int:
     """Resident spread CTAs of ``threads`` threads per SM that the register
-    file allows: the 2D kernel runs faster with several CTAs resident than
-    with one (PERF.md); a 3D CTA's threads come from ``spread_tiles``."""
+    file allows; a 3D CTA's threads come from ``spread_tiles``."""
     regs = spread_registers(scalar_bytes, ncomp, m, ndim)
     return max(SM_REGISTERS // (regs * threads), 1)
 
@@ -182,6 +192,58 @@ def spread_tiles(block_dims: Sequence[int], m: int, ncomp: int) -> SpreadTiles:
     passes = -(-units // SPREAD3D_MAX_WARPS)
     return SpreadTiles(pd, row_tiles, z_tiles, col_tiles, units, passes,
                        -(-units // passes))
+
+
+@dataclasses.dataclass(frozen=True)
+class Spread2DUnits:
+    """The unit geometry of one padded block in the 2D spread kernel
+    (``csrc/spread_2d.cu:Units``)."""
+
+    padded: Tuple[int, int]
+    row_tiles: int   # ceil(NCOMP pd0 / 16)
+    col_tiles: int   # ceil(pd1 / 8)
+    col_groups: int  # ceil(col_tiles / SPREAD2D_UNIT_COL_TILES)
+    units: int       # row groups x column groups, walked one after another
+
+    @property
+    def rows(self) -> int:
+        """Rows of G the MMAs cover, padding included."""
+        return self.row_tiles * 16
+
+    @property
+    def cols(self) -> int:
+        """Columns of G the MMAs cover, padding included."""
+        return self.col_tiles * 8
+
+    def unit_tiles(self, unit: int) -> Tuple[int, int, int, int]:
+        """Unit ``unit``'s first row tile, first n-tile, and its row tiles
+        and n-tiles (``csrc/spread_2d.cu``, the unit loop)."""
+        per_unit = SPREAD2D_UNIT_ROWS // 16
+        rt0 = unit // self.col_groups * per_unit
+        ct0 = unit % self.col_groups * SPREAD2D_UNIT_COL_TILES
+        return (rt0, ct0, min(per_unit, self.row_tiles - rt0),
+                min(SPREAD2D_UNIT_COL_TILES, self.col_tiles - ct0))
+
+
+def spread2d_coef_stride(m: int, ncoef: int, scalar_bytes: int) -> int:
+    """Scalars from one dim's staged coefficients to the next's in the 2D
+    spread kernel (``csrc/spread_2d.cu:coef_stride``): the coefficient-major
+    ``(ncoef, 2M)`` stack rounded up to 16 bytes past a multiple of 128, so
+    that the warp's two halves, one on each dim, read different banks and
+    every 16-byte chunk stays aligned."""
+    stack = 2 * m * ncoef * scalar_bytes
+    return (stack + (16 - stack) % 128) // scalar_bytes
+
+
+def spread2d_units(block_dims: Sequence[int], m: int, ncomp: int) -> Spread2DUnits:
+    """The 2D spread kernel's units for ``block_dims`` (two dims), M = m and
+    values of ``ncomp`` scalars."""
+    pd = padded_block_dims(block_dims, m)
+    row_tiles = -(-ncomp * pd[0] // 16)
+    col_tiles = -(-pd[1] // 8)
+    col_groups = -(-col_tiles // SPREAD2D_UNIT_COL_TILES)
+    row_groups = -(-row_tiles // (SPREAD2D_UNIT_ROWS // 16))
+    return Spread2DUnits(pd, row_tiles, col_tiles, col_groups, row_groups * col_groups)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,31 +315,6 @@ def interp_tiles(block_dims: Sequence[int], m: int, ncoef: int, scalar_bytes: in
     return InterpTiles(pd, pitch, planes, passes, head + plane_bytes * planes)
 
 
-def spread_bank_conflicts(pd_last: int, m: int, word_bytes: int) -> int:
-    """Most lanes of one warp that hit the same shared-memory bank in the 2D
-    spread kernel's tap loop (``csrc/spread_2d.cu``): lane ``q`` adds to
-    word ``(q // 2M) * pd_last + q % 2M`` of an accumulator plane of
-    ``word_bytes`` words (``ACC_BYTES``), where ``pd_last`` is the padded
-    last block dim (lanes over (x, y) tap pairs).  4-byte words serve the 32
-    lanes from 32 banks; 8-byte words serve each half-warp from 16 bank
-    pairs.  Each conflict serialises a compare-and-swap loop (PERF.md): a 3D
-    kernel of the same design ran 3x slower at pd_last = 31 (4 lanes a bank)
-    than at 23 (2) with float accumulators.  The 3D kernel adds in
-    registers and the 1D kernel (``csrc/spread_1d.cu``) has no shared
-    accumulator: its lanes read consecutive words of a start table, one lane
-    a bank."""
-    S = 2 * m
-    lanes = 32 if word_bytes == 4 else 16
-    worst = 1
-    for start in range(0, S * S, lanes):
-        counts = collections.Counter(
-            ((q // S) * pd_last + q % S) % lanes
-            for q in range(start, min(start + lanes, S * S))
-        )
-        worst = max(worst, max(counts.values()))
-    return worst
-
-
 def coefficient_stack(kernel_data: Sequence[KernelData]) -> torch.Tensor:
     """The per-dim piecewise-polynomial coefficients as one contiguous
     ``(D, 2M, ncoef)`` tensor in the plan's real dtype, TAP-MAJOR:
@@ -312,9 +349,11 @@ def spread_smem_bytes(block_dims: Sequence[int], m: int, ncoef: int,
     pd1 + cols / pd1`` rows of ``SPREAD3D_STRIDE`` doubles), the batch's
     compact 3 x 2M taps and ``ncomp`` values in double and its local cells
     in int32, then the ``(3, 2M, ncoef)`` coefficient stack; the sums live
-    in registers.  2D: ``ncomp`` accumulator planes of ``ACC_BYTES``
-    scalars over the padded block, then the ``(2, 2M, ncoef)`` coefficient
-    stack and each warp's 2 x 2M taps of ``scalar_bytes`` each.  1D: the
+    in registers.  2D: each of ``SPREAD2D_WARPS`` warps' unit rows (A's and
+    B's, ``SPREAD2D_UNIT_ROWS`` + 8 ``SPREAD2D_UNIT_COL_TILES`` rows of
+    ``SPREAD2D_STRIDE`` doubles), then the two dims' coefficient-major
+    ``(ncoef, 2M)`` stacks, ``spread2d_coef_stride`` apart; the block dims
+    do not enter, and the sums live in registers.  1D: the
     ``(2M, ncoef)`` coefficients and an int32 start table of B + 1 entries;
     the sums live in registers."""
     D = len(block_dims)
@@ -326,11 +365,9 @@ def spread_smem_bytes(block_dims: Sequence[int], m: int, ncoef: int,
         dense = t.rows + t.padded[1] + 8 * t.z_tiles
         return (8 * (SPREAD3D_STRIDE * dense + (ntaps + ncomp) * SPREAD3D_BATCH)
                 + 4 * 3 * SPREAD3D_BATCH + scalar_bytes * ntaps * ncoef)
-    pv = 1
-    for p in padded_block_dims(block_dims, m):
-        pv *= p
-    return ACC_BYTES * ncomp * pv + scalar_bytes * (ntaps * ncoef
-                                                    + (SPREAD_THREADS // 32) * ntaps)
+    rows = SPREAD2D_UNIT_ROWS + 8 * SPREAD2D_UNIT_COL_TILES
+    return (8 * SPREAD2D_WARPS * rows * SPREAD2D_STRIDE
+            + scalar_bytes * (spread2d_coef_stride(m, ncoef, scalar_bytes) + 2 * m * ncoef))
 
 
 def window_weights(kd: KernelData, evalmode, X: torch.Tensor,

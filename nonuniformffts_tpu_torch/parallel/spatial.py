@@ -68,7 +68,6 @@ from ..ops.deconvolve import pad_axis, truncate_axis
 from ..ops.kernels.blocked import check_kernel_support, interpolate_blocked, spread_blocked
 from ..ops.kernels.common import VALUE_TYPES
 from ..ops.kernels.relayout import relayout_to_blocks, relayout_to_grid
-from ..ops.windows import WINDOW_KINDS, window_pack
 from ..plan import Plan, PlanNUFFT, _canonicalise_points, _identity, _as_real_tensor
 from . import comm
 
@@ -190,13 +189,11 @@ class SpatialNUFFT:
         planes = self.n0_local + 2 * m - 1
         self.ext_shape_over = (-(-planes // SLAB_ALIGN) * SLAB_ALIGN,) + base.shape_over[1:]
         _, scalar_bytes, ncomp = VALUE_TYPES[base.dtype]
-        horner = window_pack(base.kernel_data, base.evalmode).kind == WINDOW_KINDS["horner"]
         kd0 = dataclasses.replace(base.kernel_data[0], n=self.ext_shape_over[0])
         self._slab_plan = dataclasses.replace(
             base,
             shape_over=self.ext_shape_over,
-            block_dims=choose_geometry(self.ext_shape_over, m, scalar_bytes, ncomp,
-                                       ncoef=m + 4 if horner else 0),
+            block_dims=choose_geometry(self.ext_shape_over, m, scalar_bytes, ncomp),
             kernel_data=(kd0,) + base.kernel_data[1:],
             spread_method="blocked",
             # The slab's own shape_over would inflate the FFT normalisation by

@@ -21,7 +21,6 @@ from .ops import deconvolve, windows
 from .ops.kernels.blocked import check_kernel_support
 from .ops.kernels.common import VALUE_TYPES, coefficient_stack
 from .ops.windows import (
-    WINDOW_KINDS,
     AbstractKernel,
     BackwardsKaiserBesselKernel,
     EvaluationMode,
@@ -320,9 +319,7 @@ def PlanNUFFT(
             )
         if block_dims is None:
             _, scalar_bytes, ncomp = VALUE_TYPES[tdtype]
-            horner = window_pack(kernel_data, kernel_evalmode).kind == WINDOW_KINDS["horner"]
-            block_dims = choose_geometry(shape_over, m, scalar_bytes, ncomp,
-                                         ncoef=m + 4 if horner else 0)
+            block_dims = choose_geometry(shape_over, m, scalar_bytes, ncomp)
         block_dims = tuple(int(b) for b in block_dims)
         if len(block_dims) != D:
             raise ValueError(f"block_dims {block_dims} must have {D} entries")

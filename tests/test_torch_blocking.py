@@ -12,14 +12,16 @@ import nonuniformffts_tpu_torch as tnufft
 from nonuniformffts_tpu.blocking import packed_layout
 from nonuniformffts_tpu_torch import blocking
 from nonuniformffts_tpu_torch.ops.kernels.common import (
-    ACC_BYTES,
     MAX_SMEM_BYTES,
     NUM_SMS,
     SM_SMEM_BYTES,
     SMEM_RESERVED_PER_CTA,
+    SPREAD2D_UNIT_COL_TILES,
+    SPREAD2D_UNIT_ROWS,
     SPREAD3D_MAX_WARPS,
     VALUE_TYPES,
-    spread_bank_conflicts,
+    spread2d_coef_stride,
+    spread2d_units,
     spread_ctas_per_sm,
     spread_smem_bytes,
     spread_tiles,
@@ -94,28 +96,37 @@ def test_main_path_geometry():
 
 
 @pytest.mark.parametrize(
-    "pd_last,m,scalar_bytes,want",
-    [(23, 4, 4, 2), (31, 4, 4, 4), (19, 4, 4, 2), (40, 4, 4, 1), (31, 4, 8, 2),
-     (23, 4, 8, 2), (23, 2, 4, 1)],
+    "block_dims,m,ncomp,want",
+    [((8, 16), 4, 2, (2, 3, 1, 1)), ((8, 24), 4, 2, (2, 4, 1, 1)), ((16, 16), 4, 2, (3, 3, 1, 2)),
+     ((24, 24), 4, 1, (2, 4, 1, 1)), ((8, 8), 10, 2, (4, 4, 1, 2)),
+     ((48, 64), 4, 2, (7, 9, 3, 12)), ((32, 32), 10, 1, (4, 7, 2, 4))],
+    ids=str,
 )
-def test_spread_bank_conflicts(pd_last, m, scalar_bytes, want):
-    """Lanes of a warp on one shared-memory bank in the spread kernel's tap
-    loop: lane q writes word (q // 2M) * pd_last + q % 2M."""
-    assert spread_bank_conflicts(pd_last, m, scalar_bytes) == want
+def test_spread2d_units(block_dims, m, ncomp, want):
+    """The 2D spread kernel's units (``csrc/spread_2d.cu:units_of``): row
+    tiles of 16 over NCOMP pd0 rows, n-tiles of 8 over pd1 columns, units of
+    two row tiles x four n-tiles, walked one after another.  The main
+    path's complex blocks are one unit; (48, 64), the shared-memory
+    kernel's complex pick, would be 12."""
+    u = spread2d_units(block_dims, m, ncomp)
+    assert (u.row_tiles, u.col_tiles, u.col_groups, u.units) == want
+    assert u.padded == tuple(b + 2 * m - 1 for b in block_dims)
+    assert u.rows >= ncomp * u.padded[0] and u.cols >= u.padded[1]
+    tiles = [u.unit_tiles(k) for k in range(u.units)]
+    # The units cover every tile once.
+    assert sum(nr * nc for _, _, nr, nc in tiles) == u.row_tiles * u.col_tiles
+    assert all(nr * 16 <= SPREAD2D_UNIT_ROWS and nc <= SPREAD2D_UNIT_COL_TILES
+               for _, _, nr, nc in tiles)
 
 
-def test_float32_geometry_avoids_four_way_conflicts():
-    """The 2D spread kernel's tap loop (shared-memory adds, each a
-    compare-and-swap loop) stays at two lanes a bank of the double
-    accumulator for the float32 and complex64 picks at the 2D main path's
-    grid 6144^2, m = 4; with float words a last block dim of 24 (padded 31)
-    put four there (a 3D kernel of that design ran 1.8-3x slower, PERF.md).
-    The 3D kernel has no such loop: its float32 pick at grid 384^3 is the
-    cost model's, one pass."""
-    for ncomp in (1, 2):
-        bd = blocking.choose_geometry((6144, 6144), 4, 4, ncomp)
-        assert spread_bank_conflicts(bd[-1] + 7, 4, ACC_BYTES) == 2
-    assert spread_bank_conflicts(31, 4, 4) == 4
+def test_2d_main_path_picks_one_unit():
+    """At the 2D main path's grid 6144^2, m = 4, every dtype's pick is one
+    unit, so the kernel walks each block's points once.  The 3D float32
+    pick at grid 384^3 is the 3D cost model's, one pass."""
+    for dtype in VALUE_TYPES:
+        _, sb, ncomp = VALUE_TYPES[dtype]
+        bd = blocking.choose_geometry((6144, 6144), 4, sb, ncomp)
+        assert spread2d_units(bd, 4, ncomp).units == 1
     bd = blocking.choose_geometry((384, 384, 384), 4, 4, 1)
     assert bd == (24, 8, 8)
     assert spread_tiles(bd, 4, 1).passes == 1
@@ -145,10 +156,12 @@ def test_spread_smem_bytes_by_dimension():
     operands of a batch of 64 points (A's rows rounded to the MMA tile, pd1
     y rows and pd2 rounded to 8 z rows, 68 doubles a row), the batch's
     compact 3 x 2M taps and values in double, three int32 cells a point and
-    the coefficient stack; 2D holds double accumulator planes over the
-    padded block, the coefficient stack and 16 warps' D x 2M taps; 1D holds
-    the coefficients and an int32 start table of B + 1 entries.  A window
-    without a coefficient stack (ncoef = 0) stages none."""
+    the coefficient stack; 2D stages 8 warps' unit rows (32 A rows and 32 B
+    rows of 20 doubles each), whatever the block dims, and two dims'
+    coefficients, the first rounded up to 16 bytes past a multiple of 128
+    (``spread2d_coef_stride``); 1D holds the coefficients and an
+    int32 start table of B + 1 entries, so a long 1D block is refused.  A
+    window without a coefficient stack (ncoef = 0) stages none."""
     cells = 4 * 3 * 64
     # (8, 8, 12), m = 4, complex: 32 A rows, 15 y rows, 24 z rows.
     assert spread_smem_bytes((8, 8, 12), 4, 8, 4, 2) == (
@@ -157,9 +170,16 @@ def test_spread_smem_bytes_by_dimension():
         8 * (68 * (48 + 19 + 24) + (24 + 2) * 64) + cells + 8 * 24 * 8)
     assert spread_smem_bytes((8, 8, 8), 10, 0, 8, 1) == (
         8 * (68 * (32 + 27 + 32) + (60 + 1) * 64) + cells)
-    assert spread_smem_bytes((48, 96), 4, 8, 4, 2) == 8 * 2 * 55 * 103 + 4 * (16 * 8 + 16 * 16)
-    assert spread_smem_bytes((48, 96), 4, 8, 8, 1) == 8 * 55 * 103 + 8 * (16 * 8 + 16 * 16)
-    assert spread_smem_bytes((48, 96), 4, 0, 8, 1) == 8 * 55 * 103 + 8 * 16 * 16
+    rows = 8 * 8 * 64 * 20
+    # m = 4: 64 coefficients a dim, 256 B of float (-> 272) or 512 B of
+    # double (-> 528); m = 10, ncoef 14: 280 doubles, 2,240 B (-> 2,320).
+    assert spread2d_coef_stride(4, 8, 4) == 68 and spread2d_coef_stride(4, 8, 8) == 66
+    assert spread_smem_bytes((48, 96), 4, 8, 4, 2) == rows + 4 * (68 + 64)
+    assert spread_smem_bytes((48, 96), 4, 8, 8, 1) == rows + 8 * (66 + 64)
+    assert spread_smem_bytes((48, 96), 4, 0, 8, 1) == rows + 16
+    assert spread_smem_bytes((128, 128), 10, 14, 8, 2) == rows + 8 * (290 + 280) <= MAX_SMEM_BYTES
+    assert spread_smem_bytes((8, 16), 4, 8, 4, 2) == spread_smem_bytes((48, 96), 4, 8, 4, 1)
     assert spread_smem_bytes((1024,), 4, 8, 4, 2) == 4 * 8 * 8 + 4 * 1025
     assert spread_smem_bytes((1024,), 8, 12, 8, 1) == 8 * 16 * 12 + 4 * 1025
     assert spread_smem_bytes((1024,), 10, 0, 8, 2) == 4 * 1025
+    assert spread_smem_bytes((65536,), 4, 8, 4, 2) > MAX_SMEM_BYTES

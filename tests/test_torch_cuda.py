@@ -215,6 +215,72 @@ def test_spread_3d_matches_plain_version(cuda_device, case, dtype):
     assert _rel_err(g_k, g_p) <= KERNEL_TOL[np.dtype(real).itemsize]
 
 
+# The 2D spread kernel's edges (csrc/spread_2d.cu): (shape, sigma, m,
+# block_dims, transforms, where the points lie, points, window).  The cases
+# of tests/test_torch_spread_tiles.py:UNIT_CASES_2D, the chooser's own pick,
+# points near every edge, dense blocks (tens of batches a block), and every
+# window whose taps come from K3 (wtaps).
+SPREAD_2D_CASES = {
+    "main_8x16": ((32, 32), 1.5, 4, (8, 16), 1, "uniform", 6_000, None),
+    "chosen": ((64, 48), 1.5, 4, None, 1, "uniform", 6_000, None),
+    "m2": ((16, 16), 2.0, 2, (4, 8), 1, "uniform", 6_000, None),
+    "m8_units": ((16, 16), 2.0, 8, (8, 8), 1, "uniform", 6_000, None),
+    "multi_unit": ((32, 32), 1.5, 4, (16, 48), 1, "uniform", 6_000, None),
+    # One 32 x 32 block at m = 10: the padded block (51) exceeds the grid.
+    "m10_grid_below_block": ((16, 16), 2.0, 10, (32, 32), 1, "uniform", 6_000, None),
+    # 40 points over 36 blocks: empty blocks, and one k-step a block.
+    "sparse": ((32, 32), 1.5, 4, (8, 8), 1, "uniform", 40, None),
+    "three_transforms": ((20, 24), 1.5, 4, (5, 12), 3, "uniform", 6_000, None),
+    "wrapped_edges": ((20, 24), 1.5, 4, None, 2, "edges", 6_000, None),
+    # ~700 points a block: 44 batches.
+    "dense_blocks": ((16, 16), 1.5, 4, (8, 8), 1, "uniform", 6_000, None),
+    **{f"wtaps_{k}_{e}": ((20, 24), 2.0, 3, None, 1, "uniform", 6_000, (k, e))
+       for k, e in WINDOWS if (k, e) != ("KaiserBesselKernel", "FastApproximation")
+       and (k, e) != ("BackwardsKaiserBesselKernel", "FastApproximation")},
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("case", list(SPREAD_2D_CASES))
+def test_spread_2d_matches_plain_version(cuda_device, case, dtype):
+    """Each 2D spread entry point (the tensor-core kernel, a warp a block)
+    against its plain version on the kernel's edge cases and every window
+    whose taps come from K3, with its launch counts moving."""
+    shape, sigma, m, block_dims, C, where, np_, window = SPREAD_2D_CASES[case]
+    rng = np.random.default_rng(len(case) + 3)
+    real = np.dtype(dtype).type(0).real.dtype
+    if where == "uniform":
+        pts = rng.uniform(-1.0, 7.0, (2, np_))
+    else:  # half the points within 0.3 of an edge, so every edge's halo wraps
+        pts = rng.uniform(-0.3, 0.3, (2, np_))
+        pts[:, ::2] = rng.uniform(0.0, 2 * np.pi, (2, np_ // 2))
+    pts = pts.astype(real)
+    kw = {}
+    if window is not None:
+        kw = dict(kernel=getattr(tnufft, window[0])(),
+                  kernel_evalmode=getattr(tnufft, window[1])())
+    plan = tnufft.PlanNUFFT(dtype, shape, m=m, sigma=sigma, ntransforms=C,
+                            spread_method="blocked", block_dims=block_dims,
+                            device=cuda_device, **kw)
+    plan = tnufft.set_points(plan, torch.from_numpy(pts).to(cuda_device))
+    if case == "sparse":
+        assert (plan.pstarts[1:] == plan.pstarts[:-1]).any()
+    vp = torch.from_numpy(_values(rng, dtype, (C, np_))).to(cuda_device)
+    name = blocked.entry_point("spread", plan)
+    assert name.startswith("nufft_spread_2d_")
+    weights = blocked.WEIGHTS_ENTRY[plan.real_dtype]
+    horner = blocked.kernel_coefs(plan)[0] is not None
+    assert horner == (window is None)
+    before = dict(blocked.LAUNCHES)
+    g_k = blocked.spread_blocked(plan, vp)
+    torch.cuda.synchronize()
+    assert blocked.LAUNCHES[name] == before[name] + 1
+    assert blocked.LAUNCHES[weights] == before[weights] + (0 if horner else 1)
+    g_p = blocked.spread_blocked_plain(plan, vp)
+    assert g_k.dtype == g_p.dtype == plan.dtype and g_k.shape == g_p.shape
+    assert _rel_err(g_k, g_p) <= KERNEL_TOL[np.dtype(real).itemsize]
+
+
 # The 3D interpolation kernel's edges (csrc/interp_3d.cu): the spread's, with
 # 40,000 points so that most blocks are staged (>= INTERP3D_SPARSE points),
 # and (shape, sigma, m, block_dims, transforms, where, points):

@@ -114,11 +114,12 @@ def test_coefficient_stack_matches_jax():
 
 def test_kernel_support_checks():
     """What the CUDA kernels do not take is refused, not run elsewhere:
-    the Direct mode and m = 10 are taken, and a 3D block of any size (the 3D
-    spread keeps its sums in registers and walks its points once per pass of
-    16 warps); m = 11 raises naming the JAX package's documented maximum,
-    and a 2D block whose shared-memory accumulator exceeds the card's
-    raises."""
+    the Direct mode and m = 10 are taken, and a 3D or 2D block of any size
+    (both spreads keep their sums in registers, the 3D one walking its
+    points once per pass of 16 warps, the 2D one once per unit, and the 2D
+    one's shared memory does not depend on the block); m = 11 raises naming
+    the JAX package's documented maximum, and a 1D block whose start table
+    exceeds the card's shared memory raises."""
     tp = tnufft.PlanNUFFT(np.complex64, (16, 16, 16), m=4, sigma=1.5,
                           spread_method="blocked", device="cpu")
     blocked.check_kernel_support(tp)
@@ -128,11 +129,14 @@ def test_kernel_support_checks():
     blocked.check_kernel_support(dataclasses.replace(tp, block_dims=(24, 24, 24)))
     tp2 = tnufft.PlanNUFFT(np.complex64, (256, 256), m=4, sigma=1.5,
                            spread_method="blocked", device="cpu")
+    blocked.check_kernel_support(dataclasses.replace(tp2, block_dims=(128, 128)))
+    tp1 = tnufft.PlanNUFFT(np.complex64, (65536,), m=4, sigma=2.0,
+                           spread_method="blocked", device="cpu")
     bad = [
         (dataclasses.replace(tp, shape=(16,) * 4), NotImplementedError, "4D"),
         (dataclasses.replace(tp, dtype=torch.bfloat16), NotImplementedError, "bfloat16"),
         (dataclasses.replace(tp, m=11), NotImplementedError, "m in 2..10.*documented maximum"),
-        (dataclasses.replace(tp2, block_dims=(128, 128)), ValueError, "shared memory"),
+        (dataclasses.replace(tp1, block_dims=(65536,)), ValueError, "shared memory"),
     ]
     for plan, exc, match in bad:
         with pytest.raises(exc, match=match):
