@@ -68,6 +68,23 @@ below as ``_POINT_INTERP_3D_SRC``), in turns on the same points, and its
 ``--interp3d-parts`` times copies of its source with one phase taken out
 (``INTERP3D_PARTS``).
 
+    python3 chip_probe.py --spread1d [--spread1d-parts] [--interp2d] [--interp2d-parts]
+                          [--dtype T ...] [--np N ...]
+
+times the 1D spread kernel (``csrc/spread_1d.cu``: a lane a local cell,
+rounds of 32 cells rotated by shuffles, interior cells stored) against the
+thread-a-padded-cell kernel it replaced (``_CELL_SPREAD_1D_SRC``), and the
+2D interpolation kernel (``csrc/interp_2d.cu``: runs of blocks staged in
+shared memory, a thread a point in bank order) against the per-point
+kernel it replaced (``_POINT_INTERP_2D_SRC``), in turns on the same points, with
+each one's wrapper call and host time and its ``-D`` variants
+(``SPREAD1D_VARIANTS``, ``INTERP2D_VARIANTS``), all built for M = 4 into
+``build/chip_probe/``: 1D N = 2^20 at 1M, 10M and rho = 0.01, 2D N =
+4096^2 at each dtype's main-path Np, 16,777,216 and rho = 0.01
+(``_lowdim_probe``).  The ``-parts`` flags time copies of the sources with
+one phase taken out (``SPREAD1D_PARTS``, ``INTERP2D_PARTS``) at the first
+two point counts.
+
     python3 chip_probe.py --relayout
 
 instead times the relayout kernels K8a / K8b (``csrc/relayout.cu``) as
@@ -1770,6 +1787,8 @@ INTERP3D_PARTS = {
     "no_reduce": {"for (int off = L::kPerPoint / 2; off >= 1; off /= 2)":
                   "for (int off = 0; off >= 1; off /= 2)"},
     "no_out": {"            *dst = res;": "            if (res.c[0] == T(1.25e-30)) *dst = res;"},
+    # Each result at its sorted position, not scattered to perm[j].
+
 }
 INTERP3D_PARTS["no_cells"] = {
     "            const int lx = cells[pb + p] - ox;": "            const int lx = (pb + p) & 7;",
@@ -1902,6 +1921,599 @@ def probe_spread3d_parts(seed: int, dtypes, nps) -> None:
             torch.cuda.empty_cache()
 
 
+# The 1D spread kernel the staged design replaced (the csrc/spread_1d.cu of
+# PRs 3-9): a thread a padded cell summing, over the 2M local cells that
+# reach it, each cell's points read from global memory (so each point is
+# read 2M times), every padded cell flushed with global atomicAdd; its C
+# interface takes the values sorted (no perm).  Built by --spread1d into
+# build/chip_probe/.
+_CELL_SPREAD_1D_SRC = r"""
+#include <cstdint>
+
+#include "window.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+using Acc = double;  // ops/kernels/common.py:ACC_BYTES
+
+// Must match ops/kernels/common.py:spread_smem_bytes for D = 1.
+template <typename T>
+size_t spread_smem_bytes(int m, int ncoef, int b0) {
+  return sizeof(T) * (size_t)(2 * m) * ncoef + sizeof(int) * (size_t)(b0 + 1);
+}
+
+template <int M, typename T, int NCOMP>
+__global__ void __launch_bounds__(kThreads) spread_1d_kernel(
+    const nufft::Value<T, NCOMP>* __restrict__ vals, const int* __restrict__ cells,
+    const T* __restrict__ fracs, const int* __restrict__ pstarts,
+    const T* __restrict__ coefs, const T* __restrict__ wtaps,
+    T* __restrict__ grid, long long np, int ncoef, int n0, int b0) {
+  constexpr int S = 2 * M;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* cs = reinterpret_cast<T*>(smem_raw);                  // (S, ncoef)
+  int* starts = reinterpret_cast<int*>(cs + S * ncoef);    // (b0 + 1,)
+
+  const int bid = blockIdx.x;
+  const int chan = blockIdx.y;
+  const int p_begin = pstarts[bid];
+  const int p_end = pstarts[bid + 1];
+  if (p_begin == p_end) return;  // uniform across the CTA
+
+  const int tid = threadIdx.x;
+  const int ox = bid * b0;
+  for (int i = tid; i < S * ncoef; i += blockDim.x) cs[i] = coefs[i];
+  for (int j = p_begin + tid; j < p_end; j += blockDim.x) {
+    const int lx = cells[j] - ox;
+    const int prev = j == p_begin ? -1 : cells[j - 1] - ox;
+    for (int c = prev + 1; c <= lx; ++c) starts[c] = j;
+    if (j == p_end - 1)
+      for (int c = lx + 1; c <= b0; ++c) starts[c] = p_end;
+  }
+  __syncthreads();
+
+  const nufft::Value<T, NCOMP>* vrow = vals + (long long)chan * np;
+  T* g = grid + (long long)chan * n0 * NCOMP;
+  for (int i = tid; i < b0 + S - 1; i += blockDim.x) {
+    Acc acc[NCOMP] = {};
+    const int c_lo = i - (S - 1) > 0 ? i - (S - 1) : 0;
+    const int c_hi = i < b0 - 1 ? i : b0 - 1;
+    for (int c = c_lo; c <= c_hi; ++c) {
+      const T* cst = cs + (i - c) * ncoef;  // tap i - c
+      const int j_end = starts[c + 1];
+      for (int j = starts[c]; j < j_end; ++j) {
+        const T w = nufft::point_tap<S>(wtaps, cst, ncoef, fracs[j], np, j, 0, i - c);
+        const nufft::Value<T, NCOMP> v = vrow[j];
+#pragma unroll
+        for (int k = 0; k < NCOMP; ++k) acc[k] = nufft::fma_t(Acc(v.c[k]), Acc(w), acc[k]);
+      }
+    }
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < NCOMP; ++k) any = any || acc[k] != Acc(0);
+    if (!any) continue;
+    const long long off = NCOMP * (long long)nufft::wrap_index(ox - (M - 1) + i, n0);
+#pragma unroll
+    for (int k = 0; k < NCOMP; ++k) atomicAdd(g + off + k, T(acc[k]));
+  }
+}
+
+template <int M, typename T, int NCOMP>
+cudaError_t launch(const void* vals, const void* cells, const void* fracs,
+                   const void* pstarts, const void* coefs, const void* wtaps,
+                   void* grid,
+                   long long np, int nchan, int ncoef, int n0, int b0,
+                   cudaStream_t stream) {
+  const size_t smem = spread_smem_bytes<T>(M, ncoef, b0);
+  cudaError_t err = cudaFuncSetAttribute(
+      spread_1d_kernel<M, T, NCOMP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 blocks(n0 / b0, nchan);
+  spread_1d_kernel<M, T, NCOMP><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const nufft::Value<T, NCOMP>*>(vals),
+      static_cast<const int*>(cells), static_cast<const T*>(fracs),
+      static_cast<const int*>(pstarts), static_cast<const T*>(coefs),
+      static_cast<const T*>(wtaps), static_cast<T*>(grid), np, ncoef, n0, b0);
+  return cudaGetLastError();
+}
+
+template <typename T, int NCOMP>
+int dispatch(const void* vals, const void* cells, const void* fracs,
+             const void* pstarts, const void* coefs, const void* wtaps,
+             void* grid, long long np, int nchan, int m, int ncoef, int n0,
+             int b0, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NUFFT_SPREAD_CASE(MM)                                            \
+  case MM:                                                               \
+    return (int)launch<MM, T, NCOMP>(vals, cells, fracs, pstarts, coefs, \
+                                     wtaps, grid, np, nchan, ncoef, n0, b0, \
+                                     s);
+  switch (m) {
+    NUFFT_FOR_EACH_M(NUFFT_SPREAD_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NUFFT_SPREAD_CASE
+}
+
+}  // namespace
+
+// vals (nchan, np) values in bin-sorted order (complex: re, im interleaved);
+// cells (1, np) int32 and fracs (1, np) T, sorted; pstarts (nblocks + 1,)
+// int32; coefs (1, 2m, ncoef) T, or ncoef = 0 and no coefficients for a
+// window other than kHorner, whose taps come in wtaps (1, 2m, np) T
+// (window_weights.cu), null for kHorner; grid (nchan, n0) values, zeroed by
+// the caller.  T is float for *_f32, double for *_f64.  Launches on `stream`,
+// does not synchronise, allocates nothing.
+#define NUFFT_SPREAD_ENTRY(NAME, T, NCOMP)                                    \
+  extern "C" int NAME(const void* vals, const void* cells, const void* fracs, \
+                      const void* pstarts, const void* coefs,                 \
+                      const void* wtaps, void* grid, long long np, int nchan, \
+                      int m, int ncoef, int n0, int b0, void* stream) {       \
+    return dispatch<T, NCOMP>(vals, cells, fracs, pstarts, coefs, wtaps,      \
+                              grid, np, nchan, m, ncoef, n0, b0, stream);     \
+  }
+
+#if NUFFT_WANT(0)
+NUFFT_SPREAD_ENTRY(cell_spread_1d_f32, float, 2)
+#endif
+#if NUFFT_WANT(1)
+NUFFT_SPREAD_ENTRY(cell_spread_1d_f64, double, 2)
+#endif
+#if NUFFT_WANT(2)
+NUFFT_SPREAD_ENTRY(cell_spread_1d_real_f32, float, 1)
+#endif
+#if NUFFT_WANT(3)
+NUFFT_SPREAD_ENTRY(cell_spread_1d_real_f64, double, 1)
+#endif
+"""
+
+
+# The 2D interpolation kernel the staged-window design replaced (the
+# csrc/interp_2d.cu of PRs 3-9): a thread a sorted point gathering its
+# (2M)^2 window from global memory with periodic wrap, and the C interface it
+# had (no pstarts, no block dims).  Built by --interp2d into
+# build/chip_probe/.
+_POINT_INTERP_2D_SRC = r"""
+#include <cstdint>
+
+#include "window.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// TAPS: the window's taps come in wtaps (window_weights.cu), else by
+// Horner's rule.  The two instantiations keep the Horner one's registers at
+// what it needs alone: one kernel for both took 172 registers at M = 4 in
+// 3D double, against 128, and halved the resident CTAs.
+template <int M, typename T, int NCOMP, bool TAPS>
+__global__ void __launch_bounds__(kThreads) interp_2d_kernel(
+    const nufft::Value<T, NCOMP>* __restrict__ grid,
+    const int* __restrict__ cells, const T* __restrict__ fracs,
+    const long long* __restrict__ perm, const T* __restrict__ coefs,
+    const T* __restrict__ wtaps, nufft::Value<T, NCOMP>* __restrict__ out,
+    long long np, int nchan, int ncoef, int n0, int n1, double normfactor) {
+  constexpr int S = 2 * M;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* cs = reinterpret_cast<T*>(smem_raw);  // (2, S, ncoef)
+  for (int i = threadIdx.x; i < 2 * S * ncoef; i += blockDim.x)
+    cs[i] = coefs[i];
+  __syncthreads();
+
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= np) return;
+
+  T wy[S];
+  int iy[S];
+  if constexpr (TAPS) {
+#pragma unroll
+    for (int t = 0; t < S; ++t) wy[t] = wtaps[(S + t) * np + j];
+  } else {
+    nufft::horner_taps<S>(cs + S * ncoef, ncoef, fracs[np + j], wy);
+  }
+  const int cx = cells[j] - (M - 1);
+  const int cy = cells[np + j] - (M - 1);
+#pragma unroll
+  for (int t = 0; t < S; ++t) iy[t] = nufft::wrap_index(cy + t, n1);
+  const T fx = fracs[j];
+  const long long dest = perm[j];
+  const long long area = (long long)n0 * n1;
+  const T nf = T(normfactor);
+
+  for (int c = 0; c < nchan; ++c) {
+    const nufft::Value<T, NCOMP>* g = grid + c * area;
+    T acc[NCOMP] = {};
+#pragma unroll 1
+    for (int a = 0; a < S; ++a) {
+      T wx;
+      if constexpr (TAPS) {
+        wx = wtaps[a * np + j];
+      } else {
+        wx = nufft::horner_tap(cs + a * ncoef, ncoef, T(2) * fx - T(1));
+      }
+      const nufft::Value<T, NCOMP>* row =
+          g + (long long)nufft::wrap_index(cx + a, n0) * n1;
+      T r[NCOMP] = {};
+#pragma unroll
+      for (int b = 0; b < S; ++b) {
+        const nufft::Value<T, NCOMP> val = row[iy[b]];
+#pragma unroll
+        for (int k = 0; k < NCOMP; ++k) r[k] = nufft::fma_t(val.c[k], wy[b], r[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < NCOMP; ++k) acc[k] = nufft::fma_t(r[k], wx, acc[k]);
+    }
+    nufft::Value<T, NCOMP> res;
+#pragma unroll
+    for (int k = 0; k < NCOMP; ++k) res.c[k] = acc[k] * nf;
+    out[c * np + dest] = res;
+  }
+}
+
+template <int M, typename T, int NCOMP>
+cudaError_t launch(const void* grid, const void* cells, const void* fracs,
+                   const void* perm, const void* coefs,
+                   const void* wtaps, void* out,
+                   long long np, int nchan, int ncoef, int n0, int n1,
+                   double normfactor, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * 2 * 2 * M * ncoef;
+  const long long nblocks = (np + kThreads - 1) / kThreads;
+  auto kernel = wtaps ? interp_2d_kernel<M, T, NCOMP, true>
+                      : interp_2d_kernel<M, T, NCOMP, false>;
+  kernel<<<(unsigned)nblocks, kThreads, smem, stream>>>(
+      static_cast<const nufft::Value<T, NCOMP>*>(grid),
+      static_cast<const int*>(cells), static_cast<const T*>(fracs),
+      static_cast<const long long*>(perm), static_cast<const T*>(coefs),
+      static_cast<const T*>(wtaps),
+      static_cast<nufft::Value<T, NCOMP>*>(out), np, nchan, ncoef, n0, n1,
+      normfactor);
+  return cudaGetLastError();
+}
+
+template <typename T, int NCOMP>
+int dispatch(const void* grid, const void* cells, const void* fracs,
+             const void* perm, const void* coefs,
+             const void* wtaps, void* out, long long np,
+             int nchan, int m, int ncoef, int n0, int n1, double normfactor,
+             void* stream) {
+  if (np == 0) return (int)cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NUFFT_INTERP_CASE(MM)                                              \
+  case MM:                                                                 \
+    return (int)launch<MM, T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, \
+                                     out, np, nchan, ncoef, n0, n1,         \
+                                     normfactor, s);
+  switch (m) {
+    NUFFT_FOR_EACH_M(NUFFT_INTERP_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NUFFT_INTERP_CASE
+}
+
+}  // namespace
+
+// grid (nchan, n0, n1) values (complex: re, im interleaved); cells (2, np)
+// int32 and fracs (2, np) T in bin-sorted order; perm (np,) int64, the
+// original index of each sorted point; coefs (2, 2m, ncoef) T, or ncoef = 0
+// and no coefficients for a window other than kHorner, whose taps come in
+// wtaps (2, 2m, np) T (window_weights.cu), null for kHorner; out
+// (nchan, np) values in original point order.  T is float for *_f32, double
+// for *_f64; normfactor is a double for both.  Launches on `stream`, does
+// not synchronise, allocates nothing.
+#define NUFFT_INTERP_ENTRY(NAME, T, NCOMP)                                    \
+  extern "C" int NAME(const void* grid, const void* cells, const void* fracs, \
+                      const void* perm, const void* coefs,                    \
+                      const void* wtaps, void* out,              \
+                      long long np, int nchan, int m, int ncoef, int n0,      \
+                      int n1, double normfactor, void* stream) {              \
+    return dispatch<T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, out, np,  \
+                              nchan, m, ncoef, n0, n1, normfactor, stream);   \
+  }
+
+#if NUFFT_WANT(0)
+NUFFT_INTERP_ENTRY(point_interp_2d_f32, float, 2)
+#endif
+#if NUFFT_WANT(1)
+NUFFT_INTERP_ENTRY(point_interp_2d_f64, double, 2)
+#endif
+#if NUFFT_WANT(2)
+NUFFT_INTERP_ENTRY(point_interp_2d_real_f32, float, 1)
+#endif
+#if NUFFT_WANT(3)
+NUFFT_INTERP_ENTRY(point_interp_2d_real_f64, double, 1)
+#endif
+"""
+
+
+#: Variants of the 1D spread kernel (-D values of csrc/spread_1d.cu's
+#: tunables): CTAs of 128 and 512 threads, register caps for 1, 2, 3 and 4
+#: resident CTAs an SM (float and double values alike).
+_C1 = "-DNUFFT_SPREAD1D_MIN_CTAS_"
+SPREAD1D_VARIANTS = {"threads128": ["-DNUFFT_SPREAD1D_THREADS=128"],
+                     "threads512": ["-DNUFFT_SPREAD1D_THREADS=512"],
+                     **{f"c{c}": [f"{_C1}F32={c}", f"{_C1}F64={c}"] for c in (1, 2, 3, 4)}}
+#: Point counts at N = 2^20 (grid 1,572,864): the main path's 1M, its
+#: 10,000,000 and rho = 0.01.
+SPREAD1D_NP = (1_000_000, 10_000_000, 15_729)
+
+#: Copies of csrc/spread_1d.cu with one phase taken out, for
+#: ``--spread1d-parts``: each maps a line of the source to its replacement.
+#: Their grids are wrong; only their times are read.
+SPREAD1D_PARTS = {
+    # Every tap a number from the fraction in place of Horner's rule.
+    "no_taps": {"nufft::horner_rows<S>(cs, ncoef, f_cur, w);":
+                "for (int t = 0; t < S; ++t) w[t] = f_cur + T(t);"},
+    # The points' fractions and values made up in place of read.
+    "no_loads": {"      f = fracs[j];\n      v = vrow[perm[j]];":
+                 "      f = T(0.25);\n      v.c[0] = T(0.5);",
+                 "        f = fracs[j + 1];\n        v = vrow[q_next];":
+                 "        f = T(j & 7);\n        v.c[0] = f;"},
+    # No lane walks its cell's points (the first point's loads stay).
+    "no_walk": {"for (; j < j_end; ++j) {": "for (; j < j_end && j < 0; ++j) {"},
+    # The rounds' rotation by shuffles.
+    "no_shuffle": {"__shfl_sync(0xffffffffu, acc[t][k], (lane - t) & 31)": "acc[t][k]"},
+    # The flush's stores and reductions as writes under a condition that
+    # never holds.
+    "no_flush_write": {
+        "    *reinterpret_cast<nufft::Value<T, NCOMP>*>(dst) = v;":
+        "    if (v.c[0] == T(1.25e-30)) *reinterpret_cast<nufft::Value<T, NCOMP>*>(dst) = v;",
+        "    nufft::add_complex(dst, sum[0], sum[1]);":
+        "    if (sum[0] == 1.25e-300) dst[0] = T(sum[1]);",
+        "    atomicAdd(dst, T(sum[0]));": "    if (sum[0] == 1.25e-300) dst[0] = T(sum[0]);"},
+}
+
+#: Variants of the 2D interpolation kernel (-D values of csrc/interp_2d.cu's
+#: tunables): the cells a point below which a sub-run is read from global
+#: memory (stage; 0: none staged, "all": every one), the most y cells of a
+#: staged sub-run (run), the points a CTA covers at the mean density (pts),
+#: the points ordered at a time (chunk), register caps for 2, 3 and 4
+#: resident CTAs an SM (c, float and double values alike), the staged
+#: points in sorted order (order0), CTAs of 128 threads, staged points'
+#: sums unrolled two x rows at a time (unroll2).
+_I2 = "-DNUFFT_INTERP2D_"
+INTERP2D_VARIANTS = {"stage0": [_I2 + "STAGE_CELLS=0"], "stage4": [_I2 + "STAGE_CELLS=4"],
+                     "stage16": [_I2 + "STAGE_CELLS=16"],
+                     "stage_all": [_I2 + "STAGE_CELLS=(1 << 30)"],
+                     "run64": [_I2 + "STAGE_RUN=64"], "run128": [_I2 + "STAGE_RUN=128"],
+                     "pts256": [_I2 + "RUN_POINTS=256"], "pts512": [_I2 + "RUN_POINTS=512"],
+                     "pts2048": [_I2 + "RUN_POINTS=2048"], "chunk512": [_I2 + "CHUNK=512"],
+                     **{f"c{c}": [f"{_I2}MIN_CTAS_F32={c}", f"{_I2}MIN_CTAS_F64={c}"]
+                        for c in (2, 3, 4)},
+                     "order0": [_I2 + "ORDER=0"],
+                     "threads128": [_I2 + "THREADS=128", _I2 + "MIN_CTAS_F32=6",
+                                    _I2 + "MIN_CTAS_F64=4"],
+                     "unroll2": [_I2 + "UNROLL_X=2"]}
+#: Point counts at N = 4096^2 (grid 6144^2) beside each dtype's main-path Np
+#: (SPREAD2D_NP): 16,777,216 and rho = 0.01.
+INTERP2D_EXTRA_NP = (16_777_216, 377_487)
+
+#: Copies of csrc/interp_2d.cu with one phase taken out, for
+#: ``--interp2d-parts`` (the staged branch's phases; the taps in both
+#: branches).  Their values are wrong; only their times are read.
+INTERP2D_PARTS = {
+    "no_stage": {"for (int l = l0; l < pd1; l += 32)\n              cp_async":
+                 "for (int l = l0; l < 0; l += 32)\n              cp_async"},
+    "no_taps": {"nufft::horner_rows<S, T, 2 * kSpan>(cs + d * kSpan, ncoef, "
+                "fracs[d * np + j], w[d]);":
+                "for (int t = 0; t < S; ++t) w[d][t] = T(0.1) * T(d + t + 1);"},
+    "no_loads": {"[&](int a, int b) { return base[a * pd1 + b]; });":
+                 "[&](int a, int b) { V v = {}; v.c[0] = T(a + b); return v; });"},
+    "no_out": {"            *dst = res;": "            if (res.c[0] == T(1.25e-30)) *dst = res;"},
+    # Each result at its sorted position, not scattered to perm[j].
+    "out_sorted": {"V* dst = out + c * np + perm[j];": "V* dst = out + c * np + j;"},
+    "no_contract": {"          for (int i = tid; i < nc; i += blockDim.x) {\n"
+                    "            const int p = s_order[i];":
+                    "          for (int i = tid; i < nc && nc < 0; i += blockDim.x) {\n"
+                    "            const int p = s_order[i];"},
+}
+# The window's copy, the taps and the window's loads out at once: the CTAs'
+# skeleton.
+INTERP2D_PARTS["skeleton"] = {k: v for part in ("no_stage", "no_taps", "no_loads")
+                              for k, v in INTERP2D_PARTS[part].items()}
+
+
+def _edited_sources(stem: str, parts) -> dict:
+    """``csrc/<stem>.cu`` for M = 4 alone, and a copy for each entry of
+    ``parts`` with its lines replaced."""
+    from nonuniformffts_tpu_torch.ops.kernels import build
+
+    src = _m4_only((build.CSRC_DIR / f"{stem}.cu").read_text())
+    texts = {"shipped": src}
+    for name, edits in parts.items():
+        text = src
+        for old, new in edits.items():
+            if old not in text:
+                raise AssertionError(f"{name}: {old!r} not in {stem}.cu")
+            text = text.replace(old, new)
+        texts[name] = text
+    return texts
+
+
+def _build_all(prefix: str, jobs) -> dict:
+    """``{name: (source text, nvcc flags)}`` built at once into
+    ``build/chip_probe/`` as ``<prefix><name>``; returns ``{name: loaded
+    library}``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {k: pool.submit(_probe_library, prefix + k, text, flags)
+                   for k, (text, flags) in jobs.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
+def _lowdim_registers(stem: str, kernel: str) -> str:
+    """Registers and spill stores of the M = 4 instantiations of ``kernel``
+    in ``build/chip_probe/<stem>.ptxas.log``."""
+    text = (ROOT / "build" / "chip_probe" / f"{stem}.ptxas.log").read_text()
+    regs = re.findall(kernel + r"ILi4E([fd])Li(\d)E(?:Lb([01])E)?.*?(\d+) bytes spill stores"
+                      r".*?Used (\d+) registers", text, re.S)
+    return ", ".join(f"<{t}, {n}{', taps' if b == '1' else ''}> {r} (spills {sp} B)"
+                     for t, n, b, sp, r in regs)
+
+
+def _raw_spread_1d(lib, prefix: str, plan, vals, staged: bool = True):
+    """One launch of a 1D spread entry point (``prefix`` + value suffix) of
+    ``lib`` on the plan's sorted state: the shipped kernel's C interface,
+    ``vals`` in the caller's order, read through ``plan.sort_perm``; or with
+    ``staged`` False the thread-a-padded-cell kernel's, ``vals`` in sorted
+    order.  Returns the grid."""
+    import torch
+
+    from nonuniformffts_tpu_torch.ops.kernels import build
+    from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES
+
+    name = prefix + VALUE_TYPES[plan.dtype][0]
+    fn = getattr(lib, name)
+    sig = build._SIGNATURES["nufft_spread_1d_" + VALUE_TYPES[plan.dtype][0]]
+    fn.argtypes = sig if staged else sig[:7] + sig[8:]
+    perm = (plan.sort_perm.data_ptr(),) if staged else ()
+    grid = torch.zeros((1,) + plan.shape_over, dtype=vals.dtype, device=vals.device)
+    err = fn(vals.data_ptr(), plan.cells_sorted.data_ptr(), plan.fracs_sorted.data_ptr(),
+             plan.pstarts.data_ptr(), plan.coefs.data_ptr(), 0, grid.data_ptr(), *perm,
+             plan.num_points, 1, plan.m, plan.coefs.shape[-1], *plan.shape_over,
+             *plan.block_dims, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return grid
+
+
+def _raw_interp_2d(lib, name: str, plan, grid, staged: bool = True):
+    """One launch of the 2D interpolation entry point ``name`` of ``lib`` on
+    the plan's sorted state (BKB Fast, one transform): the staged kernel's C
+    interface, or with ``staged`` False the per-point kernel's (no pstarts,
+    no block dims)."""
+    import torch
+
+    from nonuniformffts_tpu_torch.ops.kernels import build
+    from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES
+
+    fn = getattr(lib, name)
+    sig = build._SIGNATURES["nufft_interp_2d_" + VALUE_TYPES[plan.dtype][0]]
+    fn.argtypes = sig if staged else sig[:4] + sig[5:14] + sig[16:]
+    out = torch.empty((1, plan.num_points), dtype=grid.dtype, device=grid.device)
+    blocks = ((plan.pstarts.data_ptr(),), plan.block_dims) if staged else ((), ())
+    err = fn(grid.data_ptr(), plan.cells_sorted.data_ptr(), plan.fracs_sorted.data_ptr(),
+             plan.sort_perm.data_ptr(), *blocks[0], plan.coefs.data_ptr(), 0, out.data_ptr(),
+             plan.num_points, 1, plan.m, plan.coefs.shape[-1], *plan.shape_over,
+             *blocks[1], float(plan.normfactor), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out
+
+
+def _lowdim_probe(kind: str, seed: int, dtypes, nps, with_variants: bool) -> None:
+    """The body of ``--spread1d`` / ``--interp2d`` (``kind`` 'spread1d' or
+    'interp2d') and of their ``-parts`` twins (``with_variants`` False):
+    the shipped kernel against the design it replaced, in turns (old, new,
+    new, old), two passes, raw launches on the same sorted points, both held
+    against the plain version; the shipped wrapper call (the grid's zeroing
+    or the output's allocation and the launch path) and its host time; then
+    the ``-D`` variants or the parts copies in turns with the shipped
+    build.  Everything for M = 4 alone in
+    ``build/chip_probe/``.  m = 4, sigma = 1.5, BKB FastApproximation,
+    uniform points, the chooser's block dims; CUDA events, median of 5
+    after one warm-up.  One JSON line a dtype and Np, with the card's name
+    and power limit, the bound (``chip_smoke.kernel_bound``) and the points
+    a block."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from chip_smoke import cuda_time_ms, kernel_bound, nvidia_smi_line, rel_l2
+    from nonuniformffts_tpu_torch.ops.kernels import blocked, build
+    from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES
+
+    spread = kind == "spread1d"
+    stem, kernel = ("spread_1d", "spread_1d_kernel") if spread else ("interp_2d",
+                                                                     "interp_2d_kernel")
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    inc = ("-I", str(build.CSRC_DIR))
+    if with_variants:
+        old_src = _CELL_SPREAD_1D_SRC if spread else _POINT_INTERP_2D_SRC
+        new_src = _m4_only((build.CSRC_DIR / f"{stem}.cu").read_text())
+        extra = SPREAD1D_VARIANTS if spread else INTERP2D_VARIANTS
+        jobs = {"old": (_m4_only(old_src), inc), "shipped": (new_src, inc),
+                **{k: (new_src, inc + tuple(f)) for k, f in extra.items()}}
+        prefix = f"{kind}_"
+    else:
+        jobs = {k: (t, inc) for k, t in _edited_sources(
+            stem, SPREAD1D_PARTS if spread else INTERP2D_PARTS).items()}
+        prefix = f"{kind}_part_"
+    libs = _build_all(prefix, jobs)
+    for k in libs:
+        print(f"ptxas {k}: {_lowdim_registers(prefix + k, kernel)}", flush=True)
+    D = 1 if spread else 2
+    for name in dtypes:
+        plan0 = nufft.PlanNUFFT(np.dtype(name), SHAPES[D], m=4, sigma=1.5,
+                                spread_method="blocked", device=dev)
+        _, sb, _ = VALUE_TYPES[plan0.dtype]
+        tol = 1e-5 if sb == 4 else 1e-12
+        suffix = VALUE_TYPES[plan0.dtype][0]
+        default = (SPREAD1D_NP if spread else (SPREAD2D_NP[name],) + INTERP2D_EXTRA_NP)
+        for np_ in nps or (default if with_variants else default[:2]):
+            gen = torch.Generator(device=dev).manual_seed(seed + np_)
+            pts = torch.rand((D, np_), generator=gen, device=dev,
+                             dtype=plan0.real_dtype) * (2 * math.pi)
+            plan = nufft.set_points(plan0, pts)
+            chunked = dataclasses.replace(plan, chunk_size=1 << 16)
+            if spread:
+                vp = torch.randn((1, np_), generator=gen, device=dev, dtype=plan0.dtype)
+                vals = vp[:, plan.sort_perm].contiguous()
+                want = blocked.spread_blocked_plain(chunked, vp)
+                runs = {k: (lambda lib=lib, k=k: _raw_spread_1d(
+                    lib, ("cell" if k == "old" else "nufft") + "_spread_1d_", plan,
+                    vals if k == "old" else vp, staged=k != "old"))
+                    for k, lib in libs.items()}
+                wrapper = lambda: blocked.spread_blocked(plan, vp)  # noqa: E731
+            else:
+                grid = torch.randn((1,) + plan.shape_over, generator=gen, device=dev,
+                                   dtype=plan0.dtype)
+                want = blocked.interpolate_blocked_plain(chunked, grid)
+                runs = {k: (lambda lib=lib, k=k: _raw_interp_2d(
+                    lib, ("point" if k == "old" else "nufft") + "_interp_2d_" + suffix, plan,
+                    grid, staged=k != "old"))
+                    for k, lib in libs.items()}
+                wrapper = lambda: blocked.interpolate_blocked(plan, grid)  # noqa: E731
+            head = ["old", "shipped", "shipped", "old"] if with_variants else []
+            rest = [k for k in runs if k not in ("old", "shipped")]
+            times, errs = {k: [] for k in runs}, {}
+            for rnd in range(2):
+                for k in head + ["shipped"] + (rest if rnd == 0 else rest[::-1]):
+                    ms, got = cuda_time_ms(runs[k])
+                    times[k].append(ms)
+                    err = rel_l2(got, want)
+                    errs[k] = max(errs.get(k, 0.0), err)
+                    # The parts copies compute wrong values by design.
+                    if (with_variants or k == "shipped") and not err <= tol:
+                        raise AssertionError(f"{kind} {name} {np_} {k}: rel L2 "
+                                             f"{err:.3e} vs plain")
+                    del got
+            call_ms, got = cuda_time_ms(wrapper)
+            err = rel_l2(got, want)
+            if not err <= tol:
+                raise AssertionError(f"{kind} {name} {np_} wrapper: rel L2 {err:.3e}")
+            del got
+            counts = (plan.pstarts[1:] - plan.pstarts[:-1]).float()
+            bound_ms, bound_by = kernel_bound("spread" if spread else "interp", plan, 1)
+            line = {"probe": kind if with_variants else kind + "_parts", "card": card,
+                    "dtype": name, "np": np_, "block_dims": list(plan.block_dims),
+                    "points_a_block": {"mean": float(counts.mean()),
+                                       "max": int(counts.max()),
+                                       "empty_share": float((counts == 0).float().mean())},
+                    "ms": {k: statistics.median(t) for k, t in times.items()},
+                    "call_ms": call_ms, "call_host_us": _host_us(wrapper, 100),
+                    "rel_l2": errs, "bound_ms": bound_ms, "bound_by": bound_by}
+            if with_variants:
+                line["speedup"] = line["ms"]["old"] / line["ms"]["shipped"]
+            print(json.dumps(line), flush=True)
+            del plan, chunked, want, pts, runs, wrapper
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1930,6 +2542,17 @@ def main(argv=None) -> int:
                              "sweep with the cost model's fit, and stop")
     parser.add_argument("--spread2d-parts", action="store_true",
                         help="time the 2D spread kernel with each phase taken out, and stop")
+    parser.add_argument("--spread1d", action="store_true",
+                        help="time the 1D spread kernel against the design it replaced, "
+                             "its wrapper call and its variants, and stop")
+    parser.add_argument("--spread1d-parts", action="store_true",
+                        help="time the 1D spread kernel with each phase taken out, and stop")
+    parser.add_argument("--interp2d", action="store_true",
+                        help="time the 2D interpolation kernel against the design it "
+                             "replaced, its wrapper call and its variants, and stop")
+    parser.add_argument("--interp2d-parts", action="store_true",
+                        help="time the 2D interpolation kernel with each phase taken out, "
+                             "and stop")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
 
@@ -1954,6 +2577,12 @@ def main(argv=None) -> int:
         return 0
     if args.spread3d_parts:
         probe_spread3d_parts(args.seed, args.dtype, args.np)
+        return 0
+    lowdim = [(kind, parts) for kind in ("spread1d", "interp2d")
+              for parts in (False, True) if getattr(args, kind + ("_parts" if parts else ""))]
+    for kind, parts in lowdim:
+        _lowdim_probe(kind, args.seed, args.dtype, args.np, with_variants=not parts)
+    if lowdim:
         return 0
     if args.spread2d or args.spread2d_parts:
         if args.spread2d:

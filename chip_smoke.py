@@ -36,15 +36,18 @@ Phases, in order; the first failure raises and the script exits non-zero:
 8. the 2D main path, N = 4096^2 (grid 6144^2), m = 4, sigma = 1.5, all four
    dtypes: complex64 and float32 at Np = 1,000,000 and 16,777,216,
    complex128 and float64 at 1,677,722 and 16,777,216; at 16,777,216 also
-   the spread kernel against its plain version on the row's own points;
+   the spread and the interpolation kernels against their plain versions
+   on the row's own points, each timed as one wrapper call;
 9. the 1D main path, N = 2^20 (grid 1,572,864), m = 4, sigma = 1.5, all four
-   dtypes at Np = 1,000,000 and 10,000,000;
+   dtypes at Np = 1,000,000 and 10,000,000; at 10,000,000 also the spread
+   kernel against its plain version, timed, as in phase 8;
 10. every window at the full 3D width: N = 256^3, m = 4, sigma = 2 (grid
     512^3), complex64 and complex128 at Np = 1,000,000 and 16,777,216, for
     BKB Fast (the yardstick at this sigma), KB Fast and Direct, BKB
     Direct, Gaussian Fast and Direct and the B-spline, measured as in
     phase 4; then the same windows on the 2D (4096^2, 16,777,216 points)
-    and 1D (2^20, 10,000,000 points) complex64 main paths at sigma = 2;
+    and 1D (2^20, 10,000,000 points) complex64 main paths at sigma = 2,
+    each with its kernels checked as in phases 8 and 9;
 11. m = 10 for every dtype, dimension and window in both modes: 32^3, 128^2
     and 4096 (sigma = 2), 50,000 points; each kernel against its plain
     version (timed), err1 / err2 against exact sums;
@@ -488,26 +491,35 @@ def compare_kernels(plan, vp, grid, timed: bool, plain_chunk: int = PLAIN_CHUNK,
     return results
 
 
-def check_spread_kernel(plan, vp):
-    """The plan's spread kernel against its plain version on the main
-    path's own points and values (one call each, untimed), with the bound
-    of that work."""
+def check_kernel(kind: str, plan, vp, gen):
+    """The plan's spread (``kind`` 'spread') or interpolation ('interp')
+    kernel against its plain version on the main path's own points (the
+    row's values, or a random grid), one wrapper call timed (CUDA events,
+    median of 5 after one warm-up) and the plain version run once, with the
+    bound of that work."""
     import torch
 
     from nonuniformffts_tpu_torch.ops.kernels import blocked
 
-    got = blocked.spread_blocked(plan, vp)
-    want = blocked.spread_blocked_plain(dataclasses.replace(plan, chunk_size=PLAIN_CHUNK), vp)
+    plain = dataclasses.replace(plan, chunk_size=PLAIN_CHUNK)
+    if kind == "spread":
+        ms, got = cuda_time_ms(lambda: blocked.spread_blocked(plan, vp))
+        want = blocked.spread_blocked_plain(plain, vp)
+    else:
+        grid = _random_values(gen, (1,) + plan.shape_over, plan.dtype, vp.device)
+        ms, got = cuda_time_ms(lambda: blocked.interpolate_blocked(plan, grid))
+        want = blocked.interpolate_blocked_plain(plain, grid)
     torch.cuda.synchronize()
     err = rel_l2(got, want)
     max_abs = float((got - want).abs().max())
-    bound_ms, bound_by = kernel_bound("spread", plan, vp.shape[0])
-    name = blocked.entry_point("spread", plan)
+    bound_ms, bound_by = kernel_bound(kind, plan, vp.shape[0])
+    name = blocked.entry_point(kind, plan)
     log(f"  {name} at Np = {plan.num_points:,}: rel L2 {err:.3e}, max abs {max_abs:.3e} "
-        f"vs plain, bound {bound_ms:.4g} ms ({bound_by})")
+        f"vs plain, kernel {ms:.3f} ms, bound {bound_ms:.4g} ms ({bound_by})")
     check(f"{name} rel L2 vs plain at Np={plan.num_points}", err,
           KERNEL_TOL[torch.empty((), dtype=plan.real_dtype).element_size()])
-    return dict(rel_l2=err, max_abs_err=max_abs, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(rel_l2=err, max_abs_err=max_abs, ms=ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def phase_kernels(seed: int):
@@ -698,14 +710,15 @@ def float32_accumulation_diagnostic(plan, pts, vp, err1_f32: float, seed: int):
 
 def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
               diagnose_at=None, m: int = 4, sigma: float = 1.5, window=MAIN_WINDOW,
-              err_tol: float = ERR_TOL, err_modes: int = ERR_MODES, spread_check_np=None):
+              err_tol: float = ERR_TOL, err_modes: int = ERR_MODES, check_np=None):
     """Drive one dtype's main path at ``shape``, ``m``, ``sigma`` and
     ``window`` (kernel class and evaluation mode names; BKB
     FastApproximation, m = 4, sigma = 1.5 by default) for each Np, holding
     err1 (at ``err_modes`` random modes) and err2 to ``err_tol``; returns (launches summed over the rows,
     kernel comparisons at ``compare_np``).  At Np = ``diagnose_at`` also
-    runs ``float32_accumulation_diagnostic``, and at ``spread_check_np``
-    ``check_spread_kernel``."""
+    runs ``float32_accumulation_diagnostic``, and at ``check_np``
+    ``check_kernel`` for the kernels redesigned at full density in 1D and
+    2D (the 1D spread; the 2D spread and interpolation)."""
     import torch
 
     import nonuniformffts_tpu_torch as nufft
@@ -771,8 +784,9 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
         del uhat, v2
         if np_ == diagnose_at:
             row["p2"] = float32_accumulation_diagnostic(plan, pts, vp, e1, seed)
-        if np_ == spread_check_np:
-            row["spread_vs_plain"] = check_spread_kernel(plan, vp_c)
+        if np_ == check_np:
+            for kind in ("spread", "interp")[:D]:
+                row[f"{kind}_vs_plain"] = check_kernel(kind, plan, vp_c, gen)
         rows.append(row)
         if np_ == compare_np:
             log("  kernels against their plain versions at this shape:")
@@ -843,7 +857,9 @@ def phase_windows(seed: int, record, windows):
     """Phase 10: each window mode through the 3D main path at 256^3, m = 4,
     sigma = 2, complex64 and complex128 (BKB Fast too, as the yardstick at
     the same sigma); then the cost of a window on the 2D (4096^2, 16.8M
-    points) and 1D (2^20, 10M points) complex64 main paths at sigma = 2.
+    points) and 1D (2^20, 10M points) complex64 main paths at sigma = 2,
+    with the 2D spread and interpolation and the 1D spread kernels held
+    against their plain versions on each row's points.
     err1 samples 1,024 modes: the budgets bound the whole L2 error
     (tests/test_torch_window_paths.py checks that on the CPU), which 64
     random modes estimate only to about a factor of 2 (a 64-mode 1D
@@ -867,7 +883,7 @@ def phase_windows(seed: int, record, windows):
             record(main_path(f"{len(shape)}D complex64 {mode}", np.complex64, shape, (np_,),
                              0, seed, m=4, sigma=SIGMA_W, window=window,
                              err_tol=window_err_tol(window[0], 4, len(shape), np.complex64),
-                             err_modes=1024))
+                             err_modes=1024, check_np=np_))
 
 
 def phase_m10(seed: int, record, windows):
@@ -1488,7 +1504,7 @@ def main(argv=None) -> int:
                 NP_64 if dtype in (np.complex128, np.float64) else NP_MAIN)
             record(main_path(f"{len(shape)}D {np.dtype(dtype).name}", dtype, shape, nps,
                              nps[0], args.seed,
-                             spread_check_np=nps[-1] if len(shape) == 2 else None))
+                             check_np=nps[-1]))
     phase_windows(args.seed, record, windows)
     phase_m10(args.seed, record, windows)
     phase_nfft(args.seed, record)

@@ -126,6 +126,49 @@ __device__ __forceinline__ void bspline_taps(T X, T (&b)[S]) {
   }
 }
 
+// Taps rounded up to whole 16-byte rows: the pitch of a coefficient-major
+// table that horner_rows reads.
+template <int S, typename T>
+__host__ __device__ constexpr int row_pitch() {
+  return (S * int(sizeof(T)) + 15) / 16 * 16 / int(sizeof(T));
+}
+
+template <typename T>
+struct alignas(16) Row16 {
+  T c[16 / sizeof(T)];
+};
+
+// All S taps of fraction X by Horner's rule on a coefficient-major table:
+// ncoef rows STRIDE scalars apart (row_pitch<S, T>() by default), tap t in
+// column t (zero past S up to row_pitch), 16-byte aligned.  Each row is
+// read with 16-byte loads and the S chains advance together, so that the
+// evaluation waits ncoef - 1 steps, not S (ncoef - 1) as horner_taps'
+// runtime loops a tap do.
+template <int S, typename T, int STRIDE = row_pitch<S, T>()>
+__device__ __forceinline__ void horner_rows(const T* cs, int ncoef, T X, T (&out)[S]) {
+  constexpr int kPitch = row_pitch<S, T>(), kVec = 16 / int(sizeof(T));
+  static_assert(STRIDE >= kPitch && STRIDE % kVec == 0, "rows of whole 16 bytes");
+  const Row16<T>* rows = reinterpret_cast<const Row16<T>*>(cs);
+  const T z = T(2) * X - T(1);
+  T acc[kPitch];
+#pragma unroll
+  for (int i = 0; i < kPitch / kVec; ++i) {
+    const Row16<T> r = rows[(ncoef - 1) * (STRIDE / kVec) + i];
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) acc[i * kVec + v] = r.c[v];
+  }
+  for (int q = ncoef - 2; q >= 0; --q) {
+#pragma unroll
+    for (int i = 0; i < kPitch / kVec; ++i) {
+      const Row16<T> r = rows[q * (STRIDE / kVec) + i];
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) acc[i * kVec + v] = fma_t(acc[i * kVec + v], z, r.c[v]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < S; ++t) out[t] = acc[t];
+}
+
 // All S = 2M Horner taps of one dimension; cs points at that dimension's
 // (2M, ncoef) coefficients.
 template <int S, typename T>

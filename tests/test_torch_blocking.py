@@ -159,7 +159,8 @@ def test_spread_smem_bytes_by_dimension():
     the coefficient stack; 2D stages 8 warps' unit rows (32 A rows and 32 B
     rows of 20 doubles each), whatever the block dims, and two dims'
     coefficients, the first rounded up to 16 bytes past a multiple of 128
-    (``spread2d_coef_stride``); 1D holds the coefficients and an
+    (``spread2d_coef_stride``); 1D holds the coefficients in rows of whole
+    16 bytes, each warp's carry of 2M - 1 padded cells in double and an
     int32 start table of B + 1 entries, so a long 1D block is refused.  A
     window without a coefficient stack (ncoef = 0) stages none."""
     cells = 4 * 3 * 64
@@ -179,7 +180,11 @@ def test_spread_smem_bytes_by_dimension():
     assert spread_smem_bytes((48, 96), 4, 0, 8, 1) == rows + 16
     assert spread_smem_bytes((128, 128), 10, 14, 8, 2) == rows + 8 * (290 + 280) <= MAX_SMEM_BYTES
     assert spread_smem_bytes((8, 16), 4, 8, 4, 2) == spread_smem_bytes((48, 96), 4, 8, 4, 1)
-    assert spread_smem_bytes((1024,), 4, 8, 4, 2) == 4 * 8 * 8 + 4 * 1025
-    assert spread_smem_bytes((1024,), 8, 12, 8, 1) == 8 * 16 * 12 + 4 * 1025
-    assert spread_smem_bytes((1024,), 10, 0, 8, 2) == 4 * 1025
+    # 1D: the coefficients in rows of whole 16 bytes (m = 5 in float: 12 of
+    # 10 taps), each of the 8 warps' carry, 2M - 1 padded cells of ncomp
+    # doubles.
+    assert spread_smem_bytes((1024,), 4, 8, 4, 2) == 4 * 8 * 8 + 8 * 8 * 7 * 2 + 4 * 1025
+    assert spread_smem_bytes((1024,), 5, 9, 4, 1) == 4 * 12 * 9 + 8 * 8 * 9 + 4 * 1025
+    assert spread_smem_bytes((1024,), 8, 12, 8, 1) == 8 * 16 * 12 + 8 * 8 * 15 + 4 * 1025
+    assert spread_smem_bytes((1024,), 10, 0, 8, 2) == 8 * 8 * 19 * 2 + 4 * 1025
     assert spread_smem_bytes((65536,), 4, 8, 4, 2) > MAX_SMEM_BYTES

@@ -346,6 +346,163 @@ def test_interp_3d_matches_plain_version(cuda_device, case, dtype):
     assert _rel_err(v_k, v_p) <= KERNEL_TOL[np.dtype(real).itemsize]
 
 
+# The 1D spread kernel's edges (csrc/spread_1d.cu): (shape, sigma, m,
+# block_dims, transforms, where the points lie, points, window).  The cases
+# of tests/test_torch_lowdim_tiles.py:SPREAD1D_CASES, the chooser's own
+# pick, points near both ends (the halo wraps), dense cells (~40 points a
+# cell, one lane's long walk), and every window whose taps come from K3.
+SPREAD_1D_CASES = {
+    "main_512": ((1024,), 1.5, 4, (512,), 1, "uniform", 6_000, None),
+    "chosen": ((4096,), 1.5, 4, None, 1, "uniform", 20_000, None),
+    "m2": ((256,), 2.0, 2, (64,), 1, "uniform", 3_000, None),
+    "m8": ((512,), 2.0, 8, (256,), 1, "uniform", 6_000, None),
+    "m10": ((512,), 2.0, 10, (128,), 1, "uniform", 6_000, None),
+    # One block of 20 cells at m = 10: the padded block (39) exceeds the grid.
+    "m10_grid_below_block": ((10,), 2.0, 10, (20,), 1, "uniform", 1_000, None),
+    "ragged": ((60,), 1.5, 4, (45,), 1, "uniform", 2_000, None),
+    # 40 points over 32 blocks: empty blocks and near-empty rounds.
+    "sparse": ((2048,), 1.5, 4, (96,), 1, "uniform", 40, None),
+    "three_transforms": ((256,), 1.5, 5, (96,), 3, "uniform", 3_000, None),
+    "wrapped_edges": ((512,), 1.5, 4, (64,), 2, "edges", 6_000, None),
+    "dense_cells": ((128,), 1.5, 4, (64,), 1, "uniform", 8_000, None),
+    **{f"wtaps_{k}_{e}": ((512,), 2.0, 3, (128,), 1, "uniform", 6_000, (k, e))
+       for k, e in WINDOWS if (k, e) != ("KaiserBesselKernel", "FastApproximation")
+       and (k, e) != ("BackwardsKaiserBesselKernel", "FastApproximation")},
+}
+
+
+def _lowdim_plan(case_row, D, dtype, device, seed):
+    shape, sigma, m, block_dims, C, where, np_, window = case_row
+    rng = np.random.default_rng(seed)
+    real = np.dtype(dtype).type(0).real.dtype
+    if where == "uniform":
+        pts = rng.uniform(-1.0, 7.0, (D, np_))
+    elif where == "clustered":  # 7 points of 8 in one corner
+        pts = rng.uniform(0.1, 0.9, (D, np_))
+        pts[:, ::8] = rng.uniform(0.0, 2 * np.pi, (D, (np_ + 7) // 8))
+    else:  # half the points within 0.3 of an edge, so every edge's halo wraps
+        pts = rng.uniform(-0.3, 0.3, (D, np_))
+        pts[:, ::2] = rng.uniform(0.0, 2 * np.pi, (D, (np_ + 1) // 2))
+    kw = {}
+    if window is not None:
+        kw = dict(kernel=getattr(tnufft, window[0])(),
+                  kernel_evalmode=getattr(tnufft, window[1])())
+    plan = tnufft.PlanNUFFT(dtype, shape, m=m, sigma=sigma, ntransforms=C,
+                            spread_method="blocked", block_dims=block_dims,
+                            device=device, **kw)
+    plan = tnufft.set_points(plan, torch.from_numpy(pts.astype(real)).to(device))
+    return plan, rng, KERNEL_TOL[np.dtype(real).itemsize]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("case", list(SPREAD_1D_CASES))
+def test_spread_1d_matches_plain_version(cuda_device, case, dtype):
+    """Each 1D spread entry point (a lane a cell, rounds of 32 cells)
+    against its plain version on the kernel's edge cases and every window
+    whose taps come from K3, with its launch counts moving."""
+    row = SPREAD_1D_CASES[case]
+    plan, rng, tol = _lowdim_plan(row, 1, dtype, cuda_device, len(case) + 11)
+    C, np_, window = row[4], row[6], row[7]
+    if case == "sparse":
+        assert (plan.pstarts[1:] == plan.pstarts[:-1]).any()
+    if case == "m10_grid_below_block":
+        assert plan.block_dims[0] + 2 * plan.m - 1 > plan.shape_over[0]
+    vp = torch.from_numpy(_values(rng, dtype, (C, np_))).to(cuda_device)
+    name = blocked.entry_point("spread", plan)
+    assert name.startswith("nufft_spread_1d_")
+    weights = blocked.WEIGHTS_ENTRY[plan.real_dtype]
+    horner = blocked.kernel_coefs(plan)[0] is not None
+    assert horner == (window is None)
+    before = dict(blocked.LAUNCHES)
+    g_k = blocked.spread_blocked(plan, vp)
+    torch.cuda.synchronize()
+    assert blocked.LAUNCHES[name] == before[name] + 1
+    assert blocked.LAUNCHES[weights] == before[weights] + (0 if horner else 1)
+    g_p = blocked.spread_blocked_plain(plan, vp)
+    assert g_k.dtype == g_p.dtype == plan.dtype and g_k.shape == g_p.shape
+    assert _rel_err(g_k, g_p) <= tol
+
+
+# The 2D interpolation kernel's edges (csrc/interp_2d.cu): (shape, sigma, m,
+# block_dims, transforms, where, points, window).  Runs of blocks staged
+# together (the main path's (8, 24) at ~90 points a block); every sub-run
+# read from global memory (sparse, with empty blocks); staged and gathered
+# sub-runs in one CTA, and empty blocks (clustered: runs of six (8, 64)
+# blocks, sub-runs of four); dense blocks of several ordered chunks; a
+# window staged in x-slab passes (m = 10, one 128 x 128 block: complex128);
+# a grid smaller than the padded window; m = 2, 8 and 10; three transforms;
+# runs cut at the end of a row of blocks; wrapped edges; every K3 window.
+INTERP_2D_CASES = {
+    "main_8x24": ((64, 64), 1.5, 4, (8, 24), 1, "uniform", 9_000, None),
+    "chosen": ((64, 48), 1.5, 4, None, 1, "uniform", 6_000, None),
+    "sparse": ((64, 64), 1.5, 4, (8, 24), 1, "uniform", 200, None),
+    "clustered": ((64, 256), 1.5, 4, (8, 64), 2, "clustered", 1_200, None),
+    "dense_chunks": ((16, 16), 1.5, 4, (8, 8), 1, "uniform", 12_000, None),
+    "x_slab_passes": ((64, 64), 2.0, 10, (128, 128), 1, "uniform", 4_000, None),
+    "m10_grid_below_window": ((10, 12), 2.0, 10, (20, 24), 1, "uniform", 3_000, None),
+    "m2": ((16, 16), 2.0, 2, (4, 8), 1, "uniform", 6_000, None),
+    "m8": ((16, 16), 2.0, 8, (8, 8), 1, "uniform", 6_000, None),
+    "three_transforms": ((20, 24), 1.5, 4, (5, 12), 3, "uniform", 6_000, None),
+    "cut_runs": ((40, 256), 1.5, 4, (6, 32), 1, "uniform", 12_000, None),
+    "wrapped_edges": ((20, 24), 1.5, 4, None, 2, "edges", 6_000, None),
+    **{f"wtaps_{k}_{e}": ((20, 24), 2.0, 3, None, 1, "uniform", 6_000, (k, e))
+       for k, e in WINDOWS if (k, e) != ("KaiserBesselKernel", "FastApproximation")
+       and (k, e) != ("BackwardsKaiserBesselKernel", "FastApproximation")},
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("case", list(INTERP_2D_CASES))
+def test_interp_2d_matches_plain_version(cuda_device, case, dtype):
+    """Each 2D interpolation entry point (staged runs of blocks, a thread a
+    point in bank order) against its plain version on the kernel's edge
+    cases and every window whose taps come from K3, with its launch counts
+    moving."""
+    from nonuniformffts_tpu_torch.ops.kernels.common import (
+        INTERP2D_CHUNK,
+        VALUE_TYPES,
+        interp2d_group,
+        interp2d_staged,
+        interp2d_sub,
+        interp2d_window,
+    )
+
+    row = INTERP_2D_CASES[case]
+    plan, rng, tol = _lowdim_plan(row, 2, dtype, cuda_device, len(case) + 13)
+    C, np_, window = row[4], row[6], row[7]
+    _, sb, ncomp = VALUE_TYPES[plan.dtype]
+    group = interp2d_group(plan.shape_over, plan.block_dims, np_, plan.m)
+    counts = plan.pstarts[1:] - plan.pstarts[:-1]
+    if case == "x_slab_passes" and dtype == np.complex128:
+        sub = interp2d_sub(group, plan.block_dims[1])
+        assert interp2d_window(plan.block_dims, plan.m, plan.m + 4, sb, ncomp, sub).passes >= 2
+    if case == "dense_chunks":
+        assert int(counts.max()) > INTERP2D_CHUNK
+    if case in ("sparse", "clustered"):
+        assert (counts == 0).any()
+    if case == "clustered":  # a CTA's first sub-run staged, its second gathered
+        sub = interp2d_sub(group, plan.block_dims[1])
+        ps = plan.pstarts.tolist()
+        rows = [ps[bx * 6:bx * 6 + 7] for bx in range(12)]
+        assert (group, sub) == (6, 4) and any(
+            interp2d_staged(r[4] - r[0], (15, 4 * 64 + 7))
+            and not interp2d_staged(r[6] - r[4], (15, 2 * 64 + 7)) and r[6] > r[4]
+            for r in rows)
+    grid = torch.from_numpy(_values(rng, dtype, (C,) + plan.shape_over)).to(cuda_device)
+    name = blocked.entry_point("interp", plan)
+    assert name.startswith("nufft_interp_2d_")
+    weights = blocked.WEIGHTS_ENTRY[plan.real_dtype]
+    horner = blocked.kernel_coefs(plan)[0] is not None
+    before = dict(blocked.LAUNCHES)
+    v_k = blocked.interpolate_blocked(plan, grid)
+    torch.cuda.synchronize()
+    assert blocked.LAUNCHES[name] == before[name] + 1
+    assert blocked.LAUNCHES[weights] == before[weights] + (0 if horner else 1)
+    v_p = blocked.interpolate_blocked_plain(plan, grid)
+    assert v_k.dtype == v_p.dtype == plan.dtype and v_k.shape == (C, np_)
+    assert _rel_err(v_k, v_p) <= tol
+
+
 def test_m_above_10_raises(cuda_device):
     with pytest.raises(NotImplementedError, match="documented maximum"):
         tnufft.PlanNUFFT(np.complex64, (64, 64), m=11, sigma=2.0, device=cuda_device)
