@@ -69,21 +69,21 @@ below as ``_POINT_INTERP_3D_SRC``), in turns on the same points, and its
 (``INTERP3D_PARTS``).
 
     python3 chip_probe.py --spread1d [--spread1d-parts] [--interp2d] [--interp2d-parts]
-                          [--dtype T ...] [--np N ...]
+                          [--m M ...] [--dtype T ...] [--np N ...]
 
 times the 1D spread kernel (``csrc/spread_1d.cu``: a lane a local cell,
 rounds of 32 cells rotated by shuffles, interior cells stored) against the
-thread-a-padded-cell kernel it replaced (``_CELL_SPREAD_1D_SRC``), and the
-2D interpolation kernel (``csrc/interp_2d.cu``: runs of blocks staged in
-shared memory, a thread a point in bank order) against the per-point
-kernel it replaced (``_POINT_INTERP_2D_SRC``), in turns on the same points, with
-each one's wrapper call and host time and its ``-D`` variants
-(``SPREAD1D_VARIANTS``, ``INTERP2D_VARIANTS``), all built for M = 4 into
-``build/chip_probe/``: 1D N = 2^20 at 1M, 10M and rho = 0.01, 2D N =
-4096^2 at each dtype's main-path Np, 16,777,216 and rho = 0.01
-(``_lowdim_probe``).  The ``-parts`` flags time copies of the sources with
-one phase taken out (``SPREAD1D_PARTS``, ``INTERP2D_PARTS``) at the first
-two point counts.
+thread-a-padded-cell kernel it replaced (``_CELL_SPREAD_1D_SRC``), with its
+wrapper call and host time and its variants (``SPREAD1D_VARIANTS``: copies
+of the source with one line changed); and the 2D interpolation kernel
+(``csrc/interp_2d.cu``: a thread a point) against a staged-window design
+tried in its place (``_STAGED_INTERP_2D_SRC``), with its wrapper call and
+host time; raw launches in turns on the same points, all built for the M
+of ``--m`` (4 by default) into ``build/chip_probe/``: 1D N = 2^20 at 1M,
+10M and rho = 0.01, 2D N = 4096^2 at each dtype's main-path Np, 16,777,216
+and rho = 0.01 (``_lowdim_probe``).  The ``-parts`` flags time copies of
+the shipped sources with one phase taken out (``SPREAD1D_PARTS``,
+``INTERP2D_PARTS``) at the first two point counts.
 
     python3 chip_probe.py --relayout
 
@@ -1241,7 +1241,7 @@ def probe_spread2d(seed: int, dtypes, nps) -> None:
     card = nvidia_smi_line()
     print(card, flush=True)
     dev = torch.device("cuda")
-    cas = _probe_library("cas_spread_2d", _m4_only(_with_warp_taps(_CAS_SPREAD_2D_SRC)),
+    cas = _probe_library("cas_spread_2d", _m_only(_with_warp_taps(_CAS_SPREAD_2D_SRC)),
                          ("-I", str(build.CSRC_DIR)))
     shipped = build.load()
     variants = build.build_variants(SPREAD2D_VARIANTS, sources=("spread_2d.cu",))
@@ -1410,7 +1410,7 @@ def probe_spread2d_parts(seed: int, dtypes, nps) -> None:
     card = nvidia_smi_line()
     print(card, flush=True)
     dev = torch.device("cuda")
-    src = _m4_only(_inlined_source("spread_2d"))
+    src = _m_only(_inlined_source("spread_2d"))
     texts = {}
     for name, edits in SPREAD2D_PARTS.items():
         texts[name] = src
@@ -1644,11 +1644,13 @@ INTERP3D_VARIANTS = {"s0": [_S + "0"], "s32": [_S + "32"], "s128": [_S + "128"],
 INTERP3D_EXTRA_NP = (167_772, 16_777_216)
 
 
-def _m4_only(text: str) -> str:
-    """A kernel source instantiated for M = 4 alone (a quick build)."""
+def _m_only(text: str, ms=(4,)) -> str:
+    """A kernel source instantiated for the M of ``ms`` alone (M = 4 by
+    default: a quick build)."""
     anchor = '#include "window.cuh"\n'
+    cases = " ".join(f"CASE({m})" for m in ms)
     return text.replace(anchor, anchor + "#undef NUFFT_FOR_EACH_M\n"
-                        "#define NUFFT_FOR_EACH_M(CASE) CASE(4)\n", 1)
+                        f"#define NUFFT_FOR_EACH_M(CASE) {cases}\n", 1)
 
 
 def _interp_registers(text: str) -> str:
@@ -1708,9 +1710,9 @@ def probe_interp3d(seed: int, dtypes, nps) -> None:
     card = nvidia_smi_line()
     print(card, flush=True)
     dev = torch.device("cuda")
-    new_src = _m4_only((build.CSRC_DIR / "interp_3d.cu").read_text())
+    new_src = _m_only((build.CSRC_DIR / "interp_3d.cu").read_text())
     inc = ("-I", str(build.CSRC_DIR))
-    jobs = {"old": (_m4_only(_POINT_INTERP_3D_SRC), inc),
+    jobs = {"old": (_m_only(_POINT_INTERP_3D_SRC), inc),
             **{k: (new_src, inc + tuple(f)) for k, f in INTERP3D_VARIANTS.items()}}
     shipped = build.load()
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -1787,8 +1789,6 @@ INTERP3D_PARTS = {
     "no_reduce": {"for (int off = L::kPerPoint / 2; off >= 1; off /= 2)":
                   "for (int off = 0; off >= 1; off /= 2)"},
     "no_out": {"            *dst = res;": "            if (res.c[0] == T(1.25e-30)) *dst = res;"},
-    # Each result at its sorted position, not scattered to perm[j].
-
 }
 INTERP3D_PARTS["no_cells"] = {
     "            const int lx = cells[pb + p] - ox;": "            const int lx = (pb + p) & 7;",
@@ -1828,7 +1828,7 @@ def probe_interp3d_parts(seed: int, dtypes, nps) -> None:
     card = nvidia_smi_line()
     print(card, flush=True)
     dev = torch.device("cuda")
-    src = _m4_only((build.CSRC_DIR / "interp_3d.cu").read_text())
+    src = _m_only((build.CSRC_DIR / "interp_3d.cu").read_text())
     texts = {"shipped": src}
     for name, edits in INTERP3D_PARTS.items():
         text = src
@@ -1921,7 +1921,7 @@ def probe_spread3d_parts(seed: int, dtypes, nps) -> None:
             torch.cuda.empty_cache()
 
 
-# The 1D spread kernel the staged design replaced (the csrc/spread_1d.cu of
+# The 1D spread kernel the lane-a-cell design replaced (the csrc/spread_1d.cu of
 # PRs 3-9): a thread a padded cell summing, over the 2M local cells that
 # reach it, each cell's points read from global memory (so each point is
 # read 2M times), every padded cell flushed with global atomicAdd; its C
@@ -2070,12 +2070,17 @@ NUFFT_SPREAD_ENTRY(cell_spread_1d_real_f64, double, 1)
 """
 
 
-# The 2D interpolation kernel the staged-window design replaced (the
-# csrc/interp_2d.cu of PRs 3-9): a thread a sorted point gathering its
-# (2M)^2 window from global memory with periodic wrap, and the C interface it
-# had (no pstarts, no block dims).  Built by --interp2d into
-# build/chip_probe/.
-_POINT_INTERP_2D_SRC = r"""
+# A 2D interpolation kernel tried in place of the per-point kernel of
+# csrc/interp_2d.cu, kept for --interp2d, which times the two in turns: a CTA
+# covers a run of consecutive blocks of one x row of blocks (pstarts); each
+# sub-run of blocks whose padded window holds at most kStageCells cells a
+# point is staged in shared memory by cp.async (in x-slab passes above
+# 227 KB), its points dealt round robin over the banks of a wavefront by
+# shared-memory bucket counts and contracted a thread a point from the
+# window; the points of sparser sub-runs are read from global memory.  Its C
+# interface adds pstarts and the block dims to the shipped kernel's.  Built
+# by --interp2d into build/chip_probe/.
+_STAGED_INTERP_2D_SRC = r"""
 #include <cstdint>
 
 #include "window.cuh"
@@ -2083,108 +2088,359 @@ _POINT_INTERP_2D_SRC = r"""
 namespace {
 
 constexpr int kThreads = 256;
+// A sub-run is staged when its padded window holds at most this many cells
+// a point.
+constexpr int kStageCells = 8;
+constexpr int kStageRun = 256;    // most y cells of a staged sub-run's blocks
+constexpr int kRunPoints = 1024;  // points of a CTA's staged run at the mean density
+constexpr int kChunk = 1024;      // points of a staged sub-run ordered at a time
 
-// TAPS: the window's taps come in wtaps (window_weights.cu), else by
-// Horner's rule.  The two instantiations keep the Horner one's registers at
-// what it needs alone: one kernel for both took 172 registers at M = 4 in
-// 3D double, against 128, and halved the resident CTAs.
+constexpr int kMaxGroup = 64;  // most spatial blocks one CTA covers
+constexpr size_t kMaxSmem = 232448;
+
+// y taps of a coefficient row: 2M rounded up to a power of two (at least 4).
+__host__ __device__ constexpr int y_span(int m) {
+  return 2 * m <= 4 ? 4 : 2 * m <= 8 ? 8 : 2 * m <= 16 ? 16 : 32;
+}
+
+// The staged window of a sub-run of `sub` blocks: cells, x rows pd1 cells
+// apart; `rows` x rows staged a pass, `passes` passes; `head` bytes of
+// tables before it.
+struct Window {
+  int pd0, pd1, rows, passes;
+  size_t head, smem;
+};
+
+template <int M, typename T, int NCOMP>
+__host__ __device__ inline Window window_of(int ncoef, int b0, int b1, int sub) {
+  Window w;
+  w.pd0 = b0 + 2 * M - 1;
+  w.pd1 = sub * b1 + 2 * M - 1;
+  // The (ncoef, 2, span) coefficient table, the bucket counts, a chunk's
+  // order, window offsets and bucket ranks, the CTA's blocks' point ranges.
+  constexpr int kBuckets = 128 / int(sizeof(T) * NCOMP);
+  const size_t head = sizeof(T) * ncoef * 2 * y_span(M) +
+                      sizeof(int) * (kBuckets + 3 * kChunk + kMaxGroup + 1);
+  w.head = (head + 15) / 16 * 16;
+  const size_t row_bytes = sizeof(T) * NCOMP * (size_t)w.pd1;
+  const long long fit = w.head < kMaxSmem ? (long long)((kMaxSmem - w.head) / row_bytes) : 0;
+  w.passes = fit >= 1 ? (int)((w.pd0 + fit - 1) / fit) : 0;
+  w.rows = w.passes ? (w.pd0 + w.passes - 1) / w.passes : 0;
+  w.smem = w.head + row_bytes * w.rows;
+  return w;
+}
+
+// Blocks of a staged sub-run: at most kStageRun y cells, at least one block.
+__host__ __device__ inline int sub_of(int group, int b1) {
+  const int fit = kStageRun / b1 > 1 ? kStageRun / b1 : 1;
+  return group < fit ? group : fit;
+}
+
+// Blocks a CTA covers, at most kMaxGroup and a row of blocks: where a full sub-run at the mean density
+// is staged, whole sub-runs of about kRunPoints points; else about a CTA's
+// threads' worth of points, each thread's one point read from global
+// memory.
+__host__ inline int group_of(long long np, int m, int n0, int n1, int b0, int b1) {
+  const long long nb1 = n1 / b1, mean = np / ((n0 / b0) * nb1);
+  const long long cap = nb1 < kMaxGroup ? nb1 : kMaxGroup;
+  const long long fit = sub_of((int)cap, b1);
+  long long g;
+  if (mean * fit * kStageCells >= (long long)(b0 + 2 * m - 1) * (fit * b1 + 2 * m - 1)) {
+    g = kRunPoints / (mean + 1);
+    g = g > fit ? g / fit * fit : fit;
+  } else {
+    g = kThreads / (mean + 1);
+  }
+  return (int)(g < 1 ? 1 : g > cap ? cap : g);
+}
+
+// Whether a sub-run of `points` points whose window has pd0 x pd1 cells
+// is staged.
+__device__ __forceinline__ bool staged_run(int points, int pd0, int pd1) {
+  return points > 0 && (long long)points * kStageCells >= (long long)pd0 * pd1;
+}
+
+__device__ __forceinline__ int mod_index(int i, int n) {
+  i %= n;
+  return i < 0 ? i + n : i;
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Both dims' 2M taps of sorted point j: from wtaps, or by Horner's rule on
+// the coefficient table cs, (ncoef, 2, y_span(M)).
+template <int M, typename T, bool TAPS>
+__device__ __forceinline__ void point_taps_2d(const T* cs, int ncoef, const T* __restrict__ fracs,
+                                              const T* __restrict__ wtaps, long long np,
+                                              long long j, T (&w)[2][2 * M]) {
+  constexpr int S = 2 * M, kSpan = y_span(M);
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    if constexpr (TAPS) {
+#pragma unroll
+      for (int t = 0; t < S; ++t) w[d][t] = wtaps[(d * S + t) * np + j];
+    } else {
+      nufft::horner_rows<S, T, 2 * kSpan>(cs + d * kSpan, ncoef, fracs[d * np + j], w[d]);
+    }
+  }
+}
+
+// One point's sum over x taps a with has_x(a): row by row, each row's y
+// taps first (the first design's order), UNROLL rows at a time; at(a, b)
+// reads cell (a, b) of the point's window.
+template <int M, typename T, int NCOMP, int UNROLL, class HasX, class At>
+__device__ __forceinline__ nufft::Value<T, NCOMP> point_sum(const T (&w)[2][2 * M], HasX has_x,
+                                                            At at) {
+  constexpr int S = 2 * M;
+  nufft::Value<T, NCOMP> acc = {};
+#pragma unroll UNROLL
+  for (int a = 0; a < S; ++a) {
+    if (!has_x(a)) continue;
+    T r[NCOMP] = {};
+#pragma unroll
+    for (int b = 0; b < S; ++b) {
+      const nufft::Value<T, NCOMP> v = at(a, b);
+#pragma unroll
+      for (int n = 0; n < NCOMP; ++n) r[n] = nufft::fma_t(v.c[n], w[1][b], r[n]);
+    }
+#pragma unroll
+    for (int n = 0; n < NCOMP; ++n) acc.c[n] = nufft::fma_t(r[n], w[0][a], acc.c[n]);
+  }
+  return acc;
+}
+
+// One CTA covers a run of at most `group` consecutive blocks of one x row
+// of blocks, in sub-runs of at most `sub` blocks.  TAPS: the window's taps
+// come in wtaps (window_weights.cu), else by Horner's rule.
 template <int M, typename T, int NCOMP, bool TAPS>
-__global__ void __launch_bounds__(kThreads) interp_2d_kernel(
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 2)
+    interp_2d_kernel(
     const nufft::Value<T, NCOMP>* __restrict__ grid,
     const int* __restrict__ cells, const T* __restrict__ fracs,
-    const long long* __restrict__ perm, const T* __restrict__ coefs,
-    const T* __restrict__ wtaps, nufft::Value<T, NCOMP>* __restrict__ out,
-    long long np, int nchan, int ncoef, int n0, int n1, double normfactor) {
-  constexpr int S = 2 * M;
+    const long long* __restrict__ perm, const int* __restrict__ pstarts,
+    const T* __restrict__ coefs, const T* __restrict__ wtaps,
+    nufft::Value<T, NCOMP>* __restrict__ out, long long np, int nchan,
+    int ncoef, int n0, int n1, int b0, int b1, int group, double normfactor) {
+  using V = nufft::Value<T, NCOMP>;
+  constexpr int S = 2 * M, kSpan = y_span(M), kCol = 2 * kSpan;
+  constexpr int kBuckets = 128 / int(sizeof(V));  // cells of a wavefront
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* cs = reinterpret_cast<T*>(smem_raw);  // (2, S, ncoef)
-  for (int i = threadIdx.x; i < 2 * S * ncoef; i += blockDim.x)
-    cs[i] = coefs[i];
-  __syncthreads();
 
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= np) return;
+  const int nb1 = n1 / b1;
+  const int runs = (nb1 + group - 1) / group;  // runs a row of blocks
+  const int bx = blockIdx.x / runs;
+  const int run = blockIdx.x - bx * runs;
+  const int first = bx * nb1 + run * group;
+  const int ng = min(group, nb1 - run * group);  // blocks of this CTA
+  const int sub = sub_of(group, b1);
+  const int nsub = (ng + sub - 1) / sub;  // sub-runs of this CTA
 
-  T wy[S];
-  int iy[S];
-  if constexpr (TAPS) {
-#pragma unroll
-    for (int t = 0; t < S; ++t) wy[t] = wtaps[(S + t) * np + j];
-  } else {
-    nufft::horner_taps<S>(cs + S * ncoef, ncoef, fracs[np + j], wy);
+  const Window w = window_of<M, T, NCOMP>(ncoef, b0, b1, sub);
+  T* cs = reinterpret_cast<T*>(smem_raw);              // (ncoef, 2, kSpan), zero past 2M
+  int* s_cnt = reinterpret_cast<int*>(cs + kCol * ncoef);  // (kBuckets,)
+  int* s_order = s_cnt + kBuckets;                     // (kChunk,): a chunk's points in order
+  int* s_base = s_order + kChunk;                      // (kChunk,): window offsets
+  int* s_rank = s_base + kChunk;                       // (kChunk,): bucket | rank << 8
+  int* s_ps = s_rank + kChunk;                         // (ng + 1,): the blocks' point ranges
+  V* win = reinterpret_cast<V*>(smem_raw + w.head);    // (rows, pd1)
+  const int tid = threadIdx.x;
+  for (int i = tid; i <= ng; i += blockDim.x) s_ps[i] = pstarts[first + i];
+  for (int i = tid; i < kCol * ncoef; i += blockDim.x) {
+    const int c = i / kCol, d = (i - c * kCol) / kSpan, t = i - c * kCol - d * kSpan;
+    cs[i] = t < S ? coefs[(d * S + t) * ncoef + c] : T(0);
   }
-  const int cx = cells[j] - (M - 1);
-  const int cy = cells[np + j] - (M - 1);
-#pragma unroll
-  for (int t = 0; t < S; ++t) iy[t] = nufft::wrap_index(cy + t, n1);
-  const T fx = fracs[j];
-  const long long dest = perm[j];
+  __syncthreads();
+  const int q_begin = s_ps[0], q_end = s_ps[ng];
+  if (q_begin == q_end) return;  // uniform across the CTA
+  // Sub-run s: blocks [s sub, min((s + 1) sub, ng)), its window
+  // pd0 x (blocks b1 + 2M - 1) cells.
+  auto sub_blocks = [&](int s) { return min(sub, ng - s * sub); };
+  auto sub_staged = [&](int s) {
+    return staged_run(s_ps[s * sub + sub_blocks(s)] - s_ps[s * sub], w.pd0,
+                      sub_blocks(s) * b1 + 2 * M - 1);
+  };
+  // Every thread reads the same table: the branches below are uniform.
+  bool any_sparse = false;
+  for (int s = 0; s < nsub; ++s)
+    any_sparse = any_sparse || (!sub_staged(s) && s_ps[s * sub + sub_blocks(s)] > s_ps[s * sub]);
+
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
   const long long area = (long long)n0 * n1;
   const T nf = T(normfactor);
+  const int ox = bx * b0;
 
-  for (int c = 0; c < nchan; ++c) {
-    const nufft::Value<T, NCOMP>* g = grid + c * area;
-    T acc[NCOMP] = {};
-#pragma unroll 1
-    for (int a = 0; a < S; ++a) {
-      T wx;
-      if constexpr (TAPS) {
-        wx = wtaps[a * np + j];
-      } else {
-        wx = nufft::horner_tap(cs + a * ncoef, ncoef, T(2) * fx - T(1));
+  // The points of sparse sub-runs, a thread a point, each point's window
+  // read from global memory with periodic wrap.
+  if (any_sparse) {
+    for (int j = q_begin + tid; j < q_end; j += blockDim.x) {
+      int lo = 0, hi = ng;  // j's block: the last one starting at or before j
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (s_ps[mid] <= j) lo = mid;
+        else hi = mid;
       }
-      const nufft::Value<T, NCOMP>* row =
-          g + (long long)nufft::wrap_index(cx + a, n0) * n1;
-      T r[NCOMP] = {};
+      if (sub_staged(lo / sub)) continue;
+      T wt[2][S];
+      point_taps_2d<M, T, TAPS>(cs, ncoef, fracs, wtaps, np, j, wt);
+      const int cx = cells[j] - (M - 1), cy = cells[np + j] - (M - 1);
+      int iy[S];
 #pragma unroll
-      for (int b = 0; b < S; ++b) {
-        const nufft::Value<T, NCOMP> val = row[iy[b]];
+      for (int b = 0; b < S; ++b) iy[b] = nufft::wrap_index(cy + b, n1);
+      const long long dest = perm[j];
+      for (int c = 0; c < nchan; ++c) {
+        const V* g = grid + c * area;
+        const V acc = point_sum<M, T, NCOMP, 2>(
+            wt, [](int) { return true; },
+            [&](int a, int b) { return g[(long long)nufft::wrap_index(cx + a, n0) * n1 + iy[b]]; });
+        V res;
 #pragma unroll
-        for (int k = 0; k < NCOMP; ++k) r[k] = nufft::fma_t(val.c[k], wy[b], r[k]);
+        for (int n = 0; n < NCOMP; ++n) res.c[n] = acc.c[n] * nf;
+        out[c * np + dest] = res;
       }
-#pragma unroll
-      for (int k = 0; k < NCOMP; ++k) acc[k] = nufft::fma_t(r[k], wx, acc[k]);
     }
-    nufft::Value<T, NCOMP> res;
+  }
+
+  // Staged sub-runs, one at a time.
+  for (int s = 0; s < nsub; ++s) {
+    if (!sub_staged(s)) continue;  // uniform
+    const int p_begin = s_ps[s * sub], p_end = s_ps[s * sub + sub_blocks(s)];
+    const int pd1 = sub_blocks(s) * b1 + 2 * M - 1;
+    const int oy = (first - bx * nb1 + s * sub) * b1;
+    // Staging lanes: rows of the window by sub-warps of pd1 lanes (as many
+    // as fit in 32), a lane a y cell; a row longer than 32 cells takes a
+    // warp.  Padded index i along a dim is grid node origin - (M - 1) + i,
+    // wrapped (more than once where the grid is smaller than the window).
+    const int rpw = pd1 <= 32 ? 32 / pd1 : 1;
+    const int part = pd1 <= 32 ? lane / pd1 : 0;
+    const int l0 = lane - part * (pd1 <= 32 ? pd1 : 0);
+    for (int c = 0; c < nchan; ++c) {
+      const V* g = grid + c * area;
+      for (int pass = 0; pass < w.passes; ++pass) {
+        const int x0 = pass * w.rows;
+        const int nx = min(w.rows, w.pd0 - x0);
+        __syncthreads();  // the last window and chunk are read
+        // Copy x rows x0 .. x0 + nx of the window.
+        if (part < rpw) {
+          for (int i = warp * rpw + part; i < nx; i += nwarps * rpw) {
+            const V* src = g + (long long)mod_index(ox - (M - 1) + x0 + i, n0) * n1;
+            V* dst = win + (long long)i * pd1;
+            for (int l = l0; l < pd1; l += 32)
+              cp_async<sizeof(V)>(dst + l, src + mod_index(oy - (M - 1) + l, n1));
+          }
+        }
+        cp_async_commit();
+
+        for (int cb = p_begin; cb < p_end; cb += kChunk) {
+          const int nc = min(kChunk, p_end - cb);
+          if (cb > p_begin) __syncthreads();  // the last chunk is read
+          for (int i = tid; i < kBuckets; i += blockDim.x) s_cnt[i] = 0;
+          __syncthreads();
+          // Each point's window offset (x0's row first), its bucket and its
+          // rank there.
+          for (int p = tid; p < nc; p += blockDim.x) {
+            const long long j = cb + p;
+            const int base = (cells[j] - ox - x0) * pd1 + (cells[np + j] - oy);
+            const int r = base & (kBuckets - 1);
+            s_base[p] = base;
+            s_rank[p] = r | atomicAdd(&s_cnt[r], 1) << 8;
+          }
+          __syncthreads();
+          // Round robin over the buckets: the point of rank k in bucket r
+          // goes after every point of lower rank and the rank-k points of
+          // lower buckets.
+          for (int p = tid; p < nc; p += blockDim.x) {
+            const int r = s_rank[p] & 255, k = s_rank[p] >> 8;
+            int pos = 0;
 #pragma unroll
-    for (int k = 0; k < NCOMP; ++k) res.c[k] = acc[k] * nf;
-    out[c * np + dest] = res;
+            for (int q = 0; q < kBuckets; ++q) {
+              const int n = s_cnt[q];
+              pos += min(n, k) + (q < r && n > k);
+            }
+            s_order[pos] = p;
+          }
+          cp_async_wait_all();
+          __syncthreads();
+          for (int i = tid; i < nc; i += blockDim.x) {
+            const int p = s_order[i];
+            const long long j = cb + p;
+            T wt[2][S];
+            point_taps_2d<M, T, TAPS>(cs, ncoef, fracs, wtaps, np, j, wt);
+            const V* base = win + s_base[p];
+            const int lx = w.passes == 1 ? 0 : cells[j] - ox - x0;  // x row past x0
+            const V acc = point_sum<M, T, NCOMP, S>(
+                wt, [&](int a) { return w.passes == 1 || (unsigned)(lx + a) < (unsigned)nx; },
+                [&](int a, int b) { return base[a * pd1 + b]; });
+            V* dst = out + c * np + perm[j];
+            V res;
+            if (pass == 0) {
+#pragma unroll
+              for (int n = 0; n < NCOMP; ++n) res.c[n] = acc.c[n] * nf;
+            } else {
+              res = *dst;
+#pragma unroll
+              for (int n = 0; n < NCOMP; ++n) res.c[n] += acc.c[n] * nf;
+            }
+            *dst = res;
+          }
+        }
+      }
+    }
   }
 }
 
 template <int M, typename T, int NCOMP>
 cudaError_t launch(const void* grid, const void* cells, const void* fracs,
-                   const void* perm, const void* coefs,
-                   const void* wtaps, void* out,
-                   long long np, int nchan, int ncoef, int n0, int n1,
-                   double normfactor, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * 2 * 2 * M * ncoef;
-  const long long nblocks = (np + kThreads - 1) / kThreads;
+                   const void* perm, const void* pstarts, const void* coefs,
+                   const void* wtaps, void* out, long long np, int nchan,
+                   int ncoef, int n0, int n1, int b0, int b1, double normfactor,
+                   cudaStream_t stream) {
+  const int group = group_of(np, M, n0, n1, b0, b1);
+  const Window w = window_of<M, T, NCOMP>(ncoef, b0, b1, sub_of(group, b1));
+  if (w.passes == 0) return cudaErrorInvalidValue;
   auto kernel = wtaps ? interp_2d_kernel<M, T, NCOMP, true>
                       : interp_2d_kernel<M, T, NCOMP, false>;
-  kernel<<<(unsigned)nblocks, kThreads, smem, stream>>>(
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)w.smem);
+  if (err != cudaSuccess) return err;
+  const int nb1 = n1 / b1;
+  const unsigned ctas = (unsigned)((n0 / b0) * ((nb1 + group - 1) / group));
+  kernel<<<ctas, kThreads, w.smem, stream>>>(
       static_cast<const nufft::Value<T, NCOMP>*>(grid),
       static_cast<const int*>(cells), static_cast<const T*>(fracs),
-      static_cast<const long long*>(perm), static_cast<const T*>(coefs),
-      static_cast<const T*>(wtaps),
-      static_cast<nufft::Value<T, NCOMP>*>(out), np, nchan, ncoef, n0, n1,
-      normfactor);
+      static_cast<const long long*>(perm), static_cast<const int*>(pstarts),
+      static_cast<const T*>(coefs), static_cast<const T*>(wtaps),
+      static_cast<nufft::Value<T, NCOMP>*>(out), np, nchan, ncoef, n0, n1, b0, b1,
+      group, normfactor);
   return cudaGetLastError();
 }
 
 template <typename T, int NCOMP>
 int dispatch(const void* grid, const void* cells, const void* fracs,
-             const void* perm, const void* coefs,
-             const void* wtaps, void* out, long long np,
-             int nchan, int m, int ncoef, int n0, int n1, double normfactor,
+             const void* perm, const void* pstarts, const void* coefs,
+             const void* wtaps, void* out, long long np, int nchan, int m,
+             int ncoef, int n0, int n1, int b0, int b1, double normfactor,
              void* stream) {
   if (np == 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NUFFT_INTERP_CASE(MM)                                              \
-  case MM:                                                                 \
-    return (int)launch<MM, T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, \
-                                     out, np, nchan, ncoef, n0, n1,         \
-                                     normfactor, s);
+#define NUFFT_INTERP_CASE(MM)                                                  \
+  case MM:                                                                     \
+    return (int)launch<MM, T, NCOMP>(grid, cells, fracs, perm, pstarts, coefs, \
+                                     wtaps, out, np, nchan, ncoef, n0, n1, b0, \
+                                     b1, normfactor, s);
   switch (m) {
     NUFFT_FOR_EACH_M(NUFFT_INTERP_CASE)
     default:
@@ -2197,44 +2453,53 @@ int dispatch(const void* grid, const void* cells, const void* fracs,
 
 // grid (nchan, n0, n1) values (complex: re, im interleaved); cells (2, np)
 // int32 and fracs (2, np) T in bin-sorted order; perm (np,) int64, the
-// original index of each sorted point; coefs (2, 2m, ncoef) T, or ncoef = 0
-// and no coefficients for a window other than kHorner, whose taps come in
-// wtaps (2, 2m, np) T (window_weights.cu), null for kHorner; out
-// (nchan, np) values in original point order.  T is float for *_f32, double
-// for *_f64; normfactor is a double for both.  Launches on `stream`, does
-// not synchronise, allocates nothing.
+// original index of each sorted point; pstarts (nblocks + 1,) int32, block
+// b's points being sorted positions [pstarts[b], pstarts[b + 1]) for blocks
+// (b0, b1) numbered row-major; coefs (2, 2m, ncoef) T, or ncoef = 0 and no
+// coefficients for a window other than kHorner, whose taps come in wtaps
+// (2, 2m, np) T (window_weights.cu), null for kHorner; out (nchan, np)
+// values in original point order.  T is float for *_f32, double for *_f64;
+// normfactor is a double for both.  Launches on `stream`, does not
+// synchronise, allocates nothing.
 #define NUFFT_INTERP_ENTRY(NAME, T, NCOMP)                                    \
   extern "C" int NAME(const void* grid, const void* cells, const void* fracs, \
-                      const void* perm, const void* coefs,                    \
-                      const void* wtaps, void* out,              \
+                      const void* perm, const void* pstarts,                  \
+                      const void* coefs, const void* wtaps, void* out,        \
                       long long np, int nchan, int m, int ncoef, int n0,      \
-                      int n1, double normfactor, void* stream) {              \
-    return dispatch<T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, out, np,  \
-                              nchan, m, ncoef, n0, n1, normfactor, stream);   \
+                      int n1, int b0, int b1, double normfactor,              \
+                      void* stream) {                                         \
+    return dispatch<T, NCOMP>(grid, cells, fracs, perm, pstarts, coefs,       \
+                              wtaps, out, np, nchan, m, ncoef, n0, n1, b0,    \
+                              b1, normfactor, stream);                        \
   }
 
 #if NUFFT_WANT(0)
-NUFFT_INTERP_ENTRY(point_interp_2d_f32, float, 2)
+NUFFT_INTERP_ENTRY(staged_interp_2d_f32, float, 2)
 #endif
 #if NUFFT_WANT(1)
-NUFFT_INTERP_ENTRY(point_interp_2d_f64, double, 2)
+NUFFT_INTERP_ENTRY(staged_interp_2d_f64, double, 2)
 #endif
 #if NUFFT_WANT(2)
-NUFFT_INTERP_ENTRY(point_interp_2d_real_f32, float, 1)
+NUFFT_INTERP_ENTRY(staged_interp_2d_real_f32, float, 1)
 #endif
 #if NUFFT_WANT(3)
-NUFFT_INTERP_ENTRY(point_interp_2d_real_f64, double, 1)
+NUFFT_INTERP_ENTRY(staged_interp_2d_real_f64, double, 1)
 #endif
 """
 
 
-#: Variants of the 1D spread kernel (-D values of csrc/spread_1d.cu's
-#: tunables): CTAs of 128 and 512 threads, register caps for 1, 2, 3 and 4
-#: resident CTAs an SM (float and double values alike).
-_C1 = "-DNUFFT_SPREAD1D_MIN_CTAS_"
-SPREAD1D_VARIANTS = {"threads128": ["-DNUFFT_SPREAD1D_THREADS=128"],
-                     "threads512": ["-DNUFFT_SPREAD1D_THREADS=512"],
-                     **{f"c{c}": [f"{_C1}F32={c}", f"{_C1}F64={c}"] for c in (1, 2, 3, 4)}}
+#: Variants of the 1D spread kernel, each a line of csrc/spread_1d.cu
+#: replaced: CTAs of 128 and 512 threads; register caps for 1 to 4 resident
+#: CTAs an SM at every M and value type (c1 .. c4); and the shipped caps
+#: but two CTAs for complex64 past M = 8 (complex64_two_past_8).
+_COMPLEX64_PAST_8 = "  if (scalar_bytes == 4 && ncomp == 2 && m > 8) return 1;\n"
+_MIN_CTAS = _COMPLEX64_PAST_8 + "  return (scalar_bytes == 4 ? 3 : 2) - (m > 4 ? 1 : 0);"
+SPREAD1D_VARIANTS = {
+    "threads128": {"constexpr int kThreads = 256;": "constexpr int kThreads = 128;"},
+    "threads512": {"constexpr int kThreads = 256;": "constexpr int kThreads = 512;"},
+    **{f"c{c}": {_MIN_CTAS: f"  return {c};"} for c in (1, 2, 3, 4)},
+    "complex64_two_past_8": {_COMPLEX64_PAST_8: ""},
+}
 #: Point counts at N = 2^20 (grid 1,572,864): the main path's 1M, its
 #: 10,000,000 and rho = 0.01.
 SPREAD1D_NP = (1_000_000, 10_000_000, 15_729)
@@ -2265,62 +2530,36 @@ SPREAD1D_PARTS = {
         "    atomicAdd(dst, T(sum[0]));": "    if (sum[0] == 1.25e-300) dst[0] = T(sum[0]);"},
 }
 
-#: Variants of the 2D interpolation kernel (-D values of csrc/interp_2d.cu's
-#: tunables): the cells a point below which a sub-run is read from global
-#: memory (stage; 0: none staged, "all": every one), the most y cells of a
-#: staged sub-run (run), the points a CTA covers at the mean density (pts),
-#: the points ordered at a time (chunk), register caps for 2, 3 and 4
-#: resident CTAs an SM (c, float and double values alike), the staged
-#: points in sorted order (order0), CTAs of 128 threads, staged points'
-#: sums unrolled two x rows at a time (unroll2).
-_I2 = "-DNUFFT_INTERP2D_"
-INTERP2D_VARIANTS = {"stage0": [_I2 + "STAGE_CELLS=0"], "stage4": [_I2 + "STAGE_CELLS=4"],
-                     "stage16": [_I2 + "STAGE_CELLS=16"],
-                     "stage_all": [_I2 + "STAGE_CELLS=(1 << 30)"],
-                     "run64": [_I2 + "STAGE_RUN=64"], "run128": [_I2 + "STAGE_RUN=128"],
-                     "pts256": [_I2 + "RUN_POINTS=256"], "pts512": [_I2 + "RUN_POINTS=512"],
-                     "pts2048": [_I2 + "RUN_POINTS=2048"], "chunk512": [_I2 + "CHUNK=512"],
-                     **{f"c{c}": [f"{_I2}MIN_CTAS_F32={c}", f"{_I2}MIN_CTAS_F64={c}"]
-                        for c in (2, 3, 4)},
-                     "order0": [_I2 + "ORDER=0"],
-                     "threads128": [_I2 + "THREADS=128", _I2 + "MIN_CTAS_F32=6",
-                                    _I2 + "MIN_CTAS_F64=4"],
-                     "unroll2": [_I2 + "UNROLL_X=2"]}
 #: Point counts at N = 4096^2 (grid 6144^2) beside each dtype's main-path Np
 #: (SPREAD2D_NP): 16,777,216 and rho = 0.01.
 INTERP2D_EXTRA_NP = (16_777_216, 377_487)
 
-#: Copies of csrc/interp_2d.cu with one phase taken out, for
-#: ``--interp2d-parts`` (the staged branch's phases; the taps in both
-#: branches).  Their values are wrong; only their times are read.
+#: Copies of csrc/interp_2d.cu (a thread a point) with one phase taken out,
+#: for ``--interp2d-parts``.  Their values are wrong; only their times are
+#: read.
 INTERP2D_PARTS = {
-    "no_stage": {"for (int l = l0; l < pd1; l += 32)\n              cp_async":
-                 "for (int l = l0; l < 0; l += 32)\n              cp_async"},
-    "no_taps": {"nufft::horner_rows<S, T, 2 * kSpan>(cs + d * kSpan, ncoef, "
-                "fracs[d * np + j], w[d]);":
-                "for (int t = 0; t < S; ++t) w[d][t] = T(0.1) * T(d + t + 1);"},
-    "no_loads": {"[&](int a, int b) { return base[a * pd1 + b]; });":
-                 "[&](int a, int b) { V v = {}; v.c[0] = T(a + b); return v; });"},
-    "no_out": {"            *dst = res;": "            if (res.c[0] == T(1.25e-30)) *dst = res;"},
+    # Every tap a number in place of Horner's rule.
+    "no_taps": {"nufft::horner_taps<S>(cs + S * ncoef, ncoef, fracs[np + j], wy);":
+                "for (int t = 0; t < S; ++t) wy[t] = T(0.1) * T(t + 1);",
+                "wx = nufft::horner_tap(cs + a * ncoef, ncoef, T(2) * fx - T(1));":
+                "wx = fx + T(a);"},
+    # The window's cells made up in place of read from the grid.
+    "no_loads": {"const nufft::Value<T, NCOMP> val = row[iy[b]];":
+                 "nufft::Value<T, NCOMP> val = {};\n        val.c[0] = T(iy[b]);"},
+    # The result written under a condition that never holds.
+    "no_out": {"    out[c * np + dest] = res;":
+               "    if (res.c[0] == T(1.25e-30)) out[c * np + dest] = res;"},
     # Each result at its sorted position, not scattered to perm[j].
-    "out_sorted": {"V* dst = out + c * np + perm[j];": "V* dst = out + c * np + j;"},
-    "no_contract": {"          for (int i = tid; i < nc; i += blockDim.x) {\n"
-                    "            const int p = s_order[i];":
-                    "          for (int i = tid; i < nc && nc < 0; i += blockDim.x) {\n"
-                    "            const int p = s_order[i];"},
+    "out_sorted": {"    out[c * np + dest] = res;": "    out[c * np + j] = res;"},
 }
-# The window's copy, the taps and the window's loads out at once: the CTAs'
-# skeleton.
-INTERP2D_PARTS["skeleton"] = {k: v for part in ("no_stage", "no_taps", "no_loads")
-                              for k, v in INTERP2D_PARTS[part].items()}
 
 
-def _edited_sources(stem: str, parts) -> dict:
-    """``csrc/<stem>.cu`` for M = 4 alone, and a copy for each entry of
-    ``parts`` with its lines replaced."""
+def _edited_sources(stem: str, parts, ms=(4,)) -> dict:
+    """``csrc/<stem>.cu`` for the M of ``ms`` alone, and a copy for each
+    entry of ``parts`` with its lines replaced."""
     from nonuniformffts_tpu_torch.ops.kernels import build
 
-    src = _m4_only((build.CSRC_DIR / f"{stem}.cu").read_text())
+    src = _m_only((build.CSRC_DIR / f"{stem}.cu").read_text(), ms)
     texts = {"shipped": src}
     for name, edits in parts.items():
         text = src
@@ -2345,20 +2584,20 @@ def _build_all(prefix: str, jobs) -> dict:
 
 
 def _lowdim_registers(stem: str, kernel: str) -> str:
-    """Registers and spill stores of the M = 4 instantiations of ``kernel``
-    in ``build/chip_probe/<stem>.ptxas.log``."""
+    """Registers and spill stores of the instantiations of ``kernel`` in
+    ``build/chip_probe/<stem>.ptxas.log``."""
     text = (ROOT / "build" / "chip_probe" / f"{stem}.ptxas.log").read_text()
-    regs = re.findall(kernel + r"ILi4E([fd])Li(\d)E(?:Lb([01])E)?.*?(\d+) bytes spill stores"
-                      r".*?Used (\d+) registers", text, re.S)
-    return ", ".join(f"<{t}, {n}{', taps' if b == '1' else ''}> {r} (spills {sp} B)"
-                     for t, n, b, sp, r in regs)
+    regs = re.findall(kernel + r"ILi(\d+)E([fd])Li(\d)E(?:Lb([01])E)?.*?(\d+) bytes spill "
+                      r"stores.*?Used (\d+) registers", text, re.S)
+    return ", ".join(f"<M={m}, {t}, {n}{', taps' if b == '1' else ''}> {r} (spills {sp} B)"
+                     for m, t, n, b, sp, r in regs)
 
 
-def _raw_spread_1d(lib, prefix: str, plan, vals, staged: bool = True):
+def _raw_spread_1d(lib, prefix: str, plan, vals, shipped: bool = True):
     """One launch of a 1D spread entry point (``prefix`` + value suffix) of
     ``lib`` on the plan's sorted state: the shipped kernel's C interface,
     ``vals`` in the caller's order, read through ``plan.sort_perm``; or with
-    ``staged`` False the thread-a-padded-cell kernel's, ``vals`` in sorted
+    ``shipped`` False the thread-a-padded-cell kernel's, ``vals`` in sorted
     order.  Returns the grid."""
     import torch
 
@@ -2368,8 +2607,8 @@ def _raw_spread_1d(lib, prefix: str, plan, vals, staged: bool = True):
     name = prefix + VALUE_TYPES[plan.dtype][0]
     fn = getattr(lib, name)
     sig = build._SIGNATURES["nufft_spread_1d_" + VALUE_TYPES[plan.dtype][0]]
-    fn.argtypes = sig if staged else sig[:7] + sig[8:]
-    perm = (plan.sort_perm.data_ptr(),) if staged else ()
+    fn.argtypes = sig if shipped else sig[:7] + sig[8:]
+    perm = (plan.sort_perm.data_ptr(),) if shipped else ()
     grid = torch.zeros((1,) + plan.shape_over, dtype=vals.dtype, device=vals.device)
     err = fn(vals.data_ptr(), plan.cells_sorted.data_ptr(), plan.fracs_sorted.data_ptr(),
              plan.pstarts.data_ptr(), plan.coefs.data_ptr(), 0, grid.data_ptr(), *perm,
@@ -2380,11 +2619,13 @@ def _raw_spread_1d(lib, prefix: str, plan, vals, staged: bool = True):
     return grid
 
 
-def _raw_interp_2d(lib, name: str, plan, grid, staged: bool = True):
+def _raw_interp_2d(lib, name: str, plan, grid, staged: bool = False):
     """One launch of the 2D interpolation entry point ``name`` of ``lib`` on
-    the plan's sorted state (BKB Fast, one transform): the staged kernel's C
-    interface, or with ``staged`` False the per-point kernel's (no pstarts,
-    no block dims)."""
+    the plan's sorted state (BKB Fast, one transform): the shipped kernel's
+    C interface, or with ``staged`` the staged kernel's, which adds pstarts
+    and the block dims."""
+    import ctypes as ct
+
     import torch
 
     from nonuniformffts_tpu_torch.ops.kernels import build
@@ -2392,7 +2633,7 @@ def _raw_interp_2d(lib, name: str, plan, grid, staged: bool = True):
 
     fn = getattr(lib, name)
     sig = build._SIGNATURES["nufft_interp_2d_" + VALUE_TYPES[plan.dtype][0]]
-    fn.argtypes = sig if staged else sig[:4] + sig[5:14] + sig[16:]
+    fn.argtypes = sig[:4] + [ct.c_void_p] + sig[4:-2] + [ct.c_int] * 2 + sig[-2:] if staged else sig
     out = torch.empty((1, plan.num_points), dtype=grid.dtype, device=grid.device)
     blocks = ((plan.pstarts.data_ptr(),), plan.block_dims) if staged else ((), ())
     err = fn(grid.data_ptr(), plan.cells_sorted.data_ptr(), plan.fracs_sorted.data_ptr(),
@@ -2404,20 +2645,21 @@ def _raw_interp_2d(lib, name: str, plan, grid, staged: bool = True):
     return out
 
 
-def _lowdim_probe(kind: str, seed: int, dtypes, nps, with_variants: bool) -> None:
+def _lowdim_probe(kind: str, seed: int, dtypes, nps, ms, with_variants: bool) -> None:
     """The body of ``--spread1d`` / ``--interp2d`` (``kind`` 'spread1d' or
     'interp2d') and of their ``-parts`` twins (``with_variants`` False):
-    the shipped kernel against the design it replaced, in turns (old, new,
-    new, old), two passes, raw launches on the same sorted points, both held
-    against the plain version; the shipped wrapper call (the grid's zeroing
-    or the output's allocation and the launch path) and its host time; then
-    the ``-D`` variants or the parts copies in turns with the shipped
-    build.  Everything for M = 4 alone in
-    ``build/chip_probe/``.  m = 4, sigma = 1.5, BKB FastApproximation,
-    uniform points, the chooser's block dims; CUDA events, median of 5
-    after one warm-up.  One JSON line a dtype and Np, with the card's name
-    and power limit, the bound (``chip_smoke.kernel_bound``) and the points
-    a block."""
+    the shipped kernel against the other design (the 1D spread's old kernel,
+    ``_CELL_SPREAD_1D_SRC``; the 2D interpolation's staged kernel,
+    ``_STAGED_INTERP_2D_SRC``), in turns (other, shipped, shipped, other),
+    two passes, raw launches on the same sorted points, both held against
+    the plain version; the shipped wrapper call (the grid's zeroing or the
+    output's allocation and the launch path) and its host time; then the 1D
+    spread's variants or the parts copies in turns with the shipped build.
+    Everything for the M of ``ms`` alone in ``build/chip_probe/``.  sigma =
+    1.5, BKB FastApproximation, uniform points, the chooser's block dims;
+    CUDA events, median of 5 after one warm-up.  One JSON line a dtype, M
+    and Np, with the card's name and power limit, the bound
+    (``chip_smoke.kernel_bound``) and the points a block."""
     import torch
 
     import nonuniformffts_tpu_torch as nufft
@@ -2428,90 +2670,88 @@ def _lowdim_probe(kind: str, seed: int, dtypes, nps, with_variants: bool) -> Non
     spread = kind == "spread1d"
     stem, kernel = ("spread_1d", "spread_1d_kernel") if spread else ("interp_2d",
                                                                      "interp_2d_kernel")
+    other = "old" if spread else "staged"
     card = nvidia_smi_line()
     print(card, flush=True)
     dev = torch.device("cuda")
     inc = ("-I", str(build.CSRC_DIR))
     if with_variants:
-        old_src = _CELL_SPREAD_1D_SRC if spread else _POINT_INTERP_2D_SRC
-        new_src = _m4_only((build.CSRC_DIR / f"{stem}.cu").read_text())
-        extra = SPREAD1D_VARIANTS if spread else INTERP2D_VARIANTS
-        jobs = {"old": (_m4_only(old_src), inc), "shipped": (new_src, inc),
-                **{k: (new_src, inc + tuple(f)) for k, f in extra.items()}}
+        texts = _edited_sources(stem, SPREAD1D_VARIANTS if spread else {}, ms)
+        texts[other] = _m_only(_CELL_SPREAD_1D_SRC if spread else _STAGED_INTERP_2D_SRC, ms)
         prefix = f"{kind}_"
     else:
-        jobs = {k: (t, inc) for k, t in _edited_sources(
-            stem, SPREAD1D_PARTS if spread else INTERP2D_PARTS).items()}
+        texts = _edited_sources(stem, SPREAD1D_PARTS if spread else INTERP2D_PARTS, ms)
         prefix = f"{kind}_part_"
-    libs = _build_all(prefix, jobs)
+    libs = _build_all(prefix, {k: (t, inc) for k, t in texts.items()})
     for k in libs:
         print(f"ptxas {k}: {_lowdim_registers(prefix + k, kernel)}", flush=True)
     D = 1 if spread else 2
     for name in dtypes:
-        plan0 = nufft.PlanNUFFT(np.dtype(name), SHAPES[D], m=4, sigma=1.5,
-                                spread_method="blocked", device=dev)
-        _, sb, _ = VALUE_TYPES[plan0.dtype]
-        tol = 1e-5 if sb == 4 else 1e-12
-        suffix = VALUE_TYPES[plan0.dtype][0]
-        default = (SPREAD1D_NP if spread else (SPREAD2D_NP[name],) + INTERP2D_EXTRA_NP)
-        for np_ in nps or (default if with_variants else default[:2]):
-            gen = torch.Generator(device=dev).manual_seed(seed + np_)
-            pts = torch.rand((D, np_), generator=gen, device=dev,
-                             dtype=plan0.real_dtype) * (2 * math.pi)
-            plan = nufft.set_points(plan0, pts)
-            chunked = dataclasses.replace(plan, chunk_size=1 << 16)
-            if spread:
-                vp = torch.randn((1, np_), generator=gen, device=dev, dtype=plan0.dtype)
-                vals = vp[:, plan.sort_perm].contiguous()
-                want = blocked.spread_blocked_plain(chunked, vp)
-                runs = {k: (lambda lib=lib, k=k: _raw_spread_1d(
-                    lib, ("cell" if k == "old" else "nufft") + "_spread_1d_", plan,
-                    vals if k == "old" else vp, staged=k != "old"))
-                    for k, lib in libs.items()}
-                wrapper = lambda: blocked.spread_blocked(plan, vp)  # noqa: E731
-            else:
-                grid = torch.randn((1,) + plan.shape_over, generator=gen, device=dev,
-                                   dtype=plan0.dtype)
-                want = blocked.interpolate_blocked_plain(chunked, grid)
-                runs = {k: (lambda lib=lib, k=k: _raw_interp_2d(
-                    lib, ("point" if k == "old" else "nufft") + "_interp_2d_" + suffix, plan,
-                    grid, staged=k != "old"))
-                    for k, lib in libs.items()}
-                wrapper = lambda: blocked.interpolate_blocked(plan, grid)  # noqa: E731
-            head = ["old", "shipped", "shipped", "old"] if with_variants else []
-            rest = [k for k in runs if k not in ("old", "shipped")]
-            times, errs = {k: [] for k in runs}, {}
-            for rnd in range(2):
-                for k in head + ["shipped"] + (rest if rnd == 0 else rest[::-1]):
-                    ms, got = cuda_time_ms(runs[k])
-                    times[k].append(ms)
-                    err = rel_l2(got, want)
-                    errs[k] = max(errs.get(k, 0.0), err)
-                    # The parts copies compute wrong values by design.
-                    if (with_variants or k == "shipped") and not err <= tol:
-                        raise AssertionError(f"{kind} {name} {np_} {k}: rel L2 "
-                                             f"{err:.3e} vs plain")
-                    del got
-            call_ms, got = cuda_time_ms(wrapper)
-            err = rel_l2(got, want)
-            if not err <= tol:
-                raise AssertionError(f"{kind} {name} {np_} wrapper: rel L2 {err:.3e}")
-            del got
-            counts = (plan.pstarts[1:] - plan.pstarts[:-1]).float()
-            bound_ms, bound_by = kernel_bound("spread" if spread else "interp", plan, 1)
-            line = {"probe": kind if with_variants else kind + "_parts", "card": card,
-                    "dtype": name, "np": np_, "block_dims": list(plan.block_dims),
-                    "points_a_block": {"mean": float(counts.mean()),
-                                       "max": int(counts.max()),
-                                       "empty_share": float((counts == 0).float().mean())},
-                    "ms": {k: statistics.median(t) for k, t in times.items()},
-                    "call_ms": call_ms, "call_host_us": _host_us(wrapper, 100),
-                    "rel_l2": errs, "bound_ms": bound_ms, "bound_by": bound_by}
-            if with_variants:
-                line["speedup"] = line["ms"]["old"] / line["ms"]["shipped"]
-            print(json.dumps(line), flush=True)
-            del plan, chunked, want, pts, runs, wrapper
-            torch.cuda.empty_cache()
+        for m in ms:
+            plan0 = nufft.PlanNUFFT(np.dtype(name), SHAPES[D], m=m, sigma=1.5,
+                                    spread_method="blocked", device=dev)
+            _, sb, _ = VALUE_TYPES[plan0.dtype]
+            tol = 1e-5 if sb == 4 else 1e-12
+            suffix = VALUE_TYPES[plan0.dtype][0]
+            default = (SPREAD1D_NP if spread else (SPREAD2D_NP[name],) + INTERP2D_EXTRA_NP)
+            for np_ in nps or (default if with_variants else default[:2]):
+                gen = torch.Generator(device=dev).manual_seed(seed + np_)
+                pts = torch.rand((D, np_), generator=gen, device=dev,
+                                 dtype=plan0.real_dtype) * (2 * math.pi)
+                plan = nufft.set_points(plan0, pts)
+                chunked = dataclasses.replace(plan, chunk_size=1 << 16)
+                if spread:
+                    vp = torch.randn((1, np_), generator=gen, device=dev, dtype=plan0.dtype)
+                    vals = vp[:, plan.sort_perm].contiguous()
+                    want = blocked.spread_blocked_plain(chunked, vp)
+                    runs = {k: (lambda lib=lib, k=k: _raw_spread_1d(
+                        lib, ("cell" if k == "old" else "nufft") + "_spread_1d_", plan,
+                        vals if k == "old" else vp, shipped=k != "old"))
+                        for k, lib in libs.items()}
+                    wrapper = lambda: blocked.spread_blocked(plan, vp)  # noqa: E731
+                else:
+                    grid = torch.randn((1,) + plan.shape_over, generator=gen, device=dev,
+                                       dtype=plan0.dtype)
+                    want = blocked.interpolate_blocked_plain(chunked, grid)
+                    runs = {k: (lambda lib=lib, k=k: _raw_interp_2d(
+                        lib, ("staged" if k == "staged" else "nufft") + "_interp_2d_" + suffix,
+                        plan, grid, staged=k == "staged"))
+                        for k, lib in libs.items()}
+                    wrapper = lambda: blocked.interpolate_blocked(plan, grid)  # noqa: E731
+                head = [other, "shipped", "shipped", other] if with_variants else []
+                rest = [k for k in runs if k not in (other, "shipped")]
+                times, errs = {k: [] for k in runs}, {}
+                for rnd in range(2):
+                    for k in head + ["shipped"] + (rest if rnd == 0 else rest[::-1]):
+                        ms_, got = cuda_time_ms(runs[k])
+                        times[k].append(ms_)
+                        err = rel_l2(got, want)
+                        errs[k] = max(errs.get(k, 0.0), err)
+                        # The parts copies compute wrong values by design.
+                        if (with_variants or k == "shipped") and not err <= tol:
+                            raise AssertionError(f"{kind} {name} m={m} {np_} {k}: rel L2 "
+                                                 f"{err:.3e} vs plain")
+                        del got
+                call_ms, got = cuda_time_ms(wrapper)
+                err = rel_l2(got, want)
+                if not err <= tol:
+                    raise AssertionError(f"{kind} {name} m={m} {np_} wrapper: rel L2 {err:.3e}")
+                del got
+                counts = (plan.pstarts[1:] - plan.pstarts[:-1]).float()
+                bound_ms, bound_by = kernel_bound("spread" if spread else "interp", plan, 1)
+                line = {"probe": kind if with_variants else kind + "_parts", "card": card,
+                        "dtype": name, "m": m, "np": np_, "block_dims": list(plan.block_dims),
+                        "points_a_block": {"mean": float(counts.mean()),
+                                           "max": int(counts.max()),
+                                           "empty_share": float((counts == 0).float().mean())},
+                        "ms": {k: statistics.median(t) for k, t in times.items()},
+                        "call_ms": call_ms, "call_host_us": _host_us(wrapper, 100),
+                        "rel_l2": errs, "bound_ms": bound_ms, "bound_by": bound_by}
+                if with_variants:
+                    line[f"{other}_over_shipped"] = line["ms"][other] / line["ms"]["shipped"]
+                print(json.dumps(line), flush=True)
+                del plan, chunked, want, pts, runs, wrapper
+                torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -2548,11 +2788,13 @@ def main(argv=None) -> int:
     parser.add_argument("--spread1d-parts", action="store_true",
                         help="time the 1D spread kernel with each phase taken out, and stop")
     parser.add_argument("--interp2d", action="store_true",
-                        help="time the 2D interpolation kernel against the design it "
-                             "replaced, its wrapper call and its variants, and stop")
+                        help="time the 2D interpolation kernel against the staged design "
+                             "tried in its place and its wrapper call, and stop")
     parser.add_argument("--interp2d-parts", action="store_true",
                         help="time the 2D interpolation kernel with each phase taken out, "
                              "and stop")
+    parser.add_argument("--m", type=int, nargs="+", default=[4],
+                        help="the M of --spread1d, --interp2d and their -parts twins")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
 
@@ -2581,7 +2823,7 @@ def main(argv=None) -> int:
     lowdim = [(kind, parts) for kind in ("spread1d", "interp2d")
               for parts in (False, True) if getattr(args, kind + ("_parts" if parts else ""))]
     for kind, parts in lowdim:
-        _lowdim_probe(kind, args.seed, args.dtype, args.np, with_variants=not parts)
+        _lowdim_probe(kind, args.seed, args.dtype, args.np, args.m, with_variants=not parts)
     if lowdim:
         return 0
     if args.spread2d or args.spread2d_parts:

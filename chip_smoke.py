@@ -717,8 +717,8 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
     err1 (at ``err_modes`` random modes) and err2 to ``err_tol``; returns (launches summed over the rows,
     kernel comparisons at ``compare_np``).  At Np = ``diagnose_at`` also
     runs ``float32_accumulation_diagnostic``, and at ``check_np``
-    ``check_kernel`` for the kernels redesigned at full density in 1D and
-    2D (the 1D spread; the 2D spread and interpolation)."""
+    ``check_kernel`` for the kernels of 1D and 2D at full density (the 1D
+    spread; the 2D spread and interpolation)."""
     import torch
 
     import nonuniformffts_tpu_torch as nufft

@@ -1,10 +1,10 @@
-// K5 / K6b (2D): type-2 interpolation from the 2D oversampled grid at the
+// K5 (2D): type-2 interpolation from the 2D oversampled grid at the
 // non-uniform points, one kernel template over the value type:
 //
-//   nufft_interp_2d_f32       complex64   (K5)
-//   nufft_interp_2d_f64       complex128  (K6b in 2D)
-//   nufft_interp_2d_real_f32  float32     (K5, real rows)
-//   nufft_interp_2d_real_f64  float64     (K6b in 2D, real rows)
+//   nufft_interp_2d_f32       complex64
+//   nufft_interp_2d_f64       complex128
+//   nufft_interp_2d_real_f32  float32
+//   nufft_interp_2d_real_f64  float64
 //
 // Replaces nonuniformffts_tpu/ops/pallas/blocked.py:_interp_kernel (the
 // yz-form Pallas kernel launched by interpolate_blocked) with the
@@ -12,464 +12,130 @@
 // blocked_ds.py:_interp_kernel_ds in 2D.  On the TPU halo_gather copied each
 // padded block out of the grid, the kernel contracted it with dense weight
 // matrices on the MXU, and a masked sort put the results back in input
-// order.  The first design here, a thread a sorted point gathering its
-// (2M)^2 cells from global memory, read about six L1 lines a load
-// instruction (a warp's points lie in three x rows of a block).  Here the
-// windows are staged in shared memory, as in interp_3d.cu, and each point
-// is still contracted by one thread, which needs the fewest instructions a
-// point; the points are ordered so that a warp's loads meet few bank
-// conflicts:
+// order.  Here, as in K2 (interp_3d.cu):
 //
-// - A CTA covers a run of consecutive spatial blocks of one x row of blocks
-//   (blocks are numbered y-fastest, so the run is B0 x (g B1) cells and its
-//   points one contiguous range of the bin-sorted arrays, pstarts): whole
-//   sub-runs of about kRunPoints points at the mean density where those
-//   are staged, else about a CTA's threads' worth of points.  A block holds
-//   tens of points at the main path's densities, so a sub-run of blocks, up
-//   to kStageRun y cells, not the block, is the unit that is staged.
-// - A sub-run whose padded window holds at most kStageCells cells a point
-//   is staged: the CTA copies the window, (B0 + 2M - 1) x (s B1 + 2M - 1)
-//   cells of one transform's grid with periodic wrap (mod_index, so that a
-//   grid smaller than the window needs no special case), into shared memory
-//   once by cp.async element copies, lanes along y so that a row's reads
-//   coalesce.  A window above the 227 KB a CTA can use is staged in x-slab
-//   passes of as many x rows as fit: each point adds the x taps that fall
-//   in the staged rows and writes (first pass) or adds (later passes) its
-//   partial result.
-// - Lane order: a point's cell (x, y) of tap (a, b) lies at word
-//   base + a pitch + b of the window, base = x pitch + y, so two points of
-//   one load instruction meet a bank conflict only when their bases agree
-//   modulo the cells of a 128-byte wavefront (16 for complex64 and float64,
-//   8 for complex128, 32 for float32).  The CTA sorts each chunk of a
-//   sub-run's points into buckets by that residue (shared-memory atomics)
-//   and deals them round robin over the buckets
-//   (ops/kernels/common.py:interp2d_order), so that the lanes of a
-//   wavefront's worth hold distinct residues until buckets run dry.
-// - Each thread then takes its points in that order: their 2 x 2M taps
-//   (Horner in T on a coefficient-major table, window.cuh:horner_rows, or
-//   K3's wtaps), the (2M)^2 cells from the staged window, the sum in T
-//   FMAs, row by row as the first design did.
-// - The points of sparser sub-runs are not staged: each thread gathers its
-//   points' windows from global memory with periodic wrap, as the first
-//   design did.
-// - normfactor is passed as a double so that FP64 plans keep every bit;
-//   results are written to out[c, perm[j]] directly: the un-permute is a
-//   scatter, with no key row and no sort.  Results written in sorted order
-//   and gathered back through the inverse permutation were no faster in
-//   sum (chip_probe.py --interp2d, PERF.md).
+// - One thread per bin-sorted point; neighbouring threads hold points of the
+//   same block, so their windows share L1/L2 lines.  There is no halo copy:
+//   the thread reads the grid with periodic wrap.
+// - The thread evaluates its 2M y taps (Horner in T, window.cuh, or reads
+//   them from the window-weights kernel's output for the other windows) and
+//   wrapped y indices into registers; the x loop stays rolled and takes one
+//   x tap per step.  It gathers the
+//   (2M)^2 window of each transform, accumulates in T FMAs and multiplies by
+//   normfactor, passed as a double so that FP64 plans keep every bit.
+// - It writes out[c, perm[j]] directly: no key row, no sort.
 //
-// What bounds it on the H100 (chip_probe.py --interp2d-parts at 16.8M
-// points, complex64): the output scatter, one partial sector a point, about
-// 40% of the time; then each sub-run's phases between barriers and the
-// window copy, which reads the grid about twice at B0 = 8 (the x halo); the
-// shared-memory reads cost little.  The tunables below are -D flags for
-// chip_probe.py --interp2d.
+// What bounds it on the H100: the gathers, (2M)^2 reads of NCOMP scalars per
+// point served from L1/L2.  There are no atomics.
 #include <cstdint>
 
 #include "window.cuh"
 
-// Threads of one CTA.
-#ifndef NUFFT_INTERP2D_THREADS
-#define NUFFT_INTERP2D_THREADS 256
-#endif
-// A sub-run is staged when its padded window holds at most this many cells
-// a point (0: none is staged).
-#ifndef NUFFT_INTERP2D_STAGE_CELLS
-#define NUFFT_INTERP2D_STAGE_CELLS 8
-#endif
-// Most y cells of the blocks of a staged sub-run.
-#ifndef NUFFT_INTERP2D_STAGE_RUN
-#define NUFFT_INTERP2D_STAGE_RUN 256
-#endif
-// Points a CTA's run of staged sub-runs holds at the mean density.
-#ifndef NUFFT_INTERP2D_RUN_POINTS
-#define NUFFT_INTERP2D_RUN_POINTS 1024
-#endif
-// Points of a staged sub-run ordered at a time.
-#ifndef NUFFT_INTERP2D_CHUNK
-#define NUFFT_INTERP2D_CHUNK 1024
-#endif
-// CTAs an SM the register allocation must leave room for
-// (__launch_bounds__), for float and for double values.
-#ifndef NUFFT_INTERP2D_MIN_CTAS_F32
-#define NUFFT_INTERP2D_MIN_CTAS_F32 3
-#endif
-#ifndef NUFFT_INTERP2D_MIN_CTAS_F64
-#define NUFFT_INTERP2D_MIN_CTAS_F64 2
-#endif
-// 0: the staged points keep their sorted order (no bucket pass).
-#ifndef NUFFT_INTERP2D_ORDER
-#define NUFFT_INTERP2D_ORDER 1
-#endif
-// x rows of a staged point's sum unrolled (0: all 2M); a sparse point's
-// sum unrolls two.
-#ifndef NUFFT_INTERP2D_UNROLL_X
-#define NUFFT_INTERP2D_UNROLL_X 0
-#endif
-
 namespace {
 
-// Must match ops/kernels/common.py:INTERP2D_* and MAX_SMEM_BYTES.
-constexpr int kThreads = NUFFT_INTERP2D_THREADS;
-constexpr int kStageCells = NUFFT_INTERP2D_STAGE_CELLS;
-constexpr int kStageRun = NUFFT_INTERP2D_STAGE_RUN;
-constexpr int kRunPoints = NUFFT_INTERP2D_RUN_POINTS;
-constexpr int kChunk = NUFFT_INTERP2D_CHUNK;
+constexpr int kThreads = 256;
 
-constexpr int kMaxGroup = 64;  // most spatial blocks one CTA covers
-constexpr size_t kMaxSmem = 232448;
-
-// y taps of a coefficient row: 2M rounded up to a power of two (at least 4).
-__host__ __device__ constexpr int y_span(int m) {
-  return 2 * m <= 4 ? 4 : 2 * m <= 8 ? 8 : 2 * m <= 16 ? 16 : 32;
-}
-
-// The staged window of a sub-run of `sub` blocks (ops/kernels/common.py:
-// interp2d_window): cells, x rows pd1 cells apart; `rows` x rows staged a
-// pass, `passes` passes; `head` bytes of tables before it.
-struct Window {
-  int pd0, pd1, rows, passes;
-  size_t head, smem;
-};
-
-template <int M, typename T, int NCOMP>
-__host__ __device__ inline Window window_of(int ncoef, int b0, int b1, int sub) {
-  Window w;
-  w.pd0 = b0 + 2 * M - 1;
-  w.pd1 = sub * b1 + 2 * M - 1;
-  // The (ncoef, 2, span) coefficient table, the bucket counts, a chunk's
-  // order, window offsets and bucket ranks, the CTA's blocks' point ranges.
-  constexpr int kBuckets = 128 / int(sizeof(T) * NCOMP);
-  const size_t head = sizeof(T) * ncoef * 2 * y_span(M) +
-                      sizeof(int) * (kBuckets + 3 * kChunk + kMaxGroup + 1);
-  w.head = (head + 15) / 16 * 16;
-  const size_t row_bytes = sizeof(T) * NCOMP * (size_t)w.pd1;
-  const long long fit = w.head < kMaxSmem ? (long long)((kMaxSmem - w.head) / row_bytes) : 0;
-  w.passes = fit >= 1 ? (int)((w.pd0 + fit - 1) / fit) : 0;
-  w.rows = w.passes ? (w.pd0 + w.passes - 1) / w.passes : 0;
-  w.smem = w.head + row_bytes * w.rows;
-  return w;
-}
-
-// Blocks of a staged sub-run (ops/kernels/common.py:interp2d_sub): at most
-// kStageRun y cells, at least one block.
-__host__ __device__ inline int sub_of(int group, int b1) {
-  const int fit = kStageRun / b1 > 1 ? kStageRun / b1 : 1;
-  return group < fit ? group : fit;
-}
-
-// Blocks a CTA covers (ops/kernels/common.py:interp2d_group), at most
-// kMaxGroup and a row of blocks: where a full sub-run at the mean density
-// is staged, whole sub-runs of about kRunPoints points; else about a CTA's
-// threads' worth of points, each thread's one point read from global
-// memory.
-__host__ inline int group_of(long long np, int m, int n0, int n1, int b0, int b1) {
-  const long long nb1 = n1 / b1, mean = np / ((n0 / b0) * nb1);
-  const long long cap = nb1 < kMaxGroup ? nb1 : kMaxGroup;
-  const long long fit = sub_of((int)cap, b1);
-  long long g;
-  if (mean * fit * kStageCells >= (long long)(b0 + 2 * m - 1) * (fit * b1 + 2 * m - 1)) {
-    g = kRunPoints / (mean + 1);
-    g = g > fit ? g / fit * fit : fit;
-  } else {
-    g = kThreads / (mean + 1);
-  }
-  return (int)(g < 1 ? 1 : g > cap ? cap : g);
-}
-
-// Whether a sub-run of `points` points whose window has pd0 x pd1 cells is
-// staged (ops/kernels/common.py:interp2d_staged).
-__device__ __forceinline__ bool staged_run(int points, int pd0, int pd1) {
-  return points > 0 && (long long)points * kStageCells >= (long long)pd0 * pd1;
-}
-
-__device__ __forceinline__ int mod_index(int i, int n) {
-  i %= n;
-  return i < 0 ? i + n : i;
-}
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "n"(BYTES)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Both dims' 2M taps of sorted point j: from wtaps, or by Horner's rule on
-// the coefficient table cs, (ncoef, 2, y_span(M)).
-template <int M, typename T, bool TAPS>
-__device__ __forceinline__ void point_taps_2d(const T* cs, int ncoef, const T* __restrict__ fracs,
-                                              const T* __restrict__ wtaps, long long np,
-                                              long long j, T (&w)[2][2 * M]) {
-  constexpr int S = 2 * M, kSpan = y_span(M);
-#pragma unroll
-  for (int d = 0; d < 2; ++d) {
-    if constexpr (TAPS) {
-#pragma unroll
-      for (int t = 0; t < S; ++t) w[d][t] = wtaps[(d * S + t) * np + j];
-    } else {
-      nufft::horner_rows<S, T, 2 * kSpan>(cs + d * kSpan, ncoef, fracs[d * np + j], w[d]);
-    }
-  }
-}
-
-// One point's sum over x taps a with has_x(a): row by row, each row's y
-// taps first (the first design's order), UNROLL rows at a time; at(a, b)
-// reads cell (a, b) of the point's window.
-template <int M, typename T, int NCOMP, int UNROLL, class HasX, class At>
-__device__ __forceinline__ nufft::Value<T, NCOMP> point_sum(const T (&w)[2][2 * M], HasX has_x,
-                                                            At at) {
-  constexpr int S = 2 * M;
-  nufft::Value<T, NCOMP> acc = {};
-#pragma unroll UNROLL
-  for (int a = 0; a < S; ++a) {
-    if (!has_x(a)) continue;
-    T r[NCOMP] = {};
-#pragma unroll
-    for (int b = 0; b < S; ++b) {
-      const nufft::Value<T, NCOMP> v = at(a, b);
-#pragma unroll
-      for (int n = 0; n < NCOMP; ++n) r[n] = nufft::fma_t(v.c[n], w[1][b], r[n]);
-    }
-#pragma unroll
-    for (int n = 0; n < NCOMP; ++n) acc.c[n] = nufft::fma_t(r[n], w[0][a], acc.c[n]);
-  }
-  return acc;
-}
-
-// One CTA covers a run of at most `group` consecutive blocks of one x row
-// of blocks, in sub-runs of at most `sub` blocks.  TAPS: the window's taps
-// come in wtaps (window_weights.cu), else by Horner's rule.
+// TAPS: the window's taps come in wtaps (window_weights.cu), else by
+// Horner's rule.  The two instantiations keep the Horner one's registers at
+// what it needs alone: one kernel for both took 172 registers at M = 4 in
+// 3D double, against 128, and halved the resident CTAs.
 template <int M, typename T, int NCOMP, bool TAPS>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? NUFFT_INTERP2D_MIN_CTAS_F32
-                                                             : NUFFT_INTERP2D_MIN_CTAS_F64)
-    interp_2d_kernel(
+__global__ void __launch_bounds__(kThreads) interp_2d_kernel(
     const nufft::Value<T, NCOMP>* __restrict__ grid,
     const int* __restrict__ cells, const T* __restrict__ fracs,
-    const long long* __restrict__ perm, const int* __restrict__ pstarts,
-    const T* __restrict__ coefs, const T* __restrict__ wtaps,
-    nufft::Value<T, NCOMP>* __restrict__ out, long long np, int nchan,
-    int ncoef, int n0, int n1, int b0, int b1, int group, double normfactor) {
-  using V = nufft::Value<T, NCOMP>;
-  constexpr int S = 2 * M, kSpan = y_span(M), kCol = 2 * kSpan;
-  constexpr int kBuckets = 128 / int(sizeof(V));  // cells of a wavefront
-  constexpr int kUnrollX = NUFFT_INTERP2D_UNROLL_X ? NUFFT_INTERP2D_UNROLL_X : S;
+    const long long* __restrict__ perm, const T* __restrict__ coefs,
+    const T* __restrict__ wtaps, nufft::Value<T, NCOMP>* __restrict__ out,
+    long long np, int nchan, int ncoef, int n0, int n1, double normfactor) {
+  constexpr int S = 2 * M;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-
-  const int nb1 = n1 / b1;
-  const int runs = (nb1 + group - 1) / group;  // runs a row of blocks
-  const int bx = blockIdx.x / runs;
-  const int run = blockIdx.x - bx * runs;
-  const int first = bx * nb1 + run * group;
-  const int ng = min(group, nb1 - run * group);  // blocks of this CTA
-  const int sub = sub_of(group, b1);
-  const int nsub = (ng + sub - 1) / sub;  // sub-runs of this CTA
-
-  const Window w = window_of<M, T, NCOMP>(ncoef, b0, b1, sub);
-  T* cs = reinterpret_cast<T*>(smem_raw);              // (ncoef, 2, kSpan), zero past 2M
-  int* s_cnt = reinterpret_cast<int*>(cs + kCol * ncoef);  // (kBuckets,)
-  int* s_order = s_cnt + kBuckets;                     // (kChunk,): a chunk's points in order
-  int* s_base = s_order + kChunk;                      // (kChunk,): window offsets
-  int* s_rank = s_base + kChunk;                       // (kChunk,): bucket | rank << 8
-  int* s_ps = s_rank + kChunk;                         // (ng + 1,): the blocks' point ranges
-  V* win = reinterpret_cast<V*>(smem_raw + w.head);    // (rows, pd1)
-  const int tid = threadIdx.x;
-  for (int i = tid; i <= ng; i += blockDim.x) s_ps[i] = pstarts[first + i];
-  for (int i = tid; i < kCol * ncoef; i += blockDim.x) {
-    const int c = i / kCol, d = (i - c * kCol) / kSpan, t = i - c * kCol - d * kSpan;
-    cs[i] = t < S ? coefs[(d * S + t) * ncoef + c] : T(0);
-  }
+  T* cs = reinterpret_cast<T*>(smem_raw);  // (2, S, ncoef)
+  for (int i = threadIdx.x; i < 2 * S * ncoef; i += blockDim.x)
+    cs[i] = coefs[i];
   __syncthreads();
-  const int q_begin = s_ps[0], q_end = s_ps[ng];
-  if (q_begin == q_end) return;  // uniform across the CTA
-  // Sub-run s: blocks [s sub, min((s + 1) sub, ng)), its window
-  // pd0 x (blocks b1 + 2M - 1) cells.
-  auto sub_blocks = [&](int s) { return min(sub, ng - s * sub); };
-  auto sub_staged = [&](int s) {
-    return staged_run(s_ps[s * sub + sub_blocks(s)] - s_ps[s * sub], w.pd0,
-                      sub_blocks(s) * b1 + 2 * M - 1);
-  };
-  // Every thread reads the same table: the branches below are uniform.
-  bool any_sparse = false;
-  for (int s = 0; s < nsub; ++s)
-    any_sparse = any_sparse || (!sub_staged(s) && s_ps[s * sub + sub_blocks(s)] > s_ps[s * sub]);
 
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= np) return;
+
+  T wy[S];
+  int iy[S];
+  if constexpr (TAPS) {
+#pragma unroll
+    for (int t = 0; t < S; ++t) wy[t] = wtaps[(S + t) * np + j];
+  } else {
+    nufft::horner_taps<S>(cs + S * ncoef, ncoef, fracs[np + j], wy);
+  }
+  const int cx = cells[j] - (M - 1);
+  const int cy = cells[np + j] - (M - 1);
+#pragma unroll
+  for (int t = 0; t < S; ++t) iy[t] = nufft::wrap_index(cy + t, n1);
+  const T fx = fracs[j];
+  const long long dest = perm[j];
   const long long area = (long long)n0 * n1;
   const T nf = T(normfactor);
-  const int ox = bx * b0;
 
-  // The points of sparse sub-runs, a thread a point, each point's window
-  // read from global memory with periodic wrap.
-  if (any_sparse) {
-    for (int j = q_begin + tid; j < q_end; j += blockDim.x) {
-      int lo = 0, hi = ng;  // j's block: the last one starting at or before j
-      while (hi - lo > 1) {
-        const int mid = (lo + hi) >> 1;
-        if (s_ps[mid] <= j) lo = mid;
-        else hi = mid;
+  for (int c = 0; c < nchan; ++c) {
+    const nufft::Value<T, NCOMP>* g = grid + c * area;
+    T acc[NCOMP] = {};
+#pragma unroll 1
+    for (int a = 0; a < S; ++a) {
+      T wx;
+      if constexpr (TAPS) {
+        wx = wtaps[a * np + j];
+      } else {
+        wx = nufft::horner_tap(cs + a * ncoef, ncoef, T(2) * fx - T(1));
       }
-      if (sub_staged(lo / sub)) continue;
-      T wt[2][S];
-      point_taps_2d<M, T, TAPS>(cs, ncoef, fracs, wtaps, np, j, wt);
-      const int cx = cells[j] - (M - 1), cy = cells[np + j] - (M - 1);
-      int iy[S];
+      const nufft::Value<T, NCOMP>* row =
+          g + (long long)nufft::wrap_index(cx + a, n0) * n1;
+      T r[NCOMP] = {};
 #pragma unroll
-      for (int b = 0; b < S; ++b) iy[b] = nufft::wrap_index(cy + b, n1);
-      const long long dest = perm[j];
-      for (int c = 0; c < nchan; ++c) {
-        const V* g = grid + c * area;
-        const V acc = point_sum<M, T, NCOMP, 2>(
-            wt, [](int) { return true; },
-            [&](int a, int b) { return g[(long long)nufft::wrap_index(cx + a, n0) * n1 + iy[b]]; });
-        V res;
+      for (int b = 0; b < S; ++b) {
+        const nufft::Value<T, NCOMP> val = row[iy[b]];
 #pragma unroll
-        for (int n = 0; n < NCOMP; ++n) res.c[n] = acc.c[n] * nf;
-        out[c * np + dest] = res;
+        for (int k = 0; k < NCOMP; ++k) r[k] = nufft::fma_t(val.c[k], wy[b], r[k]);
       }
+#pragma unroll
+      for (int k = 0; k < NCOMP; ++k) acc[k] = nufft::fma_t(r[k], wx, acc[k]);
     }
-  }
-
-  // Staged sub-runs, one at a time.
-  for (int s = 0; s < nsub; ++s) {
-    if (!sub_staged(s)) continue;  // uniform
-    const int p_begin = s_ps[s * sub], p_end = s_ps[s * sub + sub_blocks(s)];
-    const int pd1 = sub_blocks(s) * b1 + 2 * M - 1;
-    const int oy = (first - bx * nb1 + s * sub) * b1;
-    // Staging lanes: rows of the window by sub-warps of pd1 lanes (as many
-    // as fit in 32), a lane a y cell; a row longer than 32 cells takes a
-    // warp.  Padded index i along a dim is grid node origin - (M - 1) + i,
-    // wrapped (more than once where the grid is smaller than the window).
-    const int rpw = pd1 <= 32 ? 32 / pd1 : 1;
-    const int part = pd1 <= 32 ? lane / pd1 : 0;
-    const int l0 = lane - part * (pd1 <= 32 ? pd1 : 0);
-    for (int c = 0; c < nchan; ++c) {
-      const V* g = grid + c * area;
-      for (int pass = 0; pass < w.passes; ++pass) {
-        const int x0 = pass * w.rows;
-        const int nx = min(w.rows, w.pd0 - x0);
-        __syncthreads();  // the last window and chunk are read
-        // Copy x rows x0 .. x0 + nx of the window.
-        if (part < rpw) {
-          for (int i = warp * rpw + part; i < nx; i += nwarps * rpw) {
-            const V* src = g + (long long)mod_index(ox - (M - 1) + x0 + i, n0) * n1;
-            V* dst = win + (long long)i * pd1;
-            for (int l = l0; l < pd1; l += 32)
-              cp_async<sizeof(V)>(dst + l, src + mod_index(oy - (M - 1) + l, n1));
-          }
-        }
-        cp_async_commit();
-
-        for (int cb = p_begin; cb < p_end; cb += kChunk) {
-          const int nc = min(kChunk, p_end - cb);
-          if (cb > p_begin) __syncthreads();  // the last chunk is read
-          for (int i = tid; i < kBuckets; i += blockDim.x) s_cnt[i] = 0;
-          __syncthreads();
-          // Each point's window offset (x0's row first), its bucket and its
-          // rank there.
-          for (int p = tid; p < nc; p += blockDim.x) {
-            const long long j = cb + p;
-            const int base = (cells[j] - ox - x0) * pd1 + (cells[np + j] - oy);
-            const int r = base & (kBuckets - 1);
-            s_base[p] = base;
-            if (NUFFT_INTERP2D_ORDER) s_rank[p] = r | atomicAdd(&s_cnt[r], 1) << 8;
-          }
-          __syncthreads();
-          // Round robin over the buckets: the point of rank k in bucket r
-          // goes after every point of lower rank and the rank-k points of
-          // lower buckets.
-          for (int p = tid; p < nc; p += blockDim.x) {
-            if (!NUFFT_INTERP2D_ORDER) {
-              s_order[p] = p;
-              continue;
-            }
-            const int r = s_rank[p] & 255, k = s_rank[p] >> 8;
-            int pos = 0;
+    nufft::Value<T, NCOMP> res;
 #pragma unroll
-            for (int q = 0; q < kBuckets; ++q) {
-              const int n = s_cnt[q];
-              pos += min(n, k) + (q < r && n > k);
-            }
-            s_order[pos] = p;
-          }
-          cp_async_wait_all();
-          __syncthreads();
-          for (int i = tid; i < nc; i += blockDim.x) {
-            const int p = s_order[i];
-            const long long j = cb + p;
-            T wt[2][S];
-            point_taps_2d<M, T, TAPS>(cs, ncoef, fracs, wtaps, np, j, wt);
-            const V* base = win + s_base[p];
-            const int lx = w.passes == 1 ? 0 : cells[j] - ox - x0;  // x row past x0
-            const V acc = point_sum<M, T, NCOMP, kUnrollX>(
-                wt, [&](int a) { return w.passes == 1 || (unsigned)(lx + a) < (unsigned)nx; },
-                [&](int a, int b) { return base[a * pd1 + b]; });
-            V* dst = out + c * np + perm[j];
-            V res;
-            if (pass == 0) {
-#pragma unroll
-              for (int n = 0; n < NCOMP; ++n) res.c[n] = acc.c[n] * nf;
-            } else {
-              res = *dst;
-#pragma unroll
-              for (int n = 0; n < NCOMP; ++n) res.c[n] += acc.c[n] * nf;
-            }
-            *dst = res;
-          }
-        }
-      }
-    }
+    for (int k = 0; k < NCOMP; ++k) res.c[k] = acc[k] * nf;
+    out[c * np + dest] = res;
   }
 }
 
 template <int M, typename T, int NCOMP>
 cudaError_t launch(const void* grid, const void* cells, const void* fracs,
-                   const void* perm, const void* pstarts, const void* coefs,
-                   const void* wtaps, void* out, long long np, int nchan,
-                   int ncoef, int n0, int n1, int b0, int b1, double normfactor,
-                   cudaStream_t stream) {
-  const int group = group_of(np, M, n0, n1, b0, b1);
-  const Window w = window_of<M, T, NCOMP>(ncoef, b0, b1, sub_of(group, b1));
-  if (w.passes == 0) return cudaErrorInvalidValue;
+                   const void* perm, const void* coefs,
+                   const void* wtaps, void* out,
+                   long long np, int nchan, int ncoef, int n0, int n1,
+                   double normfactor, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * 2 * 2 * M * ncoef;
+  const long long nblocks = (np + kThreads - 1) / kThreads;
   auto kernel = wtaps ? interp_2d_kernel<M, T, NCOMP, true>
                       : interp_2d_kernel<M, T, NCOMP, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)w.smem);
-  if (err != cudaSuccess) return err;
-  const int nb1 = n1 / b1;
-  const unsigned ctas = (unsigned)((n0 / b0) * ((nb1 + group - 1) / group));
-  kernel<<<ctas, kThreads, w.smem, stream>>>(
+  kernel<<<(unsigned)nblocks, kThreads, smem, stream>>>(
       static_cast<const nufft::Value<T, NCOMP>*>(grid),
       static_cast<const int*>(cells), static_cast<const T*>(fracs),
-      static_cast<const long long*>(perm), static_cast<const int*>(pstarts),
-      static_cast<const T*>(coefs), static_cast<const T*>(wtaps),
-      static_cast<nufft::Value<T, NCOMP>*>(out), np, nchan, ncoef, n0, n1, b0, b1,
-      group, normfactor);
+      static_cast<const long long*>(perm), static_cast<const T*>(coefs),
+      static_cast<const T*>(wtaps),
+      static_cast<nufft::Value<T, NCOMP>*>(out), np, nchan, ncoef, n0, n1,
+      normfactor);
   return cudaGetLastError();
 }
 
 template <typename T, int NCOMP>
 int dispatch(const void* grid, const void* cells, const void* fracs,
-             const void* perm, const void* pstarts, const void* coefs,
-             const void* wtaps, void* out, long long np, int nchan, int m,
-             int ncoef, int n0, int n1, int b0, int b1, double normfactor,
+             const void* perm, const void* coefs,
+             const void* wtaps, void* out, long long np,
+             int nchan, int m, int ncoef, int n0, int n1, double normfactor,
              void* stream) {
   if (np == 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NUFFT_INTERP_CASE(MM)                                                  \
-  case MM:                                                                     \
-    return (int)launch<MM, T, NCOMP>(grid, cells, fracs, perm, pstarts, coefs, \
-                                     wtaps, out, np, nchan, ncoef, n0, n1, b0, \
-                                     b1, normfactor, s);
+#define NUFFT_INTERP_CASE(MM)                                              \
+  case MM:                                                                 \
+    return (int)launch<MM, T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, \
+                                     out, np, nchan, ncoef, n0, n1,         \
+                                     normfactor, s);
   switch (m) {
     NUFFT_FOR_EACH_M(NUFFT_INTERP_CASE)
     default:
@@ -482,24 +148,20 @@ int dispatch(const void* grid, const void* cells, const void* fracs,
 
 // grid (nchan, n0, n1) values (complex: re, im interleaved); cells (2, np)
 // int32 and fracs (2, np) T in bin-sorted order; perm (np,) int64, the
-// original index of each sorted point; pstarts (nblocks + 1,) int32, block
-// b's points being sorted positions [pstarts[b], pstarts[b + 1]) for blocks
-// (b0, b1) numbered row-major; coefs (2, 2m, ncoef) T, or ncoef = 0 and no
-// coefficients for a window other than kHorner, whose taps come in wtaps
-// (2, 2m, np) T (window_weights.cu), null for kHorner; out (nchan, np)
-// values in original point order.  T is float for *_f32, double for *_f64;
-// normfactor is a double for both.  Launches on `stream`, does not
-// synchronise, allocates nothing.
+// original index of each sorted point; coefs (2, 2m, ncoef) T, or ncoef = 0
+// and no coefficients for a window other than kHorner, whose taps come in
+// wtaps (2, 2m, np) T (window_weights.cu), null for kHorner; out
+// (nchan, np) values in original point order.  T is float for *_f32, double
+// for *_f64; normfactor is a double for both.  Launches on `stream`, does
+// not synchronise, allocates nothing.
 #define NUFFT_INTERP_ENTRY(NAME, T, NCOMP)                                    \
   extern "C" int NAME(const void* grid, const void* cells, const void* fracs, \
-                      const void* perm, const void* pstarts,                  \
-                      const void* coefs, const void* wtaps, void* out,        \
+                      const void* perm, const void* coefs,                    \
+                      const void* wtaps, void* out,              \
                       long long np, int nchan, int m, int ncoef, int n0,      \
-                      int n1, int b0, int b1, double normfactor,              \
-                      void* stream) {                                         \
-    return dispatch<T, NCOMP>(grid, cells, fracs, perm, pstarts, coefs,       \
-                              wtaps, out, np, nchan, m, ncoef, n0, n1, b0,    \
-                              b1, normfactor, stream);                        \
+                      int n1, double normfactor, void* stream) {              \
+    return dispatch<T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, out, np,  \
+                              nchan, m, ncoef, n0, n1, normfactor, stream);   \
   }
 
 #if NUFFT_WANT(0)

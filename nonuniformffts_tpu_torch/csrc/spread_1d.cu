@@ -56,39 +56,28 @@
 // cell's points, whose trip count is Poisson (about 6 points a cell at 10M
 // points on 1.57M cells: a warp runs its busiest lane's count), each
 // point's Horner steps and 2M NCOMP double FMAs; the sums take registers,
-// so the CTAs an SM are set by __launch_bounds__ (3 for float values, 2
-// for double, one fewer past M = 4).  Values, fractions, taps and
-// coefficients are T, sums double; there is no TF32.  The tunables below
-// are -D flags for chip_probe.py --spread1d.
+// so the CTAs an SM are set by __launch_bounds__ (min_ctas).  Values,
+// fractions, taps and coefficients are T, sums double; there is no TF32.
 #include <cstdint>
 
 #include "spread_mma.cuh"
 #include "window.cuh"
 
-// Threads of one CTA.
-#ifndef NUFFT_SPREAD1D_THREADS
-#define NUFFT_SPREAD1D_THREADS 256
-#endif
-// CTAs an SM the register allocation must leave room for
-// (__launch_bounds__), for float and for double values, up to M = 4.
-#ifndef NUFFT_SPREAD1D_MIN_CTAS_F32
-#define NUFFT_SPREAD1D_MIN_CTAS_F32 3
-#endif
-#ifndef NUFFT_SPREAD1D_MIN_CTAS_F64
-#define NUFFT_SPREAD1D_MIN_CTAS_F64 2
-#endif
-
 namespace {
 
 // Must match ops/kernels/common.py:SPREAD1D_THREADS and ACC_BYTES.
-constexpr int kThreads = NUFFT_SPREAD1D_THREADS;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 using Acc = double;
 
-// The CTAs an SM a kernel's registers leave room for: the tunable up to
-// M = 4, one fewer past it (the 2M NCOMP double sums take more registers).
-constexpr int min_ctas(int tunable, int m) {
-  return m <= 4 || tunable <= 1 ? tunable : tunable - 1;
+// The CTAs an SM that a kernel's registers must leave room for
+// (__launch_bounds__): 3 for float values and 2 for double up to M = 4,
+// one fewer past it, where the 2M NCOMP double sums take more registers;
+// one for complex64 past M = 8, whose 4M double sums spill at two (460 B at
+// M = 10, 21% slower at 10M points: chip_probe.py --spread1d --m 10).
+constexpr int min_ctas(int scalar_bytes, int ncomp, int m) {
+  if (scalar_bytes == 4 && ncomp == 2 && m > 8) return 1;
+  return (scalar_bytes == 4 ? 3 : 2) - (m > 4 ? 1 : 0);
 }
 
 // Must match ops/kernels/common.py:spread_smem_bytes for D = 1: the
@@ -127,10 +116,7 @@ __device__ __forceinline__ void flush(T* g, const Acc (&sum)[NCOMP], int p, int 
 // Horner's rule (two instantiations, so that the Horner one keeps the
 // registers it needs alone).
 template <int M, typename T, int NCOMP, bool TAPS>
-__global__ void __launch_bounds__(kThreads, min_ctas(sizeof(T) == 4 ? NUFFT_SPREAD1D_MIN_CTAS_F32
-                                                                      : NUFFT_SPREAD1D_MIN_CTAS_F64,
-                                                      M))
-    spread_1d_kernel(
+__global__ void __launch_bounds__(kThreads, min_ctas(sizeof(T), NCOMP, M)) spread_1d_kernel(
     const nufft::Value<T, NCOMP>* __restrict__ vals, const int* __restrict__ cells,
     const T* __restrict__ fracs, const int* __restrict__ pstarts,
     const T* __restrict__ coefs, const T* __restrict__ wtaps,

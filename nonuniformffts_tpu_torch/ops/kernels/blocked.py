@@ -1,8 +1,8 @@
 """Blocked fast path: wrappers around the hand-written CUDA kernels, each
 with its plain PyTorch version: spread K4 (1D, a lane a cell; 2D on the
 FP64 tensor cores) and K1/K6a (3D, on the FP64 tensor cores), interpolate
-K5 (1D, a thread a point), K5/K6b (2D) and K2/K6b (3D, from windows staged
-in shared memory), and the window taps K3.
+K5 (1D, 2D) and K2/K6b (3D, from each block's window staged in shared
+memory), and the window taps K3.
 
 Counterpart of ``nonuniformffts_tpu/ops/pallas/blocked.py`` and
 ``blocked_ds.py``.  Both wrappers read the plan's bin-sorted point state
@@ -33,14 +33,11 @@ from ..spreading import spread_cells
 from ..windows import WINDOW_KINDS
 from . import build
 from .common import (
-    INTERP2D_MAX_GROUP,
     KERNEL_DIMS,
     KERNEL_M_RANGE,
     MAX_SMEM_BYTES,
     VALUE_TYPES,
     entry_point_name,
-    interp2d_sub,
-    interp2d_window,
     interp_tiles,
     spread_smem_bytes,
     window_weights,
@@ -86,7 +83,7 @@ def check_kernel_support(plan) -> None:
     of 32 or 64 bits, any window in either mode, M in 2..10, the spread and
     interpolation CTAs' shared memory within the card's: in 3D one staged
     batch of the spread and one x plane of the interpolation window a pass,
-    so any block dims; in 2D one x row of the interpolation window)."""
+    so any block dims)."""
     if plan.ndim not in KERNEL_DIMS:
         raise NotImplementedError(f"no CUDA kernel takes {plan.ndim}D plans")
     if plan.dtype not in VALUE_TYPES:
@@ -111,15 +108,6 @@ def check_kernel_support(plan) -> None:
             f"block_dims {plan.block_dims}: one x plane of the padded window does "
             f"not fit the {MAX_SMEM_BYTES} B of shared memory a Hopper CTA can use"
         )
-    if plan.ndim == 2:
-        # The longest staged sub-run the kernel may take, whatever Np.
-        sub = interp2d_sub(INTERP2D_MAX_GROUP, plan.block_dims[1])
-        if not interp2d_window(plan.block_dims, plan.m, ncoef, scalar_bytes, ncomp,
-                               sub).passes:
-            raise ValueError(
-                f"block_dims {plan.block_dims}: one x row of the padded window does "
-                f"not fit the {MAX_SMEM_BYTES} B of shared memory a Hopper CTA can use"
-            )
 
 
 def _check_cuda_inputs(x: torch.Tensor, plan, what: str) -> None:
@@ -297,8 +285,8 @@ def interpolate_blocked(plan, grid: torch.Tensor) -> torch.Tensor:
     coefs, wtaps, wtaps_ptr, ncoef = _launch_args(plan)
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
-        # The 2D and 3D kernels walk the blocks (csrc/interp_{2,3}d.cu).
-        pstarts, dims = (((plan.pstarts.data_ptr(),), plan.block_dims) if plan.ndim >= 2
+        # The 3D kernel walks the blocks (csrc/interp_3d.cu).
+        pstarts, dims = (((plan.pstarts.data_ptr(),), plan.block_dims) if plan.ndim == 3
                          else ((), ()))
         err = fn(
             grid.data_ptr(), plan.cells_sorted.data_ptr(),

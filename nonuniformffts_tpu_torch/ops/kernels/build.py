@@ -70,11 +70,10 @@ for _d in KERNEL_DIMS:
         _SIGNATURES[f"nufft_spread_{_d}d_{_vt}"] = (
             _HEAD[:7] + [_P] * (_d == 1) + _HEAD[7:] + [_I] * (2 * _d) + [_P])
         # grid, cells, fracs, perm, [pstarts,] coefs, wtaps, out, np, nchan,
-        # m, ncoef, n_0..n_{D-1}, [b_0..b_{D-1},] normfactor, stream: the 2D
-        # and 3D kernels walk the blocks (csrc/interp_{2,3}d.cu)
+        # m, ncoef, n_0..n_{D-1}, [b_0..b_2,] normfactor, stream: the 3D
+        # kernel walks the blocks (csrc/interp_3d.cu)
         _SIGNATURES[f"nufft_interp_{_d}d_{_vt}"] = (
-            [_P] + _HEAD + [_I] * (2 * _d) if _d >= 2 else _HEAD + [_I] * _d
-        ) + [ctypes.c_double, _P]
+            [_P] + _HEAD + [_I] * 6 if _d == 3 else _HEAD + [_I] * _d) + [ctypes.c_double, _P]
 for _vt in ("f32", "f64"):
     # src, dst, runs, run_len, n0, b0, n1, b1, nb2, stream (csrc/relayout.cu)
     for _dir in ("grid", "blocks"):

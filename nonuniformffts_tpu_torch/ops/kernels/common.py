@@ -4,10 +4,8 @@ they are instantiated for, the geometry limits of the card, the
 shared-memory footprint of the spread kernels, the rounds of the 1D spread
 kernel (``spread1d_warp_rounds``), the tile geometry of the 2D and 3D
 spread kernels (``spread2d_units``, ``spread_tiles``), which the kernels and
-the block geometry chooser share, the staged window and lane groups of the
-3D interpolation kernel (``interp_tiles``, ``interp_lanes``) and the runs,
-staged window and lane order of the 2D one (``interp2d_group``,
-``interp2d_window``, ``interp2d_order``).
+the block geometry chooser share, and the staged window and lane groups of
+the 3D interpolation kernel (``interp_tiles``, ``interp_lanes``).
 
 Counterpart of ``nonuniformffts_tpu/ops/pallas/common.py``.  The TPU
 kernels placed the 2M taps of each point into dense weight matrices for the
@@ -52,7 +50,7 @@ ACC_BYTES = 8
 # run of rounds of 32 cells (``spread1d_warp_rounds``), carrying the 2M - 1
 # padded cells past a round into the next in registers, and its last carry
 # reaches the next warp through shared memory.
-#: Threads of one 1D spread CTA (``NUFFT_SPREAD1D_THREADS``).
+#: Threads of one 1D spread CTA (``kThreads`` there).
 SPREAD1D_THREADS = 256
 
 # The 3D spread kernel's tiles (``csrc/spread_3d.cu``, which must match).  A
@@ -323,119 +321,6 @@ def interp_tiles(block_dims: Sequence[int], m: int, ncoef: int, scalar_bytes: in
     passes = -(-pd[0] // fit) if fit else 0
     planes = -(-pd[0] // passes) if passes else 0
     return InterpTiles(pd, pitch, planes, passes, head + plane_bytes * planes)
-
-
-# The 2D interpolation kernel (``csrc/interp_2d.cu``, which must match): a
-# CTA covers a run of consecutive blocks of one x row of blocks
-# (``interp2d_group``) and stages each sub-run of blocks (``interp2d_sub``)
-# whose padded window holds few enough cells a point, after the coefficient
-# table (ncoef, 2, span), the bucket counts, a chunk's order, window offsets
-# and bucket ranks (int32) and the blocks' point ranges; a thread contracts
-# a point, the chunk's points dealt round robin over the banks of a
-# wavefront (``interp2d_order``).
-#: Threads of one 2D interpolation CTA (``NUFFT_INTERP2D_THREADS``).
-INTERP2D_THREADS = 256
-#: A sub-run is staged when its padded window holds at most this many cells
-#: a point; the points of sparser ones are read from global memory
-#: (``NUFFT_INTERP2D_STAGE_CELLS``).
-INTERP2D_STAGE_CELLS = 8
-#: Most y cells of the blocks of a staged sub-run (``NUFFT_INTERP2D_STAGE_RUN``).
-INTERP2D_STAGE_RUN = 256
-#: Points a CTA's run of staged sub-runs holds at the mean density
-#: (``NUFFT_INTERP2D_RUN_POINTS``).
-INTERP2D_RUN_POINTS = 1024
-#: Points of a staged sub-run ordered at a time (``NUFFT_INTERP2D_CHUNK``).
-INTERP2D_CHUNK = 1024
-#: Most blocks one CTA covers.
-INTERP2D_MAX_GROUP = 64
-
-
-def interp2d_sub(group: int, b1: int) -> int:
-    """Blocks of one staged sub-run (``csrc/interp_2d.cu:sub_of``): at most
-    ``INTERP2D_STAGE_RUN`` y cells, at least one block."""
-    return min(group, max(INTERP2D_STAGE_RUN // b1, 1))
-
-
-def interp2d_group(shape_over: Sequence[int], block_dims: Sequence[int], np_: int,
-                   m: int) -> int:
-    """Blocks one 2D interpolation CTA covers (``csrc/interp_2d.cu:
-    group_of``), at most ``INTERP2D_MAX_GROUP`` and one row of blocks: where
-    a full sub-run at the mean density is staged, whole sub-runs of about
-    ``INTERP2D_RUN_POINTS`` points; else about ``INTERP2D_THREADS`` points."""
-    nb0, nb1 = (n // b for n, b in zip(shape_over, block_dims))
-    mean = np_ // (nb0 * nb1)
-    cap = min(nb1, INTERP2D_MAX_GROUP)
-    fit = interp2d_sub(cap, block_dims[1])
-    if interp2d_staged(mean * fit, (block_dims[0] + 2 * m - 1, fit * block_dims[1] + 2 * m - 1)):
-        g = INTERP2D_RUN_POINTS // (mean + 1)
-        g = g // fit * fit if g > fit else fit
-    else:
-        g = INTERP2D_THREADS // (mean + 1)
-    return min(max(g, 1), cap)
-
-
-def interp2d_buckets(scalar_bytes: int = 4, ncomp: int = 2) -> int:
-    """Cells of one 128-byte shared-memory wavefront: the buckets the 2D
-    interpolation kernel deals a chunk's points over."""
-    return WAVEFRONT_BYTES // (scalar_bytes * ncomp)
-
-
-@dataclasses.dataclass(frozen=True)
-class Interp2DWindow:
-    """The staged window of a sub-run of ``sub`` blocks in the 2D
-    interpolation kernel (``csrc/interp_2d.cu:Window``); its x rows lie
-    ``padded[1]`` cells apart."""
-
-    padded: Tuple[int, int]  # (B0 + 2M - 1, sub B1 + 2M - 1)
-    rows: int    # x rows staged a pass
-    passes: int  # passes over the window's x rows; 0 if one row does not fit
-    smem: int    # dynamic shared memory of one CTA, bytes
-
-
-def interp2d_window(block_dims: Sequence[int], m: int, ncoef: int, scalar_bytes: int = 4,
-                    ncomp: int = 2, sub: int = 1) -> Interp2DWindow:
-    """The 2D interpolation kernel's window for a sub-run of ``sub`` blocks of
-    ``block_dims``, M = m, ``ncoef`` coefficients a tap (0 for a window
-    without a coefficient stack) and values of ``ncomp`` scalars of
-    ``scalar_bytes``: the padded window in as few x-slab passes as the
-    227 KB allow, the rows spread evenly over the passes."""
-    pd = (block_dims[0] + 2 * m - 1, sub * block_dims[1] + 2 * m - 1)
-    span = next(s for s in (4, 8, 16, 32) if s >= 2 * m)
-    head = (scalar_bytes * ncoef * 2 * span
-            + 4 * (interp2d_buckets(scalar_bytes, ncomp) + 3 * INTERP2D_CHUNK
-                   + INTERP2D_MAX_GROUP + 1))
-    head = -(-head // 16) * 16
-    row_bytes = scalar_bytes * ncomp * pd[1]
-    fit = max(MAX_SMEM_BYTES - head, 0) // row_bytes
-    passes = -(-pd[0] // fit) if fit else 0
-    rows = -(-pd[0] // passes) if passes else 0
-    return Interp2DWindow(pd, rows, passes, head + row_bytes * rows)
-
-
-def interp2d_order(residues: Sequence[int], buckets: int) -> Tuple[int, ...]:
-    """The order in which the 2D interpolation kernel's threads take a
-    chunk's points (``csrc/interp_2d.cu``): ``residues[p]`` is point p's
-    window offset modulo ``buckets``; the points are dealt round robin over
-    the buckets, rank by rank, each bucket's points in chunk order (the
-    kernel ranks them by shared-memory atomics, in any order).  Returns the
-    point of each position."""
-    counts = [0] * buckets
-    ranks = []
-    for r in residues:
-        ranks.append(counts[r])
-        counts[r] += 1
-    order = [0] * len(residues)
-    for p, (r, k) in enumerate(zip(residues, ranks)):
-        pos = sum(min(n, k) + (q < r and n > k) for q, n in enumerate(counts))
-        order[pos] = p
-    return tuple(order)
-
-
-def interp2d_staged(points: int, padded: Sequence[int]) -> bool:
-    """Whether the 2D interpolation kernel stages a sub-run of ``points``
-    points whose padded window is ``padded`` (x rows, y cells of this
-    sub-run)."""
-    return points > 0 and points * INTERP2D_STAGE_CELLS >= padded[0] * padded[1]
 
 
 def spread1d_warp_rounds(b0: int) -> Tuple[Tuple[int, int], ...]:

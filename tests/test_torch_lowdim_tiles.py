@@ -1,20 +1,14 @@
-"""The 1D spread kernel's rounds (``csrc/spread_1d.cu``) and the 2D
-interpolation kernel's staged runs (``csrc/interp_2d.cu``), emulated on the
+"""The 1D spread kernel's rounds (``csrc/spread_1d.cu``), emulated on the
 CPU in float64, and their shared-memory geometry.
 
-The 1D emulation follows the kernel with the shared geometry
+The emulation follows the kernel with the shared geometry
 (``ops/kernels/common.py:spread1d_warp_rounds``, ``spread1d_stored``): each
 local cell's 2M tap sums, each value read through the sort permutation,
 the rotation of a round's sums by t lanes into
 padded cells and the next round's carry, each warp's first cells waiting
 for the previous warp's carry, and the flush with periodic wrap, interior
-cells stored and halo cells added, each logged.  The 2D emulation follows
-the runs of blocks (``interp2d_group``) and their sub-runs (``interp2d_sub``),
-each staged in the x-slab passes of ``interp2d_window`` or read from the grid
-itself (``interp2d_staged``), the staged points taken chunk by chunk in the
-threads' order (``interp2d_order``), each point contracted over the x taps
-the pass holds.  Each result must equal the plain version to 1e-12, and
-once the JAX package's reference.
+cells stored and halo cells added, each logged.  Each result must equal
+the plain version to 1e-12, and once the JAX package's reference.
 """
 
 import collections
@@ -26,24 +20,13 @@ import torch
 
 import nonuniformffts_tpu as jnufft
 import nonuniformffts_tpu_torch as tnufft
-from nonuniformffts_tpu.ops.interpolation import interpolate_reference as j_interp
 from nonuniformffts_tpu.ops.spreading import spread_reference as j_spread
 from nonuniformffts_tpu_torch import blocking
 from nonuniformffts_tpu_torch.ops.kernels import blocked
 from nonuniformffts_tpu_torch.ops.kernels.common import (
-    INTERP2D_CHUNK,
-    INTERP2D_MAX_GROUP,
-    INTERP2D_STAGE_RUN,
     MAX_SMEM_BYTES,
     SPREAD1D_THREADS,
     VALUE_TYPES,
-    WAVEFRONT_BYTES,
-    interp2d_buckets,
-    interp2d_group,
-    interp2d_order,
-    interp2d_staged,
-    interp2d_sub,
-    interp2d_window,
     row_pitch,
     spread1d_stored,
     spread1d_warp_rounds,
@@ -240,240 +223,14 @@ def test_1d_spread_smem_fits(dtype, m):
         assert all(a[1] == c[0] for a, c in zip(rounds, rounds[1:]))
 
 
-def emulate_interp_2d(plan, grid: torch.Tensor):
-    """The 2D interpolation kernel's arithmetic in float64 on the CPU.
-    ``grid`` (C,) + shape_over; returns (C, Np) in original point order, in
-    the plan's dtype, and the sub-runs: (first block, blocks, points,
-    staged, passes)."""
-    m, S = plan.m, 2 * plan.m
-    _, sb, ncomp = VALUE_TYPES[plan.dtype]
-    bd, n = plan.block_dims, plan.shape_over
-    group = interp2d_group(n, bd, plan.num_points, m)
-    sub = interp2d_sub(group, bd[1])
-    win = interp2d_window(bd, m, blocked.kernel_coefs(plan)[1], sb, ncomp, sub)
-    assert win.passes >= 1
-    taps = blocked.window_weights_blocked_plain(plan).to(torch.float64)  # (2, S, Np)
-    g = grid.to(torch.complex128 if ncomp == 2 else torch.float64)
-    C = g.shape[0]
-    out = torch.zeros((C, plan.num_points), dtype=g.dtype)
-    nb0, nb1 = blocking.num_blocks(n, bd)
-    ps = plan.pstarts.tolist()
-    cells = plan.cells_sorted.to(torch.int64)
-    a = torch.arange(S)
-    runs = []
-    starts = [(y, min(sub, y0 + group - y, nb1 - y))  # each CTA's sub-runs
-              for y0 in range(0, nb1, group) for y in range(y0, min(y0 + group, nb1), sub)]
-    for bx in range(nb0):
-        for first_y, ng in starts:
-            first = bx * nb1 + first_y
-            q0, q1 = ps[first], ps[first + ng]
-            if q0 == q1:
-                continue
-            pd = (win.padded[0], ng * bd[1] + 2 * m - 1)
-            staged = interp2d_staged(q1 - q0, pd)
-            o = (bx * bd[0], first_y * bd[1])
-            idx = [torch.remainder(o[d] - (m - 1) + torch.arange(pd[d]), n[d]) for d in range(2)]
-            lc = cells[:, q0:q1] - torch.tensor(o)[:, None]
-            wx, wy = (taps[d][:, q0:q1].T.to(g.dtype) for d in range(2))  # (P, S)
-            slabs = ([(x0, min(win.rows, pd[0] - x0)) for x0 in range(0, pd[0], win.rows)]
-                     if staged else [(0, pd[0])])
-            runs.append((first, ng, q1 - q0, staged, len(slabs)))
-            if staged:  # each chunk's threads take every point once
-                base = (lc[0] * pd[1] + lc[1]) % interp2d_buckets(sb, ncomp)
-                for c0 in range(0, q1 - q0, INTERP2D_CHUNK):
-                    order = interp2d_order(base[c0:c0 + INTERP2D_CHUNK].tolist(),
-                                           interp2d_buckets(sb, ncomp))
-                    assert sorted(order) == list(range(len(order)))
-            acc = torch.zeros((C, q1 - q0), dtype=g.dtype)
-            for x0, nx in slabs:
-                w = g[:, idx[0][x0:x0 + nx]][:, :, idx[1]]  # the staged rows
-                xi = lc[0][:, None] + a[None, :] - x0  # (P, S): row of x tap a
-                inside = (xi >= 0) & (xi < nx)
-                yi = lc[1][:, None] + a
-                vals = w[:, xi.clamp(0, nx - 1)[:, :, None], yi[:, None, :]]  # (C, P, S, S)
-                part = torch.einsum("cpab,pa,pb->cp", vals, torch.where(inside, wx, 0), wy)
-                acc += part * plan.normfactor
-            out[:, plan.sort_perm[q0:q1]] = acc
-    return out.to(plan.dtype), runs
-
-
-# (shape, sigma, m, block_dims, transforms, kernel, points, where): the
-# main path's complex blocks (8, 24) at the full-density rate (runs of
-# blocks staged); every run read from global memory (the sparse branch);
-# half the points in one corner (staged and gathered runs, empty blocks);
-# a window staged in x-slab passes (m = 10, one 128 x 128 block, complex128);
-# a grid smaller than the padded window; three transforms; taps from K3;
-# runs cut at the end of a row of blocks (nb1 not a multiple of the group).
-INTERP2D_CASES = {
-    "main_8x24": ((64, 64), 1.5, 4, (8, 24), 1, None, 4_500, "uniform"),
-    "sparse": ((64, 64), 1.5, 4, (8, 24), 1, None, 200, "uniform"),
-    "mixed": ((64, 64), 1.5, 4, (8, 8), 2, None, 1_200, "clustered"),
-    "x_slab_passes": ((64, 64), 2.0, 10, (128, 128), 1, None, 3_000, "uniform"),
-    "grid_below_window": ((10, 12), 2.0, 10, (20, 24), 1, None, 1_000, "uniform"),
-    "three_transforms": ((20, 24), 1.5, 4, (5, 12), 3, None, 2_000, "uniform"),
-    "k3_taps": ((20, 24), 2.0, 3, (5, 4), 1, "BSplineKernel", 3_000, "uniform"),
-    "cut_runs": ((40, 256), 1.5, 4, (6, 32), 1, None, 12_000, "uniform"),
-}
-
-
-def _interp2d_plan(case, dtype, seed=0):
-    shape, sigma, m, bd, C, kernel, np_, where = INTERP2D_CASES[case]
-    rng = np.random.default_rng(seed)
-    kw = {} if kernel is None else dict(kernel=getattr(tnufft, kernel)())
-    plan = tnufft.PlanNUFFT(dtype, shape, m=m, sigma=sigma, ntransforms=C,
-                            spread_method="blocked", block_dims=bd, device="cpu", **kw)
-    pts = random_points(rng, 2, np_, dtype, lo=-1.0, hi=7.0)
-    if where == "clustered":
-        pts[:, ::2] = random_points(rng, 2, (np_ + 1) // 2, dtype, lo=0.1, hi=0.9)
-    pts[:, :4] = np.float64(2 * np.pi) - 1e-9
-    plan = tnufft.set_points(plan, pts)
-    g = random_complex(rng, np.complex128, (C,) + plan.shape_over)
-    if not plan.dtype.is_complex:
-        g = g.real.copy()
-    return plan, pts, torch.from_numpy(g).to(plan.dtype)
-
-
-@pytest.mark.parametrize("dtype", [np.complex128, np.float64], ids=str)
-@pytest.mark.parametrize("case", list(INTERP2D_CASES))
-def test_emulated_2d_runs_match_plain_interp(case, dtype):
-    plan, _, grid = _interp2d_plan(case, dtype)
-    got, runs = emulate_interp_2d(plan, grid)
-    staged = [r for r in runs if r[3]]
-    if case in ("main_8x24", "x_slab_passes", "three_transforms", "k3_taps"):
-        assert staged and all(r[3] for r in runs)
-    if case == "main_8x24":
-        assert all(r[1] >= 2 for r in runs)  # runs of several blocks
-    if case == "sparse":
-        assert runs and not staged
-    if case == "mixed":
-        assert staged and len(staged) < len(runs)
-        counts = plan.pstarts[1:] - plan.pstarts[:-1]
-        assert (counts == 0).any()
-    if case == "x_slab_passes" and dtype == np.complex128:
-        assert max(r[4] for r in runs) >= 2
-    if case == "grid_below_window":
-        assert plan.block_dims[1] + 2 * plan.m - 1 > plan.shape_over[1]
-    if case == "cut_runs":
-        nb1 = plan.shape_over[1] // plan.block_dims[1]
-        assert nb1 % interp2d_group(plan.shape_over, plan.block_dims, plan.num_points,
-                                    plan.m)
-        assert len({r[1] for r in runs}) >= 2 and all(r[3] for r in runs)
-    want = blocked.interpolate_blocked_plain(plan, grid)
-    assert got.shape == want.shape and got.dtype == want.dtype
-    assert rel_err(got.numpy(), want.numpy()) <= 1e-12
-
-
-def test_emulated_2d_runs_match_jax_interp():
-    """The 2D runs against the JAX package's reference interpolation (its
-    CPU path) on the same points and grid, complex128, with staged and
-    gathered runs."""
-    plan, pts, grid = _interp2d_plan("mixed", np.complex128, seed=3)
-    _, runs = emulate_interp_2d(plan, grid)
-    assert {r[3] for r in runs} == {True, False}
-    shape, sigma, m = INTERP2D_CASES["mixed"][:3]
-    jp = jnufft.set_points(jnufft.PlanNUFFT(np.complex128, shape, m=m, sigma=sigma,
-                                            ntransforms=2), pts)
-    assert tuple(jp.shape_over) == plan.shape_over
-    want = j_interp(jp.kernel_data, jp.evalmode, jnp.asarray(grid.numpy()), jp.points,
-                    jp.normfactor)
-    got, _ = emulate_interp_2d(plan, grid)
-    assert rel_err(got.numpy(), np.asarray(want)) <= 1e-12
-
-
-@pytest.mark.parametrize("dtype", list(VALUE_TYPES), ids=str)
-@pytest.mark.parametrize("m", list(range(2, 11)))
-def test_2d_interp_smem_fits(dtype, m):
-    """The 2D interpolation CTA fits shared memory for every block the 2D
-    chooser considers and every group, staging at least one x row a pass:
-    a staged sub-run's y cells are capped, so no 2D plan is refused.  At the
-    main path's grid (6144^2) and densities the chooser's pick stages in
-    one pass."""
-    _, sb, ncomp = VALUE_TYPES[dtype]
-    for b1 in (1, 24, 128):
-        for b0 in (1, 128):
-            for group in (1, INTERP2D_MAX_GROUP):
-                sub = interp2d_sub(group, b1)
-                assert sub * b1 <= max(INTERP2D_STAGE_RUN, b1)
-                w = interp2d_window((b0, b1), m, m + 4, sb, ncomp, sub)
-                assert w.passes >= 1 and w.smem <= MAX_SMEM_BYTES
-                assert (w.passes - 1) * w.rows < w.padded[0] <= w.passes * w.rows
-    bd = blocking.choose_geometry((6144, 6144), 4, sb, ncomp)
-    for np_ in (1_000_000, 16_777_216):
-        group = interp2d_group((6144, 6144), bd, np_, 4)
-        sub = interp2d_sub(group, bd[1])
-        assert interp2d_window(bd, 4, 8, sb, ncomp, sub).passes == 1
-        assert 6144 // bd[1] >= group >= sub
-
-
-def test_2d_interp_runs_at_the_main_path():
-    """At 16,777,216 points on grid 6144^2 the complex64 pick (8, 24)
-    (~85 points a block) runs ten blocks a CTA and stages them together
-    (~850 points, one chunk); at 1,000,000 points (~5 a block) a CTA runs 42
-    blocks (~210 points, one a thread) and reads their points from global
-    memory."""
-    bd = blocking.choose_geometry((6144, 6144), 4, 4, 2)
-    assert bd == (8, 24)
-    group = interp2d_group((6144, 6144), bd, 16_777_216, 4)
-    assert group == interp2d_sub(group, 24) == 10
-    points = int(16_777_216 / 6144 ** 2 * 8 * 24 * 10)
-    assert interp2d_staged(points, (15, 10 * 24 + 7)) and points < INTERP2D_CHUNK
-    group = interp2d_group((6144, 6144), bd, 1_000_000, 4)
-    assert group == 42 and interp2d_sub(group, 24) == 10
-    assert not interp2d_staged(int(1_000_000 / 6144 ** 2 * 8 * 24 * 10), (15, 10 * 24 + 7))
-
-
-@pytest.mark.parametrize("dtype", list(VALUE_TYPES), ids=str)
-@pytest.mark.parametrize("points", [40, 425, 1024])
-def test_2d_lane_order_is_conflict_free(dtype, points):
-    """The threads' order deals a chunk's points round robin over the
-    buckets (a window offset modulo a wavefront's cells, the bank of every
-    tap's load): it is a permutation, and while every bucket still holds
-    points, each aligned wavefront's worth of lanes reads distinct banks.
-    Over a whole chunk of uniform points the lanes' loads take at most a
-    quarter more wavefronts than the fullest bucket's points (the least
-    with no conflict), against about one a lane in sorted order."""
-    _, sb, ncomp = VALUE_TYPES[dtype]
-    nb = interp2d_buckets(sb, ncomp)
-    rng = np.random.default_rng(points)
-    res = rng.integers(0, nb, points).tolist()
-    order = interp2d_order(res, nb)
-    assert sorted(order) == list(range(points))
-    full = nb * min(collections.Counter(res).get(r, 0) for r in range(nb))
-    waves = 0
-    for g0 in range(0, points, nb):
-        banks = [res[p] for p in order[g0:g0 + nb]]
-        if g0 + nb <= full:
-            assert len(set(banks)) == len(banks), (g0, banks)
-        waves += max(collections.Counter(banks).values())
-    assert waves <= 1.25 * max(collections.Counter(res).values()) + 1, waves
-    # Points in sorted order (cells y-fastest) repeat banks within a
-    # wavefront's worth of lanes.
-    sorted_waves = sum(max(collections.Counter(sorted(res)[g0:g0 + nb]).values())
-                       for g0 in range(0, points, nb))
-    assert points < 2 * nb or sorted_waves > waves
-
-
-def test_2d_support_refuses_only_an_unstageable_row():
-    """``check_kernel_support`` refuses a 2D plan only where one x row of
-    the longest staged sub-run does not fit shared memory (a 16,384-cell y
-    block in complex128 at m = 10); the chooser's largest blocks pass."""
-    for bd, ok in (((8, 16_384), False), ((128, 128), True), ((8, 4096), True)):
-        plan = tnufft.PlanNUFFT(np.complex128, (64, 8192), m=10, sigma=2.0,
-                                spread_method="blocked", block_dims=bd, device="cpu")
-        sub = interp2d_sub(INTERP2D_MAX_GROUP, bd[1])
-        assert (interp2d_window(bd, 10, 14, 8, 2, sub).passes > 0) == ok
-        if ok:
-            blocked.check_kernel_support(plan)
-        else:
-            with pytest.raises(ValueError, match="one x row"):
-                blocked.check_kernel_support(plan)
-
-
-@pytest.mark.parametrize("stem", ["spread_1d", "interp_2d"])
-def test_probe_parts_edit_the_shipped_sources(stem):
+@pytest.mark.parametrize("stem, table", [("spread_1d", "SPREAD1D_PARTS"),
+                                         ("spread_1d", "SPREAD1D_VARIANTS"),
+                                         ("interp_2d", "INTERP2D_PARTS")])
+def test_probe_parts_edit_the_shipped_sources(stem, table):
     """Every line that ``chip_probe.py --spread1d-parts`` / ``--interp2d-parts``
-    replaces to take a phase out is in the shipped kernel's source, and each
-    copy differs from it: a stale edit would fail the probe on the card."""
+    replaces to take a phase out, and that ``--spread1d`` replaces for a
+    variant, is in the shipped kernel's source, and each copy differs from
+    it: a stale edit would fail the probe on the card."""
     import importlib.util
     from pathlib import Path
 
@@ -481,8 +238,9 @@ def test_probe_parts_edit_the_shipped_sources(stem):
     spec = importlib.util.spec_from_file_location("chip_probe_parts", path)
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
-    parts = probe.SPREAD1D_PARTS if stem == "spread_1d" else probe.INTERP2D_PARTS
-    texts = probe._edited_sources(stem, parts)
+    parts = getattr(probe, table)
+    texts = probe._edited_sources(stem, parts, (4, 8, 10))
+    assert "CASE(4) CASE(8) CASE(10)" in texts["shipped"]
     assert set(texts) == {"shipped", *parts}
     assert all(texts[k] != texts["shipped"] for k in parts)
 
