@@ -85,6 +85,34 @@ and rho = 0.01 (``_lowdim_probe``).  The ``-parts`` flags time copies of
 the shipped sources with one phase taken out (``SPREAD1D_PARTS``,
 ``INTERP2D_PARTS``) at the first two point counts.
 
+    python3 chip_probe.py --interp1d [--interp1d-parts] [--m M ...] [--reps N]
+    python3 chip_probe.py --interp1d-sweep [--dtype T ...] [--np N ...] [--reps N]
+
+time the 1D interpolation kernel (``csrc/interp_1d.cu``) the same way
+against the per-point kernel it replaced (``_POINT_INTERP_1D_SRC``), with
+its variants (``INTERP1D_VARIANTS``) and each of its two paths forced
+(``--interp1d-parts``: ``INTERP1D_PARTS``); the sweep times its point path
+against its staged path with the gather, one and two transforms, from 1M
+to 10M points (``INTERP1D_SWEEP_NP``), where ``INTERP1D_GATHER_BYTES``
+chooses between them.
+
+    python3 chip_probe.py --weights [--m M ...] [--np N ...]
+
+times the window-taps kernel K3 (``csrc/window_weights.cu``) as raw
+launches against the kernel it replaced (``_OLD_WEIGHTS_SRC``), its
+variants (``WEIGHTS_VARIANTS``) and parts (``WEIGHTS_PARTS``), beside its
+wrapper call, for the four windows it evaluates, 3D at 1M and 16.8M points
+(``probe_weights``).
+
+    python3 chip_probe.py --exec-windows [--root DIR]
+    python3 chip_probe.py --exec-1d [--reps N] [--root DIR]
+
+time ``set_points``, ``exec_type1`` and ``exec_type2`` through the public
+API: every window of chip_smoke.py phase 10, or the 1D main path (phase 9,
+four dtypes at 1M and 10M points), for the package of this tree or of
+the tree ``--root`` names, so that two trees are timed in turns in one
+call (``probe_exec_windows``).
+
     python3 chip_probe.py --relayout
 
 instead times the relayout kernels K8a / K8b (``csrc/relayout.cu``) as
@@ -2554,6 +2582,62 @@ INTERP2D_PARTS = {
 }
 
 
+#: Copies of csrc/interp_1d.cu with one phase of its staged path (the one
+#: outputs above ``INTERP1D_GATHER_BYTES`` take) taken out, for
+#: ``--interp1d-parts``.  Their values are wrong; only their times are read.
+#: (The per-point kernel's parts, PERF.md, were the same edits of
+#: ``_POINT_INTERP_1D_SRC`` when it was the shipped source.)
+_STORE = "        out[(c0 + c) * np + j] = res;"
+INTERP1D_PARTS = {
+    # The sorted results written under a condition that never holds.
+    "no_out": {_STORE: _STORE.replace("out[", "if (res.c[0] == T(1.25e-30)) out[")},
+    # No gather into the caller's order.
+    "no_gather": {"  gather_kernel<V><<<": "  if (np < 0) gather_kernel<V><<<"},
+    # The window's cells made up in place of read (staged and global).
+    "no_loads": {"{ return sw[t]; }": "{ V v = {}; v.c[0] = T(cx + t); return v; }",
+                 "return g[nufft::wrap_index(cx - (M - 1) + t, n0)];":
+                 "V v = {};\n            v.c[0] = T(cx + t);\n            return v;"},
+    # Every tap a number from the fraction in place of Horner's rule (both
+    # paths).
+    "no_taps": {"nufft::horner_rows<S>(cs, ncoef, fracs[j], w);":
+                "for (int t = 0; t < S; ++t) w[t] = fracs[j] + T(t);"},
+    # No window staged: only the copy into shared memory taken out (the
+    # points read the uninitialised window).
+    "no_stage": {"          cp_async<16>(dst, row + gc);": "          if (gc < -n0) cp_async<16>(dst, row + gc);"},
+}
+#: Variants of csrc/interp_1d.cu for ``--interp1d``, each a line replaced;
+#: their values are right.  Streaming stores (``__stcs``, evict-first in
+#: L2) of the point path's scattered results; every block of the staged
+#: path read from global memory, or every block staged; 256-thread CTAs;
+#: registers capped for 8 or 12 resident
+#: CTAs an SM.  (The shipped build also runs each path whatever the wrapper
+#: would choose: ``shipped_scatter``, the point path; ``shipped_gather``,
+#: the staged path.)
+_POINT_STORE = ("    out[c * np + dest] =\n        contract<S, T, NCOMP>(w, nf, [&](int t) "
+                "{ return g[nufft::wrap_index(cx + t, n0)]; });")
+_STCS = """    const nufft::Value<T, NCOMP> res =
+        contract<S, T, NCOMP>(w, nf, [&](int t) { return g[nufft::wrap_index(cx + t, n0)]; });
+    nufft::Value<T, NCOMP>* dst = out + c * np + dest;
+    if constexpr (sizeof(res) == 16)
+      __stcs(reinterpret_cast<float4*>(dst), *reinterpret_cast<const float4*>(&res));
+    else if constexpr (sizeof(res) == 8)
+      __stcs(reinterpret_cast<float2*>(dst), *reinterpret_cast<const float2*>(&res));
+    else
+      __stcs(reinterpret_cast<float*>(dst), *reinterpret_cast<const float*>(&res));"""
+INTERP1D_VARIANTS = {
+    "stcs": {_POINT_STORE: _STCS},
+    "global_reads": {"constexpr int kSparse = 8;": "constexpr int kSparse = 0;"},
+    "stage_all": {"constexpr int kSparse = 8;": "constexpr int kSparse = 1 << 20;"},
+    "threads256": {"constexpr int kThreads = 128;": "constexpr int kThreads = 256;"},
+    **{f"cap{c}": {"__global__ void __launch_bounds__(kThreads) interp_1d_kernel(":
+                   f"__global__ void __launch_bounds__(kThreads, {c}) interp_1d_kernel("}
+       for c in (8, 12)},
+    # The point path's registers capped for 4 resident CTAs an SM (64).
+    "point_cap4": {"__launch_bounds__(kPointThreads) interp_1d_point_kernel(":
+                   "__launch_bounds__(kPointThreads, 4) interp_1d_point_kernel("},
+}
+
+
 def _edited_sources(stem: str, parts, ms=(4,)) -> dict:
     """``csrc/<stem>.cu`` for the M of ``ms`` alone, and a copy for each
     entry of ``parts`` with its lines replaced."""
@@ -2587,10 +2671,10 @@ def _lowdim_registers(stem: str, kernel: str) -> str:
     """Registers and spill stores of the instantiations of ``kernel`` in
     ``build/chip_probe/<stem>.ptxas.log``."""
     text = (ROOT / "build" / "chip_probe" / f"{stem}.ptxas.log").read_text()
-    regs = re.findall(kernel + r"ILi(\d+)E([fd])Li(\d)E(?:Lb([01])E)?.*?(\d+) bytes spill "
-                      r"stores.*?Used (\d+) registers", text, re.S)
-    return ", ".join(f"<M={m}, {t}, {n}{', taps' if b == '1' else ''}> {r} (spills {sp} B)"
-                     for m, t, n, b, sp, r in regs)
+    regs = re.findall(r"(" + kernel + r")I(?:Li\dE)?Li(\d+)E([fd])(?:Li(\d)E)?(?:Lb([01])E)?.*?"
+                      r"(\d+) bytes spill stores.*?Used (\d+) registers", text, re.S)
+    return ", ".join(f"{k} <M={m}, {t}{', ' + n if n else ''}{', taps' if b == '1' else ''}> "
+                     f"{r} (spills {sp} B)" for k, m, t, n, b, sp, r in regs)
 
 
 def _raw_spread_1d(lib, prefix: str, plan, vals, shipped: bool = True):
@@ -2645,21 +2729,297 @@ def _raw_interp_2d(lib, name: str, plan, grid, staged: bool = False):
     return out
 
 
-def _lowdim_probe(kind: str, seed: int, dtypes, nps, ms, with_variants: bool) -> None:
-    """The body of ``--spread1d`` / ``--interp2d`` (``kind`` 'spread1d' or
-    'interp2d') and of their ``-parts`` twins (``with_variants`` False):
-    the shipped kernel against the other design (the 1D spread's old kernel,
-    ``_CELL_SPREAD_1D_SRC``; the 2D interpolation's staged kernel,
-    ``_STAGED_INTERP_2D_SRC``), in turns (other, shipped, shipped, other),
-    two passes, raw launches on the same sorted points, both held against
-    the plain version; the shipped wrapper call (the grid's zeroing or the
-    output's allocation and the launch path) and its host time; then the 1D
-    spread's variants or the parts copies in turns with the shipped build.
-    Everything for the M of ``ms`` alone in ``build/chip_probe/``.  sigma =
-    1.5, BKB FastApproximation, uniform points, the chooser's block dims;
-    CUDA events, median of 5 after one warm-up.  One JSON line a dtype, M
-    and Np, with the card's name and power limit, the bound
-    (``chip_smoke.kernel_bound``) and the points a block."""
+def _raw_interp_1d(lib, name: str, plan, grid, shipped: bool = True, gather=None, inv=None):
+    """One launch of the 1D interpolation entry point ``name`` of ``lib`` on
+    the plan's sorted state (BKB Fast, the transforms of ``grid``), with the
+    shipped kernel's C interface (``build._SIGNATURES``; the results
+    scattered to ``perm[j]`` or, with ``gather``, stored sorted and gathered
+    into order through ``inv``, by default the plan's ``sort_perm_inv``:
+    by default as the wrapper chooses, ``common.interp1d_gathers``), or with
+    ``shipped`` False the per-point kernel's (``_POINT_INTERP_1D_SRC``)."""
+    import torch
+
+    from nonuniformffts_tpu_torch.ops.kernels import build
+    from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES, interp1d_gathers
+
+    fn = getattr(lib, name)
+    sig = build._SIGNATURES["nufft_interp_1d_" + VALUE_TYPES[plan.dtype][0]]
+    fn.argtypes = sig if shipped else _POINT_INTERP_1D_SIG
+    C = grid.shape[0]
+    out = torch.empty((C, plan.num_points), dtype=grid.dtype, device=grid.device)
+    if gather is None:
+        gather = interp1d_gathers(plan.num_points, C, out.element_size())
+    scratch = torch.empty_like(out) if shipped and gather else None
+    if scratch is not None and inv is None:
+        inv = plan.sort_perm_inv if plan.sort_perm_inv is not None else _inverse(plan.sort_perm)
+    blocks = ((plan.pstarts.data_ptr(),), plan.block_dims) if shipped else ((), ())
+    order = (() if not shipped else (0, 0) if scratch is None
+             else (scratch.data_ptr(), inv.data_ptr()))
+    err = fn(grid.data_ptr(), plan.cells_sorted.data_ptr(), plan.fracs_sorted.data_ptr(),
+             plan.sort_perm.data_ptr(), *blocks[0], plan.coefs.data_ptr(), 0, out.data_ptr(),
+             *order, plan.num_points, C, plan.m, plan.coefs.shape[-1], *plan.shape_over,
+             *blocks[1], float(plan.normfactor), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out
+
+
+def _inverse(perm, how: str = "index_put"):
+    """The sorted position of each point, int32, from ``perm``: as
+    ``set_points`` makes it (``blocked.interp1d_inverse``, ``index_put``) or
+    by ``scatter_``."""
+    import torch
+
+    src = torch.arange(perm.shape[0], dtype=torch.int32, device=perm.device)
+    inv = torch.empty(perm.shape, dtype=torch.int32, device=perm.device)
+    if how == "index_put":
+        inv[perm] = src
+    else:
+        inv.scatter_(0, perm, src)
+    return inv
+
+
+#: Point counts of ``--interp1d-sweep`` (the main path's 1D grid, 2^20
+#: modes, sigma = 1.5): from the main path's 1M to its 10M.
+INTERP1D_SWEEP_NP = (1_000_000, 1_500_000, 2_000_000, 3_000_000, 4_000_000, 5_000_000,
+                     6_000_000, 8_000_000, 10_000_000)
+
+
+def probe_interp1d_sweep(seed: int, dtypes, nps, reps: int) -> None:
+    """The shipped 1D interpolation's two paths on the same points, both
+    forced whatever ``common.interp1d_gathers`` would choose: the point path
+    (results scattered to ``perm[j]``) and the staged path (stored sorted,
+    then gathered through the inverse permutation), raw launches in turns
+    (scatter, gather, gather, scatter, twice; CUDA events, median of
+    ``reps`` after one warm-up), one and two transforms, the four dtypes, at
+    each point count of ``nps`` (default ``INTERP1D_SWEEP_NP``), M = 4,
+    BKB Fast, uniform points.  The two outputs must agree to the kernel
+    tolerance (both sum in the same order).  One JSON line a dtype, C and
+    Np, with the output's bytes, where ``INTERP1D_GATHER_BYTES`` sets the
+    wrapper's choice, and the time of the inverse permutation that the
+    gather reads and ``set_points`` makes (``index_put`` as it does, and
+    ``scatter_``; the later of two timings each)."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from chip_smoke import cuda_time_ms, nvidia_smi_line, rel_l2
+    from nonuniformffts_tpu_torch.ops.kernels import build
+    from nonuniformffts_tpu_torch.ops.kernels.common import (INTERP1D_GATHER_BYTES,
+                                                             VALUE_TYPES, interp1d_gathers)
+
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    lib = build.load()
+    for name in dtypes:
+        plan0 = nufft.PlanNUFFT(np.dtype(name), SHAPES[1], m=4, sigma=1.5,
+                                spread_method="blocked", device=dev)
+        suffix, sb, ncomp = VALUE_TYPES[plan0.dtype]
+        entry = "nufft_interp_1d_" + suffix
+        tol = 1e-6 if sb == 4 else 1e-14
+        for np_ in nps or INTERP1D_SWEEP_NP:
+            gen = torch.Generator(device=dev).manual_seed(seed + np_)
+            pts = torch.rand((1, np_), generator=gen, device=dev,
+                             dtype=plan0.real_dtype) * (2 * math.pi)
+            plan = nufft.set_points(plan0, pts)
+            perm = plan.sort_perm
+            inverse_ms = {how: cuda_time_ms(lambda how=how: _inverse(perm, how), reps=reps)[0]
+                          for how in ("index_put", "scatter", "index_put", "scatter")}
+            inv = _inverse(perm)
+            if not torch.equal(inv, _inverse(perm, "scatter")):
+                raise AssertionError("the two inverse permutations differ")
+            for C in (1, 2):
+                grid = torch.randn((C,) + plan.shape_over, generator=gen, device=dev,
+                                   dtype=plan0.dtype)
+                runs = {way: (lambda way=way: _raw_interp_1d(
+                    lib, entry, plan, grid, gather=way == "gather", inv=inv))
+                    for way in ("scatter", "gather")}
+                times = {k: [] for k in runs}
+                outs = {}
+                for _ in range(2):
+                    for k in ("scatter", "gather", "gather", "scatter"):
+                        ms_, outs[k] = cuda_time_ms(runs[k], reps=reps)
+                        times[k].append(ms_)
+                err = rel_l2(outs["gather"], outs["scatter"])
+                if not err <= tol:
+                    raise AssertionError(f"interp1d sweep {name} C={C} {np_}: the paths "
+                                         f"differ, rel L2 {err:.3e}")
+                med = {k: statistics.median(t) for k, t in times.items()}
+                nbytes = C * np_ * sb * ncomp
+                print(json.dumps({
+                    "probe": "interp1d_sweep", "card": card, "dtype": name, "C": C, "np": np_,
+                    "out_bytes": nbytes, "ms": med, "all_ms": times,
+                    "scatter_over_gather": med["scatter"] / med["gather"],
+                    "inverse_ms": inverse_ms,
+                    "equal": bool(torch.equal(outs["gather"], outs["scatter"])),
+                    "wrapper_gathers": interp1d_gathers(np_, C, sb * ncomp),
+                    "threshold_bytes": INTERP1D_GATHER_BYTES}), flush=True)
+                del grid, outs, runs
+            del plan, pts, perm, inv
+            torch.cuda.empty_cache()
+
+
+# The 1D interpolation kernel that csrc/interp_1d.cu replaced: a
+# thread a bin-sorted point, its 2M taps by horner_taps (a runtime loop a
+# tap) or from K3's wtaps, its 2M cells read from global memory with
+# periodic wrap, its result scattered to out[c, perm[j]].  Kept for
+# --interp1d, which times the two in turns; built by it into
+# build/chip_probe/.
+_POINT_INTERP_1D_SRC = r"""
+#include <cstdint>
+
+#include "window.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <int M, typename T, int NCOMP>
+__global__ void __launch_bounds__(kThreads) interp_1d_kernel(
+    const nufft::Value<T, NCOMP>* __restrict__ grid,
+    const int* __restrict__ cells, const T* __restrict__ fracs,
+    const long long* __restrict__ perm, const T* __restrict__ coefs,
+    const T* __restrict__ wtaps, nufft::Value<T, NCOMP>* __restrict__ out,
+    long long np, int nchan, int ncoef, int n0, double normfactor) {
+  constexpr int S = 2 * M;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* cs = reinterpret_cast<T*>(smem_raw);  // (S, ncoef)
+  for (int i = threadIdx.x; i < S * ncoef; i += blockDim.x) cs[i] = coefs[i];
+  __syncthreads();
+
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= np) return;
+
+  T w[S];
+  int ix[S];
+  nufft::point_taps<S>(wtaps, cs, ncoef, fracs, np, j, 0, w);
+  const int cx = cells[j] - (M - 1);
+#pragma unroll
+  for (int t = 0; t < S; ++t) ix[t] = nufft::wrap_index(cx + t, n0);
+  const long long dest = perm[j];
+  const T nf = T(normfactor);
+
+  for (int c = 0; c < nchan; ++c) {
+    const nufft::Value<T, NCOMP>* g = grid + (long long)c * n0;
+    T acc[NCOMP] = {};
+#pragma unroll
+    for (int t = 0; t < S; ++t) {
+      const nufft::Value<T, NCOMP> val = g[ix[t]];
+#pragma unroll
+      for (int k = 0; k < NCOMP; ++k) acc[k] = nufft::fma_t(val.c[k], w[t], acc[k]);
+    }
+    nufft::Value<T, NCOMP> res;
+#pragma unroll
+    for (int k = 0; k < NCOMP; ++k) res.c[k] = acc[k] * nf;
+    out[c * np + dest] = res;
+  }
+}
+
+template <int M, typename T, int NCOMP>
+cudaError_t launch(const void* grid, const void* cells, const void* fracs,
+                   const void* perm, const void* coefs,
+                   const void* wtaps, void* out,
+                   long long np, int nchan, int ncoef, int n0,
+                   double normfactor, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * 2 * M * ncoef;
+  const long long nblocks = (np + kThreads - 1) / kThreads;
+  interp_1d_kernel<M, T, NCOMP><<<(unsigned)nblocks, kThreads, smem, stream>>>(
+      static_cast<const nufft::Value<T, NCOMP>*>(grid),
+      static_cast<const int*>(cells), static_cast<const T*>(fracs),
+      static_cast<const long long*>(perm), static_cast<const T*>(coefs),
+      static_cast<const T*>(wtaps),
+      static_cast<nufft::Value<T, NCOMP>*>(out), np, nchan, ncoef, n0,
+      normfactor);
+  return cudaGetLastError();
+}
+
+template <typename T, int NCOMP>
+int dispatch(const void* grid, const void* cells, const void* fracs,
+             const void* perm, const void* coefs,
+             const void* wtaps, void* out, long long np,
+             int nchan, int m, int ncoef, int n0, double normfactor,
+             void* stream) {
+  if (np == 0) return (int)cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NUFFT_INTERP_CASE(MM)                                              \
+  case MM:                                                                 \
+    return (int)launch<MM, T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, \
+                                     out, np, nchan, ncoef, n0, normfactor, \
+                                     s);
+  switch (m) {
+    NUFFT_FOR_EACH_M(NUFFT_INTERP_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NUFFT_INTERP_CASE
+}
+
+}  // namespace
+
+// grid (nchan, n0) values (complex: re, im interleaved); cells (1, np) int32
+// and fracs (1, np) T in bin-sorted order; perm (np,) int64, the original
+// index of each sorted point; coefs (1, 2m, ncoef) T, or ncoef = 0 and no
+// coefficients for a window other than kHorner, whose taps come in wtaps
+// (1, 2m, np) T (window_weights.cu), null for kHorner; out (nchan, np) values
+// in original point order.  T is float for *_f32, double for *_f64;
+// normfactor is a double for both.  Launches on `stream`, does not
+// synchronise, allocates nothing.
+#define NUFFT_INTERP_ENTRY(NAME, T, NCOMP)                                    \
+  extern "C" int NAME(const void* grid, const void* cells, const void* fracs, \
+                      const void* perm, const void* coefs,                    \
+                      const void* wtaps, void* out,              \
+                      long long np, int nchan, int m, int ncoef, int n0,      \
+                      double normfactor, void* stream) {                      \
+    return dispatch<T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, out, np,  \
+                              nchan, m, ncoef, n0, normfactor, stream);       \
+  }
+
+#if NUFFT_WANT(0)
+NUFFT_INTERP_ENTRY(point_interp_1d_f32, float, 2)
+#endif
+#if NUFFT_WANT(1)
+NUFFT_INTERP_ENTRY(point_interp_1d_f64, double, 2)
+#endif
+#if NUFFT_WANT(2)
+NUFFT_INTERP_ENTRY(point_interp_1d_real_f32, float, 1)
+#endif
+#if NUFFT_WANT(3)
+NUFFT_INTERP_ENTRY(point_interp_1d_real_f64, double, 1)
+#endif
+"""
+#: The per-point kernel's C interface: grid, cells, fracs, perm, coefs,
+#: wtaps, out, np, nchan, m, ncoef, n0, normfactor, stream.
+_POINT_INTERP_1D_SIG = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                        + [ctypes.c_double, ctypes.c_void_p])
+
+
+#: What ``_lowdim_probe`` times, by kind: the shipped source's stem and
+#: kernel name, the other design's name in the JSON line, the dimension.
+LOWDIM_KINDS = {
+    "spread1d": ("spread_1d", "spread_1d_kernel", "old", 1),
+    "interp2d": ("interp_2d", "interp_2d_kernel", "staged", 2),
+    "interp1d": ("interp_1d", "interp_1d_(?:point_)?kernel", "point", 1),
+}
+
+
+def _lowdim_probe(kind: str, seed: int, dtypes, nps, ms, with_variants: bool,
+                  reps: int = 5) -> None:
+    """The body of ``--spread1d`` / ``--interp2d`` / ``--interp1d`` (``kind``
+    a key of ``LOWDIM_KINDS``) and of their ``-parts`` twins
+    (``with_variants`` False): the shipped kernel against the other design
+    (the 1D spread's old kernel, ``_CELL_SPREAD_1D_SRC``; the 2D
+    interpolation's staged kernel, ``_STAGED_INTERP_2D_SRC``; the 1D
+    interpolation's per-point kernel, ``_POINT_INTERP_1D_SRC``), in turns
+    (other, shipped, shipped, other), two passes, raw launches on the same
+    sorted points, both held against the plain version; the shipped wrapper
+    call (the grid's zeroing or the output's allocation and the launch
+    path) and its host time; then the variants or the parts copies in turns
+    with the shipped build.  Everything for the M of ``ms`` alone in
+    ``build/chip_probe/``.  sigma = 1.5, BKB FastApproximation, uniform
+    points, the chooser's block dims; CUDA events, median of ``reps`` after
+    one warm-up.  One JSON line a dtype, M and Np, with the card's name and
+    power limit, the bound (``chip_smoke.kernel_bound``) and the points a
+    block."""
     import torch
 
     import nonuniformffts_tpu_torch as nufft
@@ -2668,24 +3028,26 @@ def _lowdim_probe(kind: str, seed: int, dtypes, nps, ms, with_variants: bool) ->
     from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES
 
     spread = kind == "spread1d"
-    stem, kernel = ("spread_1d", "spread_1d_kernel") if spread else ("interp_2d",
-                                                                     "interp_2d_kernel")
-    other = "old" if spread else "staged"
+    stem, kernel, other, D = LOWDIM_KINDS[kind]
     card = nvidia_smi_line()
     print(card, flush=True)
     dev = torch.device("cuda")
     inc = ("-I", str(build.CSRC_DIR))
+    variants = {"spread1d": SPREAD1D_VARIANTS, "interp1d": INTERP1D_VARIANTS}.get(kind, {})
+    parts = {"spread1d": SPREAD1D_PARTS, "interp2d": INTERP2D_PARTS,
+             "interp1d": INTERP1D_PARTS}[kind]
     if with_variants:
-        texts = _edited_sources(stem, SPREAD1D_VARIANTS if spread else {}, ms)
-        texts[other] = _m_only(_CELL_SPREAD_1D_SRC if spread else _STAGED_INTERP_2D_SRC, ms)
+        texts = _edited_sources(stem, variants, ms)
+        texts[other] = _m_only({"spread1d": _CELL_SPREAD_1D_SRC,
+                                "interp2d": _STAGED_INTERP_2D_SRC,
+                                "interp1d": _POINT_INTERP_1D_SRC}[kind], ms)
         prefix = f"{kind}_"
     else:
-        texts = _edited_sources(stem, SPREAD1D_PARTS if spread else INTERP2D_PARTS, ms)
+        texts = _edited_sources(stem, parts, ms)
         prefix = f"{kind}_part_"
     libs = _build_all(prefix, {k: (t, inc) for k, t in texts.items()})
     for k in libs:
         print(f"ptxas {k}: {_lowdim_registers(prefix + k, kernel)}", flush=True)
-    D = 1 if spread else 2
     for name in dtypes:
         for m in ms:
             plan0 = nufft.PlanNUFFT(np.dtype(name), SHAPES[D], m=m, sigma=1.5,
@@ -2693,7 +3055,7 @@ def _lowdim_probe(kind: str, seed: int, dtypes, nps, ms, with_variants: bool) ->
             _, sb, _ = VALUE_TYPES[plan0.dtype]
             tol = 1e-5 if sb == 4 else 1e-12
             suffix = VALUE_TYPES[plan0.dtype][0]
-            default = (SPREAD1D_NP if spread else (SPREAD2D_NP[name],) + INTERP2D_EXTRA_NP)
+            default = (SPREAD1D_NP if D == 1 else (SPREAD2D_NP[name],) + INTERP2D_EXTRA_NP)
             for np_ in nps or (default if with_variants else default[:2]):
                 gen = torch.Generator(device=dev).manual_seed(seed + np_)
                 pts = torch.rand((D, np_), generator=gen, device=dev,
@@ -2713,17 +3075,25 @@ def _lowdim_probe(kind: str, seed: int, dtypes, nps, ms, with_variants: bool) ->
                     grid = torch.randn((1,) + plan.shape_over, generator=gen, device=dev,
                                        dtype=plan0.dtype)
                     want = blocked.interpolate_blocked_plain(chunked, grid)
-                    runs = {k: (lambda lib=lib, k=k: _raw_interp_2d(
-                        lib, ("staged" if k == "staged" else "nufft") + "_interp_2d_" + suffix,
-                        plan, grid, staged=k == "staged"))
+                    raw = _raw_interp_2d if D == 2 else _raw_interp_1d
+                    runs = {k: (lambda lib=lib, k=k: raw(
+                        lib, (k if k == other else "nufft") + f"_interp_{D}d_" + suffix,
+                        plan, grid, (k == "staged") if D == 2 else (k != "point")))
                         for k, lib in libs.items()}
+                    if kind == "interp1d":  # the shipped build, each way to the output
+                        inv = (plan.sort_perm_inv if plan.sort_perm_inv is not None
+                               else _inverse(plan.sort_perm))
+                        for way in ("scatter", "gather"):
+                            runs[f"shipped_{way}"] = lambda way=way: _raw_interp_1d(
+                                libs["shipped"], "nufft_interp_1d_" + suffix, plan, grid,
+                                gather=way == "gather", inv=inv)
                     wrapper = lambda: blocked.interpolate_blocked(plan, grid)  # noqa: E731
                 head = [other, "shipped", "shipped", other] if with_variants else []
                 rest = [k for k in runs if k not in (other, "shipped")]
                 times, errs = {k: [] for k in runs}, {}
                 for rnd in range(2):
                     for k in head + ["shipped"] + (rest if rnd == 0 else rest[::-1]):
-                        ms_, got = cuda_time_ms(runs[k])
+                        ms_, got = cuda_time_ms(runs[k], reps=reps)
                         times[k].append(ms_)
                         err = rel_l2(got, want)
                         errs[k] = max(errs.get(k, 0.0), err)
@@ -2751,6 +3121,318 @@ def _lowdim_probe(kind: str, seed: int, dtypes, nps, ms, with_variants: bool) ->
                     line[f"{other}_over_shipped"] = line["ms"][other] / line["ms"]["shipped"]
                 print(json.dumps(line), flush=True)
                 del plan, chunked, want, pts, runs, wrapper
+                torch.cuda.empty_cache()
+
+
+# The window-weights kernel that csrc/window_weights.cu replaced:
+# a thread a (dimension, point), its 2M direct taps one at a time in a
+# rolled loop, each store coalesced across the warp.  Kept for --weights,
+# which times the two in turns; built by it into build/chip_probe/.
+_OLD_WEIGHTS_SRC = r"""
+#include <cstdint>
+
+#include "window.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <int M, typename T>
+__global__ void __launch_bounds__(kThreads) window_weights_kernel(
+    const T* __restrict__ fracs, const nufft::WindowParams win,
+    T* __restrict__ out, long long np, int ndim) {
+  constexpr int S = 2 * M;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= np * ndim) return;
+  const int d = (int)(i / np);
+  const long long j = i - d * np;
+  const T X = fracs[i];  // fracs (ndim, np): entry d * np + j
+  T* o = out + d * S * np + j;  // tap t at o[t * np]
+  switch (win.kind) {
+    case nufft::kKBDirect: {
+      const T beta = T(win.beta[d]), inv_peak = T(win.inv_peak[d]);
+      for (int t = 0; t < S; ++t) o[t * np] = nufft::kb_direct_tap(beta, inv_peak, M, t, X);
+      break;
+    }
+    case nufft::kBKBDirect: {
+      const T beta = T(win.beta[d]), pref = T(win.pref[d]);
+      const T exp_mbeta = T(win.exp_mbeta[d]);
+      for (int t = 0; t < S; ++t)
+        o[t * np] = nufft::bkb_direct_tap(beta, pref, exp_mbeta, M, t, X);
+      break;
+    }
+    case nufft::kGaussian: {
+      const T dx = T(win.dx[d]), inv_tau = T(win.inv_tau[d]);
+      for (int t = 0; t < S; ++t) o[t * np] = nufft::gaussian_tap(dx, inv_tau, M, t, X);
+      break;
+    }
+    default: {  // kBSpline
+      T b[S];
+      nufft::bspline_taps<S>(X, b);
+#pragma unroll
+      for (int t = 0; t < S; ++t) o[t * np] = b[t];
+    }
+  }
+}
+
+template <int M, typename T>
+cudaError_t launch(const void* fracs, const nufft::WindowParams& win, void* out,
+                   long long np, int ndim, cudaStream_t stream) {
+  const long long nblocks = (np * ndim + kThreads - 1) / kThreads;
+  window_weights_kernel<M, T><<<(unsigned)nblocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(fracs), win, static_cast<T*>(out), np, ndim);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* fracs, const nufft::WindowParams* win, void* out,
+             long long np, int ndim, int m, void* stream) {
+  if (np == 0) return (int)cudaSuccess;
+  if (win->kind == nufft::kHorner) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NUFFT_WEIGHTS_CASE(MM) \
+  case MM:                     \
+    return (int)launch<MM, T>(fracs, *win, out, np, ndim, s);
+  switch (m) {
+    NUFFT_FOR_EACH_M(NUFFT_WEIGHTS_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NUFFT_WEIGHTS_CASE
+}
+
+}  // namespace
+
+// fracs (ndim, np) T in bin-sorted order; win, a host pointer to the
+// window's scalars (any kind but kHorner); out (ndim, 2m, np) T.  T is float
+// for *_f32, double for *_f64.  Launches on `stream`, does not synchronise,
+// allocates nothing.
+#define NUFFT_WEIGHTS_ENTRY(NAME, T)                                      \
+  extern "C" int NAME(const void* fracs, const nufft::WindowParams* win, \
+                      void* out, long long np, int ndim, int m,          \
+                      void* stream) {                                    \
+    return dispatch<T>(fracs, win, out, np, ndim, m, stream);            \
+  }
+
+// Built once per scalar type: NUFFT_ONLY 0 (complex64) and 1 (complex128)
+// carry the float and double entry points; 2 and 3 carry none.
+#if NUFFT_WANT(0)
+NUFFT_WEIGHTS_ENTRY(old_window_weights_f32, float)
+#endif
+#if NUFFT_WANT(1)
+NUFFT_WEIGHTS_ENTRY(old_window_weights_f64, double)
+#endif
+"""
+
+
+#: Copies of csrc/window_weights.cu with one phase taken out, for
+#: ``--weights``: the taps' evaluation (each tap a number from the fraction)
+#: and their stores (the taps summed into a register that is written under
+#: a condition that never holds).  Their taps are wrong; only their times
+#: are read.
+WEIGHTS_PARTS = {
+    "no_eval": {
+        "      for (int v = 0; v < V; ++v) w.c[v] = direct_tap<KIND, M, T>(win, d, t, X.c[v]);":
+        "      for (int v = 0; v < V; ++v) w.c[v] = X.c[v] + T(t);",
+        "    for (int v = 0; v < V; ++v) nufft::bspline_taps<S>(X.c[v], b[v]);":
+        "    for (int v = 0; v < V; ++v)\n      for (int t = 0; t < S; ++t) b[v][t] = X.c[v] + T(t);"},
+    "no_store": {
+        "      o[t * groups] = w;\n    }\n  }\n}\n":
+        "      for (int v = 0; v < V; ++v) sink += w.c[v];\n    }\n  }\n"
+        "  if (sink == T(1.25e-30)) o[0].c[0] = sink;\n}\n",
+        "  Vec<T, V>* o = reinterpret_cast<Vec<T, V>*>(out + d * S * np + j);":
+        "  Vec<T, V>* o = reinterpret_cast<Vec<T, V>*>(out + d * S * np + j);\n  T sink = T(0);",
+        "      o[t * groups] = w;": "      for (int v = 0; v < V; ++v) sink += w.c[v];"},
+}
+#: Variants of csrc/window_weights.cu for ``--weights``, each a line or two
+#: replaced; their taps are right.  A point a thread at every M (no 16-byte
+#: vectors of points), with the taps unrolled up to ``kUnrollM`` as shipped
+#: or rolled at every M as in the kernel it replaced: what each of the two
+#: changes gives at M <= 4.
+_ONE_POINT = {"  constexpr int kVec = M <= kUnrollM ? 16 / int(sizeof(T)) : 1;":
+              "  constexpr int kVec = 1;"}
+WEIGHTS_VARIANTS = {
+    "scalar": _ONE_POINT,
+    "scalar_rolled": {**_ONE_POINT, "  } else if constexpr (M <= kUnrollM) {":
+                      "  } else if constexpr (M < 0) {"},
+}
+#: The windows of ``--weights``: every kind K3 evaluates (WINDOW_MODES keys
+#: of chip_smoke.py).
+WEIGHTS_WINDOWS = ("KB Direct", "BKB Direct", "Gaussian Direct", "B-spline Direct")
+#: Point counts at N = 256^3 (sigma = 2, grid 512^3): the main path's two.
+WEIGHTS_NP = (1_000_000, 16_777_216)
+#: Points on which each raw launch is held against the plain version.
+WEIGHTS_CHECKED = 1 << 20
+
+
+def _raw_weights(lib, name: str, plan, params, out):
+    """One launch of the window-weights entry point ``name`` of ``lib`` on
+    the plan's sorted fractions into ``out`` (D, 2M, Np)."""
+    import torch
+
+    from nonuniformffts_tpu_torch.ops.kernels import build
+
+    fn = getattr(lib, name)
+    fn.argtypes = build._SIGNATURES["nufft_window_weights_" + name.rsplit("_", 1)[1]]
+    err = fn(plan.fracs_sorted.data_ptr(), params, out.data_ptr(), plan.num_points,
+             plan.ndim, plan.m, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out
+
+
+def probe_weights(seed: int, nps, ms) -> None:
+    """K3 alone: raw launches of the shipped window-weights kernel, of the
+    kernel it replaced where this script keeps one (``_OLD_WEIGHTS_SRC``),
+    of its variants (``WEIGHTS_VARIANTS``) and of the parts copies
+    (``WEIGHTS_PARTS``), in turns on the same
+    sorted points into one preallocated table (two passes, CUDA events,
+    median of 5 after one warm-up), beside the wrapper call
+    (``blocked.window_weights_blocked``: the table's allocation and the
+    launch) and its host time, for every K3 window, float taps
+    (complex64 plans) and double taps (complex128), N = 256^3, sigma = 2,
+    the M of ``ms``, uniform points.  Each raw launch but the parts' is
+    held against the plain version on the first ``WEIGHTS_CHECKED``
+    points.  The bound by bytes reads each fraction once and writes each
+    tap once; the bound by operations counts ``chip_smoke.tap_ops`` a tap
+    (its I0 / exp / sqrt estimates) over the FP32 or FP64 peak.  One JSON
+    line a window, dtype, M and Np."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from chip_smoke import (HBM_BYTES_PER_S, PEAK_FLOPS, WINDOW_MODES, cuda_time_ms,
+                            nvidia_smi_line, rel_l2, tap_ops)
+    from nonuniformffts_tpu_torch.ops.kernels import blocked, build
+
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    texts = _edited_sources("window_weights", WEIGHTS_PARTS, ms)
+    variants = _edited_sources("window_weights", WEIGHTS_VARIANTS, ms)
+    texts.update((k, variants[k]) for k in WEIGHTS_VARIANTS)
+    old = globals().get("_OLD_WEIGHTS_SRC")
+    if old is not None:
+        texts["old"] = _m_only(old, ms)
+    libs = _build_all("weights_", {k: (t, ("-I", str(build.CSRC_DIR)))
+                                   for k, t in texts.items()})
+    for k in libs:
+        print(f"ptxas {k}: {_lowdim_registers('weights_' + k, 'window_weights_kernel')}",
+              flush=True)
+    order = (["old"] if old is not None else []) + ["shipped", "shipped"] + (
+        ["old"] if old is not None else [])
+    parts = list(WEIGHTS_VARIANTS) + list(WEIGHTS_PARTS)
+    for dtype in (np.complex64, np.complex128):
+        for m in ms:
+            for mode in WEIGHTS_WINDOWS:
+                kernel, evalmode = WINDOW_MODES[mode]
+                plan0 = nufft.PlanNUFFT(dtype, (256,) * 3, m=m, sigma=2.0,
+                                        kernel=getattr(nufft, kernel)(),
+                                        kernel_evalmode=getattr(nufft, evalmode)(),
+                                        spread_method="blocked", device=dev)
+                suffix = "f32" if plan0.real_dtype == torch.float32 else "f64"
+                sb = 4 if suffix == "f32" else 8
+                tol = 1e-5 if sb == 4 else 1e-12
+                params = build.WindowParams.from_pack(plan0.window)
+                for np_ in nps or WEIGHTS_NP:
+                    gen = torch.Generator(device=dev).manual_seed(seed + np_)
+                    pts = torch.rand((3, np_), generator=gen, device=dev,
+                                     dtype=plan0.real_dtype) * (2 * math.pi)
+                    plan = nufft.set_points(plan0, pts)
+                    head = dataclasses.replace(
+                        plan, fracs_sorted=plan.fracs_sorted[:, :WEIGHTS_CHECKED].contiguous())
+                    want = blocked.window_weights_blocked_plain(head)
+                    out = torch.empty((3, 2 * m, np_), dtype=plan0.real_dtype, device=dev)
+                    times, errs = {k: [] for k in libs}, {}
+                    for rnd in range(2):
+                        for k in order + ["shipped"] + (parts if rnd == 0 else parts[::-1]):
+                            ms_, _ = cuda_time_ms(lambda k=k: _raw_weights(
+                                libs[k], f"{'old' if k == 'old' else 'nufft'}_window_weights_"
+                                f"{suffix}", plan, params, out))
+                            times[k].append(ms_)
+                            if k not in WEIGHTS_PARTS:
+                                err = rel_l2(out[:, :, :WEIGHTS_CHECKED], want)
+                                errs[k] = max(errs.get(k, 0.0), err)
+                                if not err <= tol:
+                                    raise AssertionError(f"weights {mode} {suffix} m={m} {np_} "
+                                                         f"{k}: rel L2 {err:.3e} vs plain")
+                    wrapper = lambda: blocked.window_weights_blocked(plan)  # noqa: E731
+                    call_ms, got = cuda_time_ms(wrapper)
+                    err = rel_l2(got[:, :, :WEIGHTS_CHECKED], want)
+                    if not err <= tol:
+                        raise AssertionError(f"weights {mode} wrapper: rel L2 {err:.3e}")
+                    del got
+                    S = 2 * m
+                    bound_bytes = 1e3 * (np_ * 3 * sb * (1 + S)) / HBM_BYTES_PER_S
+                    bound_ops = 1e3 * np_ * 3 * S * tap_ops(plan) / PEAK_FLOPS[sb]
+                    line = {"probe": "weights", "card": card, "window": mode, "taps": suffix,
+                            "m": m, "np": np_,
+                            "ms": {k: statistics.median(t) for k, t in times.items()},
+                            "call_ms": call_ms, "call_host_us": _host_us(wrapper, 100),
+                            "rel_l2": errs, "bound_bytes_ms": bound_bytes,
+                            "bound_ops_ms": bound_ops, "tap_ops": tap_ops(plan)}
+                    if old is not None:
+                        line["old_over_shipped"] = line["ms"]["old"] / line["ms"]["shipped"]
+                    print(json.dumps(line), flush=True)
+                    del plan, head, want, out, pts
+                    torch.cuda.empty_cache()
+
+
+#: The rows of ``--exec-windows``: chip_smoke.py phase 10's, (label,
+#: shape, dtype, point counts).
+EXEC_WINDOWS_ROWS = (
+    ("3D", (256,) * 3, "complex64", (1_000_000, 16_777_216)),
+    ("3D", (256,) * 3, "complex128", (1_000_000, 16_777_216)),
+    ("2D", (4096, 4096), "complex64", (16_777_216,)),
+    ("1D", (1 << 20,), "complex64", (10_000_000,)),
+)
+
+
+#: The rows of ``--exec-1d``: chip_smoke.py phase 9's, the 1D main path.
+EXEC_1D_ROWS = tuple(("1D", (1 << 20,), d, (1_000_000, 10_000_000))
+                     for d in ("complex64", "complex128", "float32", "float64"))
+
+
+def probe_exec_windows(seed: int, rows=EXEC_WINDOWS_ROWS, modes=None, sigma: float = 2.0,
+                       reps: int = 5, probe: str = "exec_windows") -> None:
+    """set_points, exec_type1 and exec_type2 (CUDA events, median of
+    ``reps`` after one warm-up, through the public API alone) of every
+    window of ``modes`` (default chip_smoke.py phase 10's: BKB Fast and the
+    windows whose taps come from K3) at the shapes of ``rows``, m = 4,
+    ``sigma``, uniform points.  The package is the one ``--root`` puts
+    first on the path, so that one call can time two trees in turns.  One
+    JSON line a row, with set_points plus each transform."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from chip_smoke import PHASE10_MODES, WINDOW_MODES, cuda_time_ms, nvidia_smi_line
+
+    card = nvidia_smi_line()
+    dev = torch.device("cuda")
+    print(f"{card}; package {Path(nufft.__file__).resolve().parent}", flush=True)
+    for dim, shape, dtype, nps in rows:
+        for mode in modes or PHASE10_MODES:
+            kernel, evalmode = WINDOW_MODES[mode]
+            plan0 = nufft.PlanNUFFT(np.dtype(dtype), shape, m=4, sigma=sigma,
+                                    kernel=getattr(nufft, kernel)(),
+                                    kernel_evalmode=getattr(nufft, evalmode)(),
+                                    spread_method="blocked", device=dev)
+            D = len(shape)
+            u = torch.randn((1,) + plan0.spectral_shape, dtype=plan0.complex_dtype,
+                            device=dev)[0]
+            for np_ in nps:
+                gen = torch.Generator(device=dev).manual_seed(seed + np_)
+                pts = torch.rand((D, np_), generator=gen, device=dev,
+                                 dtype=plan0.real_dtype) * (2 * math.pi)
+                vp = torch.randn((np_,), generator=gen, device=dev, dtype=plan0.dtype)
+                t_set, plan = cuda_time_ms(lambda: nufft.set_points(plan0, pts), reps=reps)
+                t_t1, _ = cuda_time_ms(lambda: nufft.exec_type1(plan, vp), reps=reps)
+                t_t2, _ = cuda_time_ms(lambda: nufft.exec_type2(plan, u), reps=reps)
+                print(json.dumps({"probe": probe, "card": card, "dim": dim,
+                                  "dtype": dtype, "window": mode, "np": np_,
+                                  "set_points_ms": t_set, "exec_type1_ms": t_t1,
+                                  "exec_type2_ms": t_t2, "set_plus_type1_ms": t_set + t_t1,
+                                  "set_plus_type2_ms": t_set + t_t2}), flush=True)
+                del plan, pts, vp
                 torch.cuda.empty_cache()
 
 
@@ -2793,10 +3475,38 @@ def main(argv=None) -> int:
     parser.add_argument("--interp2d-parts", action="store_true",
                         help="time the 2D interpolation kernel with each phase taken out, "
                              "and stop")
+    parser.add_argument("--interp1d", action="store_true",
+                        help="time the 1D interpolation kernel against the per-point "
+                             "kernel it replaced, its wrapper call and its variants, "
+                             "and stop")
+    parser.add_argument("--interp1d-parts", action="store_true",
+                        help="time the 1D interpolation kernel with each phase taken out, "
+                             "and stop")
+    parser.add_argument("--weights", action="store_true",
+                        help="time the window-weights kernel K3 (raw launches and the "
+                             "wrapper call) for four windows in 3D, and stop")
+    parser.add_argument("--exec-windows", action="store_true",
+                        help="time set_points and both transforms for every window of "
+                             "chip_smoke.py phase 10, and stop")
+    parser.add_argument("--exec-1d", action="store_true",
+                        help="time set_points and both transforms on the 1D main path "
+                             "(chip_smoke.py phase 9), and stop")
+    parser.add_argument("--interp1d-sweep", action="store_true",
+                        help="time the 1D interpolation's point and staged paths against "
+                             "each other from 1M to 10M points, and stop")
+    parser.add_argument("--root", default=None,
+                        help="import nonuniformffts_tpu_torch from this tree (default: "
+                             "the script's own)")
+    parser.add_argument("--reps", type=int, default=5,
+                        help="timed launches a median of --spread1d, --interp2d, --interp1d, "
+                             "their -parts twins, --interp1d-sweep and --exec-1d")
     parser.add_argument("--m", type=int, nargs="+", default=[4],
-                        help="the M of --spread1d, --interp2d and their -parts twins")
+                        help="the M of --spread1d, --interp2d, --interp1d, --weights and "
+                             "the -parts twins")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
+    if args.root is not None:
+        sys.path.insert(0, str(Path(args.root).resolve()))
 
     import torch
 
@@ -2820,10 +3530,23 @@ def main(argv=None) -> int:
     if args.spread3d_parts:
         probe_spread3d_parts(args.seed, args.dtype, args.np)
         return 0
-    lowdim = [(kind, parts) for kind in ("spread1d", "interp2d")
+    if args.weights:
+        probe_weights(args.seed, args.np, args.m)
+        return 0
+    if args.exec_windows:
+        probe_exec_windows(args.seed)
+        return 0
+    if args.exec_1d:
+        probe_exec_windows(args.seed, EXEC_1D_ROWS, ("BKB Fast",), 1.5, args.reps, "exec_1d")
+        return 0
+    if args.interp1d_sweep:
+        probe_interp1d_sweep(args.seed, args.dtype, args.np, args.reps)
+        return 0
+    lowdim = [(kind, parts) for kind in LOWDIM_KINDS
               for parts in (False, True) if getattr(args, kind + ("_parts" if parts else ""))]
     for kind, parts in lowdim:
-        _lowdim_probe(kind, args.seed, args.dtype, args.np, args.m, with_variants=not parts)
+        _lowdim_probe(kind, args.seed, args.dtype, args.np, args.m, with_variants=not parts,
+                      reps=args.reps)
     if lowdim:
         return 0
     if args.spread2d or args.spread2d_parts:

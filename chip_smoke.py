@@ -40,7 +40,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
    on the row's own points, each timed as one wrapper call;
 9. the 1D main path, N = 2^20 (grid 1,572,864), m = 4, sigma = 1.5, all four
    dtypes at Np = 1,000,000 and 10,000,000; at 10,000,000 also the spread
-   kernel against its plain version, timed, as in phase 8;
+   and interpolation kernels against their plain versions, timed, as in
+   phase 8;
 10. every window at the full 3D width: N = 256^3, m = 4, sigma = 2 (grid
     512^3), complex64 and complex128 at Np = 1,000,000 and 16,777,216, for
     BKB Fast (the yardstick at this sigma), KB Fast and Direct, BKB
@@ -85,7 +86,9 @@ Phases, in order; the first failure raises and the script exits non-zero:
 
 Each main-path row sets every launch count to 0 just before it drives the
 path and reads the counts just after; a kernel of the path that was not
-launched fails the run.  At the smaller Np of each dtype and dimension
+launched fails the run, and so does K3 (a window without coefficients)
+launched other than once for each ``set_points`` call or at all by an
+exec.  At the smaller Np of each dtype and dimension
 every kernel is held against its plain version and timed.  The
 float32-accumulation diagnostic (ROADMAP queue 3, P2) re-spreads the
 complex64 rho = 1 row's own float32 values and fractions, widened to
@@ -280,15 +283,18 @@ def phase_environment():
 
 
 def _kernel_label(mangled: str) -> str:
-    """``spread_3d<M=4, double, 2>`` or ``window_weights<M=4, double>`` from
-    a mangled kernel name."""
-    m = re.search(r"(spread|interp)_(\d)d_kernelILi(\d+)E([fd])Li(\d)E(Lb1E)?", mangled)
+    """``spread_3d<M=4, double, 2>``, ``interp_1d<M=4, float, 2, taps,
+    sorted>`` or ``window_weights<kind=1, M=4, double, 2>`` (window kind, M,
+    scalar, points a thread) from a mangled kernel name."""
+    m = re.search(r"(spread|interp)_(\d)d_kernelILi(\d+)E([fd])Li(\d)E(?:Lb([01])E)?"
+                  r"(?:Lb([01])E)?", mangled)
     if m:
         return (f"{m[1]}_{m[2]}d<M={m[3]}, {'float' if m[4] == 'f' else 'double'}, {m[5]}"
-                + (", taps>" if m[6] else ">"))
-    m = re.search(r"window_weights_kernelILi(\d+)E([fd])E", mangled)
+                + (", taps" if m[6] == "1" else "") + (", sorted" if m[7] == "1" else "") + ">")
+    m = re.search(r"window_weights_kernelILi(\d)ELi(\d+)E([fd])Li(\d)E", mangled)
     if m:
-        return f"window_weights<M={m[1]}, {'float' if m[2] == 'f' else 'double'}>"
+        return (f"window_weights<kind={m[1]}, M={m[2]}, "
+                f"{'float' if m[3] == 'f' else 'double'}, {m[4]}>")
     return mangled
 
 
@@ -404,9 +410,10 @@ def kernel_bound(kind: str, plan, C: int):
     the larger of the bytes it must move (each input read once, each output
     written once) over the HBM rate and its operations over the FP32 or FP64
     peak.  ``kind``: 'spread', 'interp' or 'weights' (K3, whose output is
-    the taps).  A spread or interpolation wrapper of a window without
-    coefficients launches K3 first: its taps are counted as operations, the
-    intermediate taps as no bytes.  Returns (ms, 'bytes' or 'operations')."""
+    the taps).  A spread or interpolation kernel of a window without
+    coefficients reads the plan's K3 table (its bytes count, its taps no
+    operations); one with coefficients evaluates the taps.  Returns (ms,
+    'bytes' or 'operations')."""
     from nonuniformffts_tpu_torch.blocking import num_blocks
     from nonuniformffts_tpu_torch.ops.kernels.blocked import kernel_coefs
     from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES
@@ -417,18 +424,24 @@ def kernel_bound(kind: str, plan, C: int):
     ncoef = kernel_coefs(plan)[1]
     vol = math.prod(plan.shape_over)
     nblocks = math.prod(num_blocks(plan.shape_over, plan.block_dims))
-    # cells, fracs, perm, coefs
-    state = np_ * (D * 4 + D * sb + 8) + D * S * ncoef * sb
-    horner = D * S * tap_ops(plan)  # the taps, per point
+    # cells, fracs, the permutation, and the coefficients or the K3 table;
+    # the 1D interpolation needs 4 bytes a point of permutation (its gather
+    # reads the int32 inverse), the others read the int64 sort_perm
+    perm = 4 if kind == "interp" and D == 1 else 8
+    state = (np_ * (D * 4 + D * sb + perm)
+             + (D * S * ncoef * sb if ncoef else np_ * D * S * sb))
+    taps = D * S * tap_ops(plan)  # the taps' operations, per point
     if kind == "weights":
         nbytes = np_ * D * sb + np_ * D * S * sb
-        ops = np_ * horner
+        ops = np_ * taps
     elif kind == "spread":
         nbytes = C * np_ * ncomp * sb + state + (nblocks + 1) * 4 + C * vol * ncomp * sb
-        ops = np_ * (horner + C * _SPREAD_OPS[D](S, ncomp))
+        ops = np_ * ((taps if ncoef else 0) + C * _SPREAD_OPS[D](S, ncomp))
     else:
-        nbytes = C * vol * ncomp * sb + state + C * np_ * ncomp * sb
-        ops = np_ * (horner + C * ncomp * 2 * sum(S ** i for i in range(D + 1)))
+        # the 1D and 3D kernels read the block ranges too
+        nbytes = (C * vol * ncomp * sb + state + C * np_ * ncomp * sb
+                  + (nblocks + 1) * 4 * (D != 2))
+        ops = np_ * ((taps if ncoef else 0) + C * ncomp * 2 * sum(S ** i for i in range(D + 1)))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[sb]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -717,8 +730,9 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
     err1 (at ``err_modes`` random modes) and err2 to ``err_tol``; returns (launches summed over the rows,
     kernel comparisons at ``compare_np``).  At Np = ``diagnose_at`` also
     runs ``float32_accumulation_diagnostic``, and at ``check_np``
-    ``check_kernel`` for the kernels of 1D and 2D at full density (the 1D
-    spread; the 2D spread and interpolation)."""
+    ``check_kernel`` for the spread and interpolation kernels of 1D and 2D
+    at full density.  A window whose taps come from K3 must launch it once
+    for each ``set_points`` call and never in an exec."""
     import torch
 
     import nonuniformffts_tpu_torch as nufft
@@ -744,6 +758,7 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
 
         blocked.reset_launch_counts()
         t_set, plan = cuda_time_ms(lambda: nufft.set_points(plan0, pts))
+        at_set = {n: blocked.LAUNCHES[n] for n in names}
         t_t1, uhat = cuda_time_ms(lambda: nufft.exec_type1(plan, vp))
         t_t2, v2 = cuda_time_ms(lambda: nufft.exec_type2(plan, u_spec))
         vp_c = vp[None]
@@ -764,6 +779,7 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
         log(f"  Np = {np_:,}: launches {counts}")
         if min(counts.values()) < 1:
             raise AssertionError("a kernel of the main path was not launched")
+        check_weights_launches(plan, at_set, counts, 1 + REPS)
         if tuple(uhat.shape) != plan.spectral_shape or tuple(v2.shape) != (np_,):
             raise AssertionError(f"output shapes {tuple(uhat.shape)}, {tuple(v2.shape)}")
         if uhat.dtype != plan.complex_dtype or v2.dtype != plan.dtype:
@@ -785,7 +801,7 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
         if np_ == diagnose_at:
             row["p2"] = float32_accumulation_diagnostic(plan, pts, vp, e1, seed)
         if np_ == check_np:
-            for kind in ("spread", "interp")[:D]:
+            for kind in ("spread", "interp"):
                 row[f"{kind}_vs_plain"] = check_kernel(kind, plan, vp_c, gen)
         rows.append(row)
         if np_ == compare_np:
@@ -797,6 +813,22 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
         torch.cuda.empty_cache()
     log("  results " + json.dumps(rows))
     return launches, compared
+
+
+def check_weights_launches(plan, at_set, counts, set_calls: int) -> None:
+    """K3 (a window without coefficients) launched once in each of
+    ``set_calls`` set_points calls (``at_set``, the counts just after them)
+    and never in the execs after them (``counts``, the counts at the end)."""
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    if blocked.kernel_coefs(plan)[0] is not None:
+        return
+    name = blocked.WEIGHTS_ENTRY[plan.real_dtype]
+    by_exec = counts[name] - at_set[name]
+    log(f"  {name}: {at_set[name]} launches in {set_calls} set_points calls, {by_exec} "
+        "in the execs")
+    if at_set[name] != set_calls or by_exec != 0:
+        raise AssertionError(f"{name} must launch once per set_points and never in an exec")
 
 
 def phase_accuracy_64(seed: int):
@@ -911,6 +943,7 @@ def phase_m10(seed: int, record, windows):
                 names = entry_points(plan)
                 blocked.reset_launch_counts()
                 plan = nufft.set_points(plan, pts)
+                at_set = {n: blocked.LAUNCHES[n] for n in names}
                 a, u_np = _rank1_spectrum(shape, plan.is_real, seed)
                 uhat = nufft.exec_type1(plan, vp[0])
                 v2 = nufft.exec_type2(plan, torch.as_tensor(u_np, device=dev).to(
@@ -922,6 +955,7 @@ def phase_m10(seed: int, record, windows):
                 record((counts, {}))
                 log(f"  {label}: grid {plan.shape_over}, block_dims {plan.block_dims}, "
                     f"launches {counts}")
+                check_weights_launches(plan, at_set, counts, 1)
                 # The budgets bound the whole L2 error, which 64 modes
                 # estimate only to about a factor of 2 (phase_windows): err1
                 # and err2 here sample 4,096 modes and 50,000 points.
@@ -984,6 +1018,7 @@ def phase_nfft(seed: int, record):
         plan = nufft.plan_nfft(x, N, reltol=NFFT_RELTOL, window=window)
         torch.cuda.synchronize()
         t_plan = 1e3 * (time.perf_counter() - t0)
+        at_set = {n: blocked.LAUNCHES[n] for n in entry_points(plan.plan)}
         if (plan.plan.m, plan.plan.sigma) != (6, 2.0):
             raise AssertionError(f"reltol {NFFT_RELTOL:g} gave m={plan.plan.m}, "
                                  f"sigma={plan.plan.sigma}, not 6, 2")
@@ -994,6 +1029,7 @@ def phase_nfft(seed: int, record):
         counts = {n: blocked.LAUNCHES[n] for n in names}
         if min(counts.values()) < 1:
             raise AssertionError(f"a kernel was not launched ({window}): {counts}")
+        check_weights_launches(plan.plan, at_set, counts, 1)
         record((counts, {}))
         e_fwd = rel_l2(fx[sel], exact_fwd)
         e_adj = rel_l2(fh[tuple(torch.as_tensor(kidx[:, d], device=dev) for d in range(3))],

@@ -163,26 +163,10 @@ __host__ __device__ inline Window window_of(int ncoef, int b0, int b1, int b2) {
   return w;
 }
 
-__device__ __forceinline__ int mod_index(int i, int n) {
-  i %= n;
-  return i < 0 ? i + n : i;
-}
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "n"(BYTES)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+using nufft::cp_async;
+using nufft::cp_async_commit;
+using nufft::cp_async_wait_all;
+using nufft::mod_index;
 
 // Tap t of dimension d of sorted point j, of fraction X: from wtaps, or by
 // Horner's rule on the coefficient table cst, (ncoef, 3, z_span(M)) with

@@ -218,6 +218,31 @@ __device__ __forceinline__ int wrap_index(int i, int n) {
   return i < 0 ? i + n : (i >= n ? i - n : i);
 }
 
+// i mod n in [0, n) for any i.
+__device__ __forceinline__ int mod_index(int i, int n) {
+  i %= n;
+  return i < 0 ? i + n : i;
+}
+
+// An asynchronous copy of BYTES (4, 8 or 16) from global to shared memory,
+// and the group fences around such copies (the interpolation kernels'
+// staged windows).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 }  // namespace nufft
 
 // The half-supports M every kernel is instantiated for

@@ -1,8 +1,10 @@
 """Blocked fast path: wrappers around the hand-written CUDA kernels, each
 with its plain PyTorch version: spread K4 (1D, a lane a cell; 2D on the
 FP64 tensor cores) and K1/K6a (3D, on the FP64 tensor cores), interpolate
-K5 (1D, 2D) and K2/K6b (3D, from each block's window staged in shared
-memory), and the window taps K3.
+K5 (1D a thread a point for outputs of up to 8 MiB, else from each dense
+block's window staged in shared memory; 2D a thread a point) and K2/K6b
+(3D, from each block's window staged in shared memory), and the window
+taps K3.
 
 Counterpart of ``nonuniformffts_tpu/ops/pallas/blocked.py`` and
 ``blocked_ds.py``.  Both wrappers read the plan's bin-sorted point state
@@ -14,10 +16,11 @@ or float64 values, with fractions and coefficients in the matching real
 dtype; 64-bit plans run native FP64.  Every window runs, in both
 evaluation modes, for M in 2..10.  The spread and interpolation kernels
 evaluate the (B)KB FastApproximation taps themselves from the coefficient
-stack; for every other window their wrapper first launches K3
-(``nufft_window_weights_<f32|f64>``, ``csrc/window_weights.cu``), which
-writes each sorted point's taps from the window's scalars
-(``ops/windows.py:window_pack``), and passes those taps to the kernel.
+stack; for every other window ``set_points`` launches K3 once
+(``nufft_window_weights_<f32|f64>``, ``csrc/window_weights.cu``, through
+``with_window_taps``), which writes each sorted point's taps from the
+window's scalars (``ops/windows.py:window_pack``), and the plan keeps that
+table (``Plan.wtaps_sorted``) for the kernels of every exec to read.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches its kernel or raises.  Each launch adds one to
@@ -25,6 +28,8 @@ launches its kernel or raises.  Each launch adds one to
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -38,6 +43,7 @@ from .common import (
     MAX_SMEM_BYTES,
     VALUE_TYPES,
     entry_point_name,
+    interp1d_gathers,
     interp_tiles,
     spread_smem_bytes,
     window_weights,
@@ -96,6 +102,8 @@ def check_kernel_support(plan) -> None:
         )
     _, ncoef = kernel_coefs(plan)
     _, scalar_bytes, ncomp = VALUE_TYPES[plan.dtype]
+    # The 1D interpolation kernel reads a block too wide to stage from
+    # global memory (interp1d_window), so it refuses no block dims.
     smem = spread_smem_bytes(plan.block_dims, plan.m, ncoef, scalar_bytes, ncomp)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
@@ -118,6 +126,14 @@ def _check_cuda_inputs(x: torch.Tensor, plan, what: str) -> None:
              (plan.sort_perm, torch.int64), (plan.pstarts, torch.int32)]
     if coefs is not None:
         state.append((coefs, plan.real_dtype))
+    else:
+        taps = plan.wtaps_sorted
+        if taps is None:
+            raise ValueError("the plan holds no window taps: call set_points first")
+        if tuple(taps.shape) != (plan.ndim, 2 * plan.m, plan.num_points):
+            raise ValueError(f"window taps of shape {tuple(taps.shape)} for "
+                             f"{plan.num_points} points")
+        state.append((taps, plan.real_dtype))
     for t, dt in state:
         if t.device != x.device:
             raise ValueError(
@@ -178,16 +194,38 @@ def window_weights_blocked(plan) -> torch.Tensor:
     return out
 
 
+def with_window_taps(plan):
+    """``plan``, whose bin-sorted point state is set, with the window taps
+    its kernels read from memory (``wtaps_sorted``): K3's ``(D, 2M, Np)``
+    table for a window the kernels do not evaluate themselves (any but
+    (B)KB FastApproximation), else none.  ``set_points`` and every other
+    builder of blocked point state call it once, so that no exec launches
+    K3; on the CPU the table comes from the plain version."""
+    taps = None if kernel_coefs(plan)[0] is not None else window_weights_blocked(plan)
+    return dataclasses.replace(plan, wtaps_sorted=taps)
+
+
+def interp1d_inverse(plan, perm: torch.Tensor):
+    """The sorted position of each point, ``(Np,)`` int32, the inverse of
+    ``perm``, for a 1D plan whose interpolation outputs are large enough to
+    take the kernel's gather (``common.interp1d_gathers`` at the plan's
+    transforms), else None: ``set_points`` keeps it as ``sort_perm_inv``."""
+    _, scalar_bytes, ncomp = VALUE_TYPES[plan.dtype]
+    if plan.ndim != 1 or not interp1d_gathers(perm.shape[0], plan.ntransforms,
+                                              scalar_bytes * ncomp):
+        return None
+    inv = torch.empty(perm.shape, dtype=torch.int32, device=perm.device)
+    inv[perm] = torch.arange(perm.shape[0], dtype=torch.int32, device=perm.device)
+    return inv
+
+
 def _launch_args(plan):
-    """The coefficient pointer, the window-taps tensor (K3's output, for
-    every window but (B)KB FastApproximation) and its pointer, and
-    ``ncoef`` of a launch; absent pointers are 0.  The caller holds the
-    taps tensor across the launch; its memory returns to the stream's
-    allocator only after, so a later allocation reuses it in stream order."""
+    """The coefficient pointer, the window-taps pointer (the plan's K3
+    table, for every window but (B)KB FastApproximation) and ``ncoef`` of
+    a launch; absent pointers are 0."""
     coefs, ncoef = kernel_coefs(plan)
-    wtaps = None if coefs is not None else window_weights_blocked(plan)
-    return (0 if coefs is None else coefs.data_ptr(), wtaps,
-            0 if wtaps is None else wtaps.data_ptr(), ncoef)
+    return (0 if coefs is None else coefs.data_ptr(),
+            0 if coefs is not None else plan.wtaps_sorted.data_ptr(), ncoef)
 
 
 # ---------------------------------------------------------------------------
@@ -227,13 +265,13 @@ def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
     vals = vp.contiguous() if perm else vp[:, plan.sort_perm].contiguous()
     name = entry_point("spread", plan)
     fn = getattr(build.load(), name)
-    coefs, wtaps, wtaps_ptr, ncoef = _launch_args(plan)
+    coefs, wtaps, ncoef = _launch_args(plan)
     with torch.cuda.device(vp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             vals.data_ptr(), plan.cells_sorted.data_ptr(),
             plan.fracs_sorted.data_ptr(), plan.pstarts.data_ptr(),
-            coefs, wtaps_ptr, grid.data_ptr(), *perm, np_, C, plan.m, ncoef,
+            coefs, wtaps, grid.data_ptr(), *perm, np_, C, plan.m, ncoef,
             *plan.shape_over, *plan.block_dims, stream,
         )
     _raise_on_error(name, err)
@@ -282,16 +320,29 @@ def interpolate_blocked(plan, grid: torch.Tensor) -> torch.Tensor:
         return out
     name = entry_point("interp", plan)
     fn = getattr(build.load(), name)
-    coefs, wtaps, wtaps_ptr, ncoef = _launch_args(plan)
+    coefs, wtaps, ncoef = _launch_args(plan)
+    # The 1D kernel scatters an output of up to 8 MiB to perm[j] a point a
+    # thread, and puts a larger one in order through a sorted scratch table
+    # and the inverse permutation (csrc/interp_1d.cu).
+    scratch, gather = None, ()
+    if plan.ndim == 1:
+        if interp1d_gathers(np_, C, out.element_size()):
+            inv = plan.sort_perm_inv
+            if (inv is None or inv.dtype != torch.int32 or tuple(inv.shape) != (np_,)
+                    or inv.device != grid.device):
+                raise ValueError("this 1D plan's outputs need its (Np,) int32 sort_perm_inv: "
+                                 "call set_points")
+            scratch = torch.empty_like(out)
+        gather = (0, 0) if scratch is None else (scratch.data_ptr(), plan.sort_perm_inv.data_ptr())
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
-        # The 3D kernel walks the blocks (csrc/interp_3d.cu).
-        pstarts, dims = (((plan.pstarts.data_ptr(),), plan.block_dims) if plan.ndim == 3
+        # The 1D and 3D kernels walk the blocks (csrc/interp_{1,3}d.cu).
+        pstarts, dims = (((plan.pstarts.data_ptr(),), plan.block_dims) if plan.ndim != 2
                          else ((), ()))
         err = fn(
             grid.data_ptr(), plan.cells_sorted.data_ptr(),
             plan.fracs_sorted.data_ptr(), plan.sort_perm.data_ptr(), *pstarts,
-            coefs, wtaps_ptr, out.data_ptr(), np_, C, plan.m, ncoef,
+            coefs, wtaps, out.data_ptr(), *gather, np_, C, plan.m, ncoef,
             *plan.shape_over, *dims, float(plan.normfactor), stream,
         )
     _raise_on_error(name, err)

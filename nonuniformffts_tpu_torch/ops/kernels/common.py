@@ -4,8 +4,10 @@ they are instantiated for, the geometry limits of the card, the
 shared-memory footprint of the spread kernels, the rounds of the 1D spread
 kernel (``spread1d_warp_rounds``), the tile geometry of the 2D and 3D
 spread kernels (``spread2d_units``, ``spread_tiles``), which the kernels and
-the block geometry chooser share, and the staged window and lane groups of
-the 3D interpolation kernel (``interp_tiles``, ``interp_lanes``).
+the block geometry chooser share, the staged windows of the 1D
+interpolation kernel (``interp1d_window``, ``interp1d_staged``) and the
+staged window and lane groups of the 3D interpolation kernel
+(``interp_tiles``, ``interp_lanes``).
 
 Counterpart of ``nonuniformffts_tpu/ops/pallas/common.py``.  The TPU
 kernels placed the 2M taps of each point into dense weight matrices for the
@@ -107,6 +109,26 @@ INTERP3D_SPARSE = 64
 INTERP3D_MAX_GROUP = 64
 #: Bytes of one shared-memory wavefront (32 banks of 4 bytes).
 WAVEFRONT_BYTES = 128
+
+# The 1D interpolation kernel's staged path (``csrc/interp_1d.cu``, which
+# must match; outputs above ``INTERP1D_GATHER_BYTES``): a CTA a spatial
+# block; a block with a point for every ``INTERP1D_SPARSE`` cells of its
+# window stages the window in shared memory from the 16-byte chunk that
+# holds its first cell (``interp1d_window``, ``interp1d_staged``), the
+# others read the grid in global memory.
+#: A block is staged when it holds a point for every this many cells of its
+#: window (``NUFFT_INTERP1D_SPARSE``).
+INTERP1D_SPARSE = 8
+#: Shared memory for the staged windows of one pass over the transforms
+#: (``kStageBytes``).
+INTERP1D_STAGE_BYTES = 32768
+#: An output of more bytes than this takes the staged path, written in
+#: sorted order and then gathered into the caller's order
+#: (``interp1d_gathers``): where the two paths' times cross on the H100
+#: (``chip_probe.py --interp1d-sweep``: the point path ahead or level at
+#: 7.6 MiB, behind at 11.4 MiB, in all four value types and at one and two
+#: transforms).
+INTERP1D_GATHER_BYTES = 8 << 20
 
 #: The kernels' value types by the plan's dtype: the entry-point suffix
 #: (``nufft_spread_<D>d_<suffix>``), the bytes of one scalar and the scalars
@@ -321,6 +343,59 @@ def interp_tiles(block_dims: Sequence[int], m: int, ncoef: int, scalar_bytes: in
     passes = -(-pd[0] // fit) if fit else 0
     planes = -(-pd[0] // passes) if passes else 0
     return InterpTiles(pd, pitch, planes, passes, head + plane_bytes * planes)
+
+
+@dataclasses.dataclass(frozen=True)
+class Interp1DWindow:
+    """The staged window of a CTA in the 1D interpolation kernel
+    (``csrc/interp_1d.cu:Geometry``)."""
+
+    span: int   # cells of a block's window: b0 + 2M - 1
+    chunk: int  # cells of one 16-byte chunk
+    cells: int  # cells staged a transform: whole chunks, for the worst offset
+    chans: int  # transforms staged a pass; 0 if one window exceeds the budget
+    smem: int   # dynamic shared memory of one CTA, bytes
+
+    def first_chunk(self, ox: int, m: int) -> Tuple[int, int]:
+        """The first staged cell of the block at cell ``ox`` (unwrapped, a
+        multiple of ``chunk`` at or below the window's first cell ``ox - m +
+        1``) and the window's first cell's offset from it."""
+        s0 = ox - (m - 1)
+        a0 = s0 // self.chunk * self.chunk
+        return a0, s0 - a0
+
+
+def interp1d_window(b0: int, m: int, ncoef: int, scalar_bytes: int = 4, ncomp: int = 2,
+                    nchan: int = 1) -> Interp1DWindow:
+    """The 1D interpolation kernel's window for blocks of ``b0`` cells, M =
+    m, ``ncoef`` coefficients a tap (0 for a window without a coefficient
+    stack), values of ``ncomp`` scalars of ``scalar_bytes`` and ``nchan``
+    transforms: as many transforms a pass as ``INTERP1D_STAGE_BYTES`` hold;
+    the coefficient-major ``(ncoef, row_pitch)`` coefficients before the
+    windows."""
+    cell = scalar_bytes * ncomp
+    chunk = 16 // cell
+    span = b0 + 2 * m - 1
+    cells = (span + 2 * (chunk - 1)) // chunk * chunk
+    per = cells * cell
+    chans = min(nchan, INTERP1D_STAGE_BYTES // per) if per <= INTERP1D_STAGE_BYTES else 0
+    smem = scalar_bytes * row_pitch(2 * m, scalar_bytes) * ncoef + chans * per
+    return Interp1DWindow(span, chunk, cells, chans, smem)
+
+
+def interp1d_staged(points: int, window: Interp1DWindow) -> bool:
+    """Whether the 1D interpolation kernel stages a block of ``points``
+    points, or reads its points' cells from global memory."""
+    return window.chans > 0 and INTERP1D_SPARSE * points >= window.span
+
+
+def interp1d_gathers(np_: int, nchan: int, value_bytes: int) -> bool:
+    """Whether the 1D interpolation wrapper takes the kernel's staged path,
+    which stores the results in sorted order and gathers them into the
+    caller's order (an output of ``nchan`` x ``np_`` values of
+    ``value_bytes`` beyond ``INTERP1D_GATHER_BYTES``), rather than its point
+    path, which scatters them to ``perm[j]``."""
+    return nchan * np_ * value_bytes > INTERP1D_GATHER_BYTES
 
 
 def spread1d_warp_rounds(b0: int) -> Tuple[Tuple[int, int], ...]:

@@ -65,7 +65,8 @@ import torch.distributed as dist
 from .. import execution as ex
 from ..blocking import bin_sort, cells_and_fracs, choose_geometry
 from ..ops.deconvolve import pad_axis, truncate_axis
-from ..ops.kernels.blocked import check_kernel_support, interpolate_blocked, spread_blocked
+from ..ops.kernels.blocked import (check_kernel_support, interpolate_blocked, spread_blocked,
+                                   with_window_taps)
 from ..ops.kernels.common import VALUE_TYPES
 from ..ops.kernels.relayout import relayout_to_blocks, relayout_to_grid
 from ..plan import Plan, PlanNUFFT, _canonicalise_points, _identity, _as_real_tensor
@@ -267,10 +268,10 @@ class SpatialNUFFT:
             cells_r.contiguous(), fracs_r.contiguous(), self.ext_shape_over,
             self._slab_plan.block_dims,
         )
-        local = dataclasses.replace(
+        local = with_window_taps(dataclasses.replace(
             self._slab_plan, cells_sorted=cells_s, fracs_sorted=fracs_s,
             sort_perm=perm_l, pstarts=pstarts, num_points_static=int(recv_idx.numel()),
-        )
+        ))
         return SpatialPoints(send_idx=send_idx, send_pos=send_pos, recv_idx=recv_idx,
                              local=local, cap=cap, num_points=np_total)
 

@@ -18,7 +18,7 @@ import torch
 
 from .blocking import bin_sort, cells_and_fracs, choose_geometry
 from .ops import deconvolve, windows
-from .ops.kernels.blocked import check_kernel_support
+from .ops.kernels.blocked import check_kernel_support, interp1d_inverse, with_window_taps
 from .ops.kernels.common import VALUE_TYPES, coefficient_stack
 from .ops.windows import (
     AbstractKernel,
@@ -84,7 +84,14 @@ class Plan:
     point_perm_inv: Optional[torch.Tensor] = None
     cells_sorted: Optional[torch.Tensor] = None  # (D, Np) int32, blocked
     fracs_sorted: Optional[torch.Tensor] = None  # (D, Np), blocked
+    # (D, 2M, Np) window taps of the sorted points, blocked, every window but
+    # (B)KB FastApproximation (ops/kernels/blocked.py:with_window_taps)
+    wtaps_sorted: Optional[torch.Tensor] = None
     sort_perm: Optional[torch.Tensor] = None  # (Np,) int64, blocked
+    # (Np,) int32, 1D blocked with outputs past INTERP1D_GATHER_BYTES: the
+    # sorted position of each point (the 1D interpolation's gather,
+    # ops/kernels/blocked.py:interp1d_inverse)
+    sort_perm_inv: Optional[torch.Tensor] = None
     pstarts: Optional[torch.Tensor] = None  # (nblocks + 1,) int32, blocked
     num_points_static: Optional[int] = None
     # A slab plan of the spatial mode (parallel/spatial.py) keeps the global
@@ -410,7 +417,8 @@ def fold_points(x: torch.Tensor, point_transform: Callable = _identity) -> torch
 def set_points(plan: Plan, points) -> Plan:
     """Return a new plan with the non-uniform points set (folded on the
     reference path; split into cells and fractions and bin-sorted on the
-    blocked path)."""
+    blocked path, where a window other than (B)KB FastApproximation also
+    gets its sorted points' taps, ``wtaps_sorted``, for every exec)."""
     pts = _canonicalise_points(points, plan.ndim, plan.real_dtype, plan.device)
     if plan.spread_method == "blocked":
         # No fold before the split: the split folds through its mod-N, and
@@ -420,7 +428,7 @@ def set_points(plan: Plan, points) -> Plan:
         cells_s, fracs_s, perm, pstarts = bin_sort(
             cells, fracs, plan.shape_over, plan.block_dims
         )
-        return dataclasses.replace(
+        return with_window_taps(dataclasses.replace(
             plan,
             points=None,
             point_perm=None,
@@ -428,9 +436,10 @@ def set_points(plan: Plan, points) -> Plan:
             cells_sorted=cells_s,
             fracs_sorted=fracs_s,
             sort_perm=perm,
+            sort_perm_inv=interp1d_inverse(plan, perm),
             pstarts=pstarts,
             num_points_static=pts.shape[1],
-        )
+        ))
     pts_f = fold_points(pts, plan.point_transform)
     perm = perm_inv = None
     if plan.sort_points:
@@ -450,7 +459,9 @@ def set_points(plan: Plan, points) -> Plan:
         point_perm_inv=perm_inv,
         cells_sorted=None,
         fracs_sorted=None,
+        wtaps_sorted=None,
         sort_perm=None,
+        sort_perm_inv=None,
         pstarts=None,
         num_points_static=None,
     )

@@ -122,9 +122,10 @@ WINDOWS = [
 @pytest.mark.parametrize("window", WINDOWS, ids=lambda w: f"{w[0]}-{w[1]}")
 def test_window_kernels_match_plain_versions(cuda_device, window, shape, m, dtype):
     """Every window in both modes, at m = 3 and m = 10 (sigma = 2), each
-    entry point against its plain version.  The plain fast Gaussian uses
-    fast Gaussian gridding, the kernels one exp per node: they agree to
-    rounding."""
+    entry point against its plain version; the spread and interpolation
+    launch no K3, whose taps the plan holds from set_points.  The plain fast
+    Gaussian uses fast Gaussian gridding, the kernels one exp per node: they
+    agree to rounding."""
     rng = np.random.default_rng(m + 17)
     D = len(shape)
     kernel, mode = (getattr(tnufft, n)() for n in window)
@@ -147,7 +148,7 @@ def test_window_kernels_match_plain_versions(cuda_device, window, shape, m, dtyp
     torch.cuda.synchronize()
     assert blocked.LAUNCHES[spread] == before[spread] + 1
     assert blocked.LAUNCHES[interp] == before[interp] + 1
-    assert blocked.LAUNCHES[weights] == before[weights] + (0 if horner else 2)
+    assert blocked.LAUNCHES[weights] == before[weights]  # K3 ran in set_points
     g_p = blocked.spread_blocked_plain(plan, vp)
     v_p = blocked.interpolate_blocked_plain(plan, grid)
     tol = KERNEL_TOL[np.dtype(real).itemsize]
@@ -275,7 +276,7 @@ def test_spread_2d_matches_plain_version(cuda_device, case, dtype):
     g_k = blocked.spread_blocked(plan, vp)
     torch.cuda.synchronize()
     assert blocked.LAUNCHES[name] == before[name] + 1
-    assert blocked.LAUNCHES[weights] == before[weights] + (0 if horner else 1)
+    assert blocked.LAUNCHES[weights] == before[weights]  # K3 ran in set_points
     g_p = blocked.spread_blocked_plain(plan, vp)
     assert g_k.dtype == g_p.dtype == plan.dtype and g_k.shape == g_p.shape
     assert _rel_err(g_k, g_p) <= KERNEL_TOL[np.dtype(real).itemsize]
@@ -417,7 +418,7 @@ def test_spread_1d_matches_plain_version(cuda_device, case, dtype):
     g_k = blocked.spread_blocked(plan, vp)
     torch.cuda.synchronize()
     assert blocked.LAUNCHES[name] == before[name] + 1
-    assert blocked.LAUNCHES[weights] == before[weights] + (0 if horner else 1)
+    assert blocked.LAUNCHES[weights] == before[weights]  # K3 ran in set_points
     g_p = blocked.spread_blocked_plain(plan, vp)
     assert g_k.dtype == g_p.dtype == plan.dtype and g_k.shape == g_p.shape
     assert _rel_err(g_k, g_p) <= tol
@@ -474,10 +475,122 @@ def test_interp_2d_matches_plain_version(cuda_device, case, dtype):
     v_k = blocked.interpolate_blocked(plan, grid)
     torch.cuda.synchronize()
     assert blocked.LAUNCHES[name] == before[name] + 1
-    assert blocked.LAUNCHES[weights] == before[weights] + (0 if horner else 1)
+    assert blocked.LAUNCHES[weights] == before[weights]  # K3 ran in set_points
     v_p = blocked.interpolate_blocked_plain(plan, grid)
     assert v_k.dtype == v_p.dtype == plan.dtype and v_k.shape == (C, np_)
     assert _rel_err(v_k, v_p) <= tol
+
+
+# The 1D interpolation kernel's edges (csrc/interp_1d.cu: each dense
+# block's window staged in shared memory, sparse blocks read from global
+# memory): (shape, sigma, m, block_dims, transforms, where, points, window).
+# M = 2..10; a block wider than its grid at m = 10 (the staged window wraps
+# more than once); ragged runs; rho = 0.01 (every block read from global
+# memory); clustered points (staged and global blocks together); several
+# staging passes over the transforms (complex64, float32, float64) or a
+# window too wide to stage (complex128); an odd grid, whose second
+# transform's row starts off the 16-byte chunks; wrapped edges; outputs
+# written sorted and gathered into order (10M points, or two transforms of
+# 5M); every K3 window.
+INTERP_1D_CASES = {
+    "main_512": ((1024,), 1.5, 4, (512,), 1, "uniform", 6_000, None),
+    "chosen": ((4096,), 1.5, 4, None, 1, "uniform", 20_000, None),
+    **{f"m{m}": ((512,), 2.0, m, (128,), 1, "uniform", 6_000, None)
+       for m in range(2, 11) if m != 4},
+    "m10_grid_below_block": ((10,), 2.0, 10, (20,), 1, "uniform", 1_000, None),
+    "ragged": ((60,), 1.5, 4, (45,), 1, "uniform", 2_000, None),
+    "rho_0_01": ((4096,), 1.5, 4, None, 1, "uniform", 41, None),
+    "clustered": ((2048,), 1.5, 4, (96,), 2, "clustered", 3_000, None),
+    "passes": ((4096,), 1.5, 4, (3072,), 3, "uniform", 30_000, None),
+    "odd_grid": ((50,), 1.5, 4, None, 2, "edges", 3_000, None),
+    "three_transforms": ((256,), 1.5, 5, (96,), 3, "uniform", 3_000, None),
+    "wrapped_edges": ((512,), 1.5, 4, (64,), 2, "edges", 6_000, None),
+    # Outputs beyond INTERP1D_GATHER_BYTES: stored sorted, then gathered.
+    "gather_10m": ((1 << 20,), 1.5, 4, None, 1, "uniform", 10_000_000, None),
+    "gather_two_transforms": ((1 << 20,), 1.5, 4, None, 2, "edges", 5_000_000, None),
+    **{f"wtaps_{k}_{e}": ((512,), 2.0, 3, (128,), 1, "uniform", 6_000, (k, e))
+       for k, e in WINDOWS if (k, e) != ("KaiserBesselKernel", "FastApproximation")
+       and (k, e) != ("BackwardsKaiserBesselKernel", "FastApproximation")},
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("way", ["chosen", "staged"])
+@pytest.mark.parametrize("case", list(INTERP_1D_CASES))
+def test_interp_1d_matches_plain_version(cuda_device, case, way, dtype, monkeypatch):
+    """Each 1D interpolation entry point against its plain version on the
+    kernel's edge cases and every window whose taps come from K3, with its
+    launch count moving and K3 not launched: the path the wrapper chooses
+    (``common.interp1d_gathers``: the point path up to 8 MiB of output),
+    and the staged path forced, its blocks staged or read from global
+    memory as ``common.interp1d_staged`` says."""
+    from nonuniformffts_tpu_torch.ops.kernels.common import (VALUE_TYPES, interp1d_gathers,
+                                                             interp1d_staged, interp1d_window)
+
+    row = INTERP_1D_CASES[case]
+    if way == "staged":  # before set_points, which then keeps the inverse permutation
+        monkeypatch.setattr(blocked, "interp1d_gathers", lambda *args: True)
+    plan, rng, tol = _lowdim_plan(row, 1, dtype, cuda_device, len(case) + 19)
+    C, np_, window = row[4], row[6], row[7]
+    _, sb, ncomp = VALUE_TYPES[plan.dtype]
+    win = interp1d_window(plan.block_dims[0], plan.m, blocked.kernel_coefs(plan)[1], sb,
+                          ncomp, C)
+    staged = [interp1d_staged(int(n), win) for n in (plan.pstarts[1:] - plan.pstarts[:-1])
+              if n > 0]
+    if case == "rho_0_01":
+        assert not any(staged)
+    if case in ("main_512", "m10_grid_below_block"):
+        assert all(staged)
+    assert interp1d_gathers(np_, C, sb * ncomp) == case.startswith("gather")
+    assert (plan.sort_perm_inv is not None) == (way == "staged" or case.startswith("gather"))
+    if case == "clustered":
+        assert any(staged) and not all(staged)
+    if case == "passes":
+        assert (win.chans == 0) if plan.dtype == torch.complex128 else 0 < win.chans < C
+    grid = torch.from_numpy(_values(rng, dtype, (C,) + plan.shape_over)).to(cuda_device)
+    name = blocked.entry_point("interp", plan)
+    assert name.startswith("nufft_interp_1d_")
+    weights = blocked.WEIGHTS_ENTRY[plan.real_dtype]
+    assert (blocked.kernel_coefs(plan)[0] is None) == (window is not None)
+    before = dict(blocked.LAUNCHES)
+    v_k = blocked.interpolate_blocked(plan, grid)
+    torch.cuda.synchronize()
+    assert blocked.LAUNCHES[name] == before[name] + 1
+    assert blocked.LAUNCHES[weights] == before[weights]
+    v_p = blocked.interpolate_blocked_plain(plan, grid)
+    assert v_k.dtype == v_p.dtype == plan.dtype and v_k.shape == (C, np_)
+    assert _rel_err(v_k, v_p) <= tol
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("np_", [5_000, 5_001], ids=["whole_vectors", "ragged"])
+@pytest.mark.parametrize("shape", [(16, 12, 20), (64, 48), (4096,)], ids=str)
+@pytest.mark.parametrize("window", [w for w in WINDOWS if w[1] == "Direct"
+                                    or w[0] in ("GaussianKernel", "BSplineKernel")],
+                         ids=lambda w: f"{w[0]}-{w[1]}")
+def test_window_taps_set_once_per_set_points(cuda_device, window, shape, np_, dtype):
+    """K3 launches once in ``set_points`` and never in ``exec_type1`` /
+    ``exec_type2``; the plan's taps equal the plain version's, with the
+    16-byte stores (a point count of whole vectors) and without (ragged)."""
+    rng = np.random.default_rng(np_ + len(shape))
+    D = len(shape)
+    real = np.dtype(dtype).type(0).real.dtype
+    plan = tnufft.PlanNUFFT(dtype, shape, m=4, sigma=2.0, kernel=getattr(tnufft, window[0])(),
+                            kernel_evalmode=getattr(tnufft, window[1])(),
+                            spread_method="blocked", device=cuda_device)
+    weights = blocked.WEIGHTS_ENTRY[plan.real_dtype]
+    pts = torch.from_numpy(rng.uniform(-1.0, 7.0, (D, np_)).astype(real)).to(cuda_device)
+    n0 = blocked.LAUNCHES[weights]
+    plan = tnufft.set_points(plan, pts)
+    torch.cuda.synchronize()
+    assert blocked.LAUNCHES[weights] == n0 + 1
+    assert plan.wtaps_sorted.shape == (D, 8, np_) and plan.wtaps_sorted.dtype == plan.real_dtype
+    tol = KERNEL_TOL[np.dtype(real).itemsize]
+    assert _rel_err(plan.wtaps_sorted, blocked.window_weights_blocked_plain(plan)) <= tol
+    uhat = tnufft.exec_type1(plan, torch.from_numpy(_values(rng, dtype, (np_,))).to(cuda_device))
+    tnufft.exec_type2(plan, uhat)
+    torch.cuda.synchronize()
+    assert blocked.LAUNCHES[weights] == n0 + 1
 
 
 def test_m_above_10_raises(cuda_device):

@@ -102,6 +102,41 @@ def test_blocked_explicit_block_dims_match_jax(shape, block_dims, dtype):
     assert rel_err(v2, jv2) <= _tol(dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("where", ["dense", "clustered"])
+def test_1d_interpolation_matches_jax(where, dtype):
+    """Type 2 of a 1D blocked plan, two transforms (the plain version of
+    the 1D interpolation kernel, ``nufft_interp_1d_*``), against the JAX 1D
+    blocked plan's: N = 64, m = 4, sigma = 1.5, 16-cell blocks; ``dense``
+    puts ~20 points in a cell (every block staged on the card),
+    ``clustered`` all but five points in two blocks (the other blocks
+    below ``INTERP1D_SPARSE``'s density, read from global memory; one of
+    them holds the top edge, whose window wraps)."""
+    from nonuniformffts_tpu_torch.ops.kernels.blocked import kernel_coefs
+    from nonuniformffts_tpu_torch.ops.kernels.common import (VALUE_TYPES, interp1d_staged,
+                                                             interp1d_window)
+
+    shape, np_ = (64,), 2_000
+    kw = dict(m=4, sigma=1.5, ntransforms=2, spread_method="blocked")
+    tp = tnufft.PlanNUFFT(dtype, shape, device="cpu", block_dims=(16,), **kw)
+    jp = jnufft.PlanNUFFT(dtype, shape, interpret=True, **kw)
+    assert jp.kernel_form == "yz" and tp.shape_over == jp.shape_over
+    rng = np.random.default_rng(300 + len(where))
+    pts, _, u = _inputs(rng, dtype, shape, tp.spectral_shape, 2, np_=np_)
+    if where == "clustered":  # blocks 2 and 3 dense; one or two points in 0, 1, 4, 5
+        pts[0] = rng.uniform(3.0, 3.3, np_)
+        pts[0, :5] = [0.2, 1.2, 4.5, 5.6, np.nextafter(pts.dtype.type(2 * np.pi), 0)]
+    tp = tnufft.set_points(tp, pts)
+    _, sb, ncomp = VALUE_TYPES[tp.dtype]
+    win = interp1d_window(16, 4, kernel_coefs(tp)[1], sb, ncomp, 2)
+    staged = [interp1d_staged(int(n), win) for n in tp.pstarts[1:] - tp.pstarts[:-1] if n]
+    assert all(staged) if where == "dense" else (any(staged) and not all(staged))
+    v2 = tnufft.exec_type2(tp, u).numpy()
+    jv2 = np.asarray(jnufft.exec_type2(jnufft.set_points(jp, pts), u))
+    assert v2.shape == jv2.shape == (2, np_) and v2.dtype == np.dtype(dtype)
+    assert rel_err(v2, jv2) <= _tol(dtype)
+
+
 @pytest.mark.parametrize("dtype", [np.complex128, np.float64], ids=lambda d: np.dtype(d).name)
 @pytest.mark.parametrize("C", [1, 2])
 def test_2d_64bit_matches_jax_ds(dtype, C):

@@ -12,6 +12,7 @@ the plain version to 1e-12, and once the JAX package's reference.
 """
 
 import collections
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,13 +21,19 @@ import torch
 
 import nonuniformffts_tpu as jnufft
 import nonuniformffts_tpu_torch as tnufft
+from nonuniformffts_tpu.ops.interpolation import interpolate_reference as j_interp
 from nonuniformffts_tpu.ops.spreading import spread_reference as j_spread
 from nonuniformffts_tpu_torch import blocking
 from nonuniformffts_tpu_torch.ops.kernels import blocked
 from nonuniformffts_tpu_torch.ops.kernels.common import (
+    INTERP1D_GATHER_BYTES,
+    INTERP1D_STAGE_BYTES,
     MAX_SMEM_BYTES,
     SPREAD1D_THREADS,
     VALUE_TYPES,
+    interp1d_gathers,
+    interp1d_staged,
+    interp1d_window,
     row_pitch,
     spread1d_stored,
     spread1d_warp_rounds,
@@ -225,12 +232,17 @@ def test_1d_spread_smem_fits(dtype, m):
 
 @pytest.mark.parametrize("stem, table", [("spread_1d", "SPREAD1D_PARTS"),
                                          ("spread_1d", "SPREAD1D_VARIANTS"),
-                                         ("interp_2d", "INTERP2D_PARTS")])
+                                         ("interp_2d", "INTERP2D_PARTS"),
+                                         ("interp_1d", "INTERP1D_PARTS"),
+                                         ("interp_1d", "INTERP1D_VARIANTS"),
+                                         ("window_weights", "WEIGHTS_PARTS"),
+                                         ("window_weights", "WEIGHTS_VARIANTS")])
 def test_probe_parts_edit_the_shipped_sources(stem, table):
     """Every line that ``chip_probe.py --spread1d-parts`` / ``--interp2d-parts``
-    replaces to take a phase out, and that ``--spread1d`` replaces for a
-    variant, is in the shipped kernel's source, and each copy differs from
-    it: a stale edit would fail the probe on the card."""
+    / ``--interp1d-parts`` / ``--weights`` replaces to take a phase out, and
+    that ``--spread1d`` / ``--interp1d`` replaces for a variant, is in the
+    shipped kernel's source, and each copy differs from it: a stale edit
+    would fail the probe on the card."""
     import importlib.util
     from pathlib import Path
 
@@ -244,3 +256,209 @@ def test_probe_parts_edit_the_shipped_sources(stem, table):
     assert set(texts) == {"shipped", *parts}
     assert all(texts[k] != texts["shipped"] for k in parts)
 
+
+
+def emulate_interp_1d(plan, grid: torch.Tensor, log=None) -> torch.Tensor:
+    """The 1D interpolation kernel's reads in float64 on the CPU, from the
+    shared geometry (``interp1d_window``, ``interp1d_staged``,
+    ``Interp1DWindow.first_chunk``): a block with enough points copies its
+    window chunk by chunk, a chunk within the grid in one piece and one that
+    crosses an end cell by cell with periodic wrap, ``chans`` transforms a
+    pass; each point reads its 2M cells at its offset in that window, or
+    from the grid with wrap.  ``grid`` (C, n0); returns (C, Np) in the
+    caller's point order.  ``log``, a list, receives (block, staged)."""
+    m, S = plan.m, 2 * plan.m
+    (b0,), (n0,) = plan.block_dims, plan.shape_over
+    _, sb, ncomp = VALUE_TYPES[plan.dtype]
+    C = grid.shape[0]
+    win = interp1d_window(b0, m, blocked.kernel_coefs(plan)[1], sb, ncomp, C)
+    taps = blocked.window_weights_blocked_plain(plan)[0].to(torch.float64)  # (S, Np)
+    g = grid.to(torch.complex128 if grid.is_complex() else torch.float64)
+    cells = plan.cells_sorted[0].to(torch.int64)
+    out = torch.zeros((C, plan.num_points), dtype=g.dtype)
+    ps = plan.pstarts.tolist()
+    for bid in range(len(ps) - 1):
+        p0, p1 = ps[bid], ps[bid + 1]
+        if p0 == p1:
+            continue
+        staged = interp1d_staged(p1 - p0, win)
+        if log is not None:
+            log.append((bid, staged))
+        ox = bid * b0
+        a0, lo = win.first_chunk(ox, m)
+        nchunks = -(-(lo + win.span) // win.chunk)
+        assert nchunks * win.chunk <= win.cells
+        for c0 in range(0, C, win.chans if staged else C):
+            for c in range(c0, min(c0 + (win.chans if staged else C), C)):
+                if staged:
+                    window = torch.full((win.cells,), float("nan"), dtype=g.dtype)
+                    for k in range(nchunks):
+                        gc = a0 + k * win.chunk
+                        if gc >= 0 and gc + win.chunk <= n0 and (c * n0 + gc) % win.chunk == 0:
+                            window[k * win.chunk:(k + 1) * win.chunk] = g[c, gc:gc + win.chunk]
+                        else:
+                            for e in range(win.chunk):
+                                window[k * win.chunk + e] = g[c, (gc + e) % n0]
+                    idx = (cells[p0:p1] - ox + lo)[:, None] + torch.arange(S)
+                    vals = window[idx]
+                else:
+                    idx = (cells[p0:p1] - (m - 1))[:, None] + torch.arange(S)
+                    vals = g[c, idx % n0]
+                out[c, p0:p1] = (vals * taps[:, p0:p1].T).sum(1) * plan.normfactor
+    res = torch.empty_like(out)
+    res[:, plan.sort_perm] = out
+    return res.to(plan.dtype)
+
+
+# (shape, sigma, m, block_dims, transforms, points, where): the main path's
+# 512-cell blocks cut to a small grid (every block staged); rho = 0.01 (none
+# staged); clustered points (both); a block wider than its grid at m = 10
+# (the staged window wraps more than once); an odd grid (the second
+# transform's row starts off the 16-byte chunks); staging passes over the
+# transforms, or a window too wide to stage; taps from K3.
+INTERP1D_CASES = {
+    "main_512": ((1024,), 1.5, 4, (512,), 1, None, 4_000, "uniform"),
+    "rho_0_01": ((4096,), 1.5, 4, (512,), 1, None, 41, "uniform"),
+    "clustered": ((2048,), 1.5, 4, (96,), 2, None, 600, "corner"),
+    "grid_below_block": ((10,), 2.0, 10, (20,), 1, None, 300, "uniform"),
+    "odd_grid": ((50,), 1.5, 4, (25,), 2, None, 800, "uniform"),
+    "passes": ((4096,), 1.5, 4, (3072,), 3, None, 6_000, "uniform"),
+    "k3_taps": ((256,), 2.0, 4, (128,), 1, "GaussianKernel", 2_000, "uniform"),
+}
+
+
+def _interp1d_plan(case, dtype, seed=0):
+    shape, sigma, m, bd, C, kernel, np_, where = INTERP1D_CASES[case]
+    rng = np.random.default_rng(seed)
+    kw = {} if kernel is None else dict(kernel=getattr(tnufft, kernel)())
+    plan = tnufft.PlanNUFFT(dtype, shape, m=m, sigma=sigma, ntransforms=C,
+                            spread_method="blocked", block_dims=bd, device="cpu", **kw)
+    hi = np.pi / 4 if where == "corner" else 7.0
+    pts = random_points(rng, 1, np_, dtype, lo=-1.0 if where == "uniform" else 0.0, hi=hi)
+    if where == "corner":  # and an eighth of them anywhere
+        pts[:, ::8] = random_points(rng, 1, -(-np_ // 8), dtype, hi=2 * np.pi)
+    pts[:, :4] = np.float64(2 * np.pi) - 1e-9  # the grid's top edge: the window wraps
+    plan = tnufft.set_points(plan, pts)
+    g = random_complex(rng, np.complex128, (C,) + plan.shape_over)
+    if not plan.dtype.is_complex:
+        g = g.real.copy()
+    return plan, pts, torch.from_numpy(g).to(plan.dtype)
+
+
+# A real plan's last axis is even (its r2c grid), so the odd grid is complex.
+@pytest.mark.parametrize("case, dtype", [
+    (case, dtype) for case in INTERP1D_CASES for dtype in VALUE_TYPES
+    if case != "odd_grid" or dtype.is_complex], ids=str)
+def test_emulated_1d_windows_match_plain_interp(case, dtype):
+    """Each block's reads as the 1D interpolation kernel makes them, staged
+    or from global memory, against the plain interpolation (1e-12 in
+    float64 of the same taps and cells)."""
+    np_dtype = {torch.complex64: np.complex64, torch.complex128: np.complex128,
+                torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    plan, _, g = _interp1d_plan(case, np_dtype)
+    (b0,), (n0,) = plan.block_dims, plan.shape_over
+    _, sb, ncomp = VALUE_TYPES[plan.dtype]
+    win = interp1d_window(b0, plan.m, blocked.kernel_coefs(plan)[1], sb, ncomp, g.shape[0])
+    log = []
+    got = emulate_interp_1d(plan, g, log)
+    staged = [s for _, s in log]
+    if case in ("main_512", "grid_below_block", "odd_grid"):
+        assert all(staged)
+    if case == "rho_0_01":
+        assert not any(staged)
+    if case == "clustered":
+        assert any(staged) and not all(staged)
+    if case == "grid_below_block":
+        assert win.span > n0
+    if case == "odd_grid":
+        assert n0 % 2 == 1 and ((n0 * sb * ncomp) % 16 != 0) == (sb * ncomp < 16)
+    if case == "passes":
+        assert (win.chans == 0) if sb * ncomp == 16 else 0 < win.chans < g.shape[0]
+    want = blocked.interpolate_blocked_plain(plan, g)
+    tol = 1e-12 if sb == 8 else 1e-6
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert rel_err(got.numpy(), want.numpy()) <= tol
+
+
+def test_emulated_1d_windows_match_jax_interp():
+    """The staged reads against the JAX package's reference interpolation
+    (its CPU path) on the same points and grid, complex128, two transforms."""
+    plan, pts, g = _interp1d_plan("clustered", np.complex128, seed=3)
+    shape, sigma, m = INTERP1D_CASES["clustered"][:3]
+    jp = jnufft.PlanNUFFT(np.complex128, shape, m=m, sigma=sigma, ntransforms=2)
+    assert tuple(jp.shape_over) == plan.shape_over
+    want = j_interp(jp.kernel_data, jp.evalmode, jnp.asarray(g.numpy()), jnp.asarray(pts),
+                    plan.normfactor)
+    got = emulate_interp_1d(plan, g)
+    assert rel_err(got.numpy(), np.asarray(want)) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_TYPES), ids=str)
+@pytest.mark.parametrize("m", list(range(2, 11)))
+def test_1d_interp_window_geometry(dtype, m):
+    """The staged window (``interp1d_window``) holds each block's window
+    from its first chunk at every offset, in whole 16-byte chunks; the
+    transforms a pass fill at most the staging budget; the CTA's shared
+    memory (coefficient rows, then the windows) stays below 48 KB, so the
+    launch needs no opt-in; a block of the main path's grid is staged at 1M
+    and 10M points and read from global memory at rho = 0.01."""
+    _, sb, ncomp = VALUE_TYPES[dtype]
+    cell = sb * ncomp
+    b0 = blocking.choose_geometry((1_572_864,), m, sb, ncomp)[0]
+    for C in (1, 2, 7, 64):
+        for b in (b0, 45, 3072, blocking.MAX_BLOCK_1D):
+            win = interp1d_window(b, m, m + 4, sb, ncomp, C)
+            assert win.chunk * cell == 16 and win.cells % win.chunk == 0
+            for ox in range(0, 4 * b, b):
+                a0, lo = win.first_chunk(ox, m)
+                assert a0 % win.chunk == 0 and 0 <= lo < win.chunk
+                assert lo + win.span <= win.cells
+            assert win.chans * win.cells * cell <= INTERP1D_STAGE_BYTES
+            assert (win.chans == 0) == (win.cells * cell > INTERP1D_STAGE_BYTES)
+            assert win.chans <= C
+            assert win.smem == sb * row_pitch(2 * m, sb) * (m + 4) + win.chans * win.cells * cell
+            assert win.smem <= 48 * 1024
+    win = interp1d_window(b0, m, m + 4, sb, ncomp)
+    per_block = [n / (1_572_864 // b0) for n in (1_000_000, 10_000_000, 15_729)]
+    assert [interp1d_staged(int(n), win) for n in per_block] == [True, True, False]
+    # The main path's outputs: at 1M points scattered up to 8 MiB (every
+    # value type but complex128, whose 15.3 MiB are gathered), stored sorted
+    # and gathered at 10M (38-153 MiB).
+    assert [interp1d_gathers(n, 1, cell) for n in (1_000_000, 10_000_000)] == [cell == 16, True]
+
+
+def test_1d_gather_puts_sorted_results_in_order(monkeypatch):
+    """The gather pass's arithmetic, ``out[c, i] = sorted[c, inv[i]]`` with
+    the plan's ``sort_perm_inv`` (made here for a small plan by forcing the
+    gather), equals the plain interpolation's scatter to ``perm[j]``."""
+    monkeypatch.setattr(blocked, "interp1d_gathers", lambda *args: True)
+    plan, _, g = _interp1d_plan("main_512", np.complex128, seed=7)
+    inv = plan.sort_perm_inv.long()
+    assert plan.sort_perm_inv.dtype == torch.int32
+    assert torch.equal(plan.sort_perm[inv], torch.arange(plan.num_points))
+    want = blocked.interpolate_blocked_plain(plan, g)
+    in_sorted = want[:, plan.sort_perm]  # what the kernel stores, sorted
+    assert torch.equal(in_sorted[:, inv], want)
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128, np.float32, np.float64],
+                         ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("C", [1, 2])
+def test_1d_inverse_only_where_the_gather_runs(dtype, C):
+    """``set_points`` keeps ``sort_perm_inv`` exactly for the 1D plans whose
+    interpolation outputs take the gather (``interp1d_gathers`` at the
+    plan's transforms); the inverse, where made, puts ``sort_perm`` back in
+    order.  Held at the threshold's two sides without building such a plan:
+    ``interp1d_inverse`` on a permutation of the size that crosses it."""
+    plan, _, _ = _interp1d_plan("main_512", dtype)
+    _, sb, ncomp = VALUE_TYPES[plan.dtype]
+    assert plan.sort_perm_inv is None
+    plan = dataclasses.replace(plan, ntransforms=C)
+    edge = INTERP1D_GATHER_BYTES // (C * sb * ncomp)
+    assert blocked.interp1d_inverse(plan, torch.arange(edge)) is None
+    perm = torch.randperm(edge + 1, generator=torch.Generator().manual_seed(C))
+    inv = blocked.interp1d_inverse(plan, perm)
+    assert inv.dtype == torch.int32 and torch.equal(perm[inv.long()], torch.arange(edge + 1))
+    plan2 = tnufft.PlanNUFFT(dtype, (8, 8), m=2, sigma=2.0, ntransforms=C,
+                             spread_method="blocked", device="cpu")
+    assert blocked.interp1d_inverse(plan2, perm) is None  # 2D: no gather
