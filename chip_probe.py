@@ -113,6 +113,15 @@ four dtypes at 1M and 10M points), for the package of this tree or of
 the tree ``--root`` names, so that two trees are timed in turns in one
 call (``probe_exec_windows``).
 
+    python3 chip_probe.py --direct [--dtype complex64 complex128] [--np N ...]
+
+times the direct NUDFT (``spread_method='direct'``) against the blocked
+path through the public API at 256^3, 4096^2 and 2^20, Np = 1 to
+100,000 (``DIRECT_NP``), with the direct path's errors against exact sums
+and, for complex64, the same with complex64 factors; prints each row's
+crossover Np and the ``c`` of ``ops/direct.py:prefers_direct`` that
+matches it (``probe_direct``).
+
     python3 chip_probe.py --relayout
 
 instead times the relayout kernels K8a / K8b (``csrc/relayout.cu``) as
@@ -3436,6 +3445,106 @@ def probe_exec_windows(seed: int, rows=EXEC_WINDOWS_ROWS, modes=None, sigma: flo
                 torch.cuda.empty_cache()
 
 
+DIRECT_NP = (1, 3, 10, 30, 100, 300, 1_000, 3_000, 10_000, 30_000, 100_000)
+#: A row's direct path is not run past this multiple of the blocked time.
+DIRECT_STOP = 10.0
+
+
+def probe_direct(seed: int, dtypes, nps, reps: int = 3) -> None:
+    """The direct NUDFT (``ops/direct.py``) against the blocked main path
+    (m = 4, sigma = 1.5, BKB FastApproximation), both through the public
+    API: set_points, exec_type1 and exec_type2 (CUDA events, median of
+    ``reps`` after one warm-up), at 256^3, 4096^2 and 2^20 for each of
+    ``dtypes`` and Np in ``nps``, uniform points, with the direct path's
+    err1 / err2 against exact float64 sums (``chip_smoke._err1`` /
+    ``_err2``).  For complex64 also the direct path with complex64 factors
+    and product (``direct.FACTOR_DTYPE`` patched, TF32 off): its time and
+    errors.  A row stops running the direct path once its exec_type1 +
+    exec_type2 exceeds ``DIRECT_STOP`` times the blocked path's.  Per row,
+    the crossover Np (log-linear between the last Np where direct wins and
+    the first where it loses) and the ``c`` of ``direct.prefers_direct``
+    that puts the model's crossover there."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from chip_smoke import _err1, _err2, _rank1_spectrum, cuda_time_ms, nvidia_smi_line
+    from nonuniformffts_tpu_torch.ops import direct
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = nvidia_smi_line()
+    dev = torch.device("cuda")
+    print(card, flush=True)
+    summary = []
+    for D in (3, 2, 1):
+        shape = SHAPES[D]
+        for name in dtypes:
+            dtype = np.dtype(name)
+            bplan0 = nufft.PlanNUFFT(dtype, shape, m=4, sigma=1.5, spread_method="blocked",
+                                     device=dev)
+            dplan0 = nufft.PlanNUFFT(dtype, shape, spread_method="direct", device=dev)
+            a, u_np = _rank1_spectrum(shape, False, seed)
+            u = torch.as_tensor(u_np, device=dev).to(bplan0.complex_dtype)
+            del u_np
+            rows, running = [], True
+            for np_ in nps:
+                gen = torch.Generator(device=dev).manual_seed(seed + np_)
+                pts = torch.rand((D, np_), generator=gen, device=dev,
+                                 dtype=bplan0.real_dtype) * (2 * math.pi)
+                vp = torch.randn((np_,), generator=gen, device=dev, dtype=bplan0.dtype)
+                row = {"probe": "direct", "card": card, "dim": D, "dtype": name, "np": np_}
+                for label, plan0 in (("blocked", bplan0), ("direct", dplan0)):
+                    if label == "direct" and not running:
+                        break
+                    t_set, plan = cuda_time_ms(lambda: nufft.set_points(plan0, pts), reps=reps)
+                    t1, u1 = cuda_time_ms(lambda: nufft.exec_type1(plan, vp), reps=reps)
+                    t2, v2 = cuda_time_ms(lambda: nufft.exec_type2(plan, u), reps=reps)
+                    row[label] = dict(set_points_ms=t_set, exec_type1_ms=t1, exec_type2_ms=t2,
+                                      err1=_err1(pts, vp, u1, shape, False, seed),
+                                      err2=_err2(pts, v2, a, False, seed))
+                    if label == "direct" and name == "complex64":
+                        old = direct.FACTOR_DTYPE
+                        direct.FACTOR_DTYPE = torch.complex64
+                        try:
+                            t1, u1 = cuda_time_ms(lambda: nufft.exec_type1(plan, vp), reps=reps)
+                            t2, v2 = cuda_time_ms(lambda: nufft.exec_type2(plan, u), reps=reps)
+                        finally:
+                            direct.FACTOR_DTYPE = old
+                        row["direct_complex64_factors"] = dict(
+                            exec_type1_ms=t1, exec_type2_ms=t2,
+                            err1=_err1(pts, vp, u1, shape, False, seed),
+                            err2=_err2(pts, v2, a, False, seed))
+                    del plan, u1, v2
+                    torch.cuda.empty_cache()
+                if "direct" in row:
+                    b, d = row["blocked"], row["direct"]
+                    row["direct_over_blocked"] = ((d["exec_type1_ms"] + d["exec_type2_ms"])
+                                                  / (b["exec_type1_ms"] + b["exec_type2_ms"]))
+                    running = row["direct_over_blocked"] <= DIRECT_STOP
+                    rows.append(row)
+                print(json.dumps(row), flush=True)
+                del pts, vp
+                torch.cuda.empty_cache()
+            first_loss = next((i for i, r in enumerate(rows)
+                               if r["direct_over_blocked"] >= 1.0), None)
+            if first_loss is None:
+                crossover = None
+            elif first_loss == 0:
+                crossover = 0.0
+            else:
+                (n0, r0), (n1, r1) = ((r["np"], r["direct_over_blocked"])
+                                      for r in rows[first_loss - 1:first_loss + 1])
+                f = math.log(r0) / (math.log(r0) - math.log(r1))
+                crossover = math.exp(math.log(n0) + f * (math.log(n1) - math.log(n0)))
+            over = bplan0.shape_over
+            c = (None if crossover is None else
+                 direct.direct_macs(crossover, bplan0.spectral_shape)
+                 / direct.blocked_dft_macs(over))
+            summary.append({"probe": "direct_crossover", "card": card, "dim": D, "dtype": name,
+                            "crossover_np": crossover, "c": c})
+            print(json.dumps(summary[-1]), flush=True)
+    print(json.dumps({"probe": "direct_summary", "rows": summary}), flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3491,6 +3600,9 @@ def main(argv=None) -> int:
     parser.add_argument("--exec-1d", action="store_true",
                         help="time set_points and both transforms on the 1D main path "
                              "(chip_smoke.py phase 9), and stop")
+    parser.add_argument("--direct", action="store_true",
+                        help="time the direct NUDFT against the blocked path from 1 to "
+                             "100,000 points in 3D, 2D and 1D, and stop")
     parser.add_argument("--interp1d-sweep", action="store_true",
                         help="time the 1D interpolation's point and staged paths against "
                              "each other from 1M to 10M points, and stop")
@@ -3541,6 +3653,10 @@ def main(argv=None) -> int:
         return 0
     if args.interp1d_sweep:
         probe_interp1d_sweep(args.seed, args.dtype, args.np, args.reps)
+        return 0
+    if args.direct:
+        probe_direct(args.seed, [d for d in args.dtype if d.startswith("complex")],
+                     args.np or DIRECT_NP, min(args.reps, 3))
         return 0
     lowdim = [(kind, parts) for kind in LOWDIM_KINDS
               for parts in (False, True) if getattr(args, kind + ("_parts" if parts else ""))]

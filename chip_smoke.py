@@ -82,7 +82,27 @@ Phases, in order; the first failure raises and the script exits non-zero:
     rows; <= 1e-5 complex64, <= 1e-12 complex128), and which collectives
     went through host memory.
     The ranks share one card: the times are the port's per-rank cost plus
-    gloo's host transport, not a scaling result.
+    gloo's host transport, not a scaling result;
+14. the rest of the plan surface at N = 256^3, m = 4, sigma = 1.5, BKB
+    FastApproximation, complex64 and complex128: at rho = 1 (16,777,216
+    points) the main path with ``Timer(synchronise=True)`` and both
+    callbacks (every stage label present; each transform's whole call
+    within ``STAGE_GAP_MS`` of its stage sums), then the callbacks (a
+    per-point weight, a Gaussian filter in |k|) against the same operations
+    applied by hand (<= 1e-6 complex64, <= 1e-12 complex128), timed with
+    and without them; ``ChunkedPlanNUFFT`` with 4 chunks against the
+    unchunked plan (<= 1e-5 / 1e-12); at rho = 10 (167,772,160 points) the
+    unchunked plan's ``set_points`` peak memory and times, then the chunked
+    plan's ``set_points_chunked`` / ``exec_type1`` / ``exec_type2`` times,
+    peak and err1 / err2; the same chunked-against-unchunked row in 1D
+    (2^20, 10,000,000 points, 3 chunks: a grid shared by the chunks would
+    lose the interior cells the 1D spread stores); each chunked row's
+    spread and interpolation kernels launched once a chunk a call; then the
+    direct NUDFT (``spread_method='direct'``) at 256^3 with 1,678 and 16,777
+    points and at 2^20 with 1,000, err1 / err2 against exact sums (<= 2e-6
+    complex64, <= 1e-12 complex128) beside the blocked path's times, and
+    one complex64 call with the caller's TF32 switched on, held to the same
+    limits.
 
 Each main-path row sets every launch count to 0 just before it drives the
 path and reads the counts just after; a kernel of the path that was not
@@ -153,6 +173,18 @@ NFFT_RELTOL, NP_NFFT = 1e-9, 16_777_216  # phase 12
 # the agreement with the single-card plan by the bytes of a real scalar.
 NP_SPATIAL, SPATIAL_RANKS, SPATIAL_CAPACITY, SPATIAL_REPS = 16_777_216, 4, 1.25, 3
 SPATIAL_AGREE = {8: 1e-5, 16: 1e-12}
+# Phase 14: rho = 1 and rho = 10 at 256^3, the direct rows (shape, Np), the
+# chunks, the 1D chunked row (Np, chunks), and the limits by the bytes of a
+# real scalar: callbacks fused against applied by hand, the direct path
+# against exact sums, chunked against unchunked; the timer's stage sums
+# against its whole call.
+NP_RHO1, NP_RHO10, NCHUNKS = 16_777_216, 167_772_160, 4
+DIRECT_ROWS = ((SHAPE_3D, (1_678, 16_777)), (SHAPE_1D, (1_000,)))
+CHUNKED_1D = (10_000_000, 3)
+CALLBACK_TOL = {4: 1e-6, 8: 1e-12}
+DIRECT_TOL = {4: 2e-6, 8: 1e-12}
+CHUNK_TOL = {4: 1e-5, 8: 1e-12}
+STAGE_GAP_MS = 0.5
 REPS = 5
 ERR_MODES = 64
 ERR_POINTS = 4096
@@ -1498,6 +1530,270 @@ def phase_parallel(seed: int, record, compared):
     log("  results " + json.dumps(rows))
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the timer, callbacks, the direct NUDFT and chunked plans
+# ---------------------------------------------------------------------------
+
+T1_LABELS = ("(0) nonuniform callback", "(1) spreading", "(2) forward FFT",
+             "(3) deconvolve + truncate")
+T2_LABELS = ("(1) deconvolve + pad", "(2) backward FFT", "(3) interpolation",
+             "(4) nonuniform callback")
+
+
+def _check_path_launches(plan, row: str, at_least: int = 1):
+    """The spread and interpolation kernels of ``plan`` each launched at
+    least ``at_least`` times since the counts were reset; returns the counts."""
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    counts = {n: blocked.LAUNCHES[n] for n in entry_points(plan)}
+    log(f"  {row}: launches {counts}")
+    for kind in ("spread", "interp"):
+        name = blocked.entry_point(kind, plan)
+        if counts[name] < at_least:
+            raise AssertionError(f"{row}: {name} launched {counts[name]} times, "
+                                 f"fewer than {at_least}")
+    return counts
+
+
+def _timer_and_callbacks(plan, vp, u, tol: float):
+    """The main path with ``Timer(synchronise=True)``: every label of both
+    transforms (callbacks on), the stage sums against the whole call;
+    then both callbacks (a per-point weight, a Gaussian filter in |k|)
+    against the same operations applied by hand, and the times with and
+    without them."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+
+    np_ = plan.num_points
+    gen = torch.Generator(device=vp.device).manual_seed(np_ + 14)
+    w = torch.rand(np_, generator=gen, device=vp.device, dtype=plan.real_dtype) + 0.5
+    k2 = sum(k.view([-1 if e == d else 1 for e in range(plan.ndim)]) ** 2
+             for d, k in enumerate(plan.kvec))
+    filt = torch.exp(-k2 / (2.0 * (plan.shape[0] / 8) ** 2)).to(plan.real_dtype)
+    cb = nufft.NUFFTCallbacks(
+        nonuniform=lambda vs, n: tuple(x * w[n] for x in vs),
+        uniform=lambda ws, idx: tuple(x * filt[idx] for x in ws),
+    )
+    timer = nufft.Timer(synchronise=True)
+    tplan = dataclasses.replace(plan, timer=timer)
+    nufft.exec_type2(tplan, nufft.exec_type1(tplan, vp, cb), cb)
+    timer.reset()
+    for _ in range(REPS):
+        nufft.exec_type1(tplan, vp, cb)
+        nufft.exec_type2(tplan, u, cb)
+    log("  " + repr(timer).replace("\n", "\n  "))
+    gaps = {}
+    for top, labels in (("exec_type1", T1_LABELS), ("exec_type2", T2_LABELS)):
+        missing = [lb for lb in labels if f"{top}/{lb}" not in timer.times]
+        if missing:
+            raise AssertionError(f"timer labels missing under {top}: {missing}")
+        inner = sum(timer.times[f"{top}/{lb}"] for lb in labels)
+        gaps[top] = (timer.times[top] - inner) * 1e3 / timer.counts[top]
+        check(f"{top}: whole call minus stage sums, ms a call", gaps[top], STAGE_GAP_MS)
+    t_cb1, u_cb = cuda_time_ms(lambda: nufft.exec_type1(plan, vp, cb))
+    t_1, u_pl = cuda_time_ms(lambda: nufft.exec_type1(plan, vp))
+    e_cb1 = rel_l2(u_cb, nufft.exec_type1(plan, vp * w) * filt)
+    t_cb2, v_cb = cuda_time_ms(lambda: nufft.exec_type2(plan, u, cb))
+    t_2, _ = cuda_time_ms(lambda: nufft.exec_type2(plan, u))
+    e_cb2 = rel_l2(v_cb, nufft.exec_type2(plan, u * filt) * w)
+    log(f"  exec_type1 {t_1:.3f} ms, with callbacks {t_cb1:.3f} ms; exec_type2 {t_2:.3f} ms, "
+        f"with callbacks {t_cb2:.3f} ms")
+    check("type 1 callbacks fused vs by hand", e_cb1, tol)
+    check("type 2 callbacks fused vs by hand", e_cb2, tol)
+    del u_cb, u_pl, v_cb
+    return dict(stage_gap_ms=gaps, timer_ms={k: v * 1e3 / timer.counts[k]
+                                             for k, v in timer.times.items()},
+                exec_type1_ms=t_1, exec_type1_callbacks_ms=t_cb1, exec_type2_ms=t_2,
+                exec_type2_callbacks_ms=t_cb2, callbacks_err=[e_cb1, e_cb2])
+
+
+def _set_points_peak_and_time(fn, reps: int):
+    """The device memory ``fn`` (a set_points call) holds at its peak above
+    what was allocated before it, from its first call; then its time, a
+    median of ``reps`` more calls (each made while the last one's plan is
+    still held); returns (peak bytes, ms, plan)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.empty_cache()
+    ms, plan = cuda_time_ms(fn, reps=reps, warmup=0)
+    return peak, ms, plan
+
+
+def _chunked_row(label, dtype, shape, pts, vp, u, a, nchunks: int, seed: int, plan=None,
+                 reps: int = 3):
+    """``ChunkedPlanNUFFT`` on the blocked path: set_points_chunked /
+    exec_type1 / exec_type2 times, launch counts, err1 / err2 against exact
+    sums; against ``plan`` (the unchunked plan on the same points) when
+    given."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    kernel, evalmode = MAIN_WINDOW
+    cplan0 = nufft.ChunkedPlanNUFFT(
+        dtype, shape, nchunks=nchunks, m=4, sigma=1.5, kernel=getattr(nufft, kernel)(),
+        kernel_evalmode=getattr(nufft, evalmode)(), spread_method="blocked",
+        device=torch.device("cuda"))
+    blocked.reset_launch_counts()
+    peak, t_set, cplan = _set_points_peak_and_time(
+        lambda: nufft.set_points_chunked(cplan0, pts), reps)
+    t1, uc = cuda_time_ms(lambda: nufft.exec_type1_chunked(cplan, vp), reps=reps)
+    t2, v2 = cuda_time_ms(lambda: nufft.exec_type2_chunked(cplan, u), reps=reps)
+    torch.cuda.synchronize()
+    counts = _check_path_launches(cplan.base, f"{label} chunked", nchunks * (1 + reps))
+    row = dict(row=label, nchunks=nchunks, np=pts.shape[1], set_points_chunked_ms=t_set,
+               exec_type1_ms=t1, exec_type2_ms=t2, set_points_peak_bytes=peak,
+               launches=counts)
+    log(f"  {label}, {nchunks} chunks: set_points_chunked {t_set:.3f} ms (peak "
+        f"{peak / 2**30:.2f} GiB above the inputs), exec_type1 {t1:.3f} ms, "
+        f"exec_type2 {t2:.3f} ms")
+    if plan is not None:
+        tol = CHUNK_TOL[torch.finfo(plan.real_dtype).bits // 8]
+        row["vs_unchunked"] = [rel_l2(uc, nufft.exec_type1(plan, vp)),
+                               rel_l2(v2, nufft.exec_type2(plan, u))]
+        check(f"{label} chunked type 1 vs unchunked", row["vs_unchunked"][0], tol)
+        check(f"{label} chunked type 2 vs unchunked", row["vs_unchunked"][1], tol)
+    row["err1"] = _err1(pts, vp, uc, shape, False, seed)
+    row["err2"] = _err2(pts, v2, a, False, seed)
+    check(f"err1 ({label} chunked)", row["err1"], ERR_TOL)
+    check(f"err2 ({label} chunked)", row["err2"], ERR_TOL)
+    del cplan, uc, v2
+    torch.cuda.empty_cache()
+    return row
+
+
+def _direct_rows(seed: int):
+    """The direct NUDFT against exact float64 sums beside the blocked path's
+    times, complex64 and complex128; one complex64 call with the caller's
+    TF32 switched on."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+
+    dev = torch.device("cuda")
+    rows = []
+    for shape, nps in DIRECT_ROWS:
+        for dtype in (np.complex64, np.complex128):
+            dplan0 = nufft.PlanNUFFT(dtype, shape, spread_method="direct", device=dev)
+            bplan0 = _plan(dtype, shape, 4, 1.5)
+            tol = DIRECT_TOL[torch.finfo(dplan0.real_dtype).bits // 8]
+            a, u_np = _rank1_spectrum(shape, False, seed)
+            u = torch.as_tensor(u_np, device=dev).to(dplan0.complex_dtype)
+            label = f"{len(shape)}D {np.dtype(dtype).name}"
+            for np_ in nps:
+                gen = torch.Generator(device=dev).manual_seed(seed + np_)
+                pts = _uniform_points(gen, len(shape), np_, dplan0.real_dtype, dev)
+                vp = _random_values(gen, (np_,), dplan0.dtype, dev)
+                dplan, bplan = nufft.set_points(dplan0, pts), nufft.set_points(bplan0, pts)
+                t_d1, u1 = cuda_time_ms(lambda: nufft.exec_type1(dplan, vp), reps=3)
+                t_d2, v2 = cuda_time_ms(lambda: nufft.exec_type2(dplan, u), reps=3)
+                t_b1, _ = cuda_time_ms(lambda: nufft.exec_type1(bplan, vp), reps=3)
+                t_b2, _ = cuda_time_ms(lambda: nufft.exec_type2(bplan, u), reps=3)
+                e1 = _err1(pts, vp, u1, shape, False, seed)
+                e2 = _err2(pts, v2, a, False, seed)
+                log(f"  direct {label}, Np = {np_:,}: exec_type1 {t_d1:.3f} ms (blocked "
+                    f"{t_b1:.3f}), exec_type2 {t_d2:.3f} ms (blocked {t_b2:.3f})")
+                check(f"err1 (direct {label}, Np={np_})", e1, tol)
+                check(f"err2 (direct {label}, Np={np_})", e2, tol)
+                row = dict(row=f"direct {label}", np=np_, exec_type1_ms=t_d1,
+                           exec_type2_ms=t_d2, blocked_exec_type1_ms=t_b1,
+                           blocked_exec_type2_ms=t_b2, err1=e1, err2=e2)
+                if dtype == np.complex64 and np_ == nps[0]:
+                    flags = (torch.backends.cuda.matmul.allow_tf32,
+                             torch.get_float32_matmul_precision())
+                    try:
+                        torch.backends.cuda.matmul.allow_tf32 = True
+                        torch.set_float32_matmul_precision("high")
+                        e1 = _err1(pts, vp, nufft.exec_type1(dplan, vp), shape, False, seed)
+                        e2 = _err2(pts, nufft.exec_type2(dplan, u), a, False, seed)
+                    finally:
+                        torch.backends.cuda.matmul.allow_tf32 = flags[0]
+                        torch.set_float32_matmul_precision(flags[1])
+                    check(f"err1 (direct {label}, caller's TF32 on)", e1, tol)
+                    check(f"err2 (direct {label}, caller's TF32 on)", e2, tol)
+                    row["tf32_on_err"] = [e1, e2]
+                rows.append(row)
+                del dplan, bplan, pts, vp, u1, v2
+                torch.cuda.empty_cache()
+    return rows
+
+
+def phase_plan_surface(seed: int, record):
+    """Phase 14 (see the module docstring)."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    dev = torch.device("cuda")
+    rows = []
+    for dtype in (np.complex64, np.complex128):
+        label = f"3D {np.dtype(dtype).name}"
+        plan0 = _plan(dtype, SHAPE_3D, 4, 1.5)
+        nbytes = torch.finfo(plan0.real_dtype).bits // 8
+        a, u_np = _rank1_spectrum(SHAPE_3D, False, seed)
+        u = torch.as_tensor(u_np, device=dev).to(plan0.complex_dtype)
+        del u_np
+        gen = torch.Generator(device=dev).manual_seed(seed + NP_RHO1)
+        pts = _uniform_points(gen, 3, NP_RHO1, plan0.real_dtype, dev)
+        vp = _random_values(gen, (NP_RHO1,), plan0.dtype, dev)
+        plan = nufft.set_points(plan0, pts)
+        log(f"  {label}, rho = 1 ({NP_RHO1:,} points): timer and callbacks")
+        row = dict(row=f"{label} timer and callbacks", np=NP_RHO1,
+                   **_timer_and_callbacks(plan, vp, u, CALLBACK_TOL[nbytes]))
+        rows.append(row)
+        rows.append(_chunked_row(f"{label} rho = 1", dtype, SHAPE_3D, pts, vp, u, a,
+                                 NCHUNKS, seed, plan=plan))
+        record((rows[-1]["launches"], {}))
+        del plan, pts, vp
+        torch.cuda.empty_cache()
+
+        # rho = 10: the unchunked set_points' peak and times, then chunked.
+        gen = torch.Generator(device=dev).manual_seed(seed + NP_RHO10)
+        pts = _uniform_points(gen, 3, NP_RHO10, plan0.real_dtype, dev)
+        vp = _random_values(gen, (NP_RHO10,), plan0.dtype, dev)
+        peak, t_set, plan = _set_points_peak_and_time(lambda: nufft.set_points(plan0, pts), 3)
+        t1, _ = cuda_time_ms(lambda: nufft.exec_type1(plan, vp), reps=3)
+        t2, _ = cuda_time_ms(lambda: nufft.exec_type2(plan, u), reps=3)
+        log(f"  {label} rho = 10 unchunked: set_points {t_set:.3f} ms (peak "
+            f"{peak / 2**30:.2f} GiB above the inputs), exec_type1 {t1:.3f} ms, "
+            f"exec_type2 {t2:.3f} ms")
+        del plan
+        torch.cuda.empty_cache()
+        row = _chunked_row(f"{label} rho = 10", dtype, SHAPE_3D, pts, vp, u, a, NCHUNKS, seed)
+        row["unchunked"] = dict(set_points_ms=t_set, set_points_peak_bytes=peak,
+                                exec_type1_ms=t1, exec_type2_ms=t2)
+        rows.append(row)
+        record((row["launches"], {}))
+        del pts, vp, u
+        torch.cuda.empty_cache()
+
+    # 1D: a chunk's spread stores its interior cells, so a grid shared by
+    # the chunks would lose the earlier chunks' sums there.
+    np_, k = CHUNKED_1D
+    plan0 = _plan(np.complex64, SHAPE_1D, 4, 1.5)
+    a, u_np = _rank1_spectrum(SHAPE_1D, False, seed)
+    u = torch.as_tensor(u_np, device=dev).to(plan0.complex_dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed + np_)
+    pts = _uniform_points(gen, 1, np_, plan0.real_dtype, dev)
+    vp = _random_values(gen, (np_,), plan0.dtype, dev)
+    rows.append(_chunked_row("1D complex64", np.complex64, SHAPE_1D, pts, vp, u, a, k, seed,
+                             plan=nufft.set_points(plan0, pts)))
+    record((rows[-1]["launches"], {}))
+    del pts, vp, u
+    torch.cuda.empty_cache()
+    rows.extend(_direct_rows(seed))
+    log("  results " + json.dumps(rows))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1545,6 +1841,9 @@ def main(argv=None) -> int:
     phase_m10(args.seed, record, windows)
     phase_nfft(args.seed, record)
     phase_parallel(args.seed, record, compared)
+    log(f"== phase 14: timer, callbacks, direct NUDFT, chunked plans, "
+        f"N = {shape_text(SHAPE_3D)} and {shape_text(SHAPE_1D)}")
+    phase_plan_surface(args.seed, record)
 
     # K3's headline numbers: KB Direct at 1M points in phase 10 (float32
     # taps from complex64, float64 from complex128).

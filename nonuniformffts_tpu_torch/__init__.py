@@ -11,8 +11,11 @@ native float64 for 64-bit plans, for all four windows in both evaluation
 modes and m = 2..10.  ``NFFTPlan`` / ``plan_nfft`` / ``nfft`` /
 ``nfft_adjoint`` speak the NFFT convention; ``exec_type{1,2}_channels``
 the real channel form.  ``parallel`` holds the two multi-device modes on
-``torch.distributed`` (``SpatialNUFFT``, ``exec_type{1,2}_sharded``).  Plans
-run on the card unless ``device='cpu'``.
+``torch.distributed`` (``SpatialNUFFT``, ``exec_type{1,2}_sharded``).  User
+callbacks (``NUFFTCallbacks``), the per-stage ``Timer``, the direct NUDFT
+(``spread_method='direct'``) and points-chunked plans (``ChunkedPlanNUFFT``,
+``set_points_chunked``, ``exec_type{1,2}_chunked``) complete the JAX
+package's surface.  Plans run on the card unless ``device='cpu'``.
 
 Quick start::
 
@@ -26,6 +29,13 @@ Quick start::
 """
 
 from .callbacks import NUFFTCallbacks
+from .chunked import (
+    ChunkedPlan,
+    ChunkedPlanNUFFT,
+    exec_type1_chunked,
+    exec_type2_chunked,
+    set_points_chunked,
+)
 from .execution import exec_type1, exec_type1_channels, exec_type2, exec_type2_channels
 from .ops.windows import (
     BackwardsKaiserBesselKernel,
@@ -37,6 +47,7 @@ from .ops.windows import (
 )
 from .nfft_compat import WINDOWS, NFFTPlan, accuracy_params, nfft, nfft_adjoint, plan_nfft
 from .plan import Plan, PlanNUFFT, set_points
+from .utils.timer import Timer
 
 __version__ = "0.1.0"
 
@@ -61,4 +72,10 @@ __all__ = [
     "nfft_adjoint",
     "accuracy_params",
     "WINDOWS",
+    "ChunkedPlan",
+    "ChunkedPlanNUFFT",
+    "set_points_chunked",
+    "exec_type1_chunked",
+    "exec_type2_chunked",
+    "Timer",
 ]

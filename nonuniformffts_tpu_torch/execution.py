@@ -17,6 +17,16 @@ Stages, each a function so that a caller can time them one by one:
   real-data plans) -> interpolate (the interpolation kernel on the blocked
   CUDA path, writing each result to its original index).
 
+User callbacks (``callbacks.py``): the nonuniform one on the type-1 values
+before the spread and on the type-2 values after the interpolation, in
+input order; the uniform one inside both deconvolution passes.  Direct
+plans (``ops/direct.py``) run type 1 as nonuniform callback -> exact sums
+-> uniform callback, and type 2 as uniform callback on the spectrum as
+given -> exact sums -> nonuniform callback; no deconvolution scaling exists
+there.  A plan's ``timer`` runs each stage in a section labelled as the JAX
+package labels it (``exec_type1/(1) spreading`` ..), synchronised when the
+timer is; the stages are the same functions in the same order either way.
+
 Real-data plans take real values in type 1 and return a complex spectrum of
 ``plan.spectral_shape`` (last axis halved); type 2 takes that spectrum and
 returns real values.  64-bit plans run float64 in every stage: the JAX
@@ -25,12 +35,15 @@ package's double-single branches (``plan.ds``) have no counterpart here.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
-from .callbacks import NUFFTCallbacks, check_no_callbacks
+from .callbacks import NUFFTCallbacks, apply_nonuniform_callback, apply_uniform_callback
 from .ops import fft
 from .ops.deconvolve import deconvolve_pad, deconvolve_truncate
+from .ops.direct import exec_type1_direct, exec_type2_direct
 from .ops.interpolation import interpolate_reference
 from .ops.kernels.blocked import interpolate_blocked, spread_blocked
 from .ops.spreading import spread_reference
@@ -42,6 +55,7 @@ _NP_DTYPE = {
     torch.float32: np.float32,
     torch.float64: np.float64,
 }
+_NO_CALLBACKS = NUFFTCallbacks()
 
 
 def _check_points(plan: Plan):
@@ -99,15 +113,15 @@ def t1_fft_stage(plan: Plan, grid: torch.Tensor) -> torch.Tensor:
     return fft.forward_fft(grid, real=plan.is_real)
 
 
-def t1_deconv_stage(plan: Plan, spec: torch.Tensor) -> torch.Tensor:
+def t1_deconv_stage(plan: Plan, spec: torch.Tensor, callback=None) -> torch.Tensor:
     return deconvolve_truncate(
-        spec, plan.index_ranges, plan.phihat_inv, plan.normfactor
+        spec, plan.index_ranges, plan.phihat_inv, plan.normfactor, callback
     )
 
 
-def t2_pad_stage(plan: Plan, uhat: torch.Tensor) -> torch.Tensor:
+def t2_pad_stage(plan: Plan, uhat: torch.Tensor, callback=None) -> torch.Tensor:
     return deconvolve_pad(
-        uhat, plan.spectral_shape_over, plan.index_ranges, plan.phihat_inv
+        uhat, plan.spectral_shape_over, plan.index_ranges, plan.phihat_inv, callback
     )
 
 
@@ -128,6 +142,85 @@ def t2_interp_stage(plan: Plan, grid: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def t1_direct(plan: Plan, vp: torch.Tensor, callbacks: NUFFTCallbacks) -> torch.Tensor:
+    """Direct type 1 with its callbacks: (C, Np) -> (C,) + spectral_shape."""
+    vp = apply_nonuniform_callback(vp, callbacks.nonuniform)
+    return apply_uniform_callback(exec_type1_direct(plan, vp), callbacks.uniform)
+
+
+def t2_direct(plan: Plan, uhat: torch.Tensor, callbacks: NUFFTCallbacks) -> torch.Tensor:
+    """Direct type 2 with its callbacks: (C,) + spectral_shape -> (C, Np)."""
+    uhat = apply_uniform_callback(uhat, callbacks.uniform)
+    return apply_nonuniform_callback(exec_type2_direct(plan, uhat), callbacks.nonuniform)
+
+
+def _stage(plan: Plan, label: str, fn, *args):
+    """``fn(*args)``, inside the timer's section ``label`` when the plan has
+    a timer (synchronised on the result when the timer is)."""
+    if plan.timer is None:
+        return fn(*args)
+    with plan.timer.section(label):
+        return plan.timer.sync(fn(*args))
+
+
+def _section(plan: Plan, name: str):
+    return contextlib.nullcontext() if plan.timer is None else plan.timer.section(name)
+
+
+def _type1(plan: Plan, vp: torch.Tensor, callbacks: NUFFTCallbacks) -> torch.Tensor:
+    """(C, Np) values -> (C,) + spectral_shape, stage by stage."""
+    with _section(plan, "exec_type1"):
+        if plan.spread_method == "direct":
+            return _stage(plan, "(1) direct NUDFT", t1_direct, plan, vp, callbacks)
+        if callbacks.nonuniform is not None:
+            vp = _stage(plan, "(0) nonuniform callback", apply_nonuniform_callback, vp,
+                        callbacks.nonuniform)
+        grid = _stage(plan, "(1) spreading", t1_spread_stage, plan, vp)
+        spec = _stage(plan, "(2) forward FFT", t1_fft_stage, plan, grid)
+        return _stage(plan, "(3) deconvolve + truncate", t1_deconv_stage, plan, spec,
+                      callbacks.uniform)
+
+
+def _type2(plan: Plan, uhat: torch.Tensor, callbacks: NUFFTCallbacks) -> torch.Tensor:
+    """(C,) + spectral_shape -> (C, Np) values, stage by stage."""
+    with _section(plan, "exec_type2"):
+        if plan.spread_method == "direct":
+            return _stage(plan, "(1) direct NUDFT", t2_direct, plan, uhat, callbacks)
+        spec = _stage(plan, "(1) deconvolve + pad", t2_pad_stage, plan, uhat,
+                      callbacks.uniform)
+        grid = _stage(plan, "(2) backward FFT", t2_fft_stage, plan, spec)
+        vp = _stage(plan, "(3) interpolation", t2_interp_stage, plan, grid)
+        if callbacks.nonuniform is not None:
+            vp = _stage(plan, "(4) nonuniform callback", apply_nonuniform_callback, vp,
+                        callbacks.nonuniform)
+        return vp
+
+
+def prepare_type1(plan: Plan, vp) -> tuple:
+    """``vp`` as a (C, Np) tensor on the plan's device, and whether the
+    caller gave the component axis."""
+    vp = _as_plan_tensor(vp, plan, plan.dtype, "non-uniform data")
+    vp, had_axis = _as_components(vp, plan, expected_tail_ndim=1)
+    if vp.shape[1] != plan.num_points:
+        raise ValueError(
+            f"number of values {vp.shape[1]} != number of points {plan.num_points}"
+        )
+    return vp, had_axis
+
+
+def prepare_type2(plan: Plan, uhat) -> tuple:
+    """``uhat`` as a (C,) + spectral_shape tensor on the plan's device, and
+    whether the caller gave the component axis."""
+    uhat = _as_plan_tensor(uhat, plan, plan.complex_dtype, "uniform data")
+    uhat, had_axis = _as_components(uhat, plan, expected_tail_ndim=plan.ndim)
+    if tuple(uhat.shape[1:]) != plan.spectral_shape:
+        raise ValueError(
+            f"uniform data shape {tuple(uhat.shape[1:])} != expected "
+            f"{plan.spectral_shape}"
+        )
+    return uhat, had_axis
+
+
 # ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
@@ -140,19 +233,12 @@ def exec_type1(plan: Plan, vp, callbacks: NUFFTCallbacks = None) -> torch.Tensor
     plans) has shape ``(Np,)`` or ``(ntransforms, Np)``; the output is a
     tensor of ``plan.complex_dtype`` on the plan's device of shape
     ``plan.spectral_shape`` (plus the leading component axis if present), in
-    FFTW frequency order unless ``fftshift``.
+    FFTW frequency order unless ``fftshift``.  ``callbacks``: see
+    ``callbacks.py``.
     """
     _check_points(plan)
-    check_no_callbacks(callbacks)
-    vp = _as_plan_tensor(vp, plan, plan.dtype, "non-uniform data")
-    vp, had_axis = _as_components(vp, plan, expected_tail_ndim=1)
-    if vp.shape[1] != plan.num_points:
-        raise ValueError(
-            f"number of values {vp.shape[1]} != number of points {plan.num_points}"
-        )
-    grid = t1_spread_stage(plan, vp)
-    spec = t1_fft_stage(plan, grid)
-    uhat = t1_deconv_stage(plan, spec)
+    vp, had_axis = prepare_type1(plan, vp)
+    uhat = _type1(plan, vp, callbacks or _NO_CALLBACKS)
     return uhat if had_axis else uhat[0]
 
 
@@ -162,20 +248,11 @@ def exec_type2(plan: Plan, uhat, callbacks: NUFFTCallbacks = None) -> torch.Tens
     ``uhat`` has shape ``plan.spectral_shape`` (optionally with a leading
     component axis) and dtype ``plan.complex_dtype``; the output is ``(Np,)``
     / ``(ntransforms, Np)`` of the plan's dtype (real on real-data plans) on
-    the plan's device.
+    the plan's device.  ``callbacks``: see ``callbacks.py``.
     """
     _check_points(plan)
-    check_no_callbacks(callbacks)
-    uhat = _as_plan_tensor(uhat, plan, plan.complex_dtype, "uniform data")
-    uhat, had_axis = _as_components(uhat, plan, expected_tail_ndim=plan.ndim)
-    if tuple(uhat.shape[1:]) != plan.spectral_shape:
-        raise ValueError(
-            f"uniform data shape {tuple(uhat.shape[1:])} != expected "
-            f"{plan.spectral_shape}"
-        )
-    spec = t2_pad_stage(plan, uhat)
-    grid = t2_fft_stage(plan, spec)
-    vp = t2_interp_stage(plan, grid)
+    uhat, had_axis = prepare_type2(plan, uhat)
+    vp = _type2(plan, uhat, callbacks or _NO_CALLBACKS)
     return vp if had_axis else vp[0]
 
 

@@ -11,7 +11,9 @@ Wavenumber order is FFTW's (``0 .. N/2-1, -N/2 .. -1``) unless
 ``fftshift=True`` (increasing order).  On real-data (r2c/c2r) plans the
 halved LAST axis holds ``k = 0 .. N/2`` in order (positive Nyquist, never
 shifted) at the front of an ``n_over // 2 + 1`` oversampled axis, so its
-range is one slice; callers pass the plan's ``spectral_shape_over``.
+range is one slice; callers pass the plan's ``spectral_shape_over``.  The
+optional user callback on uniform data runs in both passes, after the
+``1/phi_hat`` scaling (``callbacks.py:apply_uniform_callback``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..callbacks import apply_uniform_callback
 
 
 def output_wavenumbers(n: int, *, r2c: bool, fftshift: bool) -> np.ndarray:
@@ -79,13 +83,15 @@ def deconvolve_truncate(
     index_ranges,
     phihat_inv: Sequence[torch.Tensor],
     normfactor: float,
+    callback=None,
 ) -> torch.Tensor:
-    """Type-1 step (3): truncate to the output modes and multiply by
-    ``normfactor / prod_d phi_hat_d`` (src/NonuniformFFTs.jl:179-185)."""
+    """Type-1 step (3): truncate to the output modes, multiply by
+    ``normfactor / prod_d phi_hat_d`` (src/NonuniformFFTs.jl:179-185), then
+    apply the uniform ``callback``."""
     out = uhat_over
     for d, ranges in enumerate(index_ranges):
         out = truncate_axis(out, 1 + d, ranges)
-    return _scale(out * normfactor, phihat_inv)
+    return apply_uniform_callback(_scale(out * normfactor, phihat_inv), callback)
 
 
 def deconvolve_pad(
@@ -93,11 +99,12 @@ def deconvolve_pad(
     shape_over_spec: Tuple[int, ...],
     index_ranges,
     phihat_inv: Sequence[torch.Tensor],
+    callback=None,
 ) -> torch.Tensor:
-    """Type-2 step (1): scale by ``1 / prod_d phi_hat_d`` and place the
-    modes into the zero-padded oversampled spectrum
-    (src/NonuniformFFTs.jl:268-272)."""
-    w = _scale(uhat_k, phihat_inv)
+    """Type-2 step (1): scale by ``1 / prod_d phi_hat_d``, apply the uniform
+    ``callback``, and place the modes into the zero-padded oversampled
+    spectrum (src/NonuniformFFTs.jl:268-272, 453-480)."""
+    w = apply_uniform_callback(_scale(uhat_k, phihat_inv), callback)
     for d, ranges in enumerate(index_ranges):
         w = pad_axis(w, 1 + d, ranges, shape_over_spec[d])
     return w

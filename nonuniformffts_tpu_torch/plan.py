@@ -3,8 +3,9 @@
 Counterpart of ``nonuniformffts_tpu/plan.py`` (and of the reference's
 ``PlanNUFFT``, src/plan.jl).  A plan is a frozen dataclass; ``set_points``
 returns a new plan holding the point state (folded points on the
-reference path; bin-sorted cells, fractions, permutation and per-block
-ranges on the blocked path).  The plan's tensors live on ``plan.device``.
+reference and direct paths; bin-sorted cells, fractions, permutation and
+per-block ranges on the blocked path).  The plan's tensors live on
+``plan.device``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from .blocking import bin_sort, cells_and_fracs, choose_geometry
-from .ops import deconvolve, windows
+from .ops import deconvolve, direct, windows
 from .ops.kernels.blocked import check_kernel_support, interp1d_inverse, with_window_taps
 from .ops.kernels.common import VALUE_TYPES, coefficient_stack
 from .ops.windows import (
@@ -65,21 +66,27 @@ class Plan:
     evalmode: EvaluationMode
     ntransforms: int
     fftshift: bool
-    spread_method: str  # 'reference' | 'blocked'
+    spread_method: str  # 'reference' | 'blocked' | 'direct'
     device: torch.device
     block_dims: Optional[Tuple[int, ...]] = None
     sort_points: bool = False
     point_transform: Callable = _identity
     chunk_size: Optional[int] = None
+    # Per-stage timer (utils/timer.py) or None: set_points and each exec
+    # stage run in its labelled sections.
+    timer: Any = None
 
     # --- precomputed tensors --------------------------------------------
     kernel_data: Tuple[KernelData, ...] = ()
     phihat_inv: Tuple[torch.Tensor, ...] = ()  # 1/phi_hat per dim
     index_ranges: Tuple = ()  # per-dim (src_start, length) ranges
+    kvec: Tuple[torch.Tensor, ...] = ()  # per-dim output wavenumbers, float64
     coefs: Optional[torch.Tensor] = None  # (D, 2M, ncoef), (B)KB kernels
 
     # --- point state (set by set_points) --------------------------------
-    points: Optional[torch.Tensor] = None  # (D, Np) folded, reference path
+    # (D, Np) folded: the plan's real dtype on the reference path, float64
+    # on the direct path
+    points: Optional[torch.Tensor] = None
     point_perm: Optional[torch.Tensor] = None  # sort_points, reference path
     point_perm_inv: Optional[torch.Tensor] = None
     cells_sorted: Optional[torch.Tensor] = None  # (D, Np) int32, blocked
@@ -152,6 +159,32 @@ class Plan:
             out *= TWO_PI / n
         return out
 
+    def __repr__(self):  # the reference's Base.show (plan.jl:362-392)
+        dev = str(self.device)
+        if self.device.type == "cuda":
+            dev += f" ({torch.cuda.get_device_name(self.device)})"
+        lines = [
+            f"{self.ndim}-dimensional PlanNUFFT (PyTorch) with input type "
+            f"{str(self.dtype).removeprefix('torch.')}:",
+            f"  - kernel: {self.kernel} with half-support M = {self.m}",
+            f"  - evaluation mode: {type(self.evalmode).__name__}",
+            f"  - oversampling factor: sigma = {self.sigma:.6g}",
+            f"  - uniform dimensions: {self.spectral_shape} (oversampled grid {self.shape_over})",
+            f"  - simultaneous transforms: {self.ntransforms}",
+            f"  - frequency order: {'increasing' if self.fftshift else 'FFTW'} "
+            f"(fftshift = {self.fftshift})",
+            f"  - spreading method: {self.spread_method}"
+            + (f", block dims {self.block_dims}" if self.block_dims else ""),
+            f"  - points set: {self.num_points if self.num_points is not None else 'no'}",
+            f"  - device: {dev}",
+        ]
+        if self.block_dims:
+            nblocks = math.prod(n // b for n, b in zip(self.shape_over, self.block_dims))
+            lines.append(f"  - blocked geometry: {nblocks} blocks")
+        if self.timer is not None:
+            lines.append(f"  - timer attached (synchronise={self.timer.synchronise})")
+        return "\n".join(lines)
+
 
 def _check_nufft_size(n_over: int, m: int):
     if n_over < 2 * m:
@@ -192,6 +225,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def auto_spread_method(device: torch.device, np_hint: Optional[int],
+                       spectral_shape, shape_over, real_dtype: torch.dtype) -> str:
+    """``spread_method='auto'``: ``'reference'`` on the CPU; on CUDA
+    ``'direct'`` where ``np_hint`` points fall below the crossover model
+    (``ops/direct.py:prefers_direct``), else ``'blocked'``."""
+    if device.type != "cuda":
+        return "reference"
+    if np_hint is not None and direct.prefers_direct(np_hint, spectral_shape, shape_over,
+                                                     real_dtype):
+        return "direct"
+    return "blocked"
+
+
 def PlanNUFFT(
     dtype,
     shape,
@@ -208,6 +254,8 @@ def PlanNUFFT(
     point_transform: Callable = _identity,
     chunk_size: Optional[int] = None,
     device=None,
+    np_hint: Optional[int] = None,
+    timer: Any = None,
     # Accepted so that call sites match the JAX package; none of these has
     # an effect in the port (README "PyTorch / CUDA port").
     batch_size="auto",
@@ -216,7 +264,6 @@ def PlanNUFFT(
     fft_variant: str = "auto",
     precision: str = "highest",
     kernel_precision: Optional[str] = None,
-    np_hint: Optional[int] = None,
     window_rows: Optional[int] = "auto",
     window_rows_y: Optional[int] = "auto",
     layout: str = "packed",
@@ -224,7 +271,6 @@ def PlanNUFFT(
     spread_acc2: bool = False,
     value_permute: str = "auto",
     dft_fold: bool = True,
-    timer: Any = None,
 ) -> Plan:
     """Construct a NUFFT plan (counterpart of ``PlanNUFFT`` in src/plan.jl
     and in the JAX package).
@@ -242,8 +288,12 @@ def PlanNUFFT(
 
     ``spread_method``: ``'reference'`` is the plain torch scatter/gather
     path; ``'blocked'`` bin-sorts the points and runs the hand-written CUDA
-    kernels on a CUDA device (their plain versions on the CPU); ``'auto'``
-    is ``'blocked'`` on CUDA and ``'reference'`` on the CPU.
+    kernels on a CUDA device (their plain versions on the CPU); ``'direct'``
+    evaluates the exact sums as dense factor products (``ops/direct.py``);
+    ``'auto'`` is ``'blocked'`` on CUDA, or ``'direct'`` there when
+    ``np_hint`` (the expected number of points) lies below the measured
+    crossover, and ``'reference'`` on the CPU.  ``timer`` (a
+    ``utils.timer.Timer``) times ``set_points`` and each exec stage.
     """
     if isinstance(shape, int):
         shape = (shape,)
@@ -269,23 +319,20 @@ def PlanNUFFT(
     sigma_actual = max(no / n for no, n in zip(shape_over, shape))
 
     dev = resolve_device(device)
-    if timer is not None:
-        raise NotImplementedError(
-            "the staged timer is not ported yet (ROADMAP queue 1, item 5)"
-        )
     if kernel is None:
         kernel = BackwardsKaiserBesselKernel()
     if kernel_evalmode is None:
         kernel_evalmode = FastApproximation()
 
     if spread_method == "auto":
-        spread_method = "blocked" if dev.type == "cuda" else "reference"
+        spec_shape = shape[:-1] + (shape[-1] // 2 + 1,) if is_real else shape
+        spread_method = auto_spread_method(dev, np_hint, spec_shape, shape_over,
+                                           _REAL_OF[tdtype])
     if spread_method not in ("reference", "blocked", "direct"):
         raise ValueError(f"unknown spread_method {spread_method!r}")
-    if spread_method == "direct":
-        raise NotImplementedError(
-            "the direct NUDFT is not ported yet (ROADMAP queue 1, item 8)"
-        )
+    if spread_method == "direct" and sort_points:
+        # No locality to exploit; the value order is the point order.
+        raise ValueError("sort_points is not supported with spread_method='direct'")
     if precision not in ("default", "high", "highest", "double"):
         raise ValueError(f"unknown precision {precision!r}")
     # In the JAX package precision='double' on a 64-bit dtype selects the
@@ -306,11 +353,12 @@ def PlanNUFFT(
     )
     # Per-dim 1/phi_hat and slice ranges; the halved r2c axis holds
     # k = 0 .. n/2 in order (no fftshift) from an n_over // 2 + 1 spectrum.
-    phinv, iranges = [], []
+    phinv, iranges, kvec = [], [], []
     for d, (n, n_over, kd) in enumerate(zip(shape, shape_over, kernel_data)):
         r2c = is_real and d == D - 1
         shift = fftshift and not r2c
         k = deconvolve.output_wavenumbers(n, r2c=r2c, fftshift=shift)
+        kvec.append(torch.as_tensor(k, dtype=torch.float64, device=dev))
         phinv.append(1.0 / windows.fourier_coefficients_np(kd, k))
         n_over_spec = n_over // 2 + 1 if r2c else n_over
         iranges.append(
@@ -356,11 +404,13 @@ def PlanNUFFT(
         sort_points=bool(sort_points),
         point_transform=point_transform,
         chunk_size=chunk_size,
+        timer=timer,
         kernel_data=kernel_data,
         phihat_inv=tuple(
             torch.as_tensor(p, dtype=real_dtype, device=dev) for p in phinv
         ),
         index_ranges=tuple(iranges),
+        kvec=tuple(kvec),
         coefs=coefs,
     )
     if spread_method == "blocked" and dev.type == "cuda":
@@ -416,10 +466,27 @@ def fold_points(x: torch.Tensor, point_transform: Callable = _identity) -> torch
 
 def set_points(plan: Plan, points) -> Plan:
     """Return a new plan with the non-uniform points set (folded on the
-    reference path; split into cells and fractions and bin-sorted on the
-    blocked path, where a window other than (B)KB FastApproximation also
-    gets its sorted points' taps, ``wtaps_sorted``, for every exec)."""
-    pts = _canonicalise_points(points, plan.ndim, plan.real_dtype, plan.device)
+    reference path, and in float64 on the direct path; split into cells and
+    fractions and bin-sorted on the blocked path, where a window other than
+    (B)KB FastApproximation also gets its sorted points' taps,
+    ``wtaps_sorted``, for every exec).  A plan's timer times it under
+    ``"set_points"``."""
+    if plan.timer is None:
+        return _set_points(plan, points)
+    with plan.timer.section("set_points"):
+        return plan.timer.sync(_set_points(plan, points))
+
+
+def canonical_points(plan: Plan, points) -> torch.Tensor:
+    """``points`` as the (D, Np) tensor ``set_points`` works on: the plan's
+    real dtype, or float64 on the direct path, whose phases are formed in
+    float64 (ops/direct.py)."""
+    real_dtype = torch.float64 if plan.spread_method == "direct" else plan.real_dtype
+    return _canonicalise_points(points, plan.ndim, real_dtype, plan.device)
+
+
+def _set_points(plan: Plan, points) -> Plan:
+    pts = canonical_points(plan, points)
     if plan.spread_method == "blocked":
         # No fold before the split: the split folds through its mod-N, and
         # an f32 fold first would put 2pi * 2^-24 of noise on the points.

@@ -648,3 +648,103 @@ def test_relayout_kernels_refuse_real_tensors(cuda_device):
 
     with pytest.raises(TypeError, match="no relayout kernel"):
         relayout.relayout_to_blocks(torch.zeros((1, 8, 8), device=cuda_device), (4, 4))
+
+
+# ---------------------------------------------------------------------------
+# The plan surface on the card: chunked plans, the direct NUDFT, callbacks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("shape,np_,nchunks", [((4096,), 30_001, 3), ((64, 48), 20_000, 4),
+                                               ((32, 32, 32), 50_000, 4)], ids=str)
+def test_chunked_matches_unchunked(cuda_device, shape, np_, nchunks, dtype):
+    """Chunked plans on the kernels against the unchunked plan on the same
+    points; every chunk launches the spread and the interpolation.  In 1D
+    each chunk spreads into its own grid: the kernel stores its interior
+    cells, so a shared grid would keep only the last chunk's there."""
+    rng = np.random.default_rng(np_)
+    D = len(shape)
+    rdt = np.float32 if np.dtype(dtype) in (np.complex64, np.float32) else np.float64
+    pts = rng.uniform(0, 2 * np.pi, (D, np_)).astype(rdt)
+    v = _values(rng, dtype, np_)
+    kw = dict(m=4, sigma=1.5, spread_method="blocked", device=cuda_device)
+    plan = tnufft.set_points(tnufft.PlanNUFFT(dtype, shape, **kw), pts)
+    cplan = tnufft.set_points_chunked(
+        tnufft.ChunkedPlanNUFFT(dtype, shape, nchunks=nchunks, **kw), pts)
+    u = tnufft.exec_type1(plan, v)
+    names = [blocked.entry_point(k, plan) for k in ("spread", "interp")]
+    before = {n: blocked.LAUNCHES[n] for n in names}
+    uc = tnufft.exec_type1_chunked(cplan, v)
+    v2c = tnufft.exec_type2_chunked(cplan, u)
+    torch.cuda.synchronize()
+    assert all(blocked.LAUNCHES[n] == before[n] + nchunks for n in names)
+    tol = KERNEL_TOL[np.dtype(rdt).itemsize]
+    assert _rel_err(uc, u) <= tol
+    assert _rel_err(v2c, tnufft.exec_type2(plan, u)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128], ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("shape,np_", [((32, 32, 32), 500), ((64, 48), 2_000), ((8192,), 300)],
+                         ids=str)
+def test_direct_with_callers_tf32_on(cuda_device, shape, np_, dtype):
+    """The direct NUDFT against exact float64 sums with TF32 switched on by
+    the caller: its product runs in float64, which TF32 never touches.  The
+    caller's settings come back unchanged."""
+    rng = np.random.default_rng(np_)
+    D = len(shape)
+    pts = rng.uniform(0, 2 * np.pi, (D, np_))
+    v = _values(rng, dtype, np_)
+    u = _values(rng, dtype, shape)
+    plan = tnufft.set_points(tnufft.PlanNUFFT(dtype, shape, spread_method="direct",
+                                              device=cuda_device), pts)
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        u1 = tnufft.exec_type1(plan, v)
+        v2 = tnufft.exec_type2(plan, u)
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags[0]
+        torch.set_float32_matmul_precision(flags[1])
+    x = torch.as_tensor(pts, device=cuda_device)
+    f = [torch.exp(-1j * torch.outer(plan.kvec[d], x[d])) for d in range(D)]  # (N_d, Np)
+    dims = "abc"[:D]
+    factors = ",".join(f"{a}j" for a in dims)
+    exact1 = torch.einsum(f"{factors},j->{dims}", *f,
+                          torch.as_tensor(v, device=cuda_device).to(torch.complex128))
+    exact2 = torch.einsum(f"{dims},{factors}->j",
+                          torch.as_tensor(u, device=cuda_device).to(torch.complex128),
+                          *[fd.conj() for fd in f])
+    tol = 2e-6 if dtype == np.complex64 else 1e-12
+    assert _rel_err(u1.to(torch.complex128), exact1) <= tol
+    assert _rel_err(v2.to(torch.complex128), exact2) <= tol
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128, np.float64],
+                         ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("shape", [(32, 32, 32), (64, 48), (4096,)], ids=str)
+def test_callbacks_match_manual(cuda_device, shape, dtype):
+    """Both callbacks on the kernels' path (a point weight, a filter on the
+    grid positions) against the same operations applied by hand."""
+    rng = np.random.default_rng(len(shape))
+    D = len(shape)
+    rdt = np.float32 if np.dtype(dtype) == np.complex64 else np.float64
+    pts = rng.uniform(0, 2 * np.pi, (D, 20_000)).astype(rdt)
+    v = _values(rng, dtype, 20_000)
+    plan = tnufft.set_points(tnufft.PlanNUFFT(dtype, shape, m=4, sigma=1.5,
+                                              spread_method="blocked", device=cuda_device), pts)
+    w = torch.as_tensor(rng.uniform(0.5, 1.5, 20_000).astype(rdt), device=cuda_device)
+    grids = torch.meshgrid(*[torch.arange(n, device=cuda_device) for n in plan.spectral_shape],
+                           indexing="ij")
+    filt = torch.exp(-0.001 * sum(g.to(torch.float64) ** 2 for g in grids)).to(w.dtype)
+    cb = tnufft.NUFFTCallbacks(nonuniform=lambda vs, n: tuple(x * w[n] for x in vs),
+                               uniform=lambda ws, idx: tuple(x * filt[idx] for x in ws))
+    vt = torch.as_tensor(v, device=cuda_device)
+    u = tnufft.exec_type1(plan, vt, callbacks=cb)
+    tol = 1e-6 if rdt == np.float32 else 1e-12
+    assert _rel_err(u, tnufft.exec_type1(plan, vt * w) * filt) <= tol
+    v2 = tnufft.exec_type2(plan, u, callbacks=cb)
+    assert _rel_err(v2, tnufft.exec_type2(plan, u * filt) * w) <= tol

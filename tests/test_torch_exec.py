@@ -192,16 +192,18 @@ def test_error_paths():
 
 
 def test_unported_surface_raises():
-    """What later slices bring raises NotImplementedError instead of
-    running something else, and a plan runs on the CPU only when asked."""
-    for kw in (dict(spread_method="direct"), dict(timer=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tnufft.PlanNUFFT(np.complex64, (16,), device="cpu", **kw)
-    plan = tnufft.set_points(tnufft.PlanNUFFT(np.complex64, (16,), device="cpu"),
-                             np.zeros(3, np.float32))
-    cb = tnufft.NUFFTCallbacks(uniform=lambda w, i: w)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnufft.exec_type1(plan, np.zeros(3, np.complex64), callbacks=cb)
+    """The surface once left to later slices (the direct method, the timer,
+    callbacks) now runs on a CPU plan; m > 10 raises; a plan runs on the
+    CPU only when asked."""
+    v = np.ones(3, np.complex64)
+    timer = tnufft.Timer()
+    for kw in (dict(spread_method="direct"), dict(timer=timer)):
+        plan = tnufft.set_points(tnufft.PlanNUFFT(np.complex64, (16,), device="cpu", **kw),
+                                 np.zeros(3, np.float32))
+        assert tnufft.exec_type1(plan, v).shape == (16,)
+    assert "exec_type1/(1) spreading" in timer.times
+    cb = tnufft.NUFFTCallbacks(uniform=lambda w, i: tuple(2 * x for x in w))
+    assert torch.equal(tnufft.exec_type1(plan, v, callbacks=cb), 2 * tnufft.exec_type1(plan, v))
     # The CUDA kernels take 1-3D plans of every window in both modes, m up
     # to 10; m = 11 is refused naming the JAX package's documented maximum.
     for dtype, shape in ((np.float64, (16, 16)), (np.float32, (40,))):
