@@ -102,6 +102,28 @@ Phases, in order; the first failure raises and the script exits non-zero:
     points and at 2^20 with 1,000, err1 / err2 against exact sums (<= 2e-6
     complex64, <= 1e-12 complex128) beside the blocked path's times, and
     one complex64 call with the caller's TF32 switched on, held to the same
+    limits;
+15. many transforms over shared points at N = 256^3, m = 4, BKB
+    FastApproximation, 1,000,000 uniform points: complex64 and complex128
+    at sigma = 1.5 with C = 1, 2, 8 and 32, float32 and float64 (r2c/c2r)
+    at C = 8, and complex128 and complex64 at sigma = 2 with C = 32
+    (68.7 GB of grid in one pass in complex128; in complex64 groups of 16
+    transforms, 2^31 grid values each: they must run in groups, and their
+    transforms 0 and 31 are held against one-transform plans, <= 1e-12 /
+    1e-6).  Each row: the chosen ``transform_chunk`` and groups,
+    ``set_points`` / ``exec_type1`` / ``exec_type2`` in ms a call and a
+    transform (CUDA events, median of 5 after one warm-up), each
+    transform's err1 / err2 against exact sums, each exec's peak memory
+    (``max_memory_allocated`` after ``reset_peak_memory_stats``) and its
+    bytes a transform of the largest group against the model's
+    (``plan.py:transform_working_set``), and one spread and one
+    interpolation launch a group a call.  Then C = 8 in groups of 3
+    against the same plan in one pass (<= 1e-6 complex64, <= 1e-12
+    complex128), once under ``Timer(synchronise=True)`` with both
+    callbacks (every label present, each stage once a group); then every
+    spread and interpolation entry point, four dtypes, with C = 5 and 32
+    transforms in one launch at 2^20, 4096^2 and 256^3 (1,000,000 points)
+    against its plain version run a transform at a time, with phase 4's
     limits.
 
 Each main-path row sets every launch count to 0 just before it drives the
@@ -121,7 +143,9 @@ card could take for the same work (``bound_ms``) and what bounds it, the
 library call's time (``library_ms``, the relayouts only), a ``windows`` map
 with the same numbers under each window mode and m of phases 10-11, and
 for the relayouts a ``shapes`` map (each shape's kernel ``ms`` from calls
-back to back beside ``call_ms``, one wrapper call); the last line is
+back to back beside ``call_ms``, one wrapper call), for the spread and
+interpolation entry points a ``transforms`` map (phase 15's results at
+C = 5 and 32); the last line is
 ``{"ok": true, "device": {...}}``.
 
 Tolerances: kernels against plain versions <= 1e-5 relative L2 in float32
@@ -185,6 +209,16 @@ CALLBACK_TOL = {4: 1e-6, 8: 1e-12}
 DIRECT_TOL = {4: 2e-6, 8: 1e-12}
 CHUNK_TOL = {4: 1e-5, 8: 1e-12}
 STAGE_GAP_MS = 0.5
+# Phase 15: the points, the rows (dtype, sigma, transform counts), the
+# grouped-against-whole row (C, forced group size) and its limits by the
+# bytes of a real scalar, and the kernel checks' transform counts and points.
+NT_NP = 1_000_000
+NT_ROWS = ((np.complex64, 1.5, (1, 2, 8, 32)), (np.complex128, 1.5, (1, 2, 8, 32)),
+           (np.float32, 1.5, (8,)), (np.float64, 1.5, (8,)),
+           (np.complex128, 2.0, (32,)), (np.complex64, 2.0, (32,)))
+NT_GROUPED = (8, 3)
+GROUPED_TOL = {4: 1e-6, 8: 1e-12}
+NT_KERNEL_COUNTS, NT_KERNEL_NP = (5, 32), 1_000_000
 REPS = 5
 ERR_MODES = 64
 ERR_POINTS = 4096
@@ -259,6 +293,10 @@ def run(cmd) -> str:
 def nvidia_smi_line() -> str:
     return run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
+
+
+def shape_text(shape) -> str:
+    return "x".join(map(str, shape))
 
 
 def rel_l2(a, b) -> float:
@@ -1794,6 +1832,270 @@ def phase_plan_surface(seed: int, record):
     log("  results " + json.dumps(rows))
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: many transforms over shared points
+# ---------------------------------------------------------------------------
+
+
+def _rank1_batch(shape, C: int, seed: int, dtype, device):
+    """C rank-1 spectra that share their leading factors and differ in the
+    last one: the factor lists (numpy, for ``_err2``) and the ``(C,) +
+    shape`` spectrum in ``dtype`` on ``device``."""
+    import torch
+
+    rng = np.random.default_rng(seed + 15)
+    head = [(rng.standard_normal(n) + 1j * rng.standard_normal(n)) / n for n in shape[:-1]]
+    last = ((rng.standard_normal((C, shape[-1])) + 1j * rng.standard_normal((C, shape[-1])))
+            / shape[-1])
+    h = torch.ones((), dtype=torch.complex128, device=device)
+    for f in head:
+        h = h[..., None] * torch.as_tensor(f, device=device)
+    u = h[None, ..., None] * torch.as_tensor(last, device=device).view(
+        (C,) + (1,) * (len(shape) - 1) + (shape[-1],))
+    return [head + [last[c]] for c in range(C)], u.to(dtype)
+
+
+def _peak_above(fn):
+    """``fn()``, the device memory it held at its peak above what was
+    allocated before it, and that peak as ``max_memory_allocated``."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return out, peak - base, peak
+
+
+def ntransforms_row(dtype, sigma: float, C: int, seed: int, pts, vp, u, factors):
+    """One row of phase 15: ``set_points`` / ``exec_type1`` / ``exec_type2``
+    of a C-transform plan at 256^3 (ms a call and a transform), each
+    transform's err1 / err2 against exact sums, the peak memory of each
+    exec against the model's (``plan.py:transform_working_set``), the
+    chosen ``transform_chunk`` and the launches: one spread and one
+    interpolation a group a call.  A row at sigma != 1.5 must run in
+    groups, and its first and last transforms are held against
+    one-transform plans on the same points."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from nonuniformffts_tpu_torch import plan as plan_mod
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    label = f"3D {np.dtype(dtype).name} sigma = {sigma} C = {C}"
+    plan0 = _plan(dtype, SHAPE_3D, 4, sigma, ntransforms=C)
+    blocked.reset_launch_counts()
+    t_set, plan = cuda_time_ms(lambda: nufft.set_points(plan0, pts))
+    groups = plan_mod.transform_groups(C, plan.transform_chunk)
+    gmax = max(g.stop - g.start for g in groups)
+    uhat, peak1, abs1 = _peak_above(lambda: nufft.exec_type1(plan, vp))
+    v2, peak2, abs2 = _peak_above(lambda: nufft.exec_type2(plan, u))
+    if tuple(uhat.shape) != (C,) + plan.spectral_shape or tuple(v2.shape) != (C, pts.shape[1]):
+        raise AssertionError(f"{label}: output shapes {tuple(uhat.shape)}, {tuple(v2.shape)}")
+    if not (torch.isfinite(torch.view_as_real(uhat)).all() and torch.isfinite(v2).all()):
+        raise AssertionError(f"{label}: non-finite output")
+    e1 = [_err1(pts, vp[c], uhat[c], SHAPE_3D, plan.is_real, seed) for c in range(C)]
+    e2 = [_err2(pts, v2[c], factors[c], plan.is_real, seed) for c in range(C)]
+    # The model's bytes, and the measured ones a transform of the largest
+    # group: the peak less the exec's whole-C output (and a grouped type
+    # 2's scaled copy of its input).
+    ws = plan_mod.transform_working_set(
+        plan.shape_over, plan.spectral_shape_over, plan.spectral_shape, plan.dtype, C,
+        plan.num_points, point_state_bytes=plan_mod.point_state_bytes(plan))
+    spec_bytes = uhat.numel() * uhat.element_size()
+    out2 = v2.numel() * v2.element_size() + (spec_bytes if len(groups) > 1 else 0)
+    grid = math.prod(plan.shape_over) * vp.element_size()  # a transform's
+    per1, per2 = (peak1 - spec_bytes) / gmax, (peak2 - out2) / gmax
+    row = dict(row=label, dtype=np.dtype(dtype).name, sigma=sigma, ntransforms=C,
+               np=pts.shape[1], transform_chunk=plan.transform_chunk, groups=len(groups),
+               err1=e1, err2=e2, peak_exec_type1_bytes=peak1, peak_exec_type2_bytes=peak2,
+               max_memory_allocated_exec_type1=abs1, max_memory_allocated_exec_type2=abs2,
+               per_transform_grids_measured=[per1 / grid, per2 / grid],
+               per_transform_grids_model=ws.per_transform / grid,
+               model_total_bytes=ws.total(gmax))
+    ends = (0, C - 1)
+    u_ends, v_ends = uhat[list(ends)], v2[list(ends)]
+    del uhat, v2
+    torch.cuda.empty_cache()
+    # Timed with each call's output dropped before the next call.
+    t1, _ = cuda_time_ms(lambda: nufft.exec_type1(plan, vp) is None)
+    t2, _ = cuda_time_ms(lambda: nufft.exec_type2(plan, u) is None)
+    torch.cuda.synchronize()
+    counts = _check_path_launches(plan, label, (2 + REPS) * len(groups))
+    for kind in ("spread", "interp"):
+        name = blocked.entry_point(kind, plan)
+        if counts[name] != (2 + REPS) * len(groups):
+            raise AssertionError(f"{label}: {name} launched {counts[name]} times, not one a "
+                                 f"group of each of {2 + REPS} calls")
+    log(f"  {label}: transform_chunk {plan.transform_chunk}, {len(groups)} groups; "
+        f"set_points {t_set:.3f} ms, exec_type1 {t1:.3f} ms ({t1 / C:.3f} a transform), "
+        f"exec_type2 {t2:.3f} ms ({t2 / C:.3f} a transform)")
+    log(f"    peak above the inputs: exec_type1 {peak1 / 2**30:.3f} GiB "
+        f"(max_memory_allocated {abs1 / 2**30:.3f}), exec_type2 {peak2 / 2**30:.3f} GiB "
+        f"({abs2 / 2**30:.3f}); a transform of the largest group {per1 / grid:.3f} / "
+        f"{per2 / grid:.3f} grids, model {ws.per_transform / grid:.3f} "
+        f"(grid {grid / 2**30:.3f} GiB)")
+    check(f"max err1 over {C} transforms ({label})", max(e1), ERR_TOL)
+    check(f"max err2 over {C} transforms ({label})", max(e2), ERR_TOL)
+    row.update(set_points_ms=t_set, exec_type1_ms=t1, exec_type2_ms=t2,
+               exec_type1_ms_per_transform=t1 / C, exec_type2_ms_per_transform=t2 / C,
+               launches=counts)
+    if sigma != 1.5:
+        if len(groups) < 2:
+            raise AssertionError(f"{label} ran in one pass")
+        single = nufft.set_points(_plan(dtype, SHAPE_3D, 4, sigma), pts)
+        row["vs_single_transform_plans"] = (
+            [rel_l2(u_ends[i], nufft.exec_type1(single, vp[c])) for i, c in enumerate(ends)]
+            + [rel_l2(v_ends[i], nufft.exec_type2(single, u[c])) for i, c in enumerate(ends)])
+        check(f"{label}: transforms 0 and {C - 1} vs one-transform plans",
+              max(row["vs_single_transform_plans"]),
+              GROUPED_TOL[torch.finfo(plan.real_dtype).bits // 8])
+    return row
+
+
+def _grouped_against_whole(dtype, seed: int, pts, vp, u):
+    """C = NT_GROUPED[0] with ``transform_chunk`` forced to NT_GROUPED[1]
+    against the same plan run whole; then once with
+    ``Timer(synchronise=True)`` and both callbacks: every label present,
+    each stage once a group."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from nonuniformffts_tpu_torch import plan as plan_mod
+
+    C, chunk = NT_GROUPED
+    whole = dataclasses.replace(
+        nufft.set_points(_plan(dtype, SHAPE_3D, 4, 1.5, ntransforms=C), pts),
+        transform_chunk=None)
+    grouped = dataclasses.replace(whole, transform_chunk=chunk)
+    tol = GROUPED_TOL[torch.finfo(whole.real_dtype).bits // 8]
+    errs = [rel_l2(nufft.exec_type1(grouped, vp), nufft.exec_type1(whole, vp)),
+            rel_l2(nufft.exec_type2(grouped, u), nufft.exec_type2(whole, u))]
+    label = f"3D {np.dtype(dtype).name} C = {C}, groups of {chunk}"
+    check(f"{label}: type 1 grouped vs whole", errs[0], tol)
+    check(f"{label}: type 2 grouped vs whole", errs[1], tol)
+    w = torch.rand(pts.shape[1], device=pts.device, dtype=whole.real_dtype) + 0.5
+    cb = nufft.NUFFTCallbacks(nonuniform=lambda vs, n: tuple(x * w[n] for x in vs),
+                              uniform=lambda ws, idx: tuple(x * 0.5 for x in ws))
+    timer = nufft.Timer(synchronise=True)
+    timed = dataclasses.replace(grouped, timer=timer)
+    nufft.exec_type1(timed, vp, cb)
+    nufft.exec_type2(timed, u, cb)
+    ngroups = len(plan_mod.transform_groups(C, chunk))
+    log("  " + repr(timer).replace("\n", "\n  "))
+    for top, labels in (("exec_type1", T1_LABELS), ("exec_type2", T2_LABELS)):
+        missing = [lb for lb in labels if f"{top}/{lb}" not in timer.times]
+        if missing:
+            raise AssertionError(f"{label}: timer labels missing under {top}: {missing}")
+    for key in ("exec_type1/(1) spreading", "exec_type1/(2) forward FFT",
+                "exec_type2/(2) backward FFT", "exec_type2/(3) interpolation"):
+        if timer.counts[key] != ngroups:
+            raise AssertionError(f"{label}: {key} ran {timer.counts[key]} times, not "
+                                 f"once for each of {ngroups} groups")
+    return dict(row=label, grouped_vs_whole=errs, timer_counts=dict(timer.counts))
+
+
+def check_kernels_many(shape, C: int, seed: int, transforms):
+    """Each spread and interpolation entry point at ``shape`` (m = 4, sigma =
+    1.5, BKB Fast, NT_KERNEL_NP points), four dtypes, C transforms in one
+    launch against the plain version run a transform at a time (each
+    transform's plain result does not depend on the others); the kernel
+    timed as one wrapper call (CUDA events, median of 3 after one warm-up),
+    the plain loop once.  Adds each result to ``transforms[name]["C=<C>"]``."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    dev = torch.device("cuda")
+    for dtype in (np.complex64, np.float32, np.complex128, np.float64):
+        plan0 = _plan(dtype, shape, 4, 1.5, ntransforms=C)
+        gen = torch.Generator(device=dev).manual_seed(seed + C + len(shape))
+        pts = _uniform_points(gen, len(shape), NT_KERNEL_NP, plan0.real_dtype, dev)
+        plan = nufft.set_points(plan0, pts)
+        plain = dataclasses.replace(plan, chunk_size=PLAIN_CHUNK)
+        tol = KERNEL_TOL[torch.finfo(plan.real_dtype).bits // 8]
+        for kind in ("spread", "interp"):
+            if kind == "spread":
+                x = _random_values(gen, (C, NT_KERNEL_NP), plan.dtype, dev)
+                kern, ref = blocked.spread_blocked, blocked.spread_blocked_plain
+            else:
+                x = _random_values(gen, (C,) + plan.shape_over, plan.dtype, dev)
+                kern, ref = blocked.interpolate_blocked, blocked.interpolate_blocked_plain
+            ms, got = cuda_time_ms(lambda: kern(plan, x), reps=3)
+            num = den = max_abs = 0.0
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for c in range(C):
+                want = ref(plain, x[c : c + 1])[0]
+                num += float((got[c] - want).abs().pow(2).sum())
+                den += float(want.abs().pow(2).sum())
+                max_abs = max(max_abs, float((got[c] - want).abs().max()))
+            stop.record()
+            stop.synchronize()
+            err = math.sqrt(num / den)
+            name = blocked.entry_point(kind, plan)
+            bound_ms, bound_by = kernel_bound(kind, plan, C)
+            log(f"  {name}, C = {C}, {shape_text(shape)}: rel L2 {err:.3e}, max abs "
+                f"{max_abs:.3e} vs plain, kernel {ms:.3f} ms ({ms / C:.3f} a transform), "
+                f"bound {bound_ms:.4g} ms ({bound_by})")
+            check(f"{name} rel L2 vs plain at C={C}", err, tol)
+            transforms[name][f"C={C}"] = dict(
+                rel_l2=err, max_abs_err=max_abs, ms=ms, ms_per_transform=ms / C,
+                plain_ms=start.elapsed_time(stop), bound_ms=bound_ms, bound_by=bound_by)
+            del got, x
+            torch.cuda.empty_cache()
+        del plan, plain, pts
+        torch.cuda.empty_cache()
+
+
+def phase_ntransforms(seed: int, record, transforms):
+    """Phase 15 (see the module docstring)."""
+    import torch
+
+    dev = torch.device("cuda")
+    rows = []
+    for dtype, sigma, counts in NT_ROWS:
+        t0 = time.perf_counter()
+        tdtype = getattr(torch, np.dtype(dtype).name)
+        complex_data = tdtype.is_complex
+        cdtype = tdtype if complex_data else tdtype.to_complex()
+        gen = torch.Generator(device=dev).manual_seed(seed + NT_NP)
+        pts = _uniform_points(gen, 3, NT_NP, cdtype.to_real(), dev)
+        for C in counts:
+            vp = _random_values(gen, (C, NT_NP), tdtype, dev)
+            if complex_data:
+                factors, u = _rank1_batch(SHAPE_3D, C, seed, tdtype, dev)
+            else:  # the c2r oracle's spectrum, the same for every transform
+                a, u_np = _rank1_spectrum(SHAPE_3D, True, seed)
+                factors = [a] * C
+                u = torch.as_tensor(u_np, device=dev).to(cdtype).expand(
+                    (C,) + u_np.shape).contiguous()
+                del u_np
+            rows.append(ntransforms_row(dtype, sigma, C, seed, pts, vp, u, factors))
+            record((rows[-1]["launches"], {}))
+            del vp, u
+            torch.cuda.empty_cache()
+        if sigma == 1.5 and complex_data:
+            C = NT_GROUPED[0]
+            vp = _random_values(gen, (C, NT_NP), tdtype, dev)
+            _, u = _rank1_batch(SHAPE_3D, C, seed, tdtype, dev)
+            rows.append(_grouped_against_whole(dtype, seed, pts, vp, u))
+            del vp, u
+        del pts
+        torch.cuda.empty_cache()
+        log(f"  ({np.dtype(dtype).name} sigma = {sigma} rows: "
+            f"{time.perf_counter() - t0:.1f} s)")
+    for C in NT_KERNEL_COUNTS:
+        t0 = time.perf_counter()
+        for shape in (SHAPE_1D, SHAPE_2D, SHAPE_3D):
+            check_kernels_many(shape, C, seed, transforms)
+        log(f"  (kernels at C = {C}: {time.perf_counter() - t0:.1f} s)")
+    log("  results " + json.dumps(rows))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1814,9 +2116,6 @@ def main(argv=None) -> int:
     def record(result):
         launches.update(result[0])
         compared.update(result[1])
-
-    def shape_text(shape):
-        return "x".join(map(str, shape))
 
     log(f"== phase 4: main path, N = {shape_text(SHAPE_3D)}, m = 4, sigma = 1.5, complex64")
     record(main_path("3D complex64", np.complex64, SHAPE_3D, NP_MAIN, NP_MAIN[0],
@@ -1844,6 +2143,10 @@ def main(argv=None) -> int:
     log(f"== phase 14: timer, callbacks, direct NUDFT, chunked plans, "
         f"N = {shape_text(SHAPE_3D)} and {shape_text(SHAPE_1D)}")
     phase_plan_surface(args.seed, record)
+    log(f"== phase 15: many transforms, N = {shape_text(SHAPE_3D)}, m = 4, sigma = 1.5 and 2, "
+        f"{NT_NP:,} points")
+    transforms = collections.defaultdict(dict)
+    phase_ntransforms(args.seed, record, transforms)
 
     # K3's headline numbers: KB Direct at 1M points in phase 10 (float32
     # taps from complex64, float64 from complex128).
@@ -1860,7 +2163,8 @@ def main(argv=None) -> int:
              library_ms=compared[name].get("library_ms"),
              windows={mode: {k: res[k] for k in ("rel_l2", "ms", "plain_ms", "bound_ms")}
                       for mode, res in sorted(windows[name].items())},
-             **({"shapes": compared[name]["shapes"]} if "shapes" in compared[name] else {}))
+             **({"shapes": compared[name]["shapes"]} if "shapes" in compared[name] else {}),
+             **({"transforms": transforms[name]} if name in transforms else {}))
         for name in KERNELS
     ]
     log(f"run time {time.perf_counter() - t0:.1f} s")

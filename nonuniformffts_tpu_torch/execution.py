@@ -27,6 +27,14 @@ there.  A plan's ``timer`` runs each stage in a section labelled as the JAX
 package labels it (``exec_type1/(1) spreading`` ..), synchronised when the
 timer is; the stages are the same functions in the same order either way.
 
+A plan with ``transform_chunk`` set (``plan.py:choose_transform_chunk``,
+the JAX package's ``cr_chunk``) runs its transforms in groups: type 1
+spreads, transforms and truncates one group at a time into one output, each
+group's grid freed before the next; type 2 scales every transform once and
+pads, transforms and interpolates one group at a time.  The callbacks run
+on every transform at once either way, so grouped results equal ungrouped
+ones; each stage's timer section adds up over the groups.
+
 Real-data plans take real values in type 1 and return a complex spectrum of
 ``plan.spectral_shape`` (last axis halved); type 2 takes that spectrum and
 returns real values.  64-bit plans run float64 in every stage: the JAX
@@ -42,12 +50,12 @@ import torch
 
 from .callbacks import NUFFTCallbacks, apply_nonuniform_callback, apply_uniform_callback
 from .ops import fft
-from .ops.deconvolve import deconvolve_pad, deconvolve_truncate
+from .ops.deconvolve import deconvolve_pad, deconvolve_scale, deconvolve_truncate, pad_modes
 from .ops.direct import exec_type1_direct, exec_type2_direct
 from .ops.interpolation import interpolate_reference
 from .ops.kernels.blocked import interpolate_blocked, spread_blocked
 from .ops.spreading import spread_reference
-from .plan import Plan
+from .plan import Plan, transform_groups
 
 _NP_DTYPE = {
     torch.complex64: np.complex64,
@@ -125,6 +133,17 @@ def t2_pad_stage(plan: Plan, uhat: torch.Tensor, callback=None) -> torch.Tensor:
     )
 
 
+def t2_scale_stage(plan: Plan, uhat: torch.Tensor, callback=None) -> torch.Tensor:
+    """The scaling and the uniform callback of ``t2_pad_stage``, without
+    the padding: what a grouped type 2 runs once on all transforms."""
+    return deconvolve_scale(uhat, plan.phihat_inv, callback)
+
+
+def t2_pad_modes_stage(plan: Plan, w: torch.Tensor) -> torch.Tensor:
+    """The padding of ``t2_pad_stage`` alone, on scaled modes."""
+    return pad_modes(w, plan.spectral_shape_over, plan.index_ranges)
+
+
 def t2_fft_stage(plan: Plan, spec: torch.Tensor) -> torch.Tensor:
     return fft.backward_fft(spec, plan.shape_over, real=plan.is_real)
 
@@ -167,29 +186,66 @@ def _section(plan: Plan, name: str):
     return contextlib.nullcontext() if plan.timer is None else plan.timer.section(name)
 
 
+def _t1_pass(plan: Plan, vp: torch.Tensor, uniform) -> torch.Tensor:
+    """Spread, FFT, deconvolve and truncate ``vp`` (C', Np); the grid goes
+    before the deconvolution."""
+    grid = _stage(plan, "(1) spreading", t1_spread_stage, plan, vp)
+    spec = _stage(plan, "(2) forward FFT", t1_fft_stage, plan, grid)
+    del grid
+    return _stage(plan, "(3) deconvolve + truncate", t1_deconv_stage, plan, spec, uniform)
+
+
+def _t2_pass(plan: Plan, spec_fn, uhat: torch.Tensor, *args) -> torch.Tensor:
+    """``spec_fn(plan, uhat, *args)`` (pad, or scale and pad), backward FFT
+    and interpolation: (C',) + spectral_shape -> (C', Np)."""
+    spec = _stage(plan, "(1) deconvolve + pad", spec_fn, plan, uhat, *args)
+    grid = _stage(plan, "(2) backward FFT", t2_fft_stage, plan, spec)
+    del spec
+    return _stage(plan, "(3) interpolation", t2_interp_stage, plan, grid)
+
+
 def _type1(plan: Plan, vp: torch.Tensor, callbacks: NUFFTCallbacks) -> torch.Tensor:
-    """(C, Np) values -> (C,) + spectral_shape, stage by stage."""
+    """(C, Np) values -> (C,) + spectral_shape, stage by stage, in the
+    plan's groups of transforms (``transform_chunk``).  The callbacks see
+    every transform at once, grouped or not: the uniform one runs on the
+    whole output after the last group."""
     with _section(plan, "exec_type1"):
         if plan.spread_method == "direct":
             return _stage(plan, "(1) direct NUDFT", t1_direct, plan, vp, callbacks)
         if callbacks.nonuniform is not None:
             vp = _stage(plan, "(0) nonuniform callback", apply_nonuniform_callback, vp,
                         callbacks.nonuniform)
-        grid = _stage(plan, "(1) spreading", t1_spread_stage, plan, vp)
-        spec = _stage(plan, "(2) forward FFT", t1_fft_stage, plan, grid)
-        return _stage(plan, "(3) deconvolve + truncate", t1_deconv_stage, plan, spec,
-                      callbacks.uniform)
+        groups = transform_groups(vp.shape[0], plan.transform_chunk)
+        if len(groups) == 1:
+            return _t1_pass(plan, vp, callbacks.uniform)
+        out = torch.empty((vp.shape[0],) + plan.spectral_shape, dtype=plan.complex_dtype,
+                          device=vp.device)
+        for sl in groups:
+            out[sl] = _t1_pass(plan, vp[sl], None)
+        if callbacks.uniform is not None:
+            out = _stage(plan, "(3) deconvolve + truncate", apply_uniform_callback, out,
+                         callbacks.uniform)
+        return out
 
 
 def _type2(plan: Plan, uhat: torch.Tensor, callbacks: NUFFTCallbacks) -> torch.Tensor:
-    """(C,) + spectral_shape -> (C, Np) values, stage by stage."""
+    """(C,) + spectral_shape -> (C, Np) values, stage by stage, in the
+    plan's groups of transforms: a grouped type 2 scales all transforms and
+    applies the uniform callback once, then pads each group."""
     with _section(plan, "exec_type2"):
         if plan.spread_method == "direct":
             return _stage(plan, "(1) direct NUDFT", t2_direct, plan, uhat, callbacks)
-        spec = _stage(plan, "(1) deconvolve + pad", t2_pad_stage, plan, uhat,
-                      callbacks.uniform)
-        grid = _stage(plan, "(2) backward FFT", t2_fft_stage, plan, spec)
-        vp = _stage(plan, "(3) interpolation", t2_interp_stage, plan, grid)
+        groups = transform_groups(uhat.shape[0], plan.transform_chunk)
+        if len(groups) == 1:
+            vp = _t2_pass(plan, t2_pad_stage, uhat, callbacks.uniform)
+        else:
+            w = _stage(plan, "(1) deconvolve + pad", t2_scale_stage, plan, uhat,
+                       callbacks.uniform)
+            vp = torch.empty((uhat.shape[0], plan.num_points), dtype=plan.dtype,
+                             device=uhat.device)
+            for sl in groups:
+                vp[sl] = _t2_pass(plan, t2_pad_modes_stage, w[sl])
+            del w
         if callbacks.nonuniform is not None:
             vp = _stage(plan, "(4) nonuniform callback", apply_nonuniform_callback, vp,
                         callbacks.nonuniform)

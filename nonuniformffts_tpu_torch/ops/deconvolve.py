@@ -94,6 +94,28 @@ def deconvolve_truncate(
     return apply_uniform_callback(_scale(out * normfactor, phihat_inv), callback)
 
 
+def deconvolve_scale(
+    uhat_k: torch.Tensor,  # (C,) + output spectral shape
+    phihat_inv: Sequence[torch.Tensor],
+    callback=None,
+) -> torch.Tensor:
+    """The first half of type-2 step (1): scale by ``1 / prod_d phi_hat_d``,
+    then apply the uniform ``callback``."""
+    return apply_uniform_callback(_scale(uhat_k, phihat_inv), callback)
+
+
+def pad_modes(
+    w: torch.Tensor,  # (C,) + output spectral shape
+    shape_over_spec: Tuple[int, ...],
+    index_ranges,
+) -> torch.Tensor:
+    """The second half of type-2 step (1): the modes placed into the
+    zero-padded oversampled spectrum."""
+    for d, ranges in enumerate(index_ranges):
+        w = pad_axis(w, 1 + d, ranges, shape_over_spec[d])
+    return w
+
+
 def deconvolve_pad(
     uhat_k: torch.Tensor,  # (C,) + output spectral shape
     shape_over_spec: Tuple[int, ...],
@@ -104,7 +126,5 @@ def deconvolve_pad(
     """Type-2 step (1): scale by ``1 / prod_d phi_hat_d``, apply the uniform
     ``callback``, and place the modes into the zero-padded oversampled
     spectrum (src/NonuniformFFTs.jl:268-272, 453-480)."""
-    w = apply_uniform_callback(_scale(uhat_k, phihat_inv), callback)
-    for d, ranges in enumerate(index_ranges):
-        w = pad_axis(w, 1 + d, ranges, shape_over_spec[d])
-    return w
+    return pad_modes(deconvolve_scale(uhat_k, phihat_inv, callback), shape_over_spec,
+                     index_ranges)

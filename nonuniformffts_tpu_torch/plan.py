@@ -104,6 +104,11 @@ class Plan:
     # A slab plan of the spatial mode (parallel/spatial.py) keeps the global
     # grid's FFT normalisation, which its own shape_over would misstate.
     normfactor_override: Optional[float] = None
+    # Transforms a pass of exec_type1 / exec_type2 (the JAX package's
+    # cr_chunk, counted in transforms): the C transforms run in ceil(C / k)
+    # groups of nearly equal size when their working set would not fit the
+    # card (choose_transform_chunk); None runs them all in one pass.
+    transform_chunk: Optional[int] = None
 
     @property
     def ndim(self) -> int:
@@ -464,12 +469,134 @@ def fold_points(x: torch.Tensor, point_transform: Callable = _identity) -> torch
     return torch.remainder(x, torch.tensor(TWO_PI, dtype=x.dtype, device=x.device))
 
 
+# ---------------------------------------------------------------------------
+# Transform groups: the memory model behind Plan.transform_chunk
+# ---------------------------------------------------------------------------
+
+#: Share of the card's memory (``total_memory``) that the modelled working
+#: set of one exec may fill; the rest is left to the CUDA context, cuFFT's
+#: plans, the caching allocator's slack and what the caller holds.
+TRANSFORM_MEMORY_FRACTION = 0.75
+#: cuFFT's workspace, in grids of the transforms of one FFT call: none
+#: measured beside the batched out-of-place FFTs of 384^3 and 512^3 grids on
+#: an NVIDIA H100 (700 W; ``chip_smoke.py`` phase 15, PERF.md), whose
+#: type-2 peak is the padded spectrum and the grid alone.
+FFT_WORKSPACE_GRIDS = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkingSet:
+    """Device bytes of one exec: ``fixed`` whatever the group size, and
+    ``per_transform`` for each transform of a group."""
+
+    fixed: int
+    per_transform: int
+
+    def total(self, group: int) -> int:
+        return self.fixed + group * self.per_transform
+
+
+def transform_working_set(shape_over, spectral_shape_over, spectral_shape, dtype,
+                          ntransforms: int, num_points: int, *, point_state_bytes: int = 0,
+                          spread_method: str = "blocked", m: int = 4,
+                          chunk_size: Optional[int] = None) -> WorkingSet:
+    """The modelled device memory of ``exec_type1`` / ``exec_type2`` on
+    ``ntransforms`` transforms of ``num_points`` points.
+
+    Each transform of a group holds its grid (``shape_over`` in the plan's
+    dtype), cuFFT's out-of-place output (``spectral_shape_over``, complex),
+    cuFFT's workspace (``FFT_WORKSPACE_GRIDS`` of the larger of the two),
+    the pad or truncation temporary beside its spectrum (the spectrum cut
+    or padded along one axis; on a real-data plan also the spectra that
+    ``irfftn`` makes: the c2c pass over the leading axes writes a new one,
+    and the c2r pass, which overwrites its input, copies it), and the
+    sorted or interpolated values of its points, twice.  On an NVIDIA H100
+    (700 W) at 256^3 this holds each measured peak a transform (1.8-2.1
+    grids complex, 2.7-4.0 real) with 0.5-0.7 grid to spare
+    (``chip_smoke.py`` phase 15, PERF.md).  The reference path's spread
+    also accumulates in a 64-bit grid and both its passes materialise
+    ``(chunk, (2M)^D)`` stencil values a transform.  Fixed: the ``(C, Np)``
+    values and the ``(C,) + spectral_shape`` spectrum, each twice (the
+    caller's and the callback's or scaled copy), and the plan's point state
+    (``point_state_bytes``)."""
+    tdtype = _resolve_dtype(dtype)
+    real_bytes = torch.finfo(_REAL_OF[tdtype]).bits // 8
+    value_bytes = real_bytes * (2 if tdtype.is_complex else 1)
+    grid = math.prod(shape_over) * value_bytes
+    spec_over = math.prod(spectral_shape_over) * 2 * real_bytes
+    temp = spec_over * max(k / n for k, n in zip(spectral_shape, spectral_shape_over))
+    if not tdtype.is_complex:
+        temp += spec_over * (2 if len(shape_over) > 1 else 1)
+    per = (grid + spec_over + temp + FFT_WORKSPACE_GRIDS * max(grid, spec_over)
+           + 2 * num_points * value_bytes)
+    fixed = (2 * ntransforms * num_points * value_bytes
+             + 2 * ntransforms * math.prod(spectral_shape) * 2 * real_bytes
+             + point_state_bytes)
+    if spread_method == "reference":
+        acc_bytes = 8 * (2 if tdtype.is_complex else 1)
+        stencil = min(num_points, chunk_size or num_points) * (2 * m) ** len(shape_over)
+        per += math.prod(shape_over) * acc_bytes + stencil * (value_bytes + acc_bytes)
+        fixed += stencil * (8 + real_bytes)  # the linear cells and the weights
+    return WorkingSet(fixed=int(fixed), per_transform=int(per))
+
+
+def choose_transform_chunk(shape_over, spectral_shape_over, spectral_shape, dtype,
+                           ntransforms: int, num_points: int, device_bytes: int,
+                           **working_set_kw) -> Optional[int]:
+    """The largest group of transforms whose modelled working set
+    (:func:`transform_working_set`) fits ``TRANSFORM_MEMORY_FRACTION`` of
+    ``device_bytes``: ``None`` when all ``ntransforms`` fit in one pass,
+    never less than 1 (a single transform that does not fit fails in the
+    exec, visibly)."""
+    ws = transform_working_set(shape_over, spectral_shape_over, spectral_shape, dtype,
+                               ntransforms, num_points, **working_set_kw)
+    budget = int(TRANSFORM_MEMORY_FRACTION * device_bytes) - ws.fixed
+    group = max(1, budget // ws.per_transform)
+    return None if group >= ntransforms else int(group)
+
+
+def transform_groups(ntransforms: int, chunk: Optional[int]) -> Tuple[slice, ...]:
+    """The transforms of each pass: one slice of all of them when ``chunk``
+    is None or covers them, else ``ceil(C / chunk)`` slices of nearly equal
+    size (``torch.tensor_split``'s), so that cuFFT sees at most two batch
+    sizes."""
+    if chunk is None or chunk >= ntransforms:
+        return (slice(0, ntransforms),)
+    parts = torch.arange(ntransforms).tensor_split(-(-ntransforms // chunk))
+    return tuple(slice(int(p[0]), int(p[-1]) + 1) for p in parts)
+
+
+def point_state_bytes(plan: Plan) -> int:
+    """Device bytes of the point state ``set_points`` keeps on ``plan``."""
+    state = (plan.points, plan.point_perm, plan.point_perm_inv, plan.cells_sorted,
+             plan.fracs_sorted, plan.wtaps_sorted, plan.sort_perm, plan.sort_perm_inv,
+             plan.pstarts)
+    return sum(t.numel() * t.element_size() for t in state if t is not None)
+
+
+def with_transform_chunk(plan: Plan) -> Plan:
+    """``plan`` with ``transform_chunk`` chosen for the card it runs on, for
+    CUDA plans on the blocked and reference paths (the direct path bounds
+    its factors by points, ``ops/direct.py``); other plans as they are."""
+    if plan.device.type != "cuda" or plan.spread_method not in ("blocked", "reference"):
+        return plan
+    chunk = choose_transform_chunk(
+        plan.shape_over, plan.spectral_shape_over, plan.spectral_shape, plan.dtype,
+        plan.ntransforms, plan.num_points,
+        torch.cuda.get_device_properties(plan.device).total_memory,
+        point_state_bytes=point_state_bytes(plan), spread_method=plan.spread_method,
+        m=plan.m, chunk_size=plan.chunk_size)
+    return dataclasses.replace(plan, transform_chunk=chunk)
+
+
 def set_points(plan: Plan, points) -> Plan:
     """Return a new plan with the non-uniform points set (folded on the
     reference path, and in float64 on the direct path; split into cells and
     fractions and bin-sorted on the blocked path, where a window other than
     (B)KB FastApproximation also gets its sorted points' taps,
-    ``wtaps_sorted``, for every exec).  A plan's timer times it under
+    ``wtaps_sorted``, for every exec).  A CUDA plan on the blocked or
+    reference path also gets its ``transform_chunk`` from the card's memory
+    (:func:`with_transform_chunk`).  A plan's timer times it under
     ``"set_points"``."""
     if plan.timer is None:
         return _set_points(plan, points)
@@ -495,7 +622,7 @@ def _set_points(plan: Plan, points) -> Plan:
         cells_s, fracs_s, perm, pstarts = bin_sort(
             cells, fracs, plan.shape_over, plan.block_dims
         )
-        return with_window_taps(dataclasses.replace(
+        return with_transform_chunk(with_window_taps(dataclasses.replace(
             plan,
             points=None,
             point_perm=None,
@@ -506,7 +633,7 @@ def _set_points(plan: Plan, points) -> Plan:
             sort_perm_inv=interp1d_inverse(plan, perm),
             pstarts=pstarts,
             num_points_static=pts.shape[1],
-        ))
+        )))
     pts_f = fold_points(pts, plan.point_transform)
     perm = perm_inv = None
     if plan.sort_points:
@@ -519,7 +646,7 @@ def _set_points(plan: Plan, points) -> Plan:
         _, perm = torch.sort(lin, stable=True)
         perm_inv = torch.argsort(perm)
         pts_f = pts_f[:, perm]
-    return dataclasses.replace(
+    return with_transform_chunk(dataclasses.replace(
         plan,
         points=pts_f,
         point_perm=perm,
@@ -531,4 +658,4 @@ def _set_points(plan: Plan, points) -> Plan:
         sort_perm_inv=None,
         pstarts=None,
         num_points_static=None,
-    )
+    ))

@@ -748,3 +748,75 @@ def test_callbacks_match_manual(cuda_device, shape, dtype):
     assert _rel_err(u, tnufft.exec_type1(plan, vt * w) * filt) <= tol
     v2 = tnufft.exec_type2(plan, u, callbacks=cb)
     assert _rel_err(v2, tnufft.exec_type2(plan, u * filt) * w) <= tol
+
+
+# ---------------------------------------------------------------------------
+# Many transforms: every spread and interpolation entry point at C = 5 and
+# 32, and grouped passes against one pass
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("C", [5, 32])
+@pytest.mark.parametrize("shape,np_", [((24, 24, 24), 20_000), ((64, 48), 20_000),
+                                       ((4096,), 60_000)], ids=str)
+def test_many_transforms_match_plain_versions(cuda_device, shape, np_, C, dtype):
+    """Each spread and interpolation entry point with C transforms in one
+    launch against its plain version, transform by transform.  In 1D at C =
+    32 every output but float32's passes INTERP1D_GATHER_BYTES: the staged
+    kernel, its passes of ``chans`` transforms, and the gather."""
+    from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES, interp1d_gathers
+
+    rng = np.random.default_rng(C + len(shape))
+    D = len(shape)
+    real = np.dtype(dtype).type(0).real.dtype
+    plan = tnufft.PlanNUFFT(dtype, shape, m=4, sigma=1.5, ntransforms=C,
+                            spread_method="blocked", device=cuda_device)
+    plan = tnufft.set_points(plan, torch.from_numpy(
+        rng.uniform(-1.0, 7.0, (D, np_)).astype(real)).to(cuda_device))
+    _, sb, ncomp = VALUE_TYPES[plan.dtype]
+    if D == 1:
+        gathers = interp1d_gathers(np_, C, sb * ncomp)
+        assert gathers == (C == 32 and sb * ncomp > 4)
+        assert (plan.sort_perm_inv is not None) == gathers
+    vp = torch.from_numpy(_values(rng, dtype, (C, np_))).to(cuda_device)
+    grid = torch.from_numpy(_values(rng, dtype, (C,) + plan.shape_over)).to(cuda_device)
+    names = [blocked.entry_point(k, plan) for k in ("spread", "interp")]
+    before = {n: blocked.LAUNCHES[n] for n in names}
+    g_k = blocked.spread_blocked(plan, vp)
+    v_k = blocked.interpolate_blocked(plan, grid)
+    torch.cuda.synchronize()
+    assert all(blocked.LAUNCHES[n] == before[n] + 1 for n in names)
+    tol = KERNEL_TOL[np.dtype(real).itemsize]
+    for c in range(C):
+        assert _rel_err(g_k[c], blocked.spread_blocked_plain(plan, vp[c : c + 1])[0]) <= tol
+        assert _rel_err(v_k[c], blocked.interpolate_blocked_plain(plan, grid[c : c + 1])[0]) <= tol
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("shape", [(24, 24, 24), (64, 48), (4096,)], ids=str)
+def test_grouped_matches_one_pass_on_card(cuda_device, shape, dtype):
+    """A plan of 8 transforms in groups of 3 against the same plan in one
+    pass (the chooser keeps these small plans whole); one spread and one
+    interpolation launch a group."""
+    import dataclasses
+
+    rng = np.random.default_rng(len(shape))
+    C, D = 8, len(shape)
+    real = np.dtype(dtype).type(0).real.dtype
+    plan = tnufft.PlanNUFFT(dtype, shape, m=4, sigma=1.5, ntransforms=C,
+                            spread_method="blocked", device=cuda_device)
+    plan = tnufft.set_points(plan, rng.uniform(0, 2 * np.pi, (D, 20_000)).astype(real))
+    assert plan.transform_chunk is None
+    grouped = dataclasses.replace(plan, transform_chunk=3)
+    v = torch.from_numpy(_values(rng, dtype, (C, 20_000))).to(cuda_device)
+    cdt = np.complex64 if real == np.float32 else np.complex128
+    u = torch.from_numpy(_values(rng, cdt, (C,) + plan.spectral_shape)).to(cuda_device)
+    names = [blocked.entry_point(k, plan) for k in ("spread", "interp")]
+    before = {n: blocked.LAUNCHES[n] for n in names}
+    g1, g2 = tnufft.exec_type1(grouped, v), tnufft.exec_type2(grouped, u)
+    torch.cuda.synchronize()
+    assert all(blocked.LAUNCHES[n] == before[n] + 3 for n in names)
+    tol = 1e-6 if real == np.float32 else 1e-12
+    assert _rel_err(g1, tnufft.exec_type1(plan, v)) <= tol
+    assert _rel_err(g2, tnufft.exec_type2(plan, u)) <= tol
