@@ -120,11 +120,26 @@ Phases, in order; the first failure raises and the script exits non-zero:
     interpolation launch a group a call.  Then C = 8 in groups of 3
     against the same plan in one pass (<= 1e-6 complex64, <= 1e-12
     complex128), once under ``Timer(synchronise=True)`` with both
-    callbacks (every label present, each stage once a group); then every
-    spread and interpolation entry point, four dtypes, with C = 5 and 32
-    transforms in one launch at 2^20, 4096^2 and 256^3 (1,000,000 points)
-    against its plain version run a transform at a time, with phase 4's
-    limits.
+    callbacks (every label present, each stage once a group).  Beside the
+    sigma = 2 complex128 C = 32 row and on its inputs, the other paths in
+    their groups of transforms (each must run in more than one): (a)
+    ``ChunkedPlanNUFFT`` with 4 chunks, (b) ``exec_type{1,2}_sharded`` and
+    ``SpatialNUFFT`` on an NCCL group of one rank; then (c)
+    ``SpatialNUFFT`` complex64, sigma = 2, C = 16 on four gloo ranks
+    spawned on the one card, each planning with a quarter of it (timed
+    once: gloo moves the tensors through the host); and the 2D (4096^2)
+    and 1D (2^20) complex64 rows at C = 32, whose peaks test the model's
+    other dimensions, each also in groups of 8 against one pass.  Each of
+    these rows: its groups, ms a transform (medians of 3), each exec's
+    ``max_memory_allocated`` against the model and the process's share of
+    the card (a peak above the share fails), transforms 0 and C - 1
+    against exact sums (err1 / err2 <= 1e-5) and against one-transform
+    runs of the same path (<= 1e-12 complex128, 1e-6 complex64), and one
+    spread and one interpolation launch a group (a chunk a group) a call.
+    Then every spread and interpolation entry point, four dtypes, with
+    C = 5 and 32 transforms in one launch at 2^20, 4096^2 and 256^3
+    (1,000,000 points) against its plain version run a transform at a
+    time, with phase 4's limits.
 
 Each main-path row sets every launch count to 0 just before it drives the
 path and reads the counts just after; a kernel of the path that was not
@@ -165,6 +180,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -219,6 +235,16 @@ NT_ROWS = ((np.complex64, 1.5, (1, 2, 8, 32)), (np.complex128, 1.5, (1, 2, 8, 32
 NT_GROUPED = (8, 3)
 GROUPED_TOL = {4: 1e-6, 8: 1e-12}
 NT_KERNEL_COUNTS, NT_KERNEL_NP = (5, 32), 1_000_000
+# Phase 15's other paths: beside the plain row of NT_PATHS (dtype, sigma,
+# C), the points-chunked plan (NCHUNKS chunks) and the point-sharded and
+# spatial modes on an NCCL group of one rank, timed as medians of
+# NT_PATH_REPS; the spatial mode on NT_GLOO ranks of a gloo group sharing
+# the card (dtype, sigma, C, ranks), timed once; and the 2D and 1D rows
+# NT_LOWDIM (shape, dtype, C, forced group size).
+NT_PATHS = (np.complex128, 2.0, 32)
+NT_GLOO = (np.complex64, 2.0, 16, 4)
+NT_LOWDIM = ((SHAPE_2D, np.complex64, 32, 8), (SHAPE_1D, np.complex64, 32, 8))
+NT_PATH_REPS = 3
 REPS = 5
 ERR_MODES = 64
 ERR_POINTS = 4096
@@ -749,17 +775,21 @@ def _err2(pts, v2, a, real: bool, seed: int, points: int = ERR_POINTS) -> float:
 # ---------------------------------------------------------------------------
 
 
+def _window_kw(window=MAIN_WINDOW):
+    """The plan keyword arguments of a window, (kernel class, evaluation
+    mode) by name."""
+    import nonuniformffts_tpu_torch as nufft
+
+    return dict(kernel=getattr(nufft, window[0])(), kernel_evalmode=getattr(nufft, window[1])())
+
+
 def _plan(dtype, shape, m: int, sigma: float, window=MAIN_WINDOW, **kw):
     import torch
 
     import nonuniformffts_tpu_torch as nufft
 
-    return nufft.PlanNUFFT(
-        dtype, shape, m=m, sigma=sigma,
-        kernel=getattr(nufft, window[0])(),
-        kernel_evalmode=getattr(nufft, window[1])(),
-        spread_method="blocked", device=torch.device("cuda"), **kw,
-    )
+    return nufft.PlanNUFFT(dtype, shape, m=m, sigma=sigma, spread_method="blocked",
+                           device=torch.device("cuda"), **_window_kw(window), **kw)
 
 
 def float32_accumulation_diagnostic(plan, pts, vp, err1_f32: float, seed: int):
@@ -1536,7 +1566,6 @@ def phase_parallel(seed: int, record, compared):
     import tempfile
 
     import torch
-    import torch.distributed as dist
     import torch.multiprocessing as mp
 
     log(f"== phase 13: multi-device modes, N = {'x'.join(map(str, SHAPE_3D))}, "
@@ -1554,14 +1583,11 @@ def phase_parallel(seed: int, record, compared):
             f"finished in {time.perf_counter() - t0:.1f} s")
         rows = [r for k in range(SPATIAL_RANKS)
                 for r in json.loads(Path(tmp, f"rank{k}.json").read_text())]
-        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl", rank=0, world_size=1)
-        try:
-            rows.append(spatial_row("spatial n=1 complex64", np.complex64, None, SHAPE_3D,
-                                    NP_SPATIAL, seed))
-            rows.append(spatial_row("spatial n=1 complex64 sharded", np.complex64, None,
-                                    SHAPE_3D, NP_SPATIAL, seed, spectrum="sharded"))
-        finally:
-            dist.destroy_process_group()
+    with nccl_group_of_one():
+        rows.append(spatial_row("spatial n=1 complex64", np.complex64, None, SHAPE_3D,
+                                NP_SPATIAL, seed))
+        rows.append(spatial_row("spatial n=1 complex64 sharded", np.complex64, None,
+                                SHAPE_3D, NP_SPATIAL, seed, spectrum="sharded"))
     _log_rows(rows)
     for r in rows:
         record((r["launches"], {}))
@@ -1869,9 +1895,10 @@ def _peak_above(fn):
     return out, peak - base, peak
 
 
-def ntransforms_row(dtype, sigma: float, C: int, seed: int, pts, vp, u, factors):
+def ntransforms_row(dtype, sigma: float, C: int, seed: int, pts, vp, u, factors,
+                    shape=SHAPE_3D):
     """One row of phase 15: ``set_points`` / ``exec_type1`` / ``exec_type2``
-    of a C-transform plan at 256^3 (ms a call and a transform), each
+    of a C-transform plan at ``shape`` (ms a call and a transform), each
     transform's err1 / err2 against exact sums, the peak memory of each
     exec against the model's (``plan.py:transform_working_set``), the
     chosen ``transform_chunk`` and the launches: one spread and one
@@ -1884,8 +1911,8 @@ def ntransforms_row(dtype, sigma: float, C: int, seed: int, pts, vp, u, factors)
     from nonuniformffts_tpu_torch import plan as plan_mod
     from nonuniformffts_tpu_torch.ops.kernels import blocked
 
-    label = f"3D {np.dtype(dtype).name} sigma = {sigma} C = {C}"
-    plan0 = _plan(dtype, SHAPE_3D, 4, sigma, ntransforms=C)
+    label = f"{len(shape)}D {np.dtype(dtype).name} sigma = {sigma} C = {C}"
+    plan0 = _plan(dtype, shape, 4, sigma, ntransforms=C)
     blocked.reset_launch_counts()
     t_set, plan = cuda_time_ms(lambda: nufft.set_points(plan0, pts))
     groups = plan_mod.transform_groups(C, plan.transform_chunk)
@@ -1896,7 +1923,7 @@ def ntransforms_row(dtype, sigma: float, C: int, seed: int, pts, vp, u, factors)
         raise AssertionError(f"{label}: output shapes {tuple(uhat.shape)}, {tuple(v2.shape)}")
     if not (torch.isfinite(torch.view_as_real(uhat)).all() and torch.isfinite(v2).all()):
         raise AssertionError(f"{label}: non-finite output")
-    e1 = [_err1(pts, vp[c], uhat[c], SHAPE_3D, plan.is_real, seed) for c in range(C)]
+    e1 = [_err1(pts, vp[c], uhat[c], shape, plan.is_real, seed) for c in range(C)]
     e2 = [_err2(pts, v2[c], factors[c], plan.is_real, seed) for c in range(C)]
     # The model's bytes, and the measured ones a transform of the largest
     # group: the peak less the exec's whole-C output (and a grouped type
@@ -1945,7 +1972,7 @@ def ntransforms_row(dtype, sigma: float, C: int, seed: int, pts, vp, u, factors)
     if sigma != 1.5:
         if len(groups) < 2:
             raise AssertionError(f"{label} ran in one pass")
-        single = nufft.set_points(_plan(dtype, SHAPE_3D, 4, sigma), pts)
+        single = nufft.set_points(_plan(dtype, shape, 4, sigma), pts)
         row["vs_single_transform_plans"] = (
             [rel_l2(u_ends[i], nufft.exec_type1(single, vp[c])) for i, c in enumerate(ends)]
             + [rel_l2(v_ends[i], nufft.exec_type2(single, u[c])) for i, c in enumerate(ends)])
@@ -1995,6 +2022,359 @@ def _grouped_against_whole(dtype, seed: int, pts, vp, u):
             raise AssertionError(f"{label}: {key} ran {timer.counts[key]} times, not "
                                  f"once for each of {ngroups} groups")
     return dict(row=label, grouped_vs_whole=errs, timer_counts=dict(timer.counts))
+
+
+def _ends(label, shape, seed, vp, factors, got, one, tol, pts, pts_local=None):
+    """err1 / err2 of transforms 0 and C - 1 against exact sums (type 2 at
+    ``pts_local``, this rank's points, when given), and against ``one(c)``,
+    the (spectrum, values) of a one-transform run of the same path on the
+    same inputs; ``got`` holds the run's own for the two (``_peaks``);
+    checks both against their limits; returns them."""
+    C = vp.shape[0]
+    ends = (0, C - 1)
+    e1, e2, vs_one = [], [], []
+    for i, c in enumerate(ends):
+        uc, v2c = got[0][i], got[1][i]
+        u1, w2 = one(c)
+        e1.append(_err1(pts, vp[c], uc, shape, False, seed))
+        e2.append(_err2(pts if pts_local is None else pts_local, v2c, factors[c], False, seed))
+        vs_one.append([rel_l2(uc, u1), rel_l2(v2c, w2)])
+    for what, value, limit in ((f"err1 of transforms 0 and {C - 1}", max(e1), ERR_TOL),
+                               (f"err2 of transforms 0 and {C - 1}", max(e2), ERR_TOL),
+                               ("type 1 vs one-transform runs", max(x[0] for x in vs_one), tol),
+                               ("type 2 vs one-transform runs", max(x[1] for x in vs_one), tol)):
+        check(f"{label}: {what}", value, limit)
+    return dict(err1_ends=e1, err2_ends=e2, vs_one_transform=vs_one)
+
+
+def _peaks(label, run1, run2, ends, ws, C: int, gmax: int, grid_bytes: int, out1: int,
+           out2: int, share: int):
+    """Run ``run1`` (type 1) and ``run2`` (type 2) once each for their peak
+    device memory; print and return it beside the model: the peak less the
+    exec's whole-C output (``out1``, ``out2``) a transform of the largest
+    group in grids (``grid_bytes``) against the model's per-transform
+    bytes, and ``max_memory_allocated`` against the model's total in these
+    groups and in one pass of all C, and the process's share of the card
+    (``share``), which it must stay under; beside it the caching
+    allocator's ``max_memory_reserved``.  Only ``ends(output)`` of each
+    output is kept: the transforms the row checks."""
+    import torch
+
+    torch.cuda.empty_cache()
+    got, peak1, abs1 = _peak_above(run1)
+    res1 = torch.cuda.max_memory_reserved()
+    got1 = ends(got)
+    del got
+    torch.cuda.empty_cache()
+    got, peak2, abs2 = _peak_above(run2)
+    res2 = torch.cuda.max_memory_reserved()
+    got2 = ends(got)
+    del got
+    per = [(peak1 - out1) / gmax / grid_bytes, (peak2 - out2) / gmax / grid_bytes]
+    log(f"    {label}: peak above the inputs {peak1 / 2**30:.3f} / {peak2 / 2**30:.3f} GiB, "
+        f"max_memory_allocated {abs1 / 2**30:.3f} / {abs2 / 2**30:.3f} GiB, "
+        f"max_memory_reserved {res1 / 2**30:.3f} / {res2 / 2**30:.3f} GiB (share "
+        f"{share / 2**30:.3f}, model total {ws.total(gmax) / 2**30:.3f}, in one pass "
+        f"{ws.total(C) / 2**30:.3f}); a transform of the "
+        f"largest group {per[0]:.3f} / {per[1]:.3f} grids, model "
+        f"{ws.per_transform / grid_bytes:.3f} (grid {grid_bytes / 2**30:.3f} GiB)")
+    if max(abs1, abs2) > share:
+        raise AssertionError(f"{label}: peak {max(abs1, abs2)} bytes above the share {share}")
+    return got1, got2, dict(
+        peak_exec_type1_bytes=peak1, peak_exec_type2_bytes=peak2,
+        max_memory_allocated_exec_type1=abs1, max_memory_allocated_exec_type2=abs2,
+        max_memory_reserved_exec_type1=res1, max_memory_reserved_exec_type2=res2,
+        per_transform_grids_measured=per, per_transform_grids_model=ws.per_transform / grid_bytes,
+        model_total_bytes=ws.total(gmax), model_one_pass_bytes=ws.total(C), share_bytes=share)
+
+
+def _timed_per_transform(label, C, run1, run2, reps: int):
+    """ms of ``run1`` / ``run2`` (CUDA events, median of ``reps`` after one
+    warm-up; once when ``reps`` is 1, without the warm-up), a call and a
+    transform."""
+    warmup = 0 if reps == 1 else 1
+    t1, _ = cuda_time_ms(lambda: run1() is None, reps=reps, warmup=warmup)
+    t2, _ = cuda_time_ms(lambda: run2() is None, reps=reps, warmup=warmup)
+    log(f"  {label}: exec_type1 {t1:.3f} ms ({t1 / C:.3f} a transform), exec_type2 "
+        f"{t2:.3f} ms ({t2 / C:.3f} a transform), {'once' if reps == 1 else f'median of {reps}'}")
+    return dict(exec_type1_ms=t1, exec_type2_ms=t2, exec_type1_ms_per_transform=t1 / C,
+                exec_type2_ms_per_transform=t2 / C, timed_calls=reps)
+
+
+def nt_chunked_row(dtype, sigma: float, seed: int, pts, vp, u, factors):
+    """Phase 15 row (a): ``ChunkedPlanNUFFT`` (NCHUNKS chunks) on the plain
+    row's arguments and inputs, in the chunked plan's groups of transforms
+    (it must run in more than one), with its peaks against the model
+    (all chunks' point state, the accumulator), its ends against exact sums
+    and a one-transform chunked plan, and one spread and one interpolation
+    launch a chunk a group a call."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from nonuniformffts_tpu_torch import chunked
+    from nonuniformffts_tpu_torch import plan as plan_mod
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    C = vp.shape[0]
+    label = f"3D {np.dtype(dtype).name} sigma = {sigma} C = {C}, chunked ({NCHUNKS})"
+    kw = dict(m=4, sigma=sigma, spread_method="blocked", device=torch.device("cuda"),
+              **_window_kw())
+    blocked.reset_launch_counts()
+    t_set, cplan = cuda_time_ms(lambda: nufft.set_points_chunked(nufft.ChunkedPlanNUFFT(
+        dtype, SHAPE_3D, nchunks=NCHUNKS, ntransforms=C, **kw), pts), reps=1, warmup=0)
+    groups = plan_mod.transform_groups(C, cplan.transform_chunk)
+    if len(groups) < 2:
+        raise AssertionError(f"{label} ran in one pass")
+    gmax = max(g.stop - g.start for g in groups)
+    whole = chunked.whole_plan(cplan)
+    ws = plan_mod.transform_working_set(**{
+        **plan_mod.model_arguments(whole), "extra_grids": 1,
+        "point_state_bytes": sum(plan_mod.point_state_bytes(p) for p in cplan.plans)})
+    spec = C * math.prod(whole.spectral_shape) * vp.element_size()
+    *got, row = _peaks(label, lambda: nufft.exec_type1_chunked(cplan, vp),
+                       lambda: nufft.exec_type2_chunked(cplan, u), lambda x: x[[0, C - 1]], ws,
+                       C, gmax, math.prod(whole.shape_over) * vp.element_size(), spec,
+                       vp.numel() * vp.element_size() + spec,
+                       plan_mod.device_share_bytes(vp.device))
+    one = nufft.set_points_chunked(nufft.ChunkedPlanNUFFT(dtype, SHAPE_3D, nchunks=NCHUNKS,
+                                                          **kw), pts)
+    row.update(_ends(label, SHAPE_3D, seed, vp, factors, got,
+                     lambda c: (nufft.exec_type1_chunked(one, vp[c]),
+                                nufft.exec_type2_chunked(one, u[c])),
+                     GROUPED_TOL[vp.element_size() // 2], pts))
+    del got, one
+    torch.cuda.empty_cache()
+    blocked.reset_launch_counts()
+    row.update(_timed_per_transform(
+        label, C, lambda: nufft.exec_type1_chunked(cplan, vp),
+        lambda: nufft.exec_type2_chunked(cplan, u), NT_PATH_REPS))
+    calls = NT_PATH_REPS + 1
+    counts = _check_path_launches(cplan.base, label, calls * NCHUNKS * len(groups))
+    log(f"    transform_chunk {cplan.transform_chunk}, {len(groups)} groups; "
+        f"set_points_chunked {t_set:.3f} ms")
+    row.update(row=label, transform_chunk=cplan.transform_chunk, groups=len(groups),
+               set_points_chunked_ms=t_set, launches=counts)
+    return row
+
+
+def _channel_end(x, c: int):
+    """Transform ``c`` of a channel-form output as a complex tensor."""
+    from nonuniformffts_tpu_torch import execution as ex
+
+    return ex.from_channels(x[c : c + 1], 1)[0]
+
+
+def nt_sharded_row(dtype, sigma: float, seed: int, pts, vp, u_ch, factors):
+    """Phase 15 row (b), point-sharded: ``exec_type{1,2}_sharded`` on the
+    NCCL group of one rank that is the default group, on the plain row's
+    arguments and inputs (its rank-1 spectra in the channel form,
+    ``u_ch``), as ``nt_chunked_row``."""
+    import torch
+
+    from nonuniformffts_tpu_torch import execution as ex
+    from nonuniformffts_tpu_torch import plan as plan_mod
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+    from nonuniformffts_tpu_torch.parallel import comm, sharded
+
+    C = vp.shape[0]
+    label = f"3D {np.dtype(dtype).name} sigma = {sigma} C = {C}, point-sharded (nccl, n = 1)"
+    plan = _plan(dtype, SHAPE_3D, 4, sigma, ntransforms=C)
+    one = _plan(dtype, SHAPE_3D, 4, sigma)
+    v_ch = ex.to_channels(vp, 1)
+    local = sharded.local_plan(plan, pts, agree=True)  # type 1's
+    chunk = local.transform_chunk
+    groups = plan_mod.transform_groups(C, chunk)
+    if len(groups) < 2:
+        raise AssertionError(f"{label} ran in one pass")
+    gmax = max(g.stop - g.start for g in groups)
+    ws = plan_mod.transform_working_set(**plan_mod.model_arguments(local))
+    sharing = comm.ranks_on_device(vp.device)
+    del local
+    spec = C * math.prod(plan.spectral_shape) * vp.element_size()
+    run1 = lambda: sharded.exec_type1_sharded(plan, pts, v_ch)  # noqa: E731
+    run2 = lambda: sharded.exec_type2_sharded(plan, pts, u_ch)  # noqa: E731
+    *got, row = _peaks(label, run1, run2, lambda x: [_channel_end(x, c) for c in (0, C - 1)],
+                       ws, C, gmax, math.prod(plan.shape_over) * vp.element_size(), 2 * spec,
+                       2 * vp.numel() * vp.element_size() + 2 * spec,
+                       plan_mod.device_share_bytes(vp.device, sharing))
+    row.update(_ends(
+        label, SHAPE_3D, seed, vp, factors, got,
+        lambda c: (_channel_end(sharded.exec_type1_sharded(one, pts, v_ch[c : c + 1]), 0),
+                   _channel_end(sharded.exec_type2_sharded(one, pts, u_ch[c : c + 1]), 0)),
+        GROUPED_TOL[vp.element_size() // 2], pts))
+    del got
+    torch.cuda.empty_cache()
+    blocked.reset_launch_counts()
+    row.update(_timed_per_transform(label, C, run1, run2, NT_PATH_REPS))
+    counts = _check_path_launches(plan, label, (NT_PATH_REPS + 1) * len(groups))
+    log(f"    transform_chunk {chunk}, {len(groups)} groups, {sharing} rank(s) on the card")
+    row.update(row=label, transform_chunk=chunk, groups=len(groups), ranks_on_device=sharing,
+               launches=counts)
+    return row
+
+
+def nt_spatial_row(dtype, sigma: float, seed: int, pts, vp, u_ch, factors, reps=NT_PATH_REPS,
+                   group=None):
+    """Phase 15 rows (b) and (c), spatial: ``SpatialNUFFT`` (replicated
+    spectrum, block form) on ``group`` (default: the default group), this
+    rank's share of the points and values, the rank-1 spectra in the
+    channel form (``u_ch``); its groups from the slab model and the rank's
+    share of the card; peaks, ends and launches as ``nt_chunked_row``."""
+    import torch
+    import torch.distributed as dist
+
+    from nonuniformffts_tpu_torch import execution as ex
+    from nonuniformffts_tpu_torch import plan as plan_mod
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+    from nonuniformffts_tpu_torch.parallel import SpatialNUFFT, comm
+
+    C = vp.shape[0]
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    label = (f"3D {np.dtype(dtype).name} sigma = {sigma} C = {C}, spatial "
+             f"({comm.backend(group)}, n = {n})")
+    npl = pts.shape[1] // n
+    sl = slice(me * npl, (me + 1) * npl)
+    kw = dict(group=group, m=4, sigma=sigma, capacity_factor=SPATIAL_CAPACITY,
+              device=vp.device, **_window_kw())
+    sp = SpatialNUFFT(dtype, SHAPE_3D, ntransforms=C, **kw)
+    one = SpatialNUFFT(dtype, SHAPE_3D, **kw)
+    v_ch = ex.to_channels(vp[:, sl], 1)
+    t_set, st = cuda_time_ms(lambda: sp.set_points(pts[:, sl]), reps=1, warmup=0)
+    st_one = one.set_points(pts[:, sl])
+    groups = plan_mod.transform_groups(C, st.local.transform_chunk)
+    if len(groups) < 2:
+        raise AssertionError(f"{label} ran in one pass")
+    gmax = max(g.stop - g.start for g in groups)
+    spec = C * math.prod(sp.output_shape) * vp.element_size()
+    run1 = lambda: sp.exec_type1(st, v_ch)  # noqa: E731
+    run2 = lambda: sp.exec_type2(st, u_ch)  # noqa: E731
+    *got, row = _peaks(
+        f"{label} rank {me}", run1, run2, lambda x: [_channel_end(x, c) for c in (0, C - 1)],
+        sp.working_set(st), C, gmax, math.prod(st.local.shape_over) * vp.element_size(), spec,
+        2 * v_ch.numel() * v_ch.element_size() + spec,
+        plan_mod.device_share_bytes(vp.device, st.ranks_on_device))
+    row.update(_ends(
+        f"{label} rank {me}", SHAPE_3D, seed, vp, factors, got,
+        lambda c: (_channel_end(one.exec_type1(st_one, v_ch[c : c + 1]), 0),
+                   _channel_end(one.exec_type2(st_one, u_ch[c : c + 1]), 0)),
+        GROUPED_TOL[vp.element_size() // 2], pts, pts_local=pts[:, sl]))
+    del got, st_one, one
+    torch.cuda.empty_cache()
+    blocked.reset_launch_counts()
+    row.update(_timed_per_transform(f"{label} rank {me}", C, run1, run2, reps))
+    counts = _check_path_launches(st.local, f"{label} rank {me}",
+                                  (reps + (reps > 1)) * len(groups))
+    log(f"    rank {me}: transform_chunk {st.local.transform_chunk}, {len(groups)} groups, "
+        f"{st.ranks_on_device} rank(s) on the card; set_points {t_set:.3f} ms")
+    row.update(row=label, rank=me, n=n, transform_chunk=st.local.transform_chunk,
+               groups=len(groups), ranks_on_device=st.ranks_on_device, set_points_ms=t_set,
+               launches=counts)
+    return row
+
+
+def _nt_inputs(dtype, shape, C: int, seed: int, np_: int = NT_NP):
+    """Phase 15's points, values and rank-1 spectra of a complex dtype."""
+    import torch
+
+    dev = torch.device("cuda")
+    tdtype = getattr(torch, np.dtype(dtype).name)
+    gen = torch.Generator(device=dev).manual_seed(seed + np_)
+    pts = _uniform_points(gen, len(shape), np_, tdtype.to_real(), dev)
+    vp = _random_values(gen, (C, np_), tdtype, dev)
+    factors, u = _rank1_batch(shape, C, seed, tdtype, dev)
+    return pts, vp, u, factors
+
+
+def _nt_gloo_rank(rank: int, n: int, rdv: str, out_dir: str, seed: int):
+    """One gloo rank of phase 15 row (c) on cuda:0: ``nt_spatial_row`` on
+    NT_GLOO, every rank making the same global inputs; writes its row to
+    ``out_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=600))
+    from nonuniformffts_tpu_torch import execution as ex
+
+    dtype, sigma, C, _ = NT_GLOO
+    pts, vp, u, factors = _nt_inputs(dtype, SHAPE_3D, C, seed)
+    u_ch = ex.to_channels(u, 1)
+    del u
+    row = nt_spatial_row(dtype, sigma, seed, pts, vp, u_ch, factors, reps=1)
+    dist.barrier()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(row))
+    dist.destroy_process_group()
+
+
+def nt_gloo_rows(seed: int):
+    """Phase 15 row (c): NT_GLOO ranks of a gloo group spawned on the one
+    card, each planning with its share of it."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    n = NT_GLOO[3]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(_nt_gloo_rank, args=(n, f"{tmp}/rendezvous", tmp, seed), nprocs=n,
+                           start_method="spawn")
+        log(f"  {n} gloo ranks on cuda:0 finished in {time.perf_counter() - t0:.1f} s")
+        rows = [json.loads(Path(tmp, f"rank{k}.json").read_text()) for k in range(n)]
+    for r in rows:
+        peak = max(r["max_memory_allocated_exec_type1"], r["max_memory_allocated_exec_type2"])
+        log(f"  {r['row']} rank {r['rank']}: {r['groups']} groups of {r['transform_chunk']}, "
+            f"exec_type1 / exec_type2 {r['exec_type1_ms_per_transform']:.3f} / "
+            f"{r['exec_type2_ms_per_transform']:.3f} ms a transform (once), peak "
+            f"{peak / 2**30:.3f} GiB of its share {r['share_bytes'] / 2**30:.3f} (model total "
+            f"{r['model_total_bytes'] / 2**30:.3f}, in one pass "
+            f"{r['model_one_pass_bytes'] / 2**30:.3f}), err1 {max(r['err1_ends']):.3e}, err2 "
+            f"{max(r['err2_ends']):.3e}, vs one transform {r['vs_one_transform']}")
+    return rows
+
+
+def nt_lowdim_row(shape, dtype, C: int, chunk: int, seed: int):
+    """Phase 15's 2D and 1D rows: C transforms at ``shape``, sigma = 1.5, as
+    the 3D rows (the model's 2D and 1D terms against the peaks), then the
+    same plan in groups of ``chunk`` against one pass."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+
+    pts, vp, u, factors = _nt_inputs(dtype, shape, C, seed)
+    row = ntransforms_row(dtype, 1.5, C, seed, pts, vp, u, factors, shape=shape)
+    whole = dataclasses.replace(
+        nufft.set_points(_plan(dtype, shape, 4, 1.5, ntransforms=C), pts),
+        transform_chunk=None)
+    grouped = dataclasses.replace(whole, transform_chunk=chunk)
+    row["grouped_vs_whole"] = [rel_l2(nufft.exec_type1(grouped, vp), nufft.exec_type1(whole, vp)),
+                               rel_l2(nufft.exec_type2(grouped, u), nufft.exec_type2(whole, u))]
+    tol = GROUPED_TOL[vp.element_size() // 2]
+    check(f"{row['row']}, groups of {chunk}: type 1 grouped vs whole", row["grouped_vs_whole"][0],
+          tol)
+    check(f"{row['row']}, groups of {chunk}: type 2 grouped vs whole", row["grouped_vs_whole"][1],
+          tol)
+    del whole, grouped, pts, vp, u
+    torch.cuda.empty_cache()
+    return row
+
+
+@contextlib.contextmanager
+def nccl_group_of_one():
+    """An NCCL process group of this process alone, the default group."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl", rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
 
 
 def check_kernels_many(shape, C: int, seed: int, transforms):
@@ -2055,6 +2435,8 @@ def phase_ntransforms(seed: int, record, transforms):
     """Phase 15 (see the module docstring)."""
     import torch
 
+    from nonuniformffts_tpu_torch import execution as ex
+
     dev = torch.device("cuda")
     rows = []
     for dtype, sigma, counts in NT_ROWS:
@@ -2076,6 +2458,13 @@ def phase_ntransforms(seed: int, record, transforms):
                 del u_np
             rows.append(ntransforms_row(dtype, sigma, C, seed, pts, vp, u, factors))
             record((rows[-1]["launches"], {}))
+            if (dtype, sigma, C) == NT_PATHS:
+                rows.append(nt_chunked_row(dtype, sigma, seed, pts, vp, u, factors))
+                u = ex.to_channels(u, 1)  # the form the multi-device modes take
+                torch.cuda.empty_cache()
+                rows.extend(_nccl_rows(dtype, sigma, seed, pts, vp, u, factors))
+                for r in rows[-3:]:
+                    record((r["launches"], {}))
             del vp, u
             torch.cuda.empty_cache()
         if sigma == 1.5 and complex_data:
@@ -2088,12 +2477,39 @@ def phase_ntransforms(seed: int, record, transforms):
         torch.cuda.empty_cache()
         log(f"  ({np.dtype(dtype).name} sigma = {sigma} rows: "
             f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    gloo = nt_gloo_rows(seed)
+    for r in gloo:
+        record((r["launches"], {}))
+    rows.extend(gloo)
+    log(f"  (gloo rows: {time.perf_counter() - t0:.1f} s)")
+    for shape, dtype, C, chunk in NT_LOWDIM:
+        t0 = time.perf_counter()
+        rows.append(nt_lowdim_row(shape, dtype, C, chunk, seed))
+        record((rows[-1]["launches"], {}))
+        log(f"  ({len(shape)}D row: {time.perf_counter() - t0:.1f} s)")
     for C in NT_KERNEL_COUNTS:
         t0 = time.perf_counter()
         for shape in (SHAPE_1D, SHAPE_2D, SHAPE_3D):
             check_kernels_many(shape, C, seed, transforms)
         log(f"  (kernels at C = {C}: {time.perf_counter() - t0:.1f} s)")
     log("  results " + json.dumps(rows))
+
+
+def _nccl_rows(dtype, sigma: float, seed: int, pts, vp, u_ch, factors):
+    """Rows (b) of phase 15 beside the plain row of NT_PATHS, on its inputs
+    (the spectra in the channel form): the point-sharded and spatial modes
+    on an NCCL group of one rank."""
+    import torch
+
+    t0 = time.perf_counter()
+    with nccl_group_of_one():
+        rows = [nt_sharded_row(dtype, sigma, seed, pts, vp, u_ch, factors)]
+        torch.cuda.empty_cache()
+        rows.append(nt_spatial_row(dtype, sigma, seed, pts, vp, u_ch, factors))
+    torch.cuda.empty_cache()
+    log(f"  (point-sharded and spatial rows: {time.perf_counter() - t0:.1f} s)")
+    return rows
 
 
 def main(argv=None) -> int:

@@ -33,7 +33,11 @@ spreads, transforms and truncates one group at a time into one output, each
 group's grid freed before the next; type 2 scales every transform once and
 pads, transforms and interpolates one group at a time.  The callbacks run
 on every transform at once either way, so grouped results equal ungrouped
-ones; each stage's timer section adds up over the groups.
+ones; each stage's timer section adds up over the groups.  The other paths
+run their groups through the same loops (:func:`type1_groups`,
+:func:`type2_groups`) with their own spread or interpolation: the
+points-chunked plans (``chunked.py``) and the point-sharded mode
+(``parallel/sharded.py``).
 
 Real-data plans take real values in type 1 and return a complex spectrum of
 ``plan.spectral_shape`` (last axis halved); type 2 takes that spectrum and
@@ -186,66 +190,83 @@ def _section(plan: Plan, name: str):
     return contextlib.nullcontext() if plan.timer is None else plan.timer.section(name)
 
 
-def _t1_pass(plan: Plan, vp: torch.Tensor, uniform) -> torch.Tensor:
+def _t1_pass(plan: Plan, vp: torch.Tensor, uniform, spread) -> torch.Tensor:
     """Spread, FFT, deconvolve and truncate ``vp`` (C', Np); the grid goes
     before the deconvolution."""
-    grid = _stage(plan, "(1) spreading", t1_spread_stage, plan, vp)
+    grid = _stage(plan, "(1) spreading", spread, plan, vp)
     spec = _stage(plan, "(2) forward FFT", t1_fft_stage, plan, grid)
     del grid
     return _stage(plan, "(3) deconvolve + truncate", t1_deconv_stage, plan, spec, uniform)
 
 
-def _t2_pass(plan: Plan, spec_fn, uhat: torch.Tensor, *args) -> torch.Tensor:
+def _t2_pass(plan: Plan, interp, spec_fn, uhat: torch.Tensor, *args) -> torch.Tensor:
     """``spec_fn(plan, uhat, *args)`` (pad, or scale and pad), backward FFT
     and interpolation: (C',) + spectral_shape -> (C', Np)."""
     spec = _stage(plan, "(1) deconvolve + pad", spec_fn, plan, uhat, *args)
     grid = _stage(plan, "(2) backward FFT", t2_fft_stage, plan, spec)
     del spec
-    return _stage(plan, "(3) interpolation", t2_interp_stage, plan, grid)
+    return _stage(plan, "(3) interpolation", interp, plan, grid)
+
+
+def type1_groups(plan: Plan, vp: torch.Tensor, uniform=None,
+                 spread=t1_spread_stage) -> torch.Tensor:
+    """(C, Np) values (after the nonuniform callback) -> (C,) +
+    spectral_shape in the plan's groups of transforms (``transform_chunk``):
+    each group's ``spread(plan, values)`` -> FFT -> deconvolution, the
+    group's grid freed before the next.  The uniform callback sees every
+    transform at once: grouped, it runs on the whole output after the last
+    group.  ``spread`` is the plan's own spread stage, or a path's (the
+    chunks' sum of a points-chunked plan, a point-sharded rank's spread and
+    all-reduce)."""
+    groups = transform_groups(vp.shape[0], plan.transform_chunk)
+    if len(groups) == 1:
+        return _t1_pass(plan, vp, uniform, spread)
+    out = torch.empty((vp.shape[0],) + plan.spectral_shape, dtype=plan.complex_dtype,
+                      device=vp.device)
+    for sl in groups:
+        out[sl] = _t1_pass(plan, vp[sl], None, spread)
+    if uniform is not None:
+        out = _stage(plan, "(3) deconvolve + truncate", apply_uniform_callback, out, uniform)
+    return out
+
+
+def type2_groups(plan: Plan, uhat: torch.Tensor, uniform=None,
+                 interp=t2_interp_stage) -> torch.Tensor:
+    """(C,) + spectral_shape -> (C, Np) values (before the nonuniform
+    callback) in the plan's groups of transforms: grouped, the scaling and
+    the uniform callback run once on all transforms, then each group is
+    padded, transformed and interpolated by ``interp(plan, grid)`` (the
+    plan's own stage, or a path's: the chunks' interpolations of a
+    points-chunked plan)."""
+    groups = transform_groups(uhat.shape[0], plan.transform_chunk)
+    if len(groups) == 1:
+        return _t2_pass(plan, interp, t2_pad_stage, uhat, uniform)
+    w = _stage(plan, "(1) deconvolve + pad", t2_scale_stage, plan, uhat, uniform)
+    vp = torch.empty((uhat.shape[0], plan.num_points), dtype=plan.dtype, device=uhat.device)
+    for sl in groups:
+        vp[sl] = _t2_pass(plan, interp, t2_pad_modes_stage, w[sl])
+    return vp
 
 
 def _type1(plan: Plan, vp: torch.Tensor, callbacks: NUFFTCallbacks) -> torch.Tensor:
     """(C, Np) values -> (C,) + spectral_shape, stage by stage, in the
-    plan's groups of transforms (``transform_chunk``).  The callbacks see
-    every transform at once, grouped or not: the uniform one runs on the
-    whole output after the last group."""
+    plan's groups of transforms (:func:`type1_groups`)."""
     with _section(plan, "exec_type1"):
         if plan.spread_method == "direct":
             return _stage(plan, "(1) direct NUDFT", t1_direct, plan, vp, callbacks)
         if callbacks.nonuniform is not None:
             vp = _stage(plan, "(0) nonuniform callback", apply_nonuniform_callback, vp,
                         callbacks.nonuniform)
-        groups = transform_groups(vp.shape[0], plan.transform_chunk)
-        if len(groups) == 1:
-            return _t1_pass(plan, vp, callbacks.uniform)
-        out = torch.empty((vp.shape[0],) + plan.spectral_shape, dtype=plan.complex_dtype,
-                          device=vp.device)
-        for sl in groups:
-            out[sl] = _t1_pass(plan, vp[sl], None)
-        if callbacks.uniform is not None:
-            out = _stage(plan, "(3) deconvolve + truncate", apply_uniform_callback, out,
-                         callbacks.uniform)
-        return out
+        return type1_groups(plan, vp, callbacks.uniform)
 
 
 def _type2(plan: Plan, uhat: torch.Tensor, callbacks: NUFFTCallbacks) -> torch.Tensor:
     """(C,) + spectral_shape -> (C, Np) values, stage by stage, in the
-    plan's groups of transforms: a grouped type 2 scales all transforms and
-    applies the uniform callback once, then pads each group."""
+    plan's groups of transforms (:func:`type2_groups`)."""
     with _section(plan, "exec_type2"):
         if plan.spread_method == "direct":
             return _stage(plan, "(1) direct NUDFT", t2_direct, plan, uhat, callbacks)
-        groups = transform_groups(uhat.shape[0], plan.transform_chunk)
-        if len(groups) == 1:
-            vp = _t2_pass(plan, t2_pad_stage, uhat, callbacks.uniform)
-        else:
-            w = _stage(plan, "(1) deconvolve + pad", t2_scale_stage, plan, uhat,
-                       callbacks.uniform)
-            vp = torch.empty((uhat.shape[0], plan.num_points), dtype=plan.dtype,
-                             device=uhat.device)
-            for sl in groups:
-                vp[sl] = _t2_pass(plan, t2_pad_modes_stage, w[sl])
-            del w
+        vp = type2_groups(plan, uhat, callbacks.uniform)
         if callbacks.nonuniform is not None:
             vp = _stage(plan, "(4) nonuniform callback", apply_nonuniform_callback, vp,
                         callbacks.nonuniform)

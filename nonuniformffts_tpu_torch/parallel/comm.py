@@ -19,8 +19,11 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import socket
 import time
-from typing import Tuple
+import weakref
+import zlib
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -97,18 +100,19 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     return out
 
 
-def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
-    """In-place sum of ``x`` over the group; returns ``x``."""
+def all_reduce(x: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In-place reduction (``op``, by default the sum) of ``x`` over the
+    group; returns ``x``."""
     if not x.is_contiguous():
         raise ValueError("all_reduce needs a contiguous tensor")
     with _timed("all_reduce", x):
         if _via_host("all_reduce", x, group):
             HOST_STAGED["all_reduce"] += 1
             h = x.cpu()
-            dist.all_reduce(_real(h), group=group)
+            dist.all_reduce(_real(h), op=op, group=group)
             x.copy_(h)
         else:
-            dist.all_reduce(_real(x), group=group)
+            dist.all_reduce(_real(x), op=op, group=group)
     return x
 
 
@@ -161,3 +165,52 @@ def neighbour_exchange(to_prev: torch.Tensor, to_next: torch.Tensor,
             from_next, from_prev = from_next.to(dev), from_prev.to(dev)
     return from_next, from_prev
 
+
+def device_key(device: torch.device) -> torch.Tensor:
+    """(host, card) of ``device`` in this process as two int64s on it: the
+    host name's CRC-32 and that of the card's UUID (-1 for the CPU).  The
+    UUID names the physical card, whatever index ``CUDA_VISIBLE_DEVICES``
+    gives it: ranks that each see their own card as ``cuda:0`` do not
+    count as sharing one."""
+    card = -1
+    if device.type == "cuda":
+        card = zlib.crc32(str(torch.cuda.get_device_properties(device).uuid).encode())
+    host = zlib.crc32(socket.gethostname().encode())
+    return torch.tensor([host, card], dtype=torch.int64, device=device)
+
+
+def ranks_sharing(keys: torch.Tensor, mine: torch.Tensor) -> int:
+    """How many rows of ``keys`` (one :func:`device_key` a rank) name the
+    device ``mine`` names: the ranks whose memory is one card's."""
+    return int((keys.view(-1, 2) == mine.view(1, 2)).all(dim=1).sum())
+
+
+#: :func:`ranks_on_device`'s counts, by group and device.
+_SHARING = weakref.WeakKeyDictionary()
+
+
+def ranks_on_device(device: torch.device, group=None) -> int:
+    """How many ranks of ``group`` run on this rank's device (the same host
+    and card; every rank of a host on the CPU): each plans with that share
+    of the card's memory (``plan.py:device_share_bytes``).  Counted once a
+    group and device, by one all_gather of :func:`device_key` on the first
+    call, which every rank of the group makes; later calls communicate
+    nothing."""
+    counts = _SHARING.setdefault(group if group is not None else dist.group.WORLD, {})
+    if str(device) not in counts:
+        mine = device_key(device)
+        counts[str(device)] = ranks_sharing(all_gather(mine, group), mine)
+    return counts[str(device)]
+
+
+def agreed_chunk(chunk: Optional[int], ntransforms: int, device: torch.device,
+                 group=None) -> Optional[int]:
+    """The smallest ``transform_chunk`` of the group's ranks (None, all
+    ``ntransforms`` in one pass, counts as ``ntransforms``), from one
+    all_reduce: ranks whose points or share of a card differ choose
+    different sizes, and each group of transforms runs collectives, which
+    pair up only when every rank runs the same groups."""
+    x = torch.tensor([ntransforms if chunk is None else chunk], dtype=torch.int64,
+                     device=device)
+    smallest = int(all_reduce(x, group, op=dist.ReduceOp.MIN))
+    return None if smallest >= ntransforms else smallest

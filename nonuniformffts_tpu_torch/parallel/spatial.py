@@ -50,7 +50,20 @@ channel form, ``(C, 2) + spectral_shape`` replicated, or this rank's shard
 ``(C, 2, K0l, K1, ..)`` (block form) / ``(C, 2, K0, K1l, ..)`` (split).
 With ``ntransforms > 1`` the transposes run one channel at a time (K8's
 layout keeps the channel axis leading, which is rank-major only for one
-channel); the all_gather folds the channels into dim 0 and stays one call.
+channel); the all_gather folds the channels into dim 0 and stays one call
+a group.
+
+Many transforms run in groups (the slab plan's ``transform_chunk``, the
+plain plans' and the JAX package's ``cr_chunk``): routing the values stays
+one call for all C, and each group runs the whole chain above, spread to
+spectrum or spectrum to values, into an output allocated once.
+``set_points`` chooses the group size on the card from the slab's model
+(:meth:`SpatialNUFFT.slab_model`, ``plan.py:transform_working_set``) and
+this rank's share of its card: the ranks of the group that run on one
+card each plan with ``1 / k`` of its memory, ``k`` counted from the same
+all_gather that checks the point counts.  The ranks then take the
+smallest of their choices (``comm.agreed_chunk``, one all_reduce), so that
+every rank runs the same collectives a group.
 """
 
 from __future__ import annotations
@@ -69,7 +82,9 @@ from ..ops.kernels.blocked import (check_kernel_support, interpolate_blocked, sp
                                    with_window_taps)
 from ..ops.kernels.common import VALUE_TYPES
 from ..ops.kernels.relayout import relayout_to_blocks, relayout_to_grid
-from ..plan import Plan, PlanNUFFT, _canonicalise_points, _identity, _as_real_tensor
+from ..plan import (Plan, PlanNUFFT, WorkingSet, _as_real_tensor, _canonicalise_points,
+                    _identity, model_arguments, point_state_bytes, transform_groups,
+                    transform_working_set, with_transform_chunk)
 from . import comm
 
 #: The extended slab's planes are padded up to a multiple of this, so that
@@ -84,9 +99,12 @@ class SpatialPoints:
     send_idx: torch.Tensor  # (n * cap,) local point index of each send slot
     send_pos: torch.Tensor  # (Np_l,) send slot of each local point
     recv_idx: torch.Tensor  # (Nv,) receive slots that hold a point
-    local: Plan  # extended-slab plan over the Nv received points
+    # extended-slab plan over the Nv received points; its transform_chunk is
+    # the exec's group size
+    local: Plan
     cap: int  # points per (src, dst) lane
     num_points: int  # Np over all ranks
+    ranks_on_device: int = 1  # ranks of the group on this rank's device
 
 
 def jax_engine(engine: str, ndim: int, shape_over, plan_kw) -> str:
@@ -224,7 +242,10 @@ class SpatialNUFFT:
         D = base.ndim
         pts = _canonicalise_points(points, D, base.real_dtype, base.device)
         npl = int(pts.shape[1])
-        counts_all = comm.all_gather(torch.tensor([npl], device=base.device), group).view(-1)
+        # One all_gather of each rank's point count and device.
+        key = comm.device_key(base.device)
+        census = comm.all_gather(torch.cat([key.new_tensor([npl]), key]), group)
+        counts_all = census[:, 0]
         np_total = int(counts_all.sum())
         if bool((counts_all != npl).any()):
             raise ValueError(
@@ -272,8 +293,55 @@ class SpatialNUFFT:
             self._slab_plan, cells_sorted=cells_s, fracs_sorted=fracs_s,
             sort_perm=perm_l, pstarts=pstarts, num_points_static=int(recv_idx.numel()),
         ))
-        return SpatialPoints(send_idx=send_idx, send_pos=send_pos, recv_idx=recv_idx,
-                             local=local, cap=cap, num_points=np_total)
+        sharing = comm.ranks_sharing(census[:, 1:], key)
+        st = SpatialPoints(send_idx=send_idx, send_pos=send_pos, recv_idx=recv_idx,
+                           local=local, cap=cap, num_points=np_total, ranks_on_device=sharing)
+        # Each group of transforms runs the chain's collectives: every rank
+        # takes the smallest of the ranks' choices, which differ with the
+        # points each receives and its share of a card.
+        chunk = with_transform_chunk(local, ranks_on_device=sharing, **self.slab_model(
+            local, npl, _tables_bytes(st))).transform_chunk
+        chunk = comm.agreed_chunk(chunk, base.ntransforms, base.device, group)
+        return dataclasses.replace(st, local=dataclasses.replace(local, transform_chunk=chunk))
+
+    def working_set(self, state: SpatialPoints) -> WorkingSet:
+        """The modelled device memory of this rank's execs on ``state``,
+        from which ``set_points`` chose the group size."""
+        model = self.slab_model(state.local, int(state.send_pos.numel()), _tables_bytes(state))
+        return transform_working_set(**{**model_arguments(state.local), **model})
+
+    def slab_model(self, local: Plan, np_local: int, tables_bytes: int = 0) -> dict:
+        """The arguments of ``plan.py:transform_working_set`` for this rank's
+        execs beside the slab plan ``local``'s own (its extended slab as the
+        grid): the slab FFT'd over dims 1.. (what cuFFT writes), this rank's
+        output a transform, and as the buffers a transform holds the
+        truncation temporary (one FFT'd slab), the transposes' columns twice
+        ((n n0l, k1l, ..), the padded slab and the transposed copy) and the
+        gathered spectrum twice ((n, K0, k1l, ..) and its unpacked copy; a
+        sharded spectrum's (K0, k1l, ..) shard): each counted as if all were
+        held at once.  Fixed: the slab plan's point state, the routing
+        tables (``tables_bytes``) and the routed values of all C."""
+        base, n = self.base, self.n
+        tail = tuple(base.spectral_shape[2:])
+        fft_shape = (self.n0_local,) + tuple(base.spectral_shape_over[1:])
+        cols = (n * self.n0_local, self.k1_local) + tail
+        shard = (base.spectral_shape[0], self.k1_local) + tail
+        gathered = (n,) + shard if self.spectrum == "replicated" else shard
+        _, scalar_bytes, ncomp = VALUE_TYPES[base.dtype]
+        routed = base.ntransforms * local.num_points * scalar_bytes * ncomp
+        return dict(spectral_shape_over=fft_shape, spectral_shape=self.output_shape,
+                    num_points=np_local,
+                    point_state_bytes=point_state_bytes(local) + tables_bytes + routed,
+                    slab_buffers=(fft_shape, cols, cols, gathered, gathered))
+
+    @property
+    def output_shape(self) -> Tuple[int, ...]:
+        """A transform's spectrum on this rank: ``spectral_shape``, or its
+        shard along ``spectrum_shard_dim``."""
+        shape = list(self.base.spectral_shape)
+        if self.spectrum == "sharded":
+            shape[self.spectrum_shard_dim] //= self.n
+        return tuple(shape)
 
     def _route(self, x: torch.Tensor, send_idx: torch.Tensor, cap: int) -> torch.Tensor:
         """(R, Np_l) rows in local order -> (R, n cap) rows at the owner ranks'
@@ -318,13 +386,21 @@ class SpatialNUFFT:
         channel-form spectrum ``(C, 2) + spectral_shape`` (replicated) or, for
         ``spectrum='sharded'``, this rank's shard along ``spectrum_shard_dim``:
         ``(C, 2, K0l, K1, ..)`` (block form) or ``(C, 2, K0, K1l, ..)``."""
-        base, n, group, m = self.base, self.n, self.group, self.base.m
-        D, C = base.ndim, base.ntransforms
+        base, C = self.base, self.base.ntransforms
         v_ch = _as_real_tensor(v_ch, base.real_dtype, base.device)
         self._check_channels(v_ch, (int(state.send_pos.numel()),), "values")
         v = v_ch if base.is_real else ex.from_channels(v_ch, 1)
         v = self._route(v, state.send_idx, state.cap)[:, state.recv_idx]
+        out = torch.empty((C, 2) + self.output_shape, dtype=base.real_dtype, device=base.device)
+        for sl in transform_groups(C, state.local.transform_chunk):
+            out[sl] = torch.movedim(torch.view_as_real(self._type1_group(state, v[sl])), -1, 1)
+        return out
 
+    def _type1_group(self, state: SpatialPoints, v: torch.Tensor) -> torch.Tensor:
+        """The routed values of a group of transforms, (C', Nv) -> this
+        rank's complex spectra, (C',) + ``output_shape``."""
+        base, n, group, m = self.base, self.n, self.group, self.base.m
+        D, C = base.ndim, v.shape[0]
         # Spread into the extended slab; add the halo planes into the
         # neighbours' slabs.
         ext = spread_blocked(state.local, v)
@@ -340,6 +416,7 @@ class SpatialNUFFT:
         # dim 0.
         dims = tuple(range(2, D + 1))
         x = torch.fft.rfftn(own, dim=dims) if base.is_real else torch.fft.fftn(own, dim=dims)
+        del ext, own, from_next, from_prev
         for d in range(1, D):
             x = truncate_axis(x, 1 + d, base.index_ranges[d])
         x = _pad_to(x, 2, n * self.k1_local)
@@ -349,11 +426,13 @@ class SpatialNUFFT:
             packed = relayout_to_blocks(x[c : c + 1], (n0l, k1l) + tail)
             cols[c] = comm.all_to_all(packed.reshape((n, n0l, k1l) + tail), group).reshape(
                 (n * n0l, k1l) + tail)
+        del x, packed
         y = truncate_axis(torch.fft.fft(cols, dim=1), 1, base.index_ranges[0])
+        del cols
         y = self._deconvolve(y * base.normfactor)
         K0, K1 = base.spectral_shape[:2]
         if self.spectrum == "sharded" and self.engine == "split":
-            return ex.to_channels(y, 1)
+            return y
         if self.spectrum == "sharded":
             # Dim-1 shards -> dim-0 shards: rows [s K0l, (s + 1) K0l) go to
             # rank s; what arrives is block-major with blocks (K0l, K1l, ..)
@@ -366,16 +445,16 @@ class SpatialNUFFT:
                     recv.reshape((1, 1, n) + (1,) * (D - 2) + (k0l, k1l) + tail),
                     (k0l, k1l) + tail,
                 )[0, :, :K1]
-            return ex.to_channels(rows, 1)
+            return rows
 
         # Gather the dim-1 shards: (n, C, K0, K1l, ..) is block-major with
         # blocks (C K0, K1l, ..) along dim 1.
         gathered = comm.all_gather(y, group)
-        spec = relayout_to_grid(
+        del y
+        return relayout_to_grid(
             gathered.reshape((1, 1, n) + (1,) * (D - 2) + (C * K0, k1l) + tail),
             (C * K0, k1l) + tail,
         ).reshape((C, K0, n * k1l) + tail)[:, :, :K1]
-        return ex.to_channels(spec, 1)
 
     def exec_type2(self, state: SpatialPoints, uhat_ch) -> torch.Tensor:
         """Distributed type 2.  ``uhat_ch``: the channel-form spectrum in the
@@ -383,14 +462,21 @@ class SpatialNUFFT:
         :meth:`exec_type1` returns it).  Returns this
         rank's ``(C, 2, Np_l)`` / ``(C, Np_l)`` channel values in its original
         point order."""
-        base, n, group, m, me = self.base, self.n, self.group, self.base.m, self.rank
-        D, C = base.ndim, base.ntransforms
-        spec = list(base.spectral_shape)
-        if self.spectrum == "sharded":
-            spec[self.spectrum_shard_dim] //= n
+        base, C = self.base, self.base.ntransforms
         uhat_ch = _as_real_tensor(uhat_ch, base.real_dtype, base.device)
-        self._check_channels(uhat_ch, tuple(spec), "spectrum")
+        self._check_channels(uhat_ch, self.output_shape, "spectrum")
         u = ex.from_channels(uhat_ch, 1)
+        vals = torch.empty((C, state.local.num_points), dtype=base.dtype, device=base.device)
+        for sl in transform_groups(C, state.local.transform_chunk):
+            vals[sl] = self._type2_group(state, u[sl])
+        back = self._unroute(vals, state)
+        return back if base.is_real else ex.to_channels(back, 1)
+
+    def _type2_group(self, state: SpatialPoints, u: torch.Tensor) -> torch.Tensor:
+        """A group of transforms' spectra, (C',) + ``output_shape`` -> the
+        values at the received points, (C', Nv)."""
+        base, n, group, m, me = self.base, self.n, self.group, self.base.m, self.rank
+        D, C = base.ndim, u.shape[0]
         n0l, k1l, tail = self.n0_local, self.k1_local, tuple(base.spectral_shape[2:])
         K1 = base.spectral_shape[1]
         if self.spectrum == "replicated":
@@ -408,6 +494,7 @@ class SpatialNUFFT:
         u = self._deconvolve(u)
         z = torch.fft.ifft(pad_axis(u, 1, base.index_ranges[0], base.shape_over[0]),
                            dim=1, norm="forward")
+        del u
         rows = torch.empty((C, n0l, n * k1l) + tail, dtype=z.dtype, device=z.device)
         for c in range(C):
             recv = comm.all_to_all(z[c].reshape((n, n0l, k1l) + tail), group)
@@ -415,25 +502,27 @@ class SpatialNUFFT:
                 recv.reshape((1, 1, n) + (1,) * (D - 2) + (n0l, k1l) + tail),
                 (n0l, k1l) + tail,
             )[0]
+        del z, recv
         x = rows[:, :, :K1]
         for d in range(1, D):
             x = pad_axis(x, 1 + d, base.index_ranges[d], base.spectral_shape_over[d])
+        del rows
         dims = tuple(range(2, D + 1))
         if base.is_real:
             slab = torch.fft.irfftn(x, s=base.shape_over[1:], dim=dims, norm="forward")
         else:
             slab = torch.fft.ifftn(x, dim=dims, norm="forward")
+        del x
 
         # The extended slab: the neighbours' halo planes around our own.
         ext = slab.new_zeros((C,) + self.ext_shape_over)
         ext[:, m - 1 : m - 1 + n0l] = slab
         from_next, from_prev = comm.neighbour_exchange(
             slab[:, :m], slab[:, n0l - (m - 1):] if m > 1 else slab[:, :0], group)
+        del slab
         ext[:, m - 1 + n0l : n0l + 2 * m - 1] = from_next
         ext[:, : m - 1] = from_prev
-        vals = interpolate_blocked(state.local, ext)
-        back = self._unroute(vals, state)
-        return back if base.is_real else ex.to_channels(back, 1)
+        return interpolate_blocked(state.local, ext)
 
     def collective_bytes(self) -> dict:
         """Bytes this rank sends in each collective of one transform, as the
@@ -457,6 +546,12 @@ class SpatialNUFFT:
             out["t1_unshard_all_to_all"] = out["t2_shard_all_to_all"] = (
                 (n - 1) * self.k0_local * col)
         return out
+
+
+def _tables_bytes(state: SpatialPoints) -> int:
+    """Device bytes of a rank's routing tables."""
+    return sum(t.numel() * t.element_size()
+               for t in (state.send_idx, state.send_pos, state.recv_idx))
 
 
 def _pad_to(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:

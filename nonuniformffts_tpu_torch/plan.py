@@ -477,11 +477,14 @@ def fold_points(x: torch.Tensor, point_transform: Callable = _identity) -> torch
 #: set of one exec may fill; the rest is left to the CUDA context, cuFFT's
 #: plans, the caching allocator's slack and what the caller holds.
 TRANSFORM_MEMORY_FRACTION = 0.75
-#: cuFFT's workspace, in grids of the transforms of one FFT call: none
-#: measured beside the batched out-of-place FFTs of 384^3 and 512^3 grids on
-#: an NVIDIA H100 (700 W; ``chip_smoke.py`` phase 15, PERF.md), whose
-#: type-2 peak is the padded spectrum and the grid alone.
-FFT_WORKSPACE_GRIDS = 0.0
+#: cuFFT's workspace, in grids of the transforms of one FFT call.  On an
+#: NVIDIA H100 (700 W; ``chip_smoke.py`` phase 15, PERF.md) the batched c2c
+#: FFTs of 6144^2 grids took about one (type 2's peak a transform 2.97
+#: grids, of which the padded spectrum and the grid 2.0), those of 384^3 and
+#: 512^3 grids and of 1.57M-point lines none: one grid everywhere holds
+#: every measured peak, and the smaller groups it makes elsewhere cost no
+#: measured time.
+FFT_WORKSPACE_GRIDS = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -499,7 +502,9 @@ class WorkingSet:
 def transform_working_set(shape_over, spectral_shape_over, spectral_shape, dtype,
                           ntransforms: int, num_points: int, *, point_state_bytes: int = 0,
                           spread_method: str = "blocked", m: int = 4,
-                          chunk_size: Optional[int] = None) -> WorkingSet:
+                          chunk_size: Optional[int] = None, extra_grids: float = 0,
+                          slab_buffers: Optional[Tuple[Tuple[int, ...], ...]] = None
+                          ) -> WorkingSet:
     """The modelled device memory of ``exec_type1`` / ``exec_type2`` on
     ``ntransforms`` transforms of ``num_points`` points.
 
@@ -511,23 +516,41 @@ def transform_working_set(shape_over, spectral_shape_over, spectral_shape, dtype
     ``irfftn`` makes: the c2c pass over the leading axes writes a new one,
     and the c2r pass, which overwrites its input, copies it), and the
     sorted or interpolated values of its points, twice.  On an NVIDIA H100
-    (700 W) at 256^3 this holds each measured peak a transform (1.8-2.1
-    grids complex, 2.7-4.0 real) with 0.5-0.7 grid to spare
+    (700 W) this holds each measured peak a transform: at 256^3 1.8-2.1
+    grids complex and 2.7-4.0 real against 3.5-3.7 and 5.7, at 4096^2
+    2.56 / 2.97 against 3.72, at 2^20 2.33 / 2.36 against 4.94
     (``chip_smoke.py`` phase 15, PERF.md).  The reference path's spread
     also accumulates in a 64-bit grid and both its passes materialise
     ``(chunk, (2M)^D)`` stencil values a transform.  Fixed: the ``(C, Np)``
     values and the ``(C,) + spectral_shape`` spectrum, each twice (the
-    caller's and the callback's or scaled copy), and the plan's point state
-    (``point_state_bytes``)."""
+    caller's and the callback's or scaled copy), and the device bytes held
+    whatever the group size (``point_state_bytes``: the plan's point state,
+    all chunks' on a points-chunked plan).
+
+    The other paths' execs say what they hold beyond that:
+    ``extra_grids`` more grids a transform (a points-chunked type 1 keeps
+    its accumulator beside each chunk's grid: 1); ``slab_buffers`` for a
+    spatial rank (``parallel/spatial.py``), whose ``shape_over`` is its
+    extended slab, ``spectral_shape_over`` the slab transformed over dims
+    1.., ``spectral_shape`` its output a transform, and whose transform holds
+    complex buffers of these shapes in place of the pad or truncation
+    temporary (the transposes' columns, the gathered spectrum); its
+    ``irfftn`` covers dims 1.. only."""
     tdtype = _resolve_dtype(dtype)
     real_bytes = torch.finfo(_REAL_OF[tdtype]).bits // 8
     value_bytes = real_bytes * (2 if tdtype.is_complex else 1)
     grid = math.prod(shape_over) * value_bytes
     spec_over = math.prod(spectral_shape_over) * 2 * real_bytes
-    temp = spec_over * max(k / n for k, n in zip(spectral_shape, spectral_shape_over))
+    fft_dims = len(shape_over)
+    if slab_buffers is None:
+        temp = spec_over * max(k / n for k, n in zip(spectral_shape, spectral_shape_over))
+    else:
+        temp = sum(math.prod(s) for s in slab_buffers) * 2 * real_bytes
+        fft_dims -= 1
     if not tdtype.is_complex:
-        temp += spec_over * (2 if len(shape_over) > 1 else 1)
-    per = (grid + spec_over + temp + FFT_WORKSPACE_GRIDS * max(grid, spec_over)
+        temp += spec_over * (2 if fft_dims > 1 else 1)
+    per = (grid * (1 + extra_grids) + spec_over + temp
+           + FFT_WORKSPACE_GRIDS * max(grid, spec_over)
            + 2 * num_points * value_bytes)
     fixed = (2 * ntransforms * num_points * value_bytes
              + 2 * ntransforms * math.prod(spectral_shape) * 2 * real_bytes
@@ -574,18 +597,36 @@ def point_state_bytes(plan: Plan) -> int:
     return sum(t.numel() * t.element_size() for t in state if t is not None)
 
 
-def with_transform_chunk(plan: Plan) -> Plan:
-    """``plan`` with ``transform_chunk`` chosen for the card it runs on, for
-    CUDA plans on the blocked and reference paths (the direct path bounds
-    its factors by points, ``ops/direct.py``); other plans as they are."""
+def device_share_bytes(device: torch.device, ranks_on_device: int = 1) -> int:
+    """The device memory one process may plan with: the card's
+    ``total_memory``, or its ``1 / ranks_on_device`` share when that many
+    ranks of a process group run on the one card
+    (``parallel/comm.py:ranks_on_device``)."""
+    return torch.cuda.get_device_properties(device).total_memory // ranks_on_device
+
+
+def model_arguments(plan: Plan) -> dict:
+    """The arguments of :func:`choose_transform_chunk` (but the device's
+    bytes) that describe ``plan``'s own exec."""
+    return dict(shape_over=plan.shape_over, spectral_shape_over=plan.spectral_shape_over,
+                spectral_shape=plan.spectral_shape, dtype=plan.dtype,
+                ntransforms=plan.ntransforms, num_points=plan.num_points,
+                point_state_bytes=point_state_bytes(plan), spread_method=plan.spread_method,
+                m=plan.m, chunk_size=plan.chunk_size)
+
+
+def with_transform_chunk(plan: Plan, *, ranks_on_device: int = 1, **model_kw) -> Plan:
+    """``plan`` with ``transform_chunk`` chosen for the card it runs on (its
+    share of it, :func:`device_share_bytes`), for CUDA plans on the blocked and
+    reference paths (the direct path bounds its factors by points,
+    ``ops/direct.py``); other plans as they are.  ``model_kw`` replaces
+    arguments of :func:`model_arguments` where the exec that runs the plan
+    holds more than the plan's own (a points-chunked, point-sharded or
+    spatial exec)."""
     if plan.device.type != "cuda" or plan.spread_method not in ("blocked", "reference"):
         return plan
-    chunk = choose_transform_chunk(
-        plan.shape_over, plan.spectral_shape_over, plan.spectral_shape, plan.dtype,
-        plan.ntransforms, plan.num_points,
-        torch.cuda.get_device_properties(plan.device).total_memory,
-        point_state_bytes=point_state_bytes(plan), spread_method=plan.spread_method,
-        m=plan.m, chunk_size=plan.chunk_size)
+    budget = device_share_bytes(plan.device, ranks_on_device)
+    chunk = choose_transform_chunk(device_bytes=budget, **{**model_arguments(plan), **model_kw})
     return dataclasses.replace(plan, transform_chunk=chunk)
 
 

@@ -820,3 +820,130 @@ def test_grouped_matches_one_pass_on_card(cuda_device, shape, dtype):
     tol = 1e-6 if real == np.float32 else 1e-12
     assert _rel_err(g1, tnufft.exec_type1(plan, v)) <= tol
     assert _rel_err(g2, tnufft.exec_type2(plan, u)) <= tol
+
+
+# ---------------------------------------------------------------------------
+# Groups of transforms on the chunked, point-sharded and spatial paths
+# ---------------------------------------------------------------------------
+
+GROUPS_C, GROUPS_NP, GROUPS_TOL = 5, 20_000, {4: 1e-6, 8: 1e-12}
+
+
+@pytest.fixture(scope="module")
+def nccl_group(tmp_path_factory):
+    """An NCCL process group of one rank, this process, on cuda:0."""
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    rdv = tmp_path_factory.mktemp("nccl") / "rendezvous"
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0, world_size=1)
+    yield torch.device("cuda")
+    dist.destroy_process_group()
+
+
+def _groups_inputs(dtype, D, device, seed=5):
+    rng = np.random.default_rng(seed)
+    real = np.dtype(dtype).type(0).real.dtype
+    pts = torch.from_numpy(rng.uniform(0, 2 * np.pi, (D, GROUPS_NP)).astype(real)).to(device)
+    v = torch.from_numpy(_values(rng, dtype, (GROUPS_C, GROUPS_NP))).to(device)
+    return pts, v, GROUPS_TOL[np.dtype(real).itemsize]
+
+
+def _launch_delta(plan, fn):
+    """``fn()`` and the spread and interpolation launches it made."""
+    names = [blocked.entry_point(k, plan) for k in ("spread", "interp")]
+    before = {n: blocked.LAUNCHES[n] for n in names}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [blocked.LAUNCHES[n] - before[n] for n in names]
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128], ids=lambda d: np.dtype(d).name)
+def test_chunked_groups_match_one_pass_on_card(cuda_device, dtype):
+    """A chunked plan (3 chunks) of 5 transforms in groups of 2 against the
+    same plan in one pass: one spread and one interpolation launch a chunk
+    a group."""
+    import dataclasses
+
+    pts, v, tol = _groups_inputs(dtype, 3, cuda_device)
+    cplan = tnufft.set_points_chunked(tnufft.ChunkedPlanNUFFT(
+        dtype, (24, 24, 24), nchunks=3, m=4, sigma=1.5, ntransforms=GROUPS_C,
+        spread_method="blocked", device=cuda_device), pts)
+    assert cplan.transform_chunk is None  # the chooser keeps this plan whole
+    grouped = dataclasses.replace(cplan, transform_chunk=2)
+    u = tnufft.exec_type1_chunked(cplan, v)
+    g1, n1 = _launch_delta(cplan.base, lambda: tnufft.exec_type1_chunked(grouped, v))
+    g2, n2 = _launch_delta(cplan.base, lambda: tnufft.exec_type2_chunked(grouped, u))
+    assert n1 == [9, 0] and n2 == [0, 9]
+    assert _rel_err(g1, u) <= tol
+    assert _rel_err(g2, tnufft.exec_type2_chunked(cplan, u)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128], ids=lambda d: np.dtype(d).name)
+def test_point_sharded_groups_match_one_pass_on_card(nccl_group, dtype):
+    """``exec_type{1,2}_sharded`` on an NCCL group of one rank, 5 transforms
+    with the plan's group size forced to 2, against one pass."""
+    import dataclasses
+
+    from nonuniformffts_tpu_torch import execution as ex
+    from nonuniformffts_tpu_torch.parallel import exec_type1_sharded, exec_type2_sharded
+
+    pts, v, tol = _groups_inputs(dtype, 3, nccl_group)
+    plan = tnufft.PlanNUFFT(dtype, (24, 24, 24), m=4, sigma=1.5, ntransforms=GROUPS_C,
+                            spread_method="blocked", device=nccl_group)
+    grouped = dataclasses.replace(plan, transform_chunk=2)
+    v_ch = ex.to_channels(v, 1)
+    u = exec_type1_sharded(plan, pts, v_ch)
+    g1, n1 = _launch_delta(plan, lambda: exec_type1_sharded(grouped, pts, v_ch))
+    g2, n2 = _launch_delta(plan, lambda: exec_type2_sharded(grouped, pts, u))
+    assert n1 == [3, 0] and n2 == [0, 3]
+    assert _rel_err(g1, u) <= tol
+    assert _rel_err(g2, exec_type2_sharded(plan, pts, u)) <= tol
+
+
+@pytest.mark.parametrize("spectrum", ["replicated", "sharded"])
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128], ids=lambda d: np.dtype(d).name)
+def test_spatial_groups_match_one_pass_on_card(nccl_group, dtype, spectrum):
+    """``SpatialNUFFT`` on an NCCL group of one rank, 5 transforms with the
+    slab plan's group size forced to 2 (each group through the whole
+    chain), against one pass."""
+    import dataclasses
+
+    from nonuniformffts_tpu_torch import execution as ex
+    from nonuniformffts_tpu_torch.parallel import SpatialNUFFT
+
+    pts, v, tol = _groups_inputs(dtype, 3, nccl_group)
+    sp = SpatialNUFFT(dtype, (32, 32, 32), m=4, sigma=1.5, ntransforms=GROUPS_C,
+                      spectrum=spectrum, device=nccl_group)
+    st = sp.set_points(pts)
+    assert st.local.transform_chunk is None and st.ranks_on_device == 1
+    grouped = dataclasses.replace(st, local=dataclasses.replace(st.local, transform_chunk=2))
+    v_ch = ex.to_channels(v, 1)
+    u = sp.exec_type1(st, v_ch)
+    g1, n1 = _launch_delta(st.local, lambda: sp.exec_type1(grouped, v_ch))
+    g2, n2 = _launch_delta(st.local, lambda: sp.exec_type2(grouped, u))
+    assert n1 == [3, 0] and n2 == [0, 3]
+    assert g1.shape == u.shape
+    assert _rel_err(g1, u) <= tol
+    assert _rel_err(g2, sp.exec_type2(st, u)) <= tol
+
+
+def test_device_census_names_the_physical_card(nccl_group):
+    """``comm.device_key`` names the card by its UUID, and the group's
+    census is taken once: a later call finds its count without a
+    collective."""
+    import zlib
+
+    import torch.distributed as dist
+
+    from nonuniformffts_tpu_torch.parallel import comm
+
+    key = comm.device_key(nccl_group)
+    uuid = str(torch.cuda.get_device_properties(nccl_group).uuid)
+    assert key.device.type == "cuda" and int(key[1]) == zlib.crc32(uuid.encode())
+    assert comm.ranks_on_device(nccl_group) == 1
+    counts = comm._SHARING[dist.group.WORLD]
+    assert counts[str(nccl_group)] == 1 and set(counts.values()) == {1}
+    assert comm.agreed_chunk(3, 5, nccl_group) == 3
+    assert comm.agreed_chunk(None, 5, nccl_group) is None

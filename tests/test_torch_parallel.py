@@ -14,8 +14,11 @@ mesh.  Tolerance: JAX's own, rtol 1e-10 and atol 1e-12
 (``test_spatial.py:67``).
 """
 
+import math
+
 import numpy as np
 import pytest
+import torch
 
 import jax
 from jax.sharding import Mesh
@@ -25,7 +28,9 @@ from nonuniformffts_tpu.execution import exec_type1_channels, exec_type2_channel
 from nonuniformffts_tpu.parallel import SpatialNUFFT as JaxSpatialNUFFT
 from nonuniformffts_tpu.parallel import exec_type1_sharded, exec_type2_sharded, make_mesh
 from nonuniformffts_tpu.parallel import shard_points as jax_shard_points
-from torch_parallel_workers import CASES, ENGINE_CASES, SHARDED_CASES, case_inputs, run_ranks
+from torch_parallel_workers import (AGREE_CASES, CASES, ENGINE_CASES, GROUPED_SHARDED_CASES,
+                                    SHARDED_CASES, UNEVEN_SHARDED_CASES, case_inputs,
+                                    run_ranks)
 
 TOL = dict(rtol=1e-10, atol=1e-12)
 N4 = ("c128_n4", "c128_sharded", "c128_sharded_auto", "f64_r2c", "c128_2d", "c128_30",
@@ -33,13 +38,18 @@ N4 = ("c128_n4", "c128_sharded", "c128_sharded_auto", "f64_r2c", "c128_2d", "c12
       "f64_sharded", "f64_sharded_split", "errors", "engines", "pts_c128", "pts_f64")
 N2 = ("c128_n2", "f64_r2c_n2")
 N1 = ("c128_n1_fftshift",)
+# Groups of transforms, the device census and the slab model, run in the
+# n = 4 and n = 2 spawns above.
+GROUPS4 = ("c128_groups", "c128_groups_sharded", "c128_groups_split", "pts_c128_groups")
+GROUPS2 = ("f64_groups_n2", "pts_f64_groups_n2")
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """The results of every case, by group size and name."""
     out = {}
-    for n, names in ((4, N4), (2, N2 + ("errors",)), (1, N1)):
+    for n, names in ((4, N4 + GROUPS4 + AGREE_CASES + ("sharing", "slab_model")),
+                     (2, N2 + ("errors",) + GROUPS2 + ("sharing",)), (1, N1)):
         out[n] = run_ranks(n, names, str(tmp_path_factory.mktemp(f"ranks{n}")))
     return out
 
@@ -238,3 +248,141 @@ def test_point_sharded_matches_jax(ranks, name):
         np.testing.assert_allclose(x["u"].numpy(), u, **TOL)
         np_ = case["np_rank"]
         np.testing.assert_allclose(x["v2"].numpy(), v2[..., r * np_ : (r + 1) * np_], **TOL)
+
+
+# ---------------------------------------------------------------------------
+# Groups of transforms (the slab plan's / the plan's transform_chunk)
+# ---------------------------------------------------------------------------
+
+
+def _grouped_n(name):
+    return 4 if name in GROUPS4 else 2
+
+
+@pytest.mark.parametrize("name", [k for k in GROUPS4 + GROUPS2 if k in CASES])
+def test_spatial_groups_match_one_pass_and_single_device(ranks, name):
+    """C = 3 transforms with the slab plan's ``transform_chunk`` forced to
+    2 (groups of 2 and 1, each through the whole chain): equal to the one
+    pass and to JAX's single-device reference plan, replicated and in both
+    engines' shards.  CPU plans choose no group size."""
+    n = _grouped_n(name)
+    res = _results(ranks, n, name)
+    sharded = CASES[name]["spatial"].get("spectrum") == "sharded"
+    u_ref, v2_ref = _single_reference(name, n)
+    grouped = [dict(x, u=x["u_grouped"], v2=x["v2_grouped"]) for x in res]
+    _check_against(grouped, u_ref, v2_ref, n, sharded=sharded)
+    _check_against(res, u_ref, v2_ref, n, sharded=sharded)
+    for x in res:
+        assert x["transform_chunk"] is None
+        np.testing.assert_allclose(x["u_grouped"].numpy(), x["u"].numpy(), **TOL)
+        np.testing.assert_allclose(x["v2_grouped"].numpy(), x["v2"].numpy(), **TOL)
+        assert x["u_grouped"].shape == x["u"].shape and x["u_grouped"].shape[0] == 3
+
+
+@pytest.mark.parametrize("name", sorted(GROUPED_SHARDED_CASES))
+def test_point_sharded_groups_match_one_pass_and_single_device(ranks, name):
+    """The point-sharded mode at C = 3 with the plan's ``transform_chunk``
+    forced to 2, against its one pass and JAX's single-device reference
+    plan on all the points."""
+    n = _grouped_n(name)
+    res = _results(ranks, n, name)
+    case = GROUPED_SHARDED_CASES[name]
+    pts, v_ch = case_inputs(name, n)
+    plan = jnufft.set_points(
+        jnufft.PlanNUFFT(case["dtype"], case["shape"], sigma=2.0, ntransforms=case["C"],
+                         spread_method="reference", fft_method="xla"), pts)
+    u_ref = np.asarray(exec_type1_channels(plan, v_ch))
+    v2_ref = np.asarray(exec_type2_channels(plan, u_ref))
+    np_ = case["np_rank"]
+    for r, x in enumerate(res):
+        for u, v2 in ((x["u"], x["v2"]), (x["u_grouped"], x["v2_grouped"])):
+            np.testing.assert_allclose(u.numpy(), u_ref, **TOL)
+            np.testing.assert_allclose(v2.numpy(), v2_ref[..., r * np_ : (r + 1) * np_], **TOL)
+        np.testing.assert_allclose(x["u_grouped"].numpy(), x["u"].numpy(), **TOL)
+        np.testing.assert_allclose(x["v2_grouped"].numpy(), x["v2"].numpy(), **TOL)
+
+
+@pytest.mark.parametrize("n", [4, 2])
+def test_ranks_on_one_device_are_counted(ranks, n):
+    """Ranks on one host's CPU count as sharing one device: each rank of
+    the group finds n, by ``comm.ranks_on_device`` and in the spatial
+    ``set_points``' census."""
+    for x in _results(ranks, n, "sharing"):
+        assert x == dict(ranks_on_device=n, spatial=n)
+
+
+@pytest.mark.parametrize("key", ["c128_replicated", "c64_sharded", "c128_split", "f64_2d"])
+def test_slab_model_fits_its_budget(ranks, key):
+    """The spatial rank's model (``SpatialNUFFT.slab_model``): a transform
+    holds at least its extended slab, the FFT'd slab, the columns and the
+    gathered spectrum; the chosen group is the largest whose working set
+    fits ``TRANSFORM_MEMORY_FRACTION`` of the rank's budget; and the slab
+    model a transform is below the single-card plan's at the same
+    arguments (the slab is O(grid / n))."""
+    from nonuniformffts_tpu_torch import plan as tplan
+
+    for x in _results(ranks, 4, "slab_model"):
+        res = x[key]
+        kw = res["model"]
+        C = kw["ntransforms"]
+        assert tuple(kw["shape_over"]) == tuple(res["ext_shape_over"])
+        assert tuple(kw["spectral_shape"]) == tuple(res["output_shape"])
+        ws = tplan.transform_working_set(**kw)
+        real_bytes = torch.finfo(tplan._REAL_OF[kw["dtype"]]).bits // 8
+        value_bytes = real_bytes * (2 if kw["dtype"].is_complex else 1)
+        held = (math.prod(res["ext_shape_over"]) * value_bytes
+                + sum(math.prod(s) for s in (kw["spectral_shape_over"],) + kw["slab_buffers"])
+                * 2 * real_bytes)
+        assert ws.per_transform >= held
+        single = tplan.transform_working_set(
+            res["global_shape_over"], res["global_spectral_shape_over"],
+            res["global_spectral_shape"], kw["dtype"], C, 4 * 200)
+        assert ws.per_transform < single.per_transform
+        for gib in (0.001, 0.01, 0.05, 1.0):
+            device = int(gib * 2**30)
+            budget = int(tplan.TRANSFORM_MEMORY_FRACTION * device)
+            g = tplan.choose_transform_chunk(device_bytes=device, **kw)
+            if g is None:
+                assert ws.total(C) <= budget
+                continue
+            assert 1 <= g < C and ws.total(g + 1) > budget
+            assert g == 1 or ws.total(g) <= budget
+
+
+@pytest.mark.parametrize("name", AGREE_CASES)
+def test_ranks_agree_on_one_group_size(ranks, name):
+    """On a fabricated card the four ranks choose different group sizes:
+    in the spatial mode every point lies in rank 0's slab, so that rank 0
+    holds more point state than the others; in the point-sharded mode the
+    ranks hold 1 : 2 : 3 : 4 of the points.  Every rank runs the smallest
+    choice, whose collectives pair up, and the grouped results equal the
+    one pass and JAX's single-device reference plan.  The point-sharded
+    type 2, which runs no collective a group, keeps each rank's own."""
+    res = _results(ranks, 4, name)
+    own = [x["own"] for x in res]
+    assert len(set(own)) > 1 and min(own) >= 1
+    assert all(x["agreed"] == min(own) for x in res)
+    if name in UNEVEN_SHARDED_CASES:
+        case = UNEVEN_SHARDED_CASES[name]
+        pts, v_ch = case_inputs(name, 4)
+        plan = jnufft.set_points(
+            jnufft.PlanNUFFT(case["dtype"], case["shape"], sigma=2.0, ntransforms=case["C"],
+                             spread_method="reference", fft_method="xla"), pts)
+        u_ref = np.asarray(exec_type1_channels(plan, v_ch))
+        v2_ref = np.asarray(exec_type2_channels(plan, u_ref))
+        assert len({b - a for a, b in (x["bounds"] for x in res)}) == 4
+        for x in res:
+            assert x["type2_chunk"] == x["own"]
+            a, b = x["bounds"]
+            for u, v2 in ((x["u"], x["v2"]), (x["u_grouped"], x["v2_grouped"])):
+                np.testing.assert_allclose(u.numpy(), u_ref, **TOL)
+                np.testing.assert_allclose(v2.numpy(), v2_ref[..., a:b], **TOL)
+    else:
+        assert res[0]["received"] > 0 and all(x["received"] == 0 for x in res[1:])
+        u_ref, v2_ref = _single_reference(name, 4)
+        _check_against(res, u_ref, v2_ref, 4)
+        _check_against([dict(x, u=x["u_grouped"], v2=x["v2_grouped"]) for x in res],
+                       u_ref, v2_ref, 4)
+    for x in res:
+        np.testing.assert_allclose(x["u_grouped"].numpy(), x["u"].numpy(), **TOL)
+        np.testing.assert_allclose(x["v2_grouped"].numpy(), x["v2"].numpy(), **TOL)
