@@ -76,14 +76,18 @@ rounds of 32 cells rotated by shuffles, interior cells stored) against the
 thread-a-padded-cell kernel it replaced (``_CELL_SPREAD_1D_SRC``), with its
 wrapper call and host time and its variants (``SPREAD1D_VARIANTS``: copies
 of the source with one line changed); and the 2D interpolation kernel
-(``csrc/interp_2d.cu``: a thread a point) against a staged-window design
-tried in its place (``_STAGED_INTERP_2D_SRC``), with its wrapper call and
-host time; raw launches in turns on the same points, all built for the M
-of ``--m`` (4 by default) into ``build/chip_probe/``: 1D N = 2^20 at 1M,
-10M and rho = 0.01, 2D N = 4096^2 at each dtype's main-path Np, 16,777,216
-and rho = 0.01 (``_lowdim_probe``).  The ``-parts`` flags time copies of
-the shipped sources with one phase taken out (``SPREAD1D_PARTS``,
-``INTERP2D_PARTS``) at the first two point counts.
+(``csrc/interp_2d.cu``: a thread a point, its rows read as whole 16-byte
+chunks) against the per-point kernel it replaced (``_POINT_INTERP_2D_SRC``)
+and a staged-window design tried in its place (``_STAGED_INTERP_2D_SRC``),
+with its wrapper call and host time and its variants
+(``INTERP2D_VARIANTS``); raw launches in turns on the same points, all
+built for the M of ``--m`` (4 by default) into ``build/chip_probe/``: 1D
+N = 2^20 at 1M, 10M and rho = 0.01, 2D N = 4096^2 at each dtype's
+main-path Np, 16,777,216 and rho = 0.01 (``_lowdim_probe``).  The
+``-parts`` flags time copies of the shipped sources with one phase taken
+out (``SPREAD1D_PARTS``, ``INTERP2D_PARTS``; for the 2D interpolation also
+the per-point kernel's, ``POINT_INTERP2D_PARTS``) at the first two point
+counts.
 
     python3 chip_probe.py --interp1d [--interp1d-parts] [--m M ...] [--reps N]
     python3 chip_probe.py --interp1d-sweep [--dtype T ...] [--np N ...] [--reps N]
@@ -2107,6 +2111,168 @@ NUFFT_SPREAD_ENTRY(cell_spread_1d_real_f64, double, 1)
 """
 
 
+# The first 2D interpolation kernel (csrc/interp_2d.cu before its
+# redesign): a thread a bin-sorted point, its 2M y taps by horner_taps (a
+# runtime loop a tap) or from K3's wtaps, the x loop kept rolled with one x
+# tap a step by horner_tap, each row's 2M cells read from global memory with
+# periodic wrap at a 64-bit row address, its result scattered to
+# out[c, perm[j]].  Kept for --interp2d, which times it in turns with the
+# shipped kernel and the staged design, and for --interp2d-parts
+# (POINT_INTERP2D_PARTS); the same C interface as the shipped kernel.  Built
+# by them into build/chip_probe/.
+_POINT_INTERP_2D_SRC = r"""
+#include <cstdint>
+
+#include "window.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// TAPS: the window's taps come in wtaps (window_weights.cu), else by
+// Horner's rule.  The two instantiations keep the Horner one's registers at
+// what it needs alone: one kernel for both took 172 registers at M = 4 in
+// 3D double, against 128, and halved the resident CTAs.
+template <int M, typename T, int NCOMP, bool TAPS>
+__global__ void __launch_bounds__(kThreads) interp_2d_kernel(
+    const nufft::Value<T, NCOMP>* __restrict__ grid,
+    const int* __restrict__ cells, const T* __restrict__ fracs,
+    const long long* __restrict__ perm, const T* __restrict__ coefs,
+    const T* __restrict__ wtaps, nufft::Value<T, NCOMP>* __restrict__ out,
+    long long np, int nchan, int ncoef, int n0, int n1, double normfactor) {
+  constexpr int S = 2 * M;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* cs = reinterpret_cast<T*>(smem_raw);  // (2, S, ncoef)
+  for (int i = threadIdx.x; i < 2 * S * ncoef; i += blockDim.x)
+    cs[i] = coefs[i];
+  __syncthreads();
+
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= np) return;
+
+  T wy[S];
+  int iy[S];
+  if constexpr (TAPS) {
+#pragma unroll
+    for (int t = 0; t < S; ++t) wy[t] = wtaps[(S + t) * np + j];
+  } else {
+    nufft::horner_taps<S>(cs + S * ncoef, ncoef, fracs[np + j], wy);
+  }
+  const int cx = cells[j] - (M - 1);
+  const int cy = cells[np + j] - (M - 1);
+#pragma unroll
+  for (int t = 0; t < S; ++t) iy[t] = nufft::wrap_index(cy + t, n1);
+  const T fx = fracs[j];
+  const long long dest = perm[j];
+  const long long area = (long long)n0 * n1;
+  const T nf = T(normfactor);
+
+  for (int c = 0; c < nchan; ++c) {
+    const nufft::Value<T, NCOMP>* g = grid + c * area;
+    T acc[NCOMP] = {};
+#pragma unroll 1
+    for (int a = 0; a < S; ++a) {
+      T wx;
+      if constexpr (TAPS) {
+        wx = wtaps[a * np + j];
+      } else {
+        wx = nufft::horner_tap(cs + a * ncoef, ncoef, T(2) * fx - T(1));
+      }
+      const nufft::Value<T, NCOMP>* row =
+          g + (long long)nufft::wrap_index(cx + a, n0) * n1;
+      T r[NCOMP] = {};
+#pragma unroll
+      for (int b = 0; b < S; ++b) {
+        const nufft::Value<T, NCOMP> val = row[iy[b]];
+#pragma unroll
+        for (int k = 0; k < NCOMP; ++k) r[k] = nufft::fma_t(val.c[k], wy[b], r[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < NCOMP; ++k) acc[k] = nufft::fma_t(r[k], wx, acc[k]);
+    }
+    nufft::Value<T, NCOMP> res;
+#pragma unroll
+    for (int k = 0; k < NCOMP; ++k) res.c[k] = acc[k] * nf;
+    out[c * np + dest] = res;
+  }
+}
+
+template <int M, typename T, int NCOMP>
+cudaError_t launch(const void* grid, const void* cells, const void* fracs,
+                   const void* perm, const void* coefs,
+                   const void* wtaps, void* out,
+                   long long np, int nchan, int ncoef, int n0, int n1,
+                   double normfactor, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * 2 * 2 * M * ncoef;
+  const long long nblocks = (np + kThreads - 1) / kThreads;
+  auto kernel = wtaps ? interp_2d_kernel<M, T, NCOMP, true>
+                      : interp_2d_kernel<M, T, NCOMP, false>;
+  kernel<<<(unsigned)nblocks, kThreads, smem, stream>>>(
+      static_cast<const nufft::Value<T, NCOMP>*>(grid),
+      static_cast<const int*>(cells), static_cast<const T*>(fracs),
+      static_cast<const long long*>(perm), static_cast<const T*>(coefs),
+      static_cast<const T*>(wtaps),
+      static_cast<nufft::Value<T, NCOMP>*>(out), np, nchan, ncoef, n0, n1,
+      normfactor);
+  return cudaGetLastError();
+}
+
+template <typename T, int NCOMP>
+int dispatch(const void* grid, const void* cells, const void* fracs,
+             const void* perm, const void* coefs,
+             const void* wtaps, void* out, long long np,
+             int nchan, int m, int ncoef, int n0, int n1, double normfactor,
+             void* stream) {
+  if (np == 0) return (int)cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NUFFT_INTERP_CASE(MM)                                              \
+  case MM:                                                                 \
+    return (int)launch<MM, T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, \
+                                     out, np, nchan, ncoef, n0, n1,         \
+                                     normfactor, s);
+  switch (m) {
+    NUFFT_FOR_EACH_M(NUFFT_INTERP_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NUFFT_INTERP_CASE
+}
+
+}  // namespace
+
+// grid (nchan, n0, n1) values (complex: re, im interleaved); cells (2, np)
+// int32 and fracs (2, np) T in bin-sorted order; perm (np,) int64, the
+// original index of each sorted point; coefs (2, 2m, ncoef) T, or ncoef = 0
+// and no coefficients for a window other than kHorner, whose taps come in
+// wtaps (2, 2m, np) T (window_weights.cu), null for kHorner; out
+// (nchan, np) values in original point order.  T is float for *_f32, double
+// for *_f64; normfactor is a double for both.  Launches on `stream`, does
+// not synchronise, allocates nothing.
+#define NUFFT_INTERP_ENTRY(NAME, T, NCOMP)                                    \
+  extern "C" int NAME(const void* grid, const void* cells, const void* fracs, \
+                      const void* perm, const void* coefs,                    \
+                      const void* wtaps, void* out,              \
+                      long long np, int nchan, int m, int ncoef, int n0,      \
+                      int n1, double normfactor, void* stream) {              \
+    return dispatch<T, NCOMP>(grid, cells, fracs, perm, coefs, wtaps, out, np,  \
+                              nchan, m, ncoef, n0, n1, normfactor, stream);   \
+  }
+
+#if NUFFT_WANT(0)
+NUFFT_INTERP_ENTRY(point_interp_2d_f32, float, 2)
+#endif
+#if NUFFT_WANT(1)
+NUFFT_INTERP_ENTRY(point_interp_2d_f64, double, 2)
+#endif
+#if NUFFT_WANT(2)
+NUFFT_INTERP_ENTRY(point_interp_2d_real_f32, float, 1)
+#endif
+#if NUFFT_WANT(3)
+NUFFT_INTERP_ENTRY(point_interp_2d_real_f64, double, 1)
+#endif
+"""
+
+
 # A 2D interpolation kernel tried in place of the per-point kernel of
 # csrc/interp_2d.cu, kept for --interp2d, which times the two in turns: a CTA
 # covers a run of consecutive blocks of one x row of blocks (pstarts); each
@@ -2197,26 +2363,12 @@ __device__ __forceinline__ bool staged_run(int points, int pd0, int pd1) {
   return points > 0 && (long long)points * kStageCells >= (long long)pd0 * pd1;
 }
 
-__device__ __forceinline__ int mod_index(int i, int n) {
-  i %= n;
-  return i < 0 ? i + n : i;
-}
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "n"(BYTES)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+// window.cuh's (copies of its own beside them were ambiguous by
+// argument-dependent lookup).
+using nufft::cp_async;
+using nufft::cp_async_commit;
+using nufft::cp_async_wait_all;
+using nufft::mod_index;
 
 // Both dims' 2M taps of sorted point j: from wtaps, or by Horner's rule on
 // the coefficient table cs, (ncoef, 2, y_span(M)).
@@ -2571,10 +2723,96 @@ SPREAD1D_PARTS = {
 #: (SPREAD2D_NP): 16,777,216 and rho = 0.01.
 INTERP2D_EXTRA_NP = (16_777_216, 377_487)
 
-#: Copies of csrc/interp_2d.cu (a thread a point) with one phase taken out,
-#: for ``--interp2d-parts``.  Their values are wrong; only their times are
-#: read.
+#: Copies of csrc/interp_2d.cu with one phase taken out, for
+#: ``--interp2d-parts``.  Their values are wrong; only their times are read.
+_OUT = "      out[c * np + dest] = res;"
 INTERP2D_PARTS = {
+    # Every tap a number from the fraction in place of Horner's rule.
+    "no_taps": {"    nufft::horner_rows<S>(cs, ncoef, fracs[j], wx);\n"
+                "    nufft::horner_rows<S>(cs + kPitch * ncoef, ncoef, fracs[np + j], wy);":
+                "    for (int t = 0; t < S; ++t) {\n"
+                "      wx[t] = fracs[j] + T(t);\n"
+                "      wy[t] = fracs[np + j] * T(t + 1);\n"
+                "    }"},
+    # The window's cells made up in place of read (whole chunks and cell by
+    # cell), with their addresses.
+    "no_loads": {"            for (int q = 0; q < kChunks; ++q) ch[b][q] = row[q];":
+                 "            for (int q = 0; q < kChunks; ++q) {\n"
+                 "              ch[b][q] = Chunk<V, kPer>{};\n"
+                 "              ch[b][q].v[0].c[0] = T(y0 + q) + T(row == nullptr);\n"
+                 "            }",
+                 "          const V val = row[iy[b]];":
+                 "          V val = {};\n          val.c[0] = T(iy[b]);"},
+    # The results written under a condition that never holds.
+    "no_out": {_OUT: _OUT.replace("out[", "if (res.c[0] == T(1.25e-30)) out[")},
+    # Each result at its sorted position, not scattered to perm[j].
+    "out_sorted": {_OUT: "      out[c * np + j] = res;"},
+    # The point state made up from j in place of read, as the per-point
+    # kernel's no_point_state.
+    "no_point_state": {
+        "fracs[j], wx);": "T(j & 7) * T(0.125), wx);",
+        "fracs[np + j], wy);": "T(j & 15) * T(0.0625), wy);",
+        "  const int cx = cells[j] - (M - 1);\n  const int cy = cells[np + j] - (M - 1);":
+        "  const long long lin = j * ((long long)n0 * n1) / np;\n"
+        "  const int cx = int(lin / n1) - (M - 1);\n"
+        "  const int cy = int(lin % n1) - (M - 1);",
+        "  const long long dest = perm[j];":
+        "  const long long dest = (long long)(((unsigned long long)((unsigned)j * 2654435761u)"
+        " * (unsigned long long)np) >> 32);"},
+}
+#: Variants of csrc/interp_2d.cu for ``--interp2d``, each a line replaced;
+#: their values are right.  Every row read cell by cell (no 16-byte
+#: chunks); the batches of rows in a rolled loop (loads cannot move above
+#: the last batch's FMAs; the x taps then sit in local memory); this
+#: design at every M and value type, where the shipped source keeps the
+#: per-point loop for some (``rows_everywhere``; ``rows_c1`` .. ``rows_c3``
+#: with registers capped for 1 to 3 resident CTAs an SM); 32 or 128
+#: registers of loaded cells in flight; registers capped for 1 to 4
+#: resident CTAs an SM at every M and value type (c1 .. c4).
+_MIN_CTAS_2D = "  return scalar_bytes == 4 ? (m > 4 ? 2 : 3) : (m > 8 ? 1 : 2);"
+_ROWS_2D = {"  return (rows_mask(scalar_bytes, ncomp) >> m) & 1u;": "  return true;"}
+INTERP2D_VARIANTS = {
+    "unchunked": {"constexpr bool kChunkRows = true;": "constexpr bool kChunkRows = false;"},
+    "rolled_batches": {"#pragma unroll\n      for (int a0 = 0; a0 < S; a0 += kBatch) {":
+                       "#pragma unroll 1\n      for (int a0 = 0; a0 < S; a0 += kBatch) {"},
+    # Whole-chunk rows at every M and value type (``chunked_rows``), with
+    # the shipped register caps or capped for 1 to 3 resident CTAs an SM.
+    "rows_everywhere": _ROWS_2D,
+    **{f"rows_c{c}": {**_ROWS_2D, _MIN_CTAS_2D: f"  return {c};"} for c in (1, 2, 3)},
+    **{f"load_regs{r}": {"constexpr int kLoadRegs = 64;": f"constexpr int kLoadRegs = {r};"}
+       for r in (32, 128)},
+    **{f"c{c}": {_MIN_CTAS_2D: f"  return {c};"} for c in (1, 2, 3, 4)},
+}
+
+
+#: Copies of ``_POINT_INTERP_2D_SRC`` (the first, per-point kernel)
+#: with one phase taken out or changed, for ``--interp2d-parts``, beside
+#: the same copy unedited (``point``).  The first four are that kernel's
+#: first parts; the last three place what those left unplaced.  Only their
+#: times are read.
+_POINT_X_LOOP = """#pragma unroll 1
+    for (int a = 0; a < S; ++a) {
+      T wx;
+      if constexpr (TAPS) {
+        wx = wtaps[a * np + j];
+      } else {
+        wx = nufft::horner_tap(cs + a * ncoef, ncoef, T(2) * fx - T(1));
+      }
+"""
+_POINT_NF = "  const T nf = T(normfactor);\n"
+_POINT_X_TAPS = """  T wxs[S];
+  if constexpr (TAPS) {
+#pragma unroll
+    for (int t = 0; t < S; ++t) wxs[t] = wtaps[t * np + j];
+  } else {
+    nufft::horner_taps<S>(cs, ncoef, fx, wxs);
+  }
+"""
+_POINT_UNROLLED = {
+    _POINT_NF: _POINT_NF + _POINT_X_TAPS,
+    _POINT_X_LOOP: "#pragma unroll\n    for (int a = 0; a < S; ++a) {\n      const T wx = wxs[a];\n",
+}
+POINT_INTERP2D_PARTS = {
     # Every tap a number in place of Horner's rule.
     "no_taps": {"nufft::horner_taps<S>(cs + S * ncoef, ncoef, fracs[np + j], wy);":
                 "for (int t = 0; t < S; ++t) wy[t] = T(0.1) * T(t + 1);",
@@ -2588,8 +2826,43 @@ INTERP2D_PARTS = {
                "    if (res.c[0] == T(1.25e-30)) out[c * np + dest] = res;"},
     # Each result at its sorted position, not scattered to perm[j].
     "out_sorted": {"    out[c * np + dest] = res;": "    out[c * np + j] = res;"},
+    # The point state made up from j in place of read: cells walking the
+    # grid row-major at the points' density, fractions from j's low bits,
+    # the destination a multiplicative hash of j over [0, np) (a scatter
+    # like perm's, with no load).
+    "no_point_state": {
+        "fracs[np + j], wy);": "T(j & 15) * T(0.0625), wy);",
+        "  const int cx = cells[j] - (M - 1);\n  const int cy = cells[np + j] - (M - 1);":
+        "  const long long lin = j * ((long long)n0 * n1) / np;\n"
+        "  const int cx = int(lin / n1) - (M - 1);\n"
+        "  const int cy = int(lin % n1) - (M - 1);",
+        "  const T fx = fracs[j];": "  const T fx = T(j & 7) * T(0.125);",
+        "  const long long dest = perm[j];":
+        "  const long long dest = (long long)(((unsigned long long)((unsigned)j * 2654435761u)"
+        " * (unsigned long long)np) >> 32);"},
+    # The x loop unrolled, with the 2M x taps computed before it.
+    "x_unrolled": _POINT_UNROLLED,
+    # As x_unrolled, and both dimensions' taps by horner_rows on a
+    # coefficient-major table in shared memory (the 2M chains together).
+    "rows_taps": {
+        **_POINT_UNROLLED,
+        "  T* cs = reinterpret_cast<T*>(smem_raw);  // (2, S, ncoef)\n"
+        "  for (int i = threadIdx.x; i < 2 * S * ncoef; i += blockDim.x)\n"
+        "    cs[i] = coefs[i];":
+        "  constexpr int kPitch = nufft::row_pitch<S, T>();\n"
+        "  T* cs = reinterpret_cast<T*>(smem_raw);  // (2, ncoef, kPitch)\n"
+        "  for (int i = threadIdx.x; i < 2 * kPitch * ncoef; i += blockDim.x) {\n"
+        "    const int d = i / (kPitch * ncoef), r = i - d * kPitch * ncoef;\n"
+        "    const int q = r / kPitch, t = r - q * kPitch;\n"
+        "    cs[i] = t < S ? coefs[(d * S + t) * ncoef + q] : T(0);\n"
+        "  }",
+        "nufft::horner_taps<S>(cs + S * ncoef, ncoef, fracs[np + j], wy);":
+        "nufft::horner_rows<S>(cs + kPitch * ncoef, ncoef, fracs[np + j], wy);",
+        _POINT_X_TAPS: _POINT_X_TAPS.replace("nufft::horner_taps<S>(cs, ncoef, fx, wxs);",
+                                             "nufft::horner_rows<S>(cs, ncoef, fx, wxs);"),
+        "  const size_t smem = sizeof(T) * 2 * 2 * M * ncoef;":
+        "  const size_t smem = sizeof(T) * 2 * nufft::row_pitch<2 * M, T>() * ncoef;"},
 }
-
 
 #: Copies of csrc/interp_1d.cu with one phase of its staged path (the one
 #: outputs above ``INTERP1D_GATHER_BYTES`` take) taken out, for
@@ -2647,20 +2920,23 @@ INTERP1D_VARIANTS = {
 }
 
 
-def _edited_sources(stem: str, parts, ms=(4,)) -> dict:
-    """``csrc/<stem>.cu`` for the M of ``ms`` alone, and a copy for each
-    entry of ``parts`` with its lines replaced."""
+def _edited_sources(stem: str, parts, ms=(4,), source=None, base="shipped") -> dict:
+    """``csrc/<stem>.cu`` (or the text ``source``) for the M of ``ms``
+    alone as ``base``, and a copy for each entry of ``parts`` with its lines
+    replaced, as ``name`` (``<base>_<name>`` when ``base`` is not
+    ``shipped``)."""
     from nonuniformffts_tpu_torch.ops.kernels import build
 
-    src = _m_only((build.CSRC_DIR / f"{stem}.cu").read_text(), ms)
-    texts = {"shipped": src}
+    text0 = (build.CSRC_DIR / f"{stem}.cu").read_text() if source is None else source
+    src = _m_only(text0, ms)
+    texts = {base: src}
     for name, edits in parts.items():
         text = src
         for old, new in edits.items():
             if old not in text:
                 raise AssertionError(f"{name}: {old!r} not in {stem}.cu")
             text = text.replace(old, new)
-        texts[name] = text
+        texts[name if base == "shipped" else f"{base}_{name}"] = text
     return texts
 
 
@@ -2683,7 +2959,18 @@ def _lowdim_registers(stem: str, kernel: str) -> str:
     regs = re.findall(r"(" + kernel + r")I(?:Li\dE)?Li(\d+)E([fd])(?:Li(\d)E)?(?:Lb([01])E)?.*?"
                       r"(\d+) bytes spill stores.*?Used (\d+) registers", text, re.S)
     return ", ".join(f"{k} <M={m}, {t}{', ' + n if n else ''}{', taps' if b == '1' else ''}> "
-                     f"{r} (spills {sp} B)" for k, m, t, n, b, sp, r in regs)
+                     f"{r} (spills {sp} B, {_resident_ctas(int(r))} CTAs of 256 an SM)"
+                     for k, m, t, n, b, sp, r in regs)
+
+
+def _resident_ctas(registers: int, threads: int = 256) -> int:
+    """CTAs of ``threads`` an H100 SM holds at ``registers`` a thread (65,536
+    registers, allocated a warp at a time in units of 256, at most 64 warps
+    and 32 CTAs), shared memory aside.  (The 1D interpolation's staged
+    kernel runs CTAs of 128: it holds twice as many.)"""
+    per_warp = -(-registers * 32 // 256) * 256
+    warps = threads // 32
+    return min(65536 // (per_warp * warps), 64 // warps, 32)
 
 
 def _raw_spread_1d(lib, prefix: str, plan, vals, shipped: bool = True):
@@ -3003,31 +3290,43 @@ _POINT_INTERP_1D_SIG = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_
 
 
 #: What ``_lowdim_probe`` times, by kind: the shipped source's stem and
-#: kernel name, the other design's name in the JSON line, the dimension.
+#: kernel name, the other designs' names in the JSON line (each also its
+#: entry points' prefix), the dimension.
 LOWDIM_KINDS = {
-    "spread1d": ("spread_1d", "spread_1d_kernel", "old", 1),
-    "interp2d": ("interp_2d", "interp_2d_kernel", "staged", 2),
-    "interp1d": ("interp_1d", "interp_1d_(?:point_)?kernel", "point", 1),
+    "spread1d": ("spread_1d", "spread_1d_kernel", ("old",), 1),
+    "interp2d": ("interp_2d", "interp_2d_(?:point_)?kernel", ("point", "staged"), 2),
+    "interp1d": ("interp_1d", "interp_1d_(?:point_)?kernel", ("point",), 1),
 }
 
 
+def _other_design(kind: str, name: str) -> str:
+    """The source of another design ``name`` of ``LOWDIM_KINDS[kind]``."""
+    return {("spread1d", "old"): _CELL_SPREAD_1D_SRC,
+            ("interp2d", "point"): _POINT_INTERP_2D_SRC,
+            ("interp2d", "staged"): _STAGED_INTERP_2D_SRC,
+            ("interp1d", "point"): _POINT_INTERP_1D_SRC}[(kind, name)]
+
+
 def _lowdim_probe(kind: str, seed: int, dtypes, nps, ms, with_variants: bool,
-                  reps: int = 5) -> None:
+                  reps: int = 5, only=None) -> None:
     """The body of ``--spread1d`` / ``--interp2d`` / ``--interp1d`` (``kind``
     a key of ``LOWDIM_KINDS``) and of their ``-parts`` twins
-    (``with_variants`` False): the shipped kernel against the other design
+    (``with_variants`` False): the shipped kernel against the other designs
     (the 1D spread's old kernel, ``_CELL_SPREAD_1D_SRC``; the 2D
-    interpolation's staged kernel, ``_STAGED_INTERP_2D_SRC``; the 1D
-    interpolation's per-point kernel, ``_POINT_INTERP_1D_SRC``), in turns
-    (other, shipped, shipped, other), two passes, raw launches on the same
-    sorted points, both held against the plain version; the shipped wrapper
-    call (the grid's zeroing or the output's allocation and the launch
-    path) and its host time; then the variants or the parts copies in turns
-    with the shipped build.  Everything for the M of ``ms`` alone in
+    interpolation's per-point kernel, ``_POINT_INTERP_2D_SRC``, and staged
+    kernel, ``_STAGED_INTERP_2D_SRC``; the 1D interpolation's per-point
+    kernel, ``_POINT_INTERP_1D_SRC``), in turns (others, shipped, shipped,
+    others in reverse), two passes, raw launches on the same sorted points,
+    all held against the plain version; the shipped wrapper call (the
+    grid's zeroing or the output's allocation and the launch path) and its
+    host time; then the variants or the parts copies in turns with the
+    shipped build (for ``interp2d`` the parts of the per-point kernel too,
+    ``POINT_INTERP2D_PARTS``, beside its unedited copy).  Everything for the M of ``ms`` alone in
     ``build/chip_probe/``.  sigma = 1.5, BKB FastApproximation, uniform
     points, the chooser's block dims; CUDA events, median of ``reps`` after
-    one warm-up.  One JSON line a dtype, M and Np, with the card's name and
-    power limit, the bound (``chip_smoke.kernel_bound``) and the points a
+    one warm-up.  ``only``: the names of the variants to time (default
+    all).  One JSON line a dtype, M and Np, with the card's name and power
+    limit, the bound (``chip_smoke.kernel_bound``) and the points a
     block."""
     import torch
 
@@ -3037,22 +3336,25 @@ def _lowdim_probe(kind: str, seed: int, dtypes, nps, ms, with_variants: bool,
     from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES
 
     spread = kind == "spread1d"
-    stem, kernel, other, D = LOWDIM_KINDS[kind]
+    stem, kernel, others, D = LOWDIM_KINDS[kind]
     card = nvidia_smi_line()
     print(card, flush=True)
     dev = torch.device("cuda")
     inc = ("-I", str(build.CSRC_DIR))
-    variants = {"spread1d": SPREAD1D_VARIANTS, "interp1d": INTERP1D_VARIANTS}.get(kind, {})
+    variants = {"spread1d": SPREAD1D_VARIANTS, "interp2d": INTERP2D_VARIANTS,
+                "interp1d": INTERP1D_VARIANTS}[kind]
+    variants = {k: v for k, v in variants.items() if only is None or k in only}
     parts = {"spread1d": SPREAD1D_PARTS, "interp2d": INTERP2D_PARTS,
              "interp1d": INTERP1D_PARTS}[kind]
     if with_variants:
         texts = _edited_sources(stem, variants, ms)
-        texts[other] = _m_only({"spread1d": _CELL_SPREAD_1D_SRC,
-                                "interp2d": _STAGED_INTERP_2D_SRC,
-                                "interp1d": _POINT_INTERP_1D_SRC}[kind], ms)
+        texts.update({o: _m_only(_other_design(kind, o), ms) for o in others})
         prefix = f"{kind}_"
     else:
         texts = _edited_sources(stem, parts, ms)
+        if kind == "interp2d":
+            texts.update(_edited_sources(stem, POINT_INTERP2D_PARTS, ms,
+                                         _POINT_INTERP_2D_SRC, "point"))
         prefix = f"{kind}_part_"
     libs = _build_all(prefix, {k: (t, inc) for k, t in texts.items()})
     for k in libs:
@@ -3085,9 +3387,11 @@ def _lowdim_probe(kind: str, seed: int, dtypes, nps, ms, with_variants: bool,
                                        dtype=plan0.dtype)
                     want = blocked.interpolate_blocked_plain(chunked, grid)
                     raw = _raw_interp_2d if D == 2 else _raw_interp_1d
+                    design = {k: next((o for o in others if k == o or k.startswith(o + "_")),
+                                      "nufft") for k in libs}
                     runs = {k: (lambda lib=lib, k=k: raw(
-                        lib, (k if k == other else "nufft") + f"_interp_{D}d_" + suffix,
-                        plan, grid, (k == "staged") if D == 2 else (k != "point")))
+                        lib, design[k] + f"_interp_{D}d_" + suffix, plan, grid,
+                        (design[k] == "staged") if D == 2 else (design[k] != "point")))
                         for k, lib in libs.items()}
                     if kind == "interp1d":  # the shipped build, each way to the output
                         inv = (plan.sort_perm_inv if plan.sort_perm_inv is not None
@@ -3097,8 +3401,9 @@ def _lowdim_probe(kind: str, seed: int, dtypes, nps, ms, with_variants: bool,
                                 libs["shipped"], "nufft_interp_1d_" + suffix, plan, grid,
                                 gather=way == "gather", inv=inv)
                     wrapper = lambda: blocked.interpolate_blocked(plan, grid)  # noqa: E731
-                head = [other, "shipped", "shipped", other] if with_variants else []
-                rest = [k for k in runs if k not in (other, "shipped")]
+                head = ([*others, "shipped", "shipped", *others[::-1]] if with_variants
+                        else [])
+                rest = [k for k in runs if k not in (*head, "shipped")]
                 times, errs = {k: [] for k in runs}, {}
                 for rnd in range(2):
                     for k in head + ["shipped"] + (rest if rnd == 0 else rest[::-1]):
@@ -3107,7 +3412,7 @@ def _lowdim_probe(kind: str, seed: int, dtypes, nps, ms, with_variants: bool,
                         err = rel_l2(got, want)
                         errs[k] = max(errs.get(k, 0.0), err)
                         # The parts copies compute wrong values by design.
-                        if (with_variants or k == "shipped") and not err <= tol:
+                        if (with_variants or k in ("shipped", *others)) and not err <= tol:
                             raise AssertionError(f"{kind} {name} m={m} {np_} {k}: rel L2 "
                                                  f"{err:.3e} vs plain")
                         del got
@@ -3126,8 +3431,9 @@ def _lowdim_probe(kind: str, seed: int, dtypes, nps, ms, with_variants: bool,
                         "ms": {k: statistics.median(t) for k, t in times.items()},
                         "call_ms": call_ms, "call_host_us": _host_us(wrapper, 100),
                         "rel_l2": errs, "bound_ms": bound_ms, "bound_by": bound_by}
-                if with_variants:
-                    line[f"{other}_over_shipped"] = line["ms"][other] / line["ms"]["shipped"]
+                for o in others:
+                    if o in line["ms"]:
+                        line[f"{o}_over_shipped"] = line["ms"][o] / line["ms"]["shipped"]
                 print(json.dumps(line), flush=True)
                 del plan, chunked, want, pts, runs, wrapper
                 torch.cuda.empty_cache()
@@ -3579,11 +3885,12 @@ def main(argv=None) -> int:
     parser.add_argument("--spread1d-parts", action="store_true",
                         help="time the 1D spread kernel with each phase taken out, and stop")
     parser.add_argument("--interp2d", action="store_true",
-                        help="time the 2D interpolation kernel against the staged design "
-                             "tried in its place and its wrapper call, and stop")
+                        help="time the 2D interpolation kernel against the per-point kernel "
+                             "it replaced and the staged design tried in its place, its "
+                             "wrapper call and its variants, and stop")
     parser.add_argument("--interp2d-parts", action="store_true",
-                        help="time the 2D interpolation kernel with each phase taken out, "
-                             "and stop")
+                        help="time the 2D interpolation kernel and the per-point kernel "
+                             "with each phase taken out, and stop")
     parser.add_argument("--interp1d", action="store_true",
                         help="time the 1D interpolation kernel against the per-point "
                              "kernel it replaced, its wrapper call and its variants, "
@@ -3612,6 +3919,9 @@ def main(argv=None) -> int:
     parser.add_argument("--reps", type=int, default=5,
                         help="timed launches a median of --spread1d, --interp2d, --interp1d, "
                              "their -parts twins, --interp1d-sweep and --exec-1d")
+    parser.add_argument("--variants", nargs="+", default=None,
+                        help="the variants of --spread1d, --interp2d and --interp1d to time "
+                             "(default: all)")
     parser.add_argument("--m", type=int, nargs="+", default=[4],
                         help="the M of --spread1d, --interp2d, --interp1d, --weights and "
                              "the -parts twins")
@@ -3662,7 +3972,7 @@ def main(argv=None) -> int:
               for parts in (False, True) if getattr(args, kind + ("_parts" if parts else ""))]
     for kind, parts in lowdim:
         _lowdim_probe(kind, args.seed, args.dtype, args.np, args.m, with_variants=not parts,
-                      reps=args.reps)
+                      reps=args.reps, only=args.variants)
     if lowdim:
         return 0
     if args.spread2d or args.spread2d_parts:

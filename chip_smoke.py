@@ -380,13 +380,15 @@ def phase_environment():
 
 def _kernel_label(mangled: str) -> str:
     """``spread_3d<M=4, double, 2>``, ``interp_1d<M=4, float, 2, taps,
-    sorted>`` or ``window_weights<kind=1, M=4, double, 2>`` (window kind, M,
-    scalar, points a thread) from a mangled kernel name."""
-    m = re.search(r"(spread|interp)_(\d)d_kernelILi(\d+)E([fd])Li(\d)E(?:Lb([01])E)?"
+    sorted>``, ``interp_2d<M=4, float, 2, point>`` (a ``*_point_kernel``)
+    or ``window_weights<kind=1, M=4, double, 2>`` (window kind, M, scalar,
+    points a thread) from a mangled kernel name."""
+    m = re.search(r"(spread|interp)_(\d)d_(point_)?kernelILi(\d+)E([fd])Li(\d)E(?:Lb([01])E)?"
                   r"(?:Lb([01])E)?", mangled)
     if m:
-        return (f"{m[1]}_{m[2]}d<M={m[3]}, {'float' if m[4] == 'f' else 'double'}, {m[5]}"
-                + (", taps" if m[6] == "1" else "") + (", sorted" if m[7] == "1" else "") + ">")
+        return (f"{m[1]}_{m[2]}d<M={m[4]}, {'float' if m[5] == 'f' else 'double'}, {m[6]}"
+                + (", taps" if m[7] == "1" else "") + (", sorted" if m[8] == "1" else "")
+                + (", point" if m[3] else "") + ">")
     m = re.search(r"window_weights_kernelILi(\d)ELi(\d+)E([fd])Li(\d)E", mangled)
     if m:
         return (f"window_weights<kind={m[1]}, M={m[2]}, "
@@ -623,8 +625,14 @@ def check_kernel(kind: str, plan, vp, gen):
     max_abs = float((got - want).abs().max())
     bound_ms, bound_by = kernel_bound(kind, plan, vp.shape[0])
     name = blocked.entry_point(kind, plan)
-    log(f"  {name} at Np = {plan.num_points:,}: rel L2 {err:.3e}, max abs {max_abs:.3e} "
-        f"vs plain, kernel {ms:.3f} ms, bound {bound_ms:.4g} ms ({bound_by})")
+    design = ""
+    if kind == "interp" and plan.ndim == 2:  # csrc/interp_2d.cu runs one of two designs
+        from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES, interp2d_chunked_rows
+
+        rows = interp2d_chunked_rows(*VALUE_TYPES[plan.dtype][1:], plan.m)
+        design = " (whole-chunk rows)" if rows else " (the first design's rolled loop)"
+    log(f"  {name}{design} at Np = {plan.num_points:,}: rel L2 {err:.3e}, max abs "
+        f"{max_abs:.3e} vs plain, kernel {ms:.3f} ms, bound {bound_ms:.4g} ms ({bound_by})")
     check(f"{name} rel L2 vs plain at Np={plan.num_points}", err,
           KERNEL_TOL[torch.empty((), dtype=plan.real_dtype).element_size()])
     return dict(rel_l2=err, max_abs_err=max_abs, ms=ms, bound_ms=bound_ms,

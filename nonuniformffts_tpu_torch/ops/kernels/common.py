@@ -5,9 +5,10 @@ shared-memory footprint of the spread kernels, the rounds of the 1D spread
 kernel (``spread1d_warp_rounds``), the tile geometry of the 2D and 3D
 spread kernels (``spread2d_units``, ``spread_tiles``), which the kernels and
 the block geometry chooser share, the staged windows of the 1D
-interpolation kernel (``interp1d_window``, ``interp1d_staged``) and the
-staged window and lane groups of the 3D interpolation kernel
-(``interp_tiles``, ``interp_lanes``).
+interpolation kernel (``interp1d_window``, ``interp1d_staged``), the row
+geometry, design and register cap of the 2D interpolation kernel
+(``interp2d_rows``, ``interp2d_chunked_rows``, ``interp2d_min_ctas``) and the staged window and lane groups of the 3D
+interpolation kernel (``interp_tiles``, ``interp_lanes``).
 
 Counterpart of ``nonuniformffts_tpu/ops/pallas/common.py``.  The TPU
 kernels placed the 2M taps of each point into dense weight matrices for the
@@ -129,6 +130,20 @@ INTERP1D_STAGE_BYTES = 32768
 #: 7.6 MiB, behind at 11.4 MiB, in all four value types and at one and two
 #: transforms).
 INTERP1D_GATHER_BYTES = 8 << 20
+
+# The 2D interpolation kernel (``csrc/interp_2d.cu``, which must match): a
+# thread a sorted point; each row of its window read as whole 16-byte
+# chunks from the chunk that holds the row's first cell (``interp2d_rows``),
+# a few rows issued before their FMAs; the registers capped for
+# ``interp2d_min_ctas`` CTAs an SM.
+#: Threads of one CTA (``kThreads``).
+INTERP2D_THREADS = 256
+#: Registers of loaded cells a thread keeps in flight (``kLoadRegs``).
+INTERP2D_LOAD_REGS = 64
+#: The M at which each value type, by (scalar bytes, scalars a value), reads
+#: whole-chunk rows (``rows_mask``); the others keep the first design's loop.
+INTERP2D_ROWS_M = {(4, 2): (7, 8, 9, 10), (8, 2): (4, 9, 10), (4, 1): (2, 7, 8, 9, 10),
+                   (8, 1): (5, 6, 7, 8, 9, 10)}
 
 #: The kernels' value types by the plan's dtype: the entry-point suffix
 #: (``nufft_spread_<D>d_<suffix>``), the bytes of one scalar and the scalars
@@ -387,6 +402,69 @@ def interp1d_staged(points: int, window: Interp1DWindow) -> bool:
     """Whether the 1D interpolation kernel stages a block of ``points``
     points, or reads its points' cells from global memory."""
     return window.chans > 0 and INTERP1D_SPARSE * points >= window.span
+
+
+@dataclasses.dataclass(frozen=True)
+class Interp2DRows:
+    """One row of a point's window in the 2D interpolation kernel
+    (``csrc/interp_2d.cu:RowGeometry``)."""
+
+    per: int             # cells of one 16-byte chunk
+    chunks: int          # chunks a row: the window's 2M cells at any offset
+    width: int           # cells loaded a row
+    rows_in_flight: int  # rows issued before their FMAs
+
+    def first_chunk(self, cy: int) -> Tuple[int, int]:
+        """The first loaded cell of the row window whose first cell is
+        ``cy`` (>= 0; a multiple of ``per``) and ``cy``'s offset from it:
+        the taps shift by that offset, zero outside the 2M cells."""
+        return cy - cy % self.per, cy % self.per
+
+    def whole(self, cy: int, n1: int, chunked: bool) -> bool:
+        """Whether the row window starting at cell ``cy`` is read as whole
+        chunks within the row (else cell by cell with periodic wrap);
+        ``chunked``: the grid's rows are whole chunks from an aligned base."""
+        return chunked and cy >= 0 and self.first_chunk(cy)[0] + self.width <= n1
+
+
+def interp2d_rows(m: int, scalar_bytes: int = 4, ncomp: int = 2) -> Interp2DRows:
+    """The 2D interpolation kernel's row geometry at M = m for values of
+    ``ncomp`` scalars of ``scalar_bytes``: 16-byte chunks covering 2M cells
+    from any offset within a chunk, and as many rows in flight as
+    ``INTERP2D_LOAD_REGS`` registers hold (at least one, at most 2M)."""
+    per = 16 // (scalar_bytes * ncomp)
+    chunks = -(-(2 * m + per - 1) // per)
+    row_regs = chunks * 16 // 4
+    return Interp2DRows(per, chunks, chunks * per,
+                        min(max(INTERP2D_LOAD_REGS // row_regs, 1), 2 * m))
+
+
+def interp2d_chunked_rows(scalar_bytes: int, ncomp: int, m: int) -> bool:
+    """Whether the 2D interpolation kernel's instantiation reads whole-chunk
+    rows (``chunked_rows``), or runs the first design's rolled x loop, where
+    that was as fast on the H100 (``INTERP2D_ROWS_M``)."""
+    return m in INTERP2D_ROWS_M[scalar_bytes, ncomp]
+
+
+def interp2d_min_ctas(scalar_bytes: int, ncomp: int, m: int) -> int:
+    """Resident CTAs an SM that the 2D interpolation kernel's register cap
+    leaves room for (``min_ctas``): 32-bit values three to M = 4, two past
+    it; 64-bit values two to M = 8, one past it; one (no minimum) for the
+    first design's kernel (``interp_2d_point_kernel``)."""
+    if not interp2d_chunked_rows(scalar_bytes, ncomp, m):
+        return 1
+    if scalar_bytes == 4:
+        return 2 if m > 4 else 3
+    return 1 if m > 8 else 2
+
+
+def interp2d_smem_bytes(m: int, ncoef: int, scalar_bytes: int = 4, ncomp: int = 2) -> int:
+    """Dynamic shared memory of one 2D interpolation CTA: both dimensions'
+    coefficients, coefficient-major ``(ncoef, row_pitch)`` tables for the
+    whole-chunk rows, tap-major ``(2M, ncoef)`` for the first design."""
+    per_dim = (row_pitch(2 * m, scalar_bytes) if interp2d_chunked_rows(scalar_bytes, ncomp, m)
+               else 2 * m)
+    return 2 * scalar_bytes * per_dim * ncoef
 
 
 def interp1d_gathers(np_: int, nchan: int, value_bytes: int) -> bool:

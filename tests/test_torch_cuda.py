@@ -424,13 +424,17 @@ def test_spread_1d_matches_plain_version(cuda_device, case, dtype):
     assert _rel_err(g_k, g_p) <= tol
 
 
-# The 2D interpolation kernel's edges (csrc/interp_2d.cu, a thread a point):
+# The 2D interpolation kernel's edges (csrc/interp_2d.cu, a thread a point,
+# rows read as whole 16-byte chunks or cell by cell with wrap):
 # (shape, sigma, m, block_dims, transforms, where, points, window).  The
 # main path's (8, 24) blocks at ~90 points a block; sparse points with empty
 # blocks; clustered points (7 of 8 in one corner); dense blocks of more than
 # a thousand points; a large block at m = 10; a grid smaller than the padded
-# window; m = 2, 8 and 10; three transforms; ragged block rows; wrapped
-# edges; every K3 window.
+# window; m = 2, 3, 7, 8, 9 and 10 (odd M: the chunk offsets of float32;
+# m = 8-10 in 64-bit: a row of loads at a time), wrapped at m = 7-10; three
+# and 32 transforms; ragged block rows; wrapped edges; rows that are not
+# whole chunks (45 cells: complex64 reads every cell with wrap) and a grid
+# whose base is not 16-byte aligned (a view one value in); every K3 window.
 INTERP_2D_CASES = {
     "main_8x24": ((64, 64), 1.5, 4, (8, 24), 1, "uniform", 9_000, None),
     "chosen": ((64, 48), 1.5, 4, None, 1, "uniform", 6_000, None),
@@ -441,9 +445,16 @@ INTERP_2D_CASES = {
     "m10_grid_below_window": ((10, 12), 2.0, 10, (20, 24), 1, "uniform", 3_000, None),
     "m2": ((16, 16), 2.0, 2, (4, 8), 1, "uniform", 6_000, None),
     "m8": ((16, 16), 2.0, 8, (8, 8), 1, "uniform", 6_000, None),
+    "m3": ((24, 24), 2.0, 3, None, 1, "uniform", 6_000, None),
+    "m7_edges": ((24, 24), 2.0, 7, None, 1, "edges", 6_000, None),
+    "m9_edges": ((24, 24), 2.0, 9, None, 1, "edges", 6_000, None),
+    "m10_edges": ((24, 32), 2.0, 10, None, 2, "edges", 6_000, None),
     "three_transforms": ((20, 24), 1.5, 4, (5, 12), 3, "uniform", 6_000, None),
+    "transforms_32": ((32, 48), 1.5, 4, None, 32, "uniform", 3_000, None),
     "ragged_rows": ((40, 256), 1.5, 4, (6, 32), 1, "uniform", 12_000, None),
     "wrapped_edges": ((20, 24), 1.5, 4, None, 2, "edges", 6_000, None),
+    "odd_rows": ((20, 21), 2.0, 4, None, 2, "edges", 6_000, None),
+    "misaligned_base": ((20, 24), 1.5, 4, None, 2, "edges", 6_000, None),
     **{f"wtaps_{k}_{e}": ((20, 24), 2.0, 3, None, 1, "uniform", 6_000, (k, e))
        for k, e in WINDOWS if (k, e) != ("KaiserBesselKernel", "FastApproximation")
        and (k, e) != ("BackwardsKaiserBesselKernel", "FastApproximation")},
@@ -453,9 +464,9 @@ INTERP_2D_CASES = {
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
 @pytest.mark.parametrize("case", list(INTERP_2D_CASES))
 def test_interp_2d_matches_plain_version(cuda_device, case, dtype):
-    """Each 2D interpolation entry point (a thread a point) against its
-    plain version on the kernel's edge cases and every window whose taps
-    come from K3, with its launch counts moving."""
+    """Each 2D interpolation entry point (a thread a point, whole-chunk or
+    wrapped rows) against its plain version on the kernel's edge cases and
+    every window whose taps come from K3, with its launch counts moving."""
     row = INTERP_2D_CASES[case]
     plan, rng, tol = _lowdim_plan(row, 2, dtype, cuda_device, len(case) + 13)
     C, np_, window = row[4], row[6], row[7]
@@ -466,7 +477,13 @@ def test_interp_2d_matches_plain_version(cuda_device, case, dtype):
         assert (counts == 0).any()
     if case == "m10_grid_below_window":
         assert plan.block_dims[0] + 2 * plan.m - 1 > plan.shape_over[0]
+    if case == "odd_rows" and np.dtype(dtype).kind == "c":  # a real plan's rows are even
+        assert plan.shape_over[1] % 2 == 1
     grid = torch.from_numpy(_values(rng, dtype, (C,) + plan.shape_over)).to(cuda_device)
+    if case == "misaligned_base":
+        buf = torch.empty(grid.numel() + 1, dtype=grid.dtype, device=cuda_device)
+        grid = buf[1:].view(grid.shape).copy_(grid)
+        assert grid.data_ptr() % 16 != 0 or grid.element_size() == 16
     name = blocked.entry_point("interp", plan)
     assert name.startswith("nufft_interp_2d_")
     weights = blocked.WEIGHTS_ENTRY[plan.real_dtype]

@@ -28,13 +28,22 @@ from nonuniformffts_tpu_torch.ops.kernels import blocked
 from nonuniformffts_tpu_torch.ops.kernels.common import (
     INTERP1D_GATHER_BYTES,
     INTERP1D_STAGE_BYTES,
+    INTERP2D_LOAD_REGS,
+    INTERP2D_ROWS_M,
+    INTERP2D_THREADS,
     MAX_SMEM_BYTES,
     SPREAD1D_THREADS,
     VALUE_TYPES,
+    coefficient_stack,
     interp1d_gathers,
     interp1d_staged,
     interp1d_window,
+    interp2d_chunked_rows,
+    interp2d_min_ctas,
+    interp2d_rows,
+    interp2d_smem_bytes,
     row_pitch,
+    window_weights,
     spread1d_stored,
     spread1d_warp_rounds,
     spread_smem_bytes,
@@ -233,6 +242,8 @@ def test_1d_spread_smem_fits(dtype, m):
 @pytest.mark.parametrize("stem, table", [("spread_1d", "SPREAD1D_PARTS"),
                                          ("spread_1d", "SPREAD1D_VARIANTS"),
                                          ("interp_2d", "INTERP2D_PARTS"),
+                                         ("interp_2d", "INTERP2D_VARIANTS"),
+                                         ("interp_2d", "POINT_INTERP2D_PARTS"),
                                          ("interp_1d", "INTERP1D_PARTS"),
                                          ("interp_1d", "INTERP1D_VARIANTS"),
                                          ("window_weights", "WEIGHTS_PARTS"),
@@ -240,9 +251,10 @@ def test_1d_spread_smem_fits(dtype, m):
 def test_probe_parts_edit_the_shipped_sources(stem, table):
     """Every line that ``chip_probe.py --spread1d-parts`` / ``--interp2d-parts``
     / ``--interp1d-parts`` / ``--weights`` replaces to take a phase out, and
-    that ``--spread1d`` / ``--interp1d`` replaces for a variant, is in the
-    shipped kernel's source, and each copy differs from it: a stale edit
-    would fail the probe on the card."""
+    that ``--spread1d`` / ``--interp2d`` / ``--interp1d`` replaces for a
+    variant, is in the shipped kernel's source (the per-point 2D kernel's
+    parts: in its copy in the probe), and each copy differs from it: a
+    stale edit would fail the probe on the card."""
     import importlib.util
     from pathlib import Path
 
@@ -251,10 +263,14 @@ def test_probe_parts_edit_the_shipped_sources(stem, table):
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
     parts = getattr(probe, table)
-    texts = probe._edited_sources(stem, parts, (4, 8, 10))
-    assert "CASE(4) CASE(8) CASE(10)" in texts["shipped"]
-    assert set(texts) == {"shipped", *parts}
-    assert all(texts[k] != texts["shipped"] for k in parts)
+    # The per-point 2D kernel's parts edit its copy in the probe.
+    base = "point" if table == "POINT_INTERP2D_PARTS" else "shipped"
+    source = probe._POINT_INTERP_2D_SRC if base == "point" else None
+    texts = probe._edited_sources(stem, parts, (4, 8, 10), source, base)
+    assert "CASE(4) CASE(8) CASE(10)" in texts[base]
+    names = {k if base == "shipped" else f"{base}_{k}" for k in parts}
+    assert set(texts) == {base, *names}
+    assert all(texts[k] != texts[base] for k in names)
 
 
 
@@ -462,3 +478,195 @@ def test_1d_inverse_only_where_the_gather_runs(dtype, C):
     plan2 = tnufft.PlanNUFFT(dtype, (8, 8), m=2, sigma=2.0, ntransforms=C,
                              spread_method="blocked", device="cpu")
     assert blocked.interp1d_inverse(plan2, perm) is None  # 2D: no gather
+
+
+def emulate_interp_2d(plan, grid: torch.Tensor, chunked: bool = True, log=None) -> torch.Tensor:
+    """The 2D interpolation kernel's reads in float64 on the CPU, from the
+    shared row geometry (``interp2d_rows``): a point whose row window lies
+    within the row reads each of its 2M rows as whole chunks from the chunk
+    that holds the row's first cell, with its y taps shifted to that offset
+    and zero on the other loaded cells; any other point (or every point when
+    ``chunked`` is False) reads its 2M x 2M cells with periodic wrap.  Rows
+    wrap in x either way.  ``grid`` (C, n0, n1); returns (C, Np) in the
+    caller's point order.  ``log``, a list, receives each point's path
+    (True: whole chunks)."""
+    m, S = plan.m, 2 * plan.m
+    n0, n1 = plan.shape_over
+    _, sb, ncomp = VALUE_TYPES[plan.dtype]
+    rows = interp2d_rows(m, sb, ncomp)
+    wx, wy = blocked.window_weights_blocked_plain(plan).to(torch.float64)  # (S, Np) each
+    g = grid.to(torch.complex128 if grid.is_complex() else torch.float64)
+    cx = plan.cells_sorted[0].to(torch.int64) - (m - 1)
+    cy = plan.cells_sorted[1].to(torch.int64) - (m - 1)
+    whole = torch.tensor([rows.whole(int(y), n1, chunked) for y in cy], dtype=torch.bool)
+    if log is not None:
+        log.extend(whole.tolist())
+    xs = (cx[:, None] + torch.arange(S)) % n0  # (Np, S): the rows, wrapped
+    taps = torch.zeros((plan.num_points, rows.width), dtype=torch.float64)
+    ys = torch.zeros((plan.num_points, rows.width), dtype=torch.int64)
+    for j in range(plan.num_points):
+        if whole[j]:
+            y0, shift = rows.first_chunk(int(cy[j]))
+            assert y0 % rows.per == 0 and shift + S <= rows.width
+            taps[j, shift:shift + S] = wy[:, j]
+            ys[j] = y0 + torch.arange(rows.width)
+        else:
+            taps[j, :S] = wy[:, j]
+            ys[j, :S] = (cy[j] + torch.arange(S)) % n1
+    assert not whole.any() or int(ys[whole].max()) < n1  # whole chunks never wrap
+    out = torch.zeros((grid.shape[0], plan.num_points), dtype=g.dtype)
+    for c in range(grid.shape[0]):
+        vals = g[c][xs[:, :, None], ys[:, None, :]]  # (Np, S, width)
+        r = (vals * taps[:, None, :]).sum(-1)
+        out[c] = (r * wx.T).sum(-1) * plan.normfactor
+    res = torch.empty_like(out)
+    res[:, plan.sort_perm] = out
+    return res.to(plan.dtype)
+
+
+# (shape, sigma, m, block_dims, transforms, points, where): the main path's
+# 8 x 24 blocks on a small grid; half the points within 0.3 of an edge, so
+# windows wrap in both dims; a grid of odd rows (45 cells: whole chunks only
+# for complex128); every M's chunk geometry at 2, 3, 7 and 10; taps from K3.
+INTERP2D_CASES = {
+    "main_8x24": ((64, 64), 1.5, 4, (8, 24), 1, None, 2_000, "uniform"),
+    "edges": ((20, 24), 1.5, 4, None, 2, None, 1_500, "edges"),
+    "odd_rows": ((20, 21), 2.0, 4, None, 2, None, 1_500, "edges"),
+    "m2": ((16, 16), 2.0, 2, None, 1, None, 1_000, "edges"),
+    "m3": ((16, 16), 2.0, 3, None, 1, None, 1_000, "uniform"),
+    "m7": ((24, 24), 2.0, 7, None, 1, None, 1_000, "edges"),
+    "m10": ((16, 24), 2.0, 10, None, 3, None, 1_000, "edges"),
+    "k3_taps": ((20, 24), 2.0, 4, None, 1, "GaussianKernel", 1_000, "edges"),
+}
+
+
+def _interp2d_plan(case, dtype, seed=0):
+    shape, sigma, m, bd, C, kernel, np_, where = INTERP2D_CASES[case]
+    rng = np.random.default_rng(seed)
+    kw = {} if kernel is None else dict(kernel=getattr(tnufft, kernel)())
+    plan = tnufft.PlanNUFFT(dtype, shape, m=m, sigma=sigma, ntransforms=C,
+                            spread_method="blocked", block_dims=bd, device="cpu", **kw)
+    pts = random_points(rng, 2, np_, dtype, lo=-1.0, hi=7.0)
+    if where == "edges":  # half the points within 0.3 of an edge
+        pts[:, ::2] = random_points(rng, 2, -(-np_ // 2), dtype, lo=-0.3, hi=0.3)
+    plan = tnufft.set_points(plan, pts)
+    g = random_complex(rng, np.complex128, (C,) + plan.shape_over)
+    if not plan.dtype.is_complex:
+        g = g.real.copy()
+    return plan, pts, torch.from_numpy(g).to(plan.dtype)
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_TYPES), ids=str)
+@pytest.mark.parametrize("case", list(INTERP2D_CASES))
+def test_emulated_2d_rows_match_plain_interp(case, dtype):
+    """Each point's reads as the 2D interpolation kernel makes them, whole
+    chunks with shifted taps or cell by cell with wrap, against the plain
+    interpolation (1e-12 in float64 of the same taps and cells); both paths
+    taken where windows wrap, none whole on rows that are not whole
+    chunks, and the same values with every point read cell by cell."""
+    np_dtype = {torch.complex64: np.complex64, torch.complex128: np.complex128,
+                torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    plan, _, g = _interp2d_plan(case, np_dtype)
+    n1 = plan.shape_over[1]
+    _, sb, ncomp = VALUE_TYPES[plan.dtype]
+    rows = interp2d_rows(plan.m, sb, ncomp)
+    chunked = n1 % rows.per == 0
+    log = []
+    got = emulate_interp_2d(plan, g, chunked, log)
+    if case == "odd_rows" and plan.dtype.is_complex:  # a real plan's rows are even
+        assert n1 % 2 == 1 and chunked == (sb * ncomp == 16)
+    if chunked:
+        assert any(log) and (case == "main_8x24" or not all(log))
+    else:
+        assert not any(log)
+    want = blocked.interpolate_blocked_plain(plan, g)
+    tol = 1e-12 if sb == 8 else 1e-6
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert rel_err(got.numpy(), want.numpy()) <= tol
+    if chunked:
+        cells = emulate_interp_2d(plan, g, False)
+        assert rel_err(got.to(torch.complex128).numpy(),
+                       cells.to(torch.complex128).numpy()) <= (1e-14 if sb == 8 else 1e-7)
+
+
+def test_emulated_2d_rows_match_jax_interp():
+    """The kernel's reads against the JAX package's reference interpolation
+    (its CPU path) on the same points and grid, complex128, two transforms,
+    windows wrapping at every edge."""
+    plan, pts, g = _interp2d_plan("edges", np.complex128, seed=3)
+    shape, sigma, m = INTERP2D_CASES["edges"][:3]
+    jp = jnufft.PlanNUFFT(np.complex128, shape, m=m, sigma=sigma, ntransforms=2)
+    assert tuple(jp.shape_over) == plan.shape_over
+    want = j_interp(jp.kernel_data, jp.evalmode, jnp.asarray(g.numpy()), jnp.asarray(pts),
+                    plan.normfactor)
+    got = emulate_interp_2d(plan, g)
+    assert rel_err(got.numpy(), np.asarray(want)) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_TYPES), ids=str)
+@pytest.mark.parametrize("m", list(range(2, 11)))
+def test_2d_interp_rows_and_coefficient_table(dtype, m):
+    """The 2D interpolation kernel's host-side pieces: each row's chunks
+    hold the 2M cells at every offset in whole 16-byte loads; the rows in
+    flight fit ``INTERP2D_LOAD_REGS`` (one at least); the register cap
+    leaves at least the registers the taps and a row need, and the
+    instantiations that keep the first design's loop run uncapped; the two
+    coefficient tables in shared memory stay below 48 KB; and Horner's rule
+    on the coefficient-major ``(ncoef, row_pitch)`` tables, laid out as
+    ``coefficient_rows`` lays them (zero past 2M in each row), gives the
+    plain taps."""
+    _, sb, ncomp = VALUE_TYPES[dtype]
+    S = 2 * m
+    rows = interp2d_rows(m, sb, ncomp)
+    assert rows.per * sb * ncomp == 16 and rows.width == rows.chunks * rows.per
+    assert all(shift + S <= rows.width for shift in range(rows.per))
+    assert rows.width - S < 2 * rows.per
+    row_regs = rows.chunks * 16 // 4
+    assert 1 <= rows.rows_in_flight <= S
+    assert rows.rows_in_flight * row_regs <= INTERP2D_LOAD_REGS or rows.rows_in_flight == 1
+    assert rows.first_chunk(0) == (0, 0) and rows.whole(0, rows.width, True)
+    assert rows.whole(rows.per, rows.per + rows.width, True)
+    assert not rows.whole(rows.per, rows.per + rows.width - 1, True)
+    assert not rows.whole(-1, 10 * rows.width, True) and not rows.whole(0, 99, False)
+    ctas = interp2d_min_ctas(sb, ncomp, m)
+    cap = min(65536 // (ctas * INTERP2D_THREADS), 255)
+    assert 1 <= ctas <= 3 and cap >= 2 * S * sb // 4 + min(row_regs, INTERP2D_LOAD_REGS)
+    assert (ctas == 1) >= (not interp2d_chunked_rows(sb, ncomp, m))
+    plan = tnufft.PlanNUFFT({4: np.complex64, 8: np.complex128}[sb], (32, 32), m=m,
+                            sigma=2.0, spread_method="blocked", device="cpu")
+    coefs = coefficient_stack(plan.kernel_data).to(torch.float64)  # (2, S, ncoef)
+    ncoef = coefs.shape[-1]
+    per_dim = row_pitch(S, sb) if interp2d_chunked_rows(sb, ncomp, m) else S
+    assert interp2d_smem_bytes(m, ncoef, sb, ncomp) == 2 * sb * per_dim * ncoef <= 48 * 1024
+    pitch = row_pitch(S, sb)
+    table = torch.zeros(2 * pitch * ncoef, dtype=torch.float64)
+    for i in range(table.numel()):  # csrc/interp_2d.cu:coefficient_rows
+        d, r = divmod(i, pitch * ncoef)
+        q, t = divmod(r, pitch)
+        table[i] = coefs[d, t, q] if t < S else 0.0
+    X = torch.linspace(0, 1, 7, dtype=torch.float64)[:-1]
+    for d in range(2):
+        rows_d = table[d * pitch * ncoef:(d + 1) * pitch * ncoef].view(ncoef, pitch)
+        z = 2 * X - 1
+        acc = rows_d[ncoef - 1][:, None].expand(pitch, X.numel()).clone()
+        for q in range(ncoef - 2, -1, -1):  # window.cuh:horner_rows
+            acc = acc * z + rows_d[q][:, None]
+        assert torch.equal(acc[S:], torch.zeros_like(acc[S:]))
+        want = window_weights(plan.kernel_data[d], plan.evalmode, X[None, :], coefs[d])
+        assert torch.allclose(acc[:S], want, rtol=0, atol=1e-13)
+
+
+def test_2d_interp_design_table_matches_the_kernel():
+    """``INTERP2D_ROWS_M`` (where the 2D interpolation reads whole-chunk
+    rows) is the bit mask of ``csrc/interp_2d.cu:rows_mask`` for each value
+    type, and every M of the kernels is in range."""
+    import re
+    from pathlib import Path
+
+    src = (Path(blocked.__file__).resolve().parent.parent.parent / "csrc" / "interp_2d.cu").read_text()
+    body = re.search(r"rows_mask\(int scalar_bytes, int ncomp\) \{\n  return (.*?);\n\}", src, re.S)
+    masks = [int(h, 16) for h in re.findall(r"0x([0-9A-F]+)u", body.group(1))]
+    # scalar_bytes == 4 ? (complex : real) : (complex : real)
+    for (sb, ncomp), mask in zip([(4, 2), (4, 1), (8, 2), (8, 1)], masks):
+        assert {m for m in range(2, 11) if mask >> m & 1} == set(INTERP2D_ROWS_M[sb, ncomp])
+    assert all(mk >> 11 == 0 and mk & 3 == 0 for mk in masks)
