@@ -32,10 +32,12 @@ from .ops.stencil import cells_and_fracs
 
 __all__ = [
     "block_ids_from_cells",
+    "bin_order",
     "bin_sort",
     "cells_and_fracs",
     "choose_geometry",
     "num_blocks",
+    "sorted_copies",
 ]
 
 
@@ -217,8 +219,18 @@ def bin_sort(cells: torch.Tensor, fracs: torch.Tensor, shape_over, block_dims):
     fractions (contiguous), ``perm`` (Np,) int64 with ``perm[j]`` the
     original index of sorted point ``j``, and ``pstarts`` (nblocks + 1,)
     int32, block ``b``'s points being sorted positions
-    ``[pstarts[b], pstarts[b + 1])``.
+    ``[pstarts[b], pstarts[b + 1])``: :func:`bin_order`, then
+    :func:`sorted_copies`.
     """
+    perm, pstarts = bin_order(cells, shape_over, block_dims)
+    return (*sorted_copies(cells, fracs, perm), perm, pstarts)
+
+
+def bin_order(cells: torch.Tensor, shape_over, block_dims):
+    """The order of :func:`bin_sort`, without its copies: ``(perm,
+    pstarts)`` from the keys, one stable sort, the histogram of block ids
+    (``bincount``, which on CUDA reads the ids' least and largest values to
+    the host) and its prefix sum."""
     D = cells.shape[0]
     nb = num_blocks(shape_over, block_dims)
     nblocks = 1
@@ -238,9 +250,9 @@ def bin_sort(cells: torch.Tensor, fracs: torch.Tensor, shape_over, block_dims):
     counts = torch.bincount(bid.to(torch.int64), minlength=nblocks)
     pstarts = torch.zeros(nblocks + 1, dtype=torch.int32, device=cells.device)
     pstarts[1:] = torch.cumsum(counts, 0)
-    return (
-        cells[:, perm].contiguous(),
-        fracs[:, perm].contiguous(),
-        perm,
-        pstarts,
-    )
+    return perm, pstarts
+
+
+def sorted_copies(cells: torch.Tensor, fracs: torch.Tensor, perm: torch.Tensor):
+    """The cells and fractions in the order ``perm``, contiguous."""
+    return cells[:, perm].contiguous(), fracs[:, perm].contiguous()

@@ -26,6 +26,10 @@ given -> exact sums -> nonuniform callback; no deconvolution scaling exists
 there.  A plan's ``timer`` runs each stage in a section labelled as the JAX
 package labels it (``exec_type1/(1) spreading`` ..), synchronised when the
 timer is; the stages are the same functions in the same order either way.
+A ``torch.profiler`` trace carries the same labels as spans
+(``utils/timer.py``), with or without a timer.  The ``exec_type1`` and
+``exec_type2`` sections cover the whole public call, the input checks and
+conversion included.
 
 A plan with ``transform_chunk`` set (``plan.py:choose_transform_chunk``,
 the JAX package's ``cr_chunk``) runs its transforms in groups: type 1
@@ -33,11 +37,12 @@ spreads, transforms and truncates one group at a time into one output, each
 group's grid freed before the next; type 2 scales every transform once and
 pads, transforms and interpolates one group at a time.  The callbacks run
 on every transform at once either way, so grouped results equal ungrouped
-ones; each stage's timer section adds up over the groups.  The other paths
-run their groups through the same loops (:func:`type1_groups`,
-:func:`type2_groups`) with their own spread or interpolation: the
-points-chunked plans (``chunked.py``) and the point-sharded mode
-(``parallel/sharded.py``).
+ones; each stage's timer section adds up over the groups, and a grouped
+exec opens one ``(1) spreading`` or ``(3) interpolation`` section a group.
+The other paths run their groups through the same loops
+(:func:`type1_groups`, :func:`type2_groups`) with their own spread or
+interpolation: the points-chunked plans (``chunked.py``) and the
+point-sharded mode (``parallel/sharded.py``).
 
 Real-data plans take real values in type 1 and return a complex spectrum of
 ``plan.spectral_shape`` (last axis halved); type 2 takes that spectrum and
@@ -46,8 +51,6 @@ package's double-single branches (``plan.ds``) have no counterpart here.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import numpy as np
 import torch
@@ -60,6 +63,7 @@ from .ops.interpolation import interpolate_reference
 from .ops.kernels.blocked import interpolate_blocked, spread_blocked
 from .ops.spreading import spread_reference
 from .plan import Plan, transform_groups
+from .utils.timer import section, traced
 
 _NP_DTYPE = {
     torch.complex64: np.complex64,
@@ -178,16 +182,10 @@ def t2_direct(plan: Plan, uhat: torch.Tensor, callbacks: NUFFTCallbacks) -> torc
 
 
 def _stage(plan: Plan, label: str, fn, *args):
-    """``fn(*args)``, inside the timer's section ``label`` when the plan has
-    a timer (synchronised on the result when the timer is)."""
-    if plan.timer is None:
-        return fn(*args)
-    with plan.timer.section(label):
-        return plan.timer.sync(fn(*args))
-
-
-def _section(plan: Plan, name: str):
-    return contextlib.nullcontext() if plan.timer is None else plan.timer.section(name)
+    """``fn(*args)`` in the section ``label`` (``utils/timer.py:traced``):
+    the plan's timer's, synchronised on the result when the timer is, and a
+    profiler span while a profiler records."""
+    return traced(plan.timer, label, fn, *args)
 
 
 def _t1_pass(plan: Plan, vp: torch.Tensor, uniform, spread) -> torch.Tensor:
@@ -251,26 +249,24 @@ def type2_groups(plan: Plan, uhat: torch.Tensor, uniform=None,
 def _type1(plan: Plan, vp: torch.Tensor, callbacks: NUFFTCallbacks) -> torch.Tensor:
     """(C, Np) values -> (C,) + spectral_shape, stage by stage, in the
     plan's groups of transforms (:func:`type1_groups`)."""
-    with _section(plan, "exec_type1"):
-        if plan.spread_method == "direct":
-            return _stage(plan, "(1) direct NUDFT", t1_direct, plan, vp, callbacks)
-        if callbacks.nonuniform is not None:
-            vp = _stage(plan, "(0) nonuniform callback", apply_nonuniform_callback, vp,
-                        callbacks.nonuniform)
-        return type1_groups(plan, vp, callbacks.uniform)
+    if plan.spread_method == "direct":
+        return _stage(plan, "(1) direct NUDFT", t1_direct, plan, vp, callbacks)
+    if callbacks.nonuniform is not None:
+        vp = _stage(plan, "(0) nonuniform callback", apply_nonuniform_callback, vp,
+                    callbacks.nonuniform)
+    return type1_groups(plan, vp, callbacks.uniform)
 
 
 def _type2(plan: Plan, uhat: torch.Tensor, callbacks: NUFFTCallbacks) -> torch.Tensor:
     """(C,) + spectral_shape -> (C, Np) values, stage by stage, in the
     plan's groups of transforms (:func:`type2_groups`)."""
-    with _section(plan, "exec_type2"):
-        if plan.spread_method == "direct":
-            return _stage(plan, "(1) direct NUDFT", t2_direct, plan, uhat, callbacks)
-        vp = type2_groups(plan, uhat, callbacks.uniform)
-        if callbacks.nonuniform is not None:
-            vp = _stage(plan, "(4) nonuniform callback", apply_nonuniform_callback, vp,
-                        callbacks.nonuniform)
-        return vp
+    if plan.spread_method == "direct":
+        return _stage(plan, "(1) direct NUDFT", t2_direct, plan, uhat, callbacks)
+    vp = type2_groups(plan, uhat, callbacks.uniform)
+    if callbacks.nonuniform is not None:
+        vp = _stage(plan, "(4) nonuniform callback", apply_nonuniform_callback, vp,
+                    callbacks.nonuniform)
+    return vp
 
 
 def prepare_type1(plan: Plan, vp) -> tuple:
@@ -313,10 +309,11 @@ def exec_type1(plan: Plan, vp, callbacks: NUFFTCallbacks = None) -> torch.Tensor
     FFTW frequency order unless ``fftshift``.  ``callbacks``: see
     ``callbacks.py``.
     """
-    _check_points(plan)
-    vp, had_axis = prepare_type1(plan, vp)
-    uhat = _type1(plan, vp, callbacks or _NO_CALLBACKS)
-    return uhat if had_axis else uhat[0]
+    with section(plan.timer, "exec_type1"):
+        _check_points(plan)
+        vp, had_axis = prepare_type1(plan, vp)
+        uhat = _type1(plan, vp, callbacks or _NO_CALLBACKS)
+        return uhat if had_axis else uhat[0]
 
 
 def exec_type2(plan: Plan, uhat, callbacks: NUFFTCallbacks = None) -> torch.Tensor:
@@ -327,10 +324,11 @@ def exec_type2(plan: Plan, uhat, callbacks: NUFFTCallbacks = None) -> torch.Tens
     / ``(ntransforms, Np)`` of the plan's dtype (real on real-data plans) on
     the plan's device.  ``callbacks``: see ``callbacks.py``.
     """
-    _check_points(plan)
-    uhat, had_axis = prepare_type2(plan, uhat)
-    vp = _type2(plan, uhat, callbacks or _NO_CALLBACKS)
-    return vp if had_axis else vp[0]
+    with section(plan.timer, "exec_type2"):
+        _check_points(plan)
+        uhat, had_axis = prepare_type2(plan, uhat)
+        vp = _type2(plan, uhat, callbacks or _NO_CALLBACKS)
+        return vp if had_axis else vp[0]
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ root, and is redone when a hash of the sources and flags changes.  What
 when each compile finished, is kept beside the library in ``ptxas.log``.
 Processes that start together (the ranks of a ``torchrun`` job) take a file
 lock around the build: one of them compiles, the others wait and load.
+What the load cost this process is kept in ``LOAD``.
 """
 
 from __future__ import annotations
@@ -88,6 +89,12 @@ for _vt in ("f32", "f64"):
         _P, ctypes.POINTER(WindowParams), _P, ctypes.c_longlong, _I, _I, _P]
 
 _lib = None
+#: The kernel library's load in this process (:func:`build` and
+#: :func:`load`): seconds hashing the sources (``hash_s``), from a stale or
+#: missing stamp to the library on disk, the lock's wait included
+#: (``compile_s``, 0 when the stamp matched), in ``ctypes.CDLL``
+#: (``dlopen_s``), and the nvcc builds this process ran (``builds``).
+LOAD = {"hash_s": 0.0, "compile_s": 0.0, "dlopen_s": 0.0, "builds": 0}
 
 
 def _sources():
@@ -119,7 +126,10 @@ def build() -> Path:
     builds, so that of several processes only the first compiles."""
     lib_path = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    t0 = time.perf_counter()
     digest = source_hash()
+    t1 = time.perf_counter()
+    LOAD["hash_s"] += t1 - t0
     if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -130,8 +140,10 @@ def build() -> Path:
                 return lib_path
             _compile(lib_path)
             stamp.write_text(digest)
+            LOAD["builds"] += 1
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
+            LOAD["compile_s"] += time.perf_counter() - t1
     return lib_path
 
 
@@ -215,5 +227,9 @@ def load() -> ctypes.CDLL:
     """The kernel library, built if needed and loaded once per process."""
     global _lib
     if _lib is None:
-        _lib = _typed(ctypes.CDLL(str(build())))
+        path = build()
+        t0 = time.perf_counter()
+        lib = ctypes.CDLL(str(path))
+        LOAD["dlopen_s"] += time.perf_counter() - t0
+        _lib = _typed(lib)
     return _lib

@@ -17,7 +17,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from .blocking import bin_sort, cells_and_fracs, choose_geometry
+from .blocking import bin_order, cells_and_fracs, choose_geometry, sorted_copies
 from .ops import deconvolve, direct, windows
 from .ops.kernels.blocked import check_kernel_support, interp1d_inverse, with_window_taps
 from .ops.kernels.common import VALUE_TYPES, coefficient_stack
@@ -31,6 +31,7 @@ from .ops.windows import (
     window_pack,
 )
 from .utils.misc import next_fast_len
+from .utils.timer import traced
 
 TWO_PI = 2.0 * math.pi
 
@@ -638,11 +639,13 @@ def set_points(plan: Plan, points) -> Plan:
     ``wtaps_sorted``, for every exec).  A CUDA plan on the blocked or
     reference path also gets its ``transform_chunk`` from the card's memory
     (:func:`with_transform_chunk`).  A plan's timer times it under
-    ``"set_points"``."""
-    if plan.timer is None:
-        return _set_points(plan, points)
-    with plan.timer.section("set_points"):
-        return plan.timer.sync(_set_points(plan, points))
+    ``"set_points"`` and its parts under ``"set_points/(k) ..."``: on the
+    blocked path ``(1) cell split``, ``(2) bin sort``, ``(3) sorted
+    copies``, ``(4) window taps`` and ``(5) transform groups``; on the
+    reference path ``(1) fold``, ``(2) sort`` (with ``sort_points``) and
+    ``(5) transform groups``; on the direct path ``(1) fold``.  A profiler
+    trace carries the same labels (``utils/timer.py``)."""
+    return traced(plan.timer, "set_points", _set_points, plan, points)
 
 
 def canonical_points(plan: Plan, points) -> torch.Tensor:
@@ -653,41 +656,66 @@ def canonical_points(plan: Plan, points) -> torch.Tensor:
     return _canonicalise_points(points, plan.ndim, real_dtype, plan.device)
 
 
-def _set_points(plan: Plan, points) -> Plan:
+def _cell_split(plan: Plan, points):
+    """The blocked path's cells and fractions of ``points`` (after the
+    plan's point transform), and the number of points."""
     pts = canonical_points(plan, points)
+    # No fold before the split: the split folds through its mod-N, and
+    # an f32 fold first would put 2pi * 2^-24 of noise on the points.
+    pts_t = pts if plan.point_transform is _identity else plan.point_transform(pts)
+    cells, fracs = cells_and_fracs(plan.kernel_data, pts_t)
+    return cells, fracs, pts.shape[1]
+
+
+def _with_sorted_state(plan: Plan, cells_s, fracs_s, perm, pstarts, num_points) -> Plan:
+    """``plan`` holding the blocked path's sorted point state, with its
+    window taps and, for a large 1D interpolation, the inverse order."""
+    return with_window_taps(dataclasses.replace(
+        plan,
+        points=None,
+        point_perm=None,
+        point_perm_inv=None,
+        cells_sorted=cells_s,
+        fracs_sorted=fracs_s,
+        sort_perm=perm,
+        sort_perm_inv=interp1d_inverse(plan, perm),
+        pstarts=pstarts,
+        num_points_static=num_points,
+    ))
+
+
+def _fold(plan: Plan, points) -> torch.Tensor:
+    return fold_points(canonical_points(plan, points), plan.point_transform)
+
+
+def _cell_order(plan: Plan, pts_f: torch.Tensor):
+    """Cell-major order for scatter/gather locality
+    (src/blocking/gpu.jl:130-139): the sorted points, the order and its
+    inverse."""
+    cells, _ = cells_and_fracs(plan.kernel_data, pts_f)
+    lin = cells[0].to(torch.int64)
+    for d in range(1, plan.ndim):
+        lin = lin * plan.kernel_data[d].n + cells[d]
+    _, perm = torch.sort(lin, stable=True)
+    return pts_f[:, perm], perm, torch.argsort(perm)
+
+
+def _set_points(plan: Plan, points) -> Plan:
+    t = plan.timer
     if plan.spread_method == "blocked":
-        # No fold before the split: the split folds through its mod-N, and
-        # an f32 fold first would put 2pi * 2^-24 of noise on the points.
-        pts_t = pts if plan.point_transform is _identity else plan.point_transform(pts)
-        cells, fracs = cells_and_fracs(plan.kernel_data, pts_t)
-        cells_s, fracs_s, perm, pstarts = bin_sort(
-            cells, fracs, plan.shape_over, plan.block_dims
-        )
-        return with_transform_chunk(with_window_taps(dataclasses.replace(
-            plan,
-            points=None,
-            point_perm=None,
-            point_perm_inv=None,
-            cells_sorted=cells_s,
-            fracs_sorted=fracs_s,
-            sort_perm=perm,
-            sort_perm_inv=interp1d_inverse(plan, perm),
-            pstarts=pstarts,
-            num_points_static=pts.shape[1],
-        )))
-    pts_f = fold_points(pts, plan.point_transform)
+        cells, fracs, num_points = traced(t, "(1) cell split", _cell_split, plan, points)
+        perm, pstarts = traced(t, "(2) bin sort", bin_order, cells, plan.shape_over,
+                               plan.block_dims)
+        cells_s, fracs_s = traced(t, "(3) sorted copies", sorted_copies, cells, fracs, perm)
+        del cells, fracs  # freed before a window's tap table is made
+        plan = traced(t, "(4) window taps", _with_sorted_state, plan, cells_s, fracs_s, perm,
+                      pstarts, num_points)
+        return traced(t, "(5) transform groups", with_transform_chunk, plan)
+    pts_f = traced(t, "(1) fold", _fold, plan, points)
     perm = perm_inv = None
     if plan.sort_points:
-        # Cell-major order for scatter/gather locality
-        # (src/blocking/gpu.jl:130-139).
-        cells, _ = cells_and_fracs(plan.kernel_data, pts_f)
-        lin = cells[0].to(torch.int64)
-        for d in range(1, plan.ndim):
-            lin = lin * plan.kernel_data[d].n + cells[d]
-        _, perm = torch.sort(lin, stable=True)
-        perm_inv = torch.argsort(perm)
-        pts_f = pts_f[:, perm]
-    return with_transform_chunk(dataclasses.replace(
+        pts_f, perm, perm_inv = traced(t, "(2) sort", _cell_order, plan, pts_f)
+    plan = dataclasses.replace(
         plan,
         points=pts_f,
         point_perm=perm,
@@ -699,4 +727,7 @@ def _set_points(plan: Plan, points) -> Plan:
         sort_perm_inv=None,
         pstarts=None,
         num_points_static=None,
-    ))
+    )
+    if plan.spread_method == "direct":
+        return plan  # the direct path bounds its factors by points, not groups
+    return traced(t, "(5) transform groups", with_transform_chunk, plan)

@@ -7,15 +7,42 @@ return before the card finishes, so with ``synchronise=True`` each section
 waits for its result's device (``torch.cuda.synchronize``) before it stops
 its clock, the analogue of ``KA.synchronize`` in src/plan.jl:453-454;
 without it the sections measure the host's enqueue time.
+
+The program opens every section through :func:`section` or :func:`traced`.
+Each also marks its section in a ``torch.profiler`` trace while a profiler
+records: a ``record_function`` span named ``SPAN_PREFIX`` + the section's
+full label (``nufft:exec_type1/(1) spreading``), built from a stack the
+helpers keep, so the trace carries the labels a ``Timer`` would record, with
+or without one.  The spans are events of the profiler's own trace, on the
+clock of its device operations.  With neither a timer nor a profiler the
+helpers read one flag and do nothing else: no span object, no stack entry,
+no clock.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+#: Prefix of the program's span names in a profiler trace.
+SPAN_PREFIX = "nufft:"
+_OFF = contextlib.nullcontext()
+
+
+class _Labels(threading.local):
+    """The names of the sections open on a thread, outermost first."""
+
+    def __init__(self):
+        self.stack = []
+
+
+_labels = _Labels()
 
 
 def _cuda_devices(value) -> set:
@@ -66,3 +93,42 @@ class Timer:
                 f"  ({self.counts[label]} calls)"
             )
         return "\n".join(lines)
+
+
+def _tracing(timer) -> bool:
+    """Whether a section is to be kept: a timer is attached or a profiler
+    records."""
+    return timer is not None or _autograd_profiler._is_profiler_enabled
+
+
+@contextmanager
+def _span(timer, name: str):
+    stack = _labels.stack
+    stack.append(name)
+    try:
+        with contextlib.ExitStack() as inner:
+            if _autograd_profiler._is_profiler_enabled:
+                inner.enter_context(
+                    torch.profiler.record_function(SPAN_PREFIX + "/".join(stack)))
+            if timer is not None:
+                inner.enter_context(timer.section(name))
+            yield
+    finally:
+        stack.pop()
+
+
+def section(timer, name: str):
+    """The program's section ``name`` (nested in the sections open on this
+    thread): ``timer``'s section when one is given, and a profiler span
+    while a profiler records."""
+    return _span(timer, name) if _tracing(timer) else _OFF
+
+
+def traced(timer, name: str, fn, *args):
+    """``fn(*args)`` inside :func:`section` ``name``, synchronised on the
+    result when ``timer`` is."""
+    if not _tracing(timer):
+        return fn(*args)
+    with _span(timer, name):
+        out = fn(*args)
+        return out if timer is None else timer.sync(out)

@@ -21,6 +21,14 @@ T2 = ["exec_type2/(1) deconvolve + pad", "exec_type2/(2) backward FFT",
 DIRECT = ["exec_type1/(1) direct NUDFT", "exec_type2/(1) direct NUDFT"]
 CALLBACK = ["exec_type1/(0) nonuniform callback", "exec_type2/(4) nonuniform callback"]
 METHODS = ["reference", "blocked", "direct"]
+#: ``set_points``' parts on each path (no ``sort_points``).
+SET_POINTS = {
+    "blocked": ["set_points/(1) cell split", "set_points/(2) bin sort",
+                "set_points/(3) sorted copies", "set_points/(4) window taps",
+                "set_points/(5) transform groups"],
+    "reference": ["set_points/(1) fold", "set_points/(5) transform groups"],
+    "direct": ["set_points/(1) fold"],
+}
 
 
 def _callbacks(np_):
@@ -51,9 +59,10 @@ def test_timer_records_stages(method, with_callbacks):
     stages = DIRECT if method == "direct" else T1 + T2
     if with_callbacks and method != "direct":
         stages = stages + CALLBACK
-    assert set(t.times) == {"set_points", "exec_type1", "exec_type2", *stages}
+    assert set(t.times) == {"set_points", "exec_type1", "exec_type2", *SET_POINTS[method],
+                            *stages}
     assert all(t.counts[label] == 1 for label in t.times)
-    for top in ("exec_type1", "exec_type2"):
+    for top in ("set_points", "exec_type1", "exec_type2"):
         inner = sum(v for k, v in t.times.items() if k.startswith(top + "/"))
         assert inner <= t.times[top]
     assert "timer attached (synchronise=True)" in repr(tnufft.set_points(plan, pts))
@@ -96,8 +105,9 @@ def test_timed_port_matches_jax_timed():
     u = tnufft.exec_type1(tp, v).numpy()
     ju = np.asarray(jnufft.exec_type1(jp, v))
     assert np.linalg.norm(u - ju) / np.linalg.norm(ju) <= 1e-10
-    # The JAX package times set_points on its blocked plans only.
-    assert set(tp.timer.times) == set(jp.timer.times) | {"set_points"}
+    # The JAX package times set_points on its blocked plans only, and no
+    # part of it.
+    assert set(tp.timer.times) == set(jp.timer.times) | {"set_points", *SET_POINTS["reference"]}
 
 
 def test_timer_repr_format_matches_jax():
