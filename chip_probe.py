@@ -126,6 +126,17 @@ and, for complex64, the same with complex64 factors; prints each row's
 crossover Np and the ``c`` of ``ops/direct.py:prefers_direct`` that
 matches it (``probe_direct``).
 
+    python3 chip_probe.py --set-points [--dim D ...] [--dtype T ...] [--np N ...] [--reps N]
+
+times ``set_points``' split and sort on the main paths' shapes (3D 256^3
+and 2D 4096^2 at 16,777,216 points, 1D 2^20 at 10M; m = 4, sigma = 1.5):
+the bin-key kernel, the sort and the sorted-state kernel
+(``csrc/bin_sort.cu``) each alone and together, against the plain chain
+they replace on the card (``blocking.py``), in turns, with their outputs
+held equal and each kernel's bound by the function's bytes, on uniform
+points and on clustered ones (empty end blocks, every point in the first or
+the last block; ``probe_set_points``).
+
     python3 chip_probe.py --relayout
 
 instead times the relayout kernels K8a / K8b (``csrc/relayout.cu``) as
@@ -3851,6 +3862,118 @@ def probe_direct(seed: int, dtypes, nps, reps: int = 3) -> None:
     print(json.dumps({"probe": "direct_summary", "rows": summary}), flush=True)
 
 
+#: Point counts of ``--set-points`` a dimension: the main paths'.
+SET_POINTS_NP = {3: (16_777_216,), 2: (16_777_216,), 1: (10_000_000,)}
+#: ``--set-points``' point layouts: uniform over [-1, 2pi + 1) (some fold);
+#: every block empty but the inner ones (``empty_ends``); every point in the
+#: first block, or in the last (one thread of the sorted-state kernel then
+#: writes every other block's start).
+SET_POINTS_CASES = ("uniform", "empty_ends", "first_block", "last_block")
+
+
+def _set_points_layout(case: str, gen, plan, np_: int):
+    """(D, Np) card points of one ``SET_POINTS_CASES`` layout."""
+    import torch
+
+    D = plan.ndim
+    u = torch.rand((D, np_), generator=gen, device="cuda", dtype=torch.float64)
+    if case == "uniform":
+        return (u * (2 * math.pi + 2) - 1).to(plan.real_dtype)
+    rows = []
+    for d, (n, b) in enumerate(zip(plan.shape_over, plan.block_dims)):
+        first, last = {"empty_ends": (b, n - b), "first_block": (0, b),
+                       "last_block": (n - b, n)}[case]
+        lo, hi = first * 2 * math.pi / n, last * 2 * math.pi / n
+        # inside [lo, hi) after rounding to the points' type
+        rows.append(lo + (hi - lo) * (0.0001 + 0.9998 * u[d]))
+    return torch.stack(rows).to(plan.real_dtype)
+
+
+def probe_set_points(seed: int, dims, dtypes, nps, reps: int, cases=SET_POINTS_CASES) -> None:
+    """``set_points``' split and sort (``plan._sorted_state_kernels``: the
+    bin-key kernel, the stable sort, the sorted-state kernel) against their
+    plain version on the card (``plan._sorted_state_plain``), at
+    ``SHAPES`` and ``SET_POINTS_NP`` (m = 4, sigma = 1.5) for each point
+    layout of ``cases`` (``SET_POINTS_CASES``), CUDA events, median of
+    ``reps`` after one warm-up, in turns plain, kernels, kernels, plain;
+    also the whole ``set_points`` and each of the three alone (the wrappers
+    ``blocked.bin_keys`` and ``sorted_state``, ``torch.sort``), and
+    ``blocking.block_starts`` (the plain chain's block starts, one binary
+    search a block) on the same sorted keys.  The kernels' cells,
+    fractions, order and block starts are held equal to the plain chain's.
+    Bounds by the function's bytes, each input read once and each output
+    written once: the keys D coordinates in, a key out a point; the sorted
+    state a key, an index and D coordinates in, D cells and D fractions out
+    a point, and the block starts.  The records that the key kernel packs
+    for the gather (2 or 4 coordinates in 2D / 3D: written once, read once
+    in place of the D coordinates) are left out of the bounds and reported
+    beside them (``record_ms``).  One JSON line a row."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from chip_smoke import HBM_BYTES_PER_S, cuda_time_ms, nvidia_smi_line
+    from nonuniformffts_tpu_torch import blocking
+    from nonuniformffts_tpu_torch import plan as plan_mod
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    for D in dims:
+        for name in dtypes:
+            plan = nufft.PlanNUFFT(np.dtype(name), SHAPES[D], m=4, sigma=1.5,
+                                   spread_method="blocked", device=dev)
+            geo = (plan.shape_over, plan.block_dims)
+            for np_ in nps or SET_POINTS_NP[D]:
+                for case in cases:
+                    gen = torch.Generator(device=dev).manual_seed(seed + np_)
+                    pts = _set_points_layout(case, gen, plan, np_)
+                    calls = {
+                        "plain": lambda: plan_mod._sorted_state_plain(plan, pts),
+                        "kernels": lambda: plan_mod._sorted_state_kernels(plan, pts),
+                    }
+                    times = {k: [] for k in calls}
+                    for k in ("plain", "kernels", "kernels", "plain"):
+                        ms_, out = cuda_time_ms(calls[k], reps=reps)
+                        times[k].append(ms_)
+                        if k == "kernels":
+                            got = out
+                        else:
+                            want = out
+                    if not all(torch.equal(g, w) for g, w in zip(got[:4], want[:4])):
+                        raise AssertionError(f"set_points kernels {D}D {name} {np_} {case}: "
+                                             "not equal to the plain chain")
+                    del got, want, out
+                    whole_ms, _ = cuda_time_ms(lambda: nufft.set_points(plan, pts), reps=reps)
+                    keys_ms, (keys, records) = cuda_time_ms(
+                        lambda: blocked.bin_keys(pts, *geo), reps=reps)
+                    sort_ms, (skeys, perm) = cuda_time_ms(
+                        lambda: torch.sort(keys, stable=True), reps=reps)
+                    state_ms, _ = cuda_time_ms(
+                        lambda: blocked.sorted_state(records, skeys, perm, *geo), reps=reps)
+                    starts_ms, _ = cuda_time_ms(
+                        lambda: blocking.block_starts(skeys, *geo), reps=reps)
+                    sb = pts.element_size()
+                    rec = blocked.BIN_RECORD[D] * sb if D > 1 else 0
+                    nblocks, _ = blocking.bin_counts(*geo)
+                    keys_bytes = np_ * (D * sb + 4)
+                    state_bytes = np_ * (4 + 8 + D * sb + D * 4 + D * sb) + 4 * (nblocks + 1)
+                    record_bytes = np_ * (2 * rec - D * sb) if rec else 0
+                    print(json.dumps({
+                        "probe": "set_points", "card": card, "dim": D, "dtype": name,
+                        "np": np_, "case": case, "block_dims": list(plan.block_dims),
+                        "nblocks": nblocks,
+                        "plain_ms": times["plain"], "kernels_ms": times["kernels"],
+                        "set_points_ms": whole_ms, "keys_ms": keys_ms, "sort_ms": sort_ms,
+                        "state_ms": state_ms, "block_starts_ms": starts_ms,
+                        "keys_bound_ms": 1e3 * keys_bytes / HBM_BYTES_PER_S,
+                        "state_bound_ms": 1e3 * state_bytes / HBM_BYTES_PER_S,
+                        "record_ms": 1e3 * record_bytes / HBM_BYTES_PER_S,
+                        "equal": True}), flush=True)
+                    del pts, keys, records, skeys, perm
+                    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3913,12 +4036,16 @@ def main(argv=None) -> int:
     parser.add_argument("--interp1d-sweep", action="store_true",
                         help="time the 1D interpolation's point and staged paths against "
                              "each other from 1M to 10M points, and stop")
+    parser.add_argument("--set-points", action="store_true",
+                        help="time set_points' key and sorted-state kernels and the sort "
+                             "against the plain chain on the main paths' shapes, and stop")
     parser.add_argument("--root", default=None,
                         help="import nonuniformffts_tpu_torch from this tree (default: "
                              "the script's own)")
     parser.add_argument("--reps", type=int, default=5,
                         help="timed launches a median of --spread1d, --interp2d, --interp1d, "
-                             "their -parts twins, --interp1d-sweep and --exec-1d")
+                             "their -parts twins, --interp1d-sweep, --exec-1d and "
+                             "--set-points")
     parser.add_argument("--variants", nargs="+", default=None,
                         help="the variants of --spread1d, --interp2d and --interp1d to time "
                              "(default: all)")
@@ -3960,6 +4087,9 @@ def main(argv=None) -> int:
         return 0
     if args.exec_1d:
         probe_exec_windows(args.seed, EXEC_1D_ROWS, ("BKB Fast",), 1.5, args.reps, "exec_1d")
+        return 0
+    if args.set_points:
+        probe_set_points(args.seed, args.dim, args.dtype, args.np, args.reps)
         return 0
     if args.interp1d_sweep:
         probe_interp1d_sweep(args.seed, args.dtype, args.np, args.reps)

@@ -145,14 +145,17 @@ Each main-path row sets every launch count to 0 just before it drives the
 path and reads the counts just after; a kernel of the path that was not
 launched fails the run, and so does K3 (a window without coefficients)
 launched other than once for each ``set_points`` call or at all by an
-exec.  At the smaller Np of each dtype and dimension
-every kernel is held against its plain version and timed.  The
+exec, and so do the two set_points kernels (``csrc/bin_sort.cu``).  At the
+smaller Np of each dtype and dimension every kernel is held against its
+plain version and timed; the set_points kernels' cells, fractions, order and
+block starts must equal the plain chain's under ``torch.equal``.  The
 float32-accumulation diagnostic (ROADMAP queue 3, P2) re-spreads the
 complex64 rho = 1 row's own float32 values and fractions, widened to
 float64, with the float64 kernel and a Z2Z FFT, and prints that err1 beside
 the float32 err1 of three calls.  The line before the last is one JSON
-object with each of the 30 kernel entry points (24 spread and
-interpolation, two window-weights, four relayouts): launches on its main
+object with each of the 34 kernel entry points (24 spread and
+interpolation, two window-weights, four relayouts, four set_points):
+launches on its main
 path, its error against its plain version, both times, the least time the
 card could take for the same work (``bound_ms``) and what bounds it, the
 library call's time (``library_ms``, the relayouts only), a ``windows`` map
@@ -160,7 +163,9 @@ with the same numbers under each window mode and m of phases 10-11, and
 for the relayouts a ``shapes`` map (each shape's kernel ``ms`` from calls
 back to back beside ``call_ms``, one wrapper call), for the spread and
 interpolation entry points a ``transforms`` map (phase 15's results at
-C = 5 and 32); the last line is
+C = 5 and 32), for the set_points entry points a ``rows`` map (each
+main-path row's comparison; the headline numbers are the first 3D row's);
+the last line is
 ``{"ok": true, "device": {...}}``.
 
 Tolerances: kernels against plain versions <= 1e-5 relative L2 in float32
@@ -282,7 +287,14 @@ KERNELS = {
     **{f"nufft_relayout_to_{d}_{t}": dict(source=f"{_CSRC}/relayout.cu",
                                           replaces=f"nonuniformffts_tpu/ops/pallas/common.py:{line}")
        for d, line in (("grid", 438), ("blocks", 490)) for t in ("f32", "f64")},
+    # set_points' key and sorted-state kernels, which replace no TPU kernel.
+    **{f"nufft_{kind}_{t}": dict(source=f"{_CSRC}/bin_sort.cu",
+                                 replaces="none (JAX set_points is jnp + lax.sort)")
+       for kind in ("bin_keys", "sorted_state") for t in ("f32", "f64")},
 }
+#: Each main-path row's set_points comparison by entry point, then row label
+#: (``compare_set_points``).
+SET_POINTS_ROWS = collections.defaultdict(dict)
 # Window modes by label: (kernel class, evaluation mode).
 WINDOW_MODES = {
     f"{label} {mode}": (cls, ev)
@@ -602,6 +614,79 @@ def compare_kernels(plan, vp, grid, timed: bool, plain_chunk: int = PLAIN_CHUNK,
     return results
 
 
+def compare_set_points(label: str, plan, pts):
+    """The set_points kernels (``csrc/bin_sort.cu``) against the plain
+    chain on ``pts``: the whole sorted state
+    (``plan._sorted_state_kernels`` against ``_sorted_state_plain``), the
+    key kernel against ``cells_and_fracs`` and ``cell_keys``, and the
+    sorted-state kernel against ``block_starts`` and ``sorted_copies`` after
+    the same sort, each held equal under ``torch.equal`` and timed in turns
+    (plain, kernel, kernel, plain).  Bounds by the function's bytes: the
+    keys read D coordinates and write a key a point; the sorted state reads
+    a key, an index and D coordinates and writes D cells and D fractions a
+    point, and the block starts.  The records the key kernel packs for the
+    gather (2 or 4 coordinates in 2D / 3D) are left out of the bound and
+    reported beside it (``record_ms``).  Stores each entry point's results
+    under ``label`` in ``SET_POINTS_ROWS``."""
+    import torch
+
+    from nonuniformffts_tpu_torch import blocking
+    from nonuniformffts_tpu_torch import plan as plan_mod
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    geo = (plan.shape_over, plan.block_dims)
+    pts = plan_mod._transformed_points(plan, pts).contiguous()
+
+    def in_turns(kern, ref):
+        p1, want = cuda_time_ms(ref)
+        k1, got = cuda_time_ms(kern)
+        k2, _ = cuda_time_ms(kern)
+        p2, _ = cuda_time_ms(ref)
+        return (k1 + k2) / 2, (p1 + p2) / 2, got, want
+
+    def require_equal(what, got, want):
+        if not all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"set_points kernels ({label}): {what} not equal to the "
+                                 "plain chain")
+
+    chain_ms, chain_plain_ms, got, want = in_turns(
+        lambda: plan_mod._sorted_state_kernels(plan, pts),
+        lambda: plan_mod._sorted_state_plain(plan, pts))
+    require_equal("cells, fractions, order, block starts", got[:4], want[:4])
+    cells, fracs = blocking.cells_and_fracs(plan.kernel_data, pts)
+    keys_ms, keys_plain_ms, (keys, records), key_p = in_turns(
+        lambda: blocked.bin_keys(pts, *geo),
+        lambda: blocking.cell_keys(blocking.cells_and_fracs(plan.kernel_data, pts)[0], *geo))
+    require_equal("keys", (keys,), (key_p,))
+    skeys, perm = torch.sort(keys, stable=True)
+    state_ms, state_plain_ms, got, want = in_turns(
+        lambda: blocked.sorted_state(records, skeys, perm, *geo),
+        lambda: (*blocking.sorted_copies(cells, fracs, perm),
+                 blocking.block_starts(skeys, *geo)))
+    require_equal("sorted state", got, want)
+    sort_ms, _ = cuda_time_ms(lambda: torch.sort(keys, stable=True))
+    D, np_ = pts.shape
+    sb = pts.element_size()
+    nblocks = math.prod(blocking.num_blocks(*geo))
+    rec = blocked.BIN_RECORD[D] * sb if D > 1 else 0
+    nbytes = {"keys": np_ * (D * sb + 4),
+              "state": np_ * (4 + 8 + D * sb + D * 4 + D * sb) + 4 * (nblocks + 1)}
+    record_ms = 1e3 * np_ * (2 * rec - D * sb if rec else 0) / HBM_BYTES_PER_S
+    common = dict(np=np_, max_abs_err=0.0, rel_l2=0.0, equal=True, sort_ms=sort_ms,
+                  chain_ms=chain_ms, chain_plain_ms=chain_plain_ms, record_ms=record_ms,
+                  bound_by="bytes")
+    names = dict(zip(("keys", "state"), blocked.BIN_SORT_ENTRIES[pts.dtype]))
+    for part, ms, plain_ms in (("keys", keys_ms, keys_plain_ms),
+                               ("state", state_ms, state_plain_ms)):
+        bound_ms = 1e3 * nbytes[part] / HBM_BYTES_PER_S
+        SET_POINTS_ROWS[names[part]][label] = dict(common, ms=ms, plain_ms=plain_ms,
+                                                   bound_ms=bound_ms)
+        log(f"  {names[part]}: equal, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4g} ms (bytes)")
+    log(f"  set_points kernels + sort {chain_ms:.3f} ms (sort {sort_ms:.3f}), plain chain "
+        f"{chain_plain_ms:.3f} ms; the records' bytes {record_ms:.4g} ms beside the bounds")
+
+
 def check_kernel(kind: str, plan, vp, gen):
     """The plan's spread (``kind`` 'spread') or interpolation ('interp')
     kernel against its plain version on the main path's own points (the
@@ -840,7 +925,9 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
     runs ``float32_accumulation_diagnostic``, and at ``check_np``
     ``check_kernel`` for the spread and interpolation kernels of 1D and 2D
     at full density.  A window whose taps come from K3 must launch it once
-    for each ``set_points`` call and never in an exec."""
+    for each ``set_points`` call and never in an exec, and so must the two
+    set_points kernels; at ``compare_np`` ``compare_set_points`` holds them
+    to the plain chain."""
     import torch
 
     import nonuniformffts_tpu_torch as nufft
@@ -850,7 +937,8 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
     dev = torch.device("cuda")
     D = len(shape)
     plan0 = _plan(dtype, shape, m, sigma, window)
-    names = entry_points(plan0)
+    bin_names = blocked.BIN_SORT_ENTRIES[plan0.real_dtype]
+    names = entry_points(plan0) + list(bin_names)
     log(f"  {label}: grid {plan0.shape_over}, block_dims {plan0.block_dims}, "
         f"kernels {names}")
     a, u_np = _rank1_spectrum(shape, plan0.is_real, seed)
@@ -888,6 +976,9 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
         if min(counts.values()) < 1:
             raise AssertionError("a kernel of the main path was not launched")
         check_weights_launches(plan, at_set, counts, 1 + REPS)
+        if any(at_set[n] != 1 + REPS or counts[n] != at_set[n] for n in bin_names):
+            raise AssertionError(f"{bin_names} must launch once per set_points ({1 + REPS} "
+                                 f"calls) and never in an exec: {counts}")
         if tuple(uhat.shape) != plan.spectral_shape or tuple(v2.shape) != (np_,):
             raise AssertionError(f"output shapes {tuple(uhat.shape)}, {tuple(v2.shape)}")
         if uhat.dtype != plan.complex_dtype or v2.dtype != plan.dtype:
@@ -917,6 +1008,7 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
             grid = _random_values(gen, (1,) + plan.shape_over, plan.dtype, dev)
             compared = compare_kernels(plan, vp_c, grid, timed=True)
             del grid
+            compare_set_points(f"{label}, Np={np_}", plan0, pts)
         del plan, pts, vp, vp_c
         torch.cuda.empty_cache()
     log("  results " + json.dumps(rows))
@@ -2576,6 +2668,10 @@ def main(argv=None) -> int:
     # taps from complex64, float64 from complex128).
     for name in ("nufft_window_weights_f32", "nufft_window_weights_f64"):
         compared[name] = windows[name]["KB Direct, m=4"]
+    # The set_points kernels' headline numbers: the first 3D row.
+    for name, rows in SET_POINTS_ROWS.items():
+        compared[name] = dict(next(r for lbl, r in rows.items() if lbl.startswith("3D")),
+                              rows=rows)
     missing = sorted(set(KERNELS) - set(compared))
     if missing:
         raise AssertionError(f"kernels not compared with their plain versions: {missing}")
@@ -2588,6 +2684,7 @@ def main(argv=None) -> int:
              windows={mode: {k: res[k] for k in ("rel_l2", "ms", "plain_ms", "bound_ms")}
                       for mode, res in sorted(windows[name].items())},
              **({"shapes": compared[name]["shapes"]} if "shapes" in compared[name] else {}),
+             **({"rows": compared[name]["rows"]} if "rows" in compared[name] else {}),
              **({"transforms": transforms[name]} if name in transforms else {}))
         for name in KERNELS
     ]

@@ -6,12 +6,19 @@ Counterpart of ``nonuniformffts_tpu/blocking.py``.  Points sort by
 cell minor; ``packed_layout`` in the JAX package) with ONE stable sort, so
 each block's points are a contiguous range of the sorted arrays and the
 order equals the JAX package's stable ``lax.sort``.  The per-block ranges
-come from a histogram (``bincount``) and a prefix sum: the card can scatter,
-so no binary search over the keys is needed.
+come from one binary search a block over the sorted keys
+(``searchsorted``), which reads nothing back to the host.
 
 The block id derives from the same high-accuracy cell split the kernels use
 (``ops/windows.py:point_to_cell_split``), so a point can never land outside
 its block's padded window (reference: src/blocking/gpu.jl:145-160).
+
+This chain (:func:`cells_and_fracs`, :func:`bin_order`,
+:func:`sorted_copies`) is the plain version of the two CUDA kernels that a
+CUDA plan's ``set_points`` runs around the same stable sort
+(``ops/kernels/blocked.py:bin_keys`` and ``sorted_state``,
+``csrc/bin_sort.cu``): CPU plans run it, and the card test holds the
+kernels to it.
 """
 
 from __future__ import annotations
@@ -32,8 +39,11 @@ from .ops.stencil import cells_and_fracs
 
 __all__ = [
     "block_ids_from_cells",
+    "bin_counts",
     "bin_order",
     "bin_sort",
+    "block_starts",
+    "cell_keys",
     "cells_and_fracs",
     "choose_geometry",
     "num_blocks",
@@ -226,31 +236,44 @@ def bin_sort(cells: torch.Tensor, fracs: torch.Tensor, shape_over, block_dims):
     return (*sorted_copies(cells, fracs, perm), perm, pstarts)
 
 
-def bin_order(cells: torch.Tensor, shape_over, block_dims):
-    """The order of :func:`bin_sort`, without its copies: ``(perm,
-    pstarts)`` from the keys, one stable sort, the histogram of block ids
-    (``bincount``, which on CUDA reads the ids' least and largest values to
-    the host) and its prefix sum."""
-    D = cells.shape[0]
-    nb = num_blocks(shape_over, block_dims)
-    nblocks = 1
-    cells_per_block = 1
-    for n_b, b in zip(nb, block_dims):
-        nblocks *= n_b
-        cells_per_block *= int(b)
+def bin_counts(shape_over, block_dims) -> Tuple[int, int]:
+    """``(nblocks, cells_per_block)`` of the grid's blocks; raises where
+    the grid's cells do not fit the int32 bin keys."""
+    nblocks = math.prod(num_blocks(shape_over, block_dims))
+    cells_per_block = math.prod(int(b) for b in block_dims)
     if nblocks * cells_per_block >= 2**31:
         raise ValueError("grid too large for int32 bin keys")
+    return nblocks, cells_per_block
+
+
+def cell_keys(cells: torch.Tensor, shape_over, block_dims) -> torch.Tensor:
+    """The int32 bin key of each point's cell, ``bid * cells_per_block +
+    lcell``: its block id and its row-major cell inside the block, so the
+    keys sort the points by block."""
+    _, cells_per_block = bin_counts(shape_over, block_dims)
     bid = block_ids_from_cells(cells, shape_over, block_dims)
     lcell = None
-    for d in range(D):
+    for d in range(cells.shape[0]):
         ld = torch.remainder(cells[d], block_dims[d])
         lcell = ld if lcell is None else lcell * int(block_dims[d]) + ld
-    key = (bid * cells_per_block + lcell).to(torch.int32)
-    _, perm = torch.sort(key, stable=True)
-    counts = torch.bincount(bid.to(torch.int64), minlength=nblocks)
-    pstarts = torch.zeros(nblocks + 1, dtype=torch.int32, device=cells.device)
-    pstarts[1:] = torch.cumsum(counts, 0)
-    return perm, pstarts
+    return (bid * cells_per_block + lcell).to(torch.int32)
+
+
+def block_starts(skeys: torch.Tensor, shape_over, block_dims) -> torch.Tensor:
+    """``pstarts`` (nblocks + 1,) int32 from the sorted keys: block ``b``
+    starts at the first key of block ``b`` or above: one binary search a
+    block, with nothing read back to the host."""
+    nblocks, cells_per_block = bin_counts(shape_over, block_dims)
+    firsts = torch.arange(nblocks + 1, dtype=torch.int32, device=skeys.device) * cells_per_block
+    return torch.searchsorted(skeys, firsts, out_int32=True)
+
+
+def bin_order(cells: torch.Tensor, shape_over, block_dims):
+    """The order of :func:`bin_sort`, without its copies: ``(perm,
+    pstarts)`` from one stable sort of the keys (:func:`cell_keys`) and
+    :func:`block_starts` of the sorted keys."""
+    skeys, perm = torch.sort(cell_keys(cells, shape_over, block_dims), stable=True)
+    return perm, block_starts(skeys, shape_over, block_dims)
 
 
 def sorted_copies(cells: torch.Tensor, fracs: torch.Tensor, perm: torch.Tensor):

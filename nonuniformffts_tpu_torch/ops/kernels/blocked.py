@@ -22,6 +22,15 @@ stack; for every other window ``set_points`` launches K3 once
 window's scalars (``ops/windows.py:window_pack``), and the plan keeps that
 table (``Plan.wtaps_sorted``) for the kernels of every exec to read.
 
+A CUDA plan's ``set_points`` forms its sorted point state with two more
+kernels (``csrc/bin_sort.cu``) around its one stable sort: ``bin_keys``
+(``nufft_bin_keys_<f32|f64>``) writes each point's bin key from its raw
+coordinates, and its coordinates packed into one record, and
+``sorted_state`` (``nufft_sorted_state_<f32|f64>``) the sorted cells,
+fractions and per-block ranges from the sorted keys and the records.  Their
+plain version is ``blocking.py``'s chain, which a CPU plan runs, so these
+two wrappers take CUDA tensors only.
+
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches its kernel or raises.  Each launch adds one to
 ``LAUNCHES[entry point]``.
@@ -30,12 +39,13 @@ launches its kernel or raises.  Each launch adds one to
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..interpolation import interpolate_cells
 from ..spreading import spread_cells
-from ..windows import WINDOW_KINDS
+from ..windows import WINDOW_KINDS, cell_scale
 from . import build
 from .common import (
     KERNEL_DIMS,
@@ -52,6 +62,10 @@ from .common import (
 #: The window-weights entry point by the plan's real dtype.
 WEIGHTS_ENTRY = {torch.float32: "nufft_window_weights_f32",
                  torch.float64: "nufft_window_weights_f64"}
+#: The set_points entry points by the coordinates' dtype: bin keys, sorted
+#: state.
+BIN_SORT_ENTRIES = {torch.float32: ("nufft_bin_keys_f32", "nufft_sorted_state_f32"),
+                    torch.float64: ("nufft_bin_keys_f64", "nufft_sorted_state_f64")}
 
 #: Launches of each entry point by its wrapper in this process.
 LAUNCHES = {
@@ -60,6 +74,7 @@ LAUNCHES = {
        for kind in ("spread", "interp")
        for dtype in VALUE_TYPES},
     **dict.fromkeys(WEIGHTS_ENTRY.values(), 0),
+    **{name: 0 for names in BIN_SORT_ENTRIES.values() for name in names},
 }
 
 
@@ -203,6 +218,96 @@ def with_window_taps(plan):
     K3; on the CPU the table comes from the plain version."""
     taps = None if kernel_coefs(plan)[0] is not None else window_weights_blocked(plan)
     return dataclasses.replace(plan, wtaps_sorted=taps)
+
+
+# ---------------------------------------------------------------------------
+# set_points: bin keys and sorted state (csrc/bin_sort.cu)
+# ---------------------------------------------------------------------------
+
+
+#: Elements of a point's record by dimension (``csrc/bin_sort.cu:kRecord``):
+#: its coordinates, padded to 4 in 3D; 1D gathers from the points themselves.
+BIN_RECORD = {1: 1, 2: 2, 3: 4}
+
+
+def _bin_launch(x: torch.Tensor, shape_over, block_dims, which: int):
+    """Check ``x`` (the points or their records: float32 or float64 on the
+    card) and the grid; returns the entry point (``which`` 0 for the keys,
+    1 for the sorted state), its geometry argument and the grid's block
+    count."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the set_points kernels take CUDA points, got {x.device}: "
+                         "the plain version is blocking.py's chain")
+    if x.dtype not in BIN_SORT_ENTRIES:
+        raise TypeError(f"points must be float32 or float64, got {x.dtype}")
+    nblocks = math.prod(n // b for n, b in zip(shape_over, block_dims))
+    if nblocks * math.prod(block_dims) >= 2**31:
+        raise ValueError("grid too large for int32 bin keys")
+    geom = build.BinGeometry.of(shape_over, block_dims, [cell_scale(n) for n in shape_over])
+    return BIN_SORT_ENTRIES[x.dtype][which], geom, nblocks
+
+
+def bin_keys(pts: torch.Tensor, shape_over, block_dims):
+    """``(keys, records)`` of the raw (possibly unfolded) points ``pts`` (D,
+    Np): the int32 bin key of each point, ``(Np,)``, ``bid *
+    cells_per_block + lcell`` of its folded cell as ``blocking.py:cell_keys``
+    forms it from ``cells_and_fracs``' cells, and the points' coordinates
+    packed for :func:`sorted_state`'s gather, ``(Np, BIN_RECORD[D])`` (in
+    1D ``pts`` itself).  One launch of ``nufft_bin_keys_<type>``."""
+    name, geom, _ = _bin_launch(pts, shape_over, block_dims, 0)
+    D = len(shape_over)
+    if pts.ndim != 2 or pts.shape[0] != D or not pts.is_contiguous():
+        raise ValueError(f"points must be contiguous ({D}, Np), got {tuple(pts.shape)}")
+    np_ = pts.shape[1]
+    if np_ >= 2**31:
+        raise ValueError("more points than the int32 ranges hold")
+    keys = torch.empty(np_, dtype=torch.int32, device=pts.device)
+    records = pts if D == 1 else torch.empty((np_, BIN_RECORD[D]), dtype=pts.dtype,
+                                             device=pts.device)
+    if np_ == 0:
+        return keys, records
+    fn = getattr(build.load(), name)
+    with torch.cuda.device(pts.device):
+        err = fn(pts.data_ptr(), geom, keys.data_ptr(), records.data_ptr(), np_,
+                 torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return keys, records
+
+
+def sorted_state(records: torch.Tensor, skeys: torch.Tensor, perm: torch.Tensor, shape_over,
+                 block_dims):
+    """``(cells_sorted, fracs_sorted, pstarts)`` of the points whose
+    :func:`bin_keys` gave ``records``, from the stable sort of their keys
+    (``skeys`` the sorted keys, ``perm`` the order): the cells decoded from
+    the sorted keys, each fraction recomputed from its point's gathered
+    coordinates, and each block's first sorted position, equal to
+    ``blocking.py``'s ``sorted_copies`` and ``block_starts``.  One launch of
+    ``nufft_sorted_state_<type>``."""
+    name, geom, nblocks = _bin_launch(records, shape_over, block_dims, 1)
+    D, np_ = len(shape_over), skeys.shape[0]
+    want = (1, np_) if D == 1 else (np_, BIN_RECORD[D])
+    if tuple(records.shape) != want or not records.is_contiguous():
+        raise ValueError(f"records must be contiguous {want}, got {tuple(records.shape)}")
+    for t, dt in ((skeys, torch.int32), (perm, torch.int64)):
+        if (t.dtype != dt or tuple(t.shape) != (np_,) or t.device != records.device
+                or not t.is_contiguous()):
+            raise ValueError(f"sorted keys and order must be contiguous ({np_},) {dt} on "
+                             f"{records.device}")
+    dev = records.device
+    cells = torch.empty((D, np_), dtype=torch.int32, device=dev)
+    fracs = torch.empty((D, np_), dtype=records.dtype, device=dev)
+    if np_ == 0:
+        return cells, fracs, torch.zeros(nblocks + 1, dtype=torch.int32, device=dev)
+    pstarts = torch.empty(nblocks + 1, dtype=torch.int32, device=dev)
+    fn = getattr(build.load(), name)
+    with torch.cuda.device(dev):
+        err = fn(records.data_ptr(), skeys.data_ptr(), perm.data_ptr(), geom, cells.data_ptr(),
+                 fracs.data_ptr(), pstarts.data_ptr(), np_,
+                 torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return cells, fracs, pstarts
 
 
 def interp1d_inverse(plan, perm: torch.Tensor):

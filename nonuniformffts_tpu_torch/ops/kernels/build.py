@@ -59,6 +59,23 @@ class WindowParams(ctypes.Structure):
         return out
 
 
+class BinGeometry(ctypes.Structure):
+    """``csrc/bin_sort.cu:BinGeometry``, the grid and block dims and the cell
+    scale (``ops/windows.py:cell_scale``) a dim of the set_points kernels
+    (missing dims stay 0)."""
+
+    _fields_ = [("ndim", ctypes.c_int), ("n", ctypes.c_int * 3), ("b", ctypes.c_int * 3),
+                ("scale", ctypes.c_double * 3)]
+
+    @classmethod
+    def of(cls, shape_over, block_dims, scales) -> "BinGeometry":
+        out = cls(ndim=len(shape_over))
+        out.n[: len(shape_over)] = [int(n) for n in shape_over]
+        out.b[: len(block_dims)] = [int(b) for b in block_dims]
+        out.scale[: len(scales)] = [float(s) for s in scales]
+        return out
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _HEAD = [_P] * 7 + [ctypes.c_longlong, _I, _I, _I]
@@ -87,6 +104,12 @@ for _vt in ("f32", "f64"):
     # fracs, window, out, np, ndim, m, stream
     _SIGNATURES[f"nufft_window_weights_{_vt}"] = [
         _P, ctypes.POINTER(WindowParams), _P, ctypes.c_longlong, _I, _I, _P]
+    # pts, geometry, keys, records, np, stream; records, sorted keys, perm,
+    # geometry, cells, fracs, pstarts, np, stream (csrc/bin_sort.cu)
+    _geom = ctypes.POINTER(BinGeometry)
+    _SIGNATURES[f"nufft_bin_keys_{_vt}"] = [_P, _geom, _P, _P, ctypes.c_longlong, _P]
+    _SIGNATURES[f"nufft_sorted_state_{_vt}"] = (
+        [_P] * 3 + [_geom] + [_P] * 3 + [ctypes.c_longlong, _P])
 
 _lib = None
 #: The kernel library's load in this process (:func:`build` and

@@ -207,6 +207,13 @@ def make_kernel_data(
 # ---------------------------------------------------------------------------
 
 
+def cell_scale(n: int) -> float:
+    """Cells a unit of coordinate, ``N / 2pi`` in float64: the factor of
+    :func:`point_to_cell_split`, which the CUDA set_points kernels take
+    from here (``csrc/bin_sort.cu``)."""
+    return float(np.float64(n) / np.float64(TWO_PI))
+
+
 def point_to_cell_split(x: torch.Tensor, n: int):
     """High-accuracy cell decomposition: raw (possibly unfolded)
     coordinates -> ``(c, X)``, ``c`` the int32 cell in ``[0, N)`` and
@@ -221,7 +228,7 @@ def point_to_cell_split(x: torch.Tensor, n: int):
     path's grid, where it alone put err1 at 1.1e-5).  In float64 the error
     is ``N * 2^-53`` cells, and only ``X`` is rounded to float32.
     """
-    r = x.to(torch.float64) * (np.float64(n) / np.float64(TWO_PI))
+    r = x.to(torch.float64) * cell_scale(n)
     i = torch.floor(r)
     X = (r - i).to(x.dtype)
     c = torch.remainder(i.to(torch.int64), n).to(torch.int32)

@@ -19,7 +19,13 @@ import torch
 
 from .blocking import bin_order, cells_and_fracs, choose_geometry, sorted_copies
 from .ops import deconvolve, direct, windows
-from .ops.kernels.blocked import check_kernel_support, interp1d_inverse, with_window_taps
+from .ops.kernels.blocked import (
+    bin_keys,
+    check_kernel_support,
+    interp1d_inverse,
+    sorted_state,
+    with_window_taps,
+)
 from .ops.kernels.common import VALUE_TYPES, coefficient_stack
 from .ops.windows import (
     AbstractKernel,
@@ -644,7 +650,11 @@ def set_points(plan: Plan, points) -> Plan:
     copies``, ``(4) window taps`` and ``(5) transform groups``; on the
     reference path ``(1) fold``, ``(2) sort`` (with ``sort_points``) and
     ``(5) transform groups``; on the direct path ``(1) fold``.  A profiler
-    trace carries the same labels (``utils/timer.py``)."""
+    trace carries the same labels (``utils/timer.py``).  On a CUDA plan the
+    blocked path's first three parts are two kernels around the sort
+    (``csrc/bin_sort.cu``: the bin keys, then the sorted cells, fractions
+    and block ranges), which read nothing back to the host; elsewhere
+    ``blocking.py``'s chain, their plain version."""
     return traced(plan.timer, "set_points", _set_points, plan, points)
 
 
@@ -656,15 +666,52 @@ def canonical_points(plan: Plan, points) -> torch.Tensor:
     return _canonicalise_points(points, plan.ndim, real_dtype, plan.device)
 
 
+def _transformed_points(plan: Plan, points) -> torch.Tensor:
+    """``points`` as the blocked path splits them: canonical, after the
+    plan's point transform.  No fold before the split: the split folds
+    through its mod-N, and an f32 fold first would put 2pi * 2^-24 of noise
+    on the points."""
+    pts = canonical_points(plan, points)
+    return pts if plan.point_transform is _identity else plan.point_transform(pts)
+
+
 def _cell_split(plan: Plan, points):
     """The blocked path's cells and fractions of ``points`` (after the
     plan's point transform), and the number of points."""
-    pts = canonical_points(plan, points)
-    # No fold before the split: the split folds through its mod-N, and
-    # an f32 fold first would put 2pi * 2^-24 of noise on the points.
-    pts_t = pts if plan.point_transform is _identity else plan.point_transform(pts)
+    pts_t = _transformed_points(plan, points)
     cells, fracs = cells_and_fracs(plan.kernel_data, pts_t)
-    return cells, fracs, pts.shape[1]
+    return cells, fracs, pts_t.shape[1]
+
+
+def _bin_keys(plan: Plan, points):
+    """The bin keys of ``points`` (after the plan's point transform) and
+    their records (``ops/kernels/blocked.py:bin_keys``)."""
+    pts_t = _transformed_points(plan, points).contiguous()
+    return bin_keys(pts_t, plan.shape_over, plan.block_dims)
+
+
+def _sorted_state_kernels(plan: Plan, points):
+    """A CUDA plan's sorted point state ``(cells, fracs, perm, pstarts,
+    num_points)``: the key kernel, the stable sort, the sorted-state
+    kernel; no host read."""
+    t = plan.timer
+    keys, records = traced(t, "(1) cell split", _bin_keys, plan, points)
+    skeys, perm = traced(t, "(2) bin sort", torch.sort, keys, stable=True)
+    del keys  # freed before the sorted state's outputs
+    cells_s, fracs_s, pstarts = traced(t, "(3) sorted copies", sorted_state, records, skeys,
+                                       perm, plan.shape_over, plan.block_dims)
+    return cells_s, fracs_s, perm, pstarts, perm.shape[0]
+
+
+def _sorted_state_plain(plan: Plan, points):
+    """The plain version of :func:`_sorted_state_kernels` (``blocking.py``'s
+    chain), for plans off the card."""
+    t = plan.timer
+    cells, fracs, num_points = traced(t, "(1) cell split", _cell_split, plan, points)
+    perm, pstarts = traced(t, "(2) bin sort", bin_order, cells, plan.shape_over,
+                           plan.block_dims)
+    cells_s, fracs_s = traced(t, "(3) sorted copies", sorted_copies, cells, fracs, perm)
+    return cells_s, fracs_s, perm, pstarts, num_points
 
 
 def _with_sorted_state(plan: Plan, cells_s, fracs_s, perm, pstarts, num_points) -> Plan:
@@ -703,13 +750,11 @@ def _cell_order(plan: Plan, pts_f: torch.Tensor):
 def _set_points(plan: Plan, points) -> Plan:
     t = plan.timer
     if plan.spread_method == "blocked":
-        cells, fracs, num_points = traced(t, "(1) cell split", _cell_split, plan, points)
-        perm, pstarts = traced(t, "(2) bin sort", bin_order, cells, plan.shape_over,
-                               plan.block_dims)
-        cells_s, fracs_s = traced(t, "(3) sorted copies", sorted_copies, cells, fracs, perm)
-        del cells, fracs  # freed before a window's tap table is made
-        plan = traced(t, "(4) window taps", _with_sorted_state, plan, cells_s, fracs_s, perm,
-                      pstarts, num_points)
+        # The split's intermediates are freed before a window's tap table
+        # is made.
+        state = (_sorted_state_kernels if plan.device.type == "cuda"
+                 else _sorted_state_plain)(plan, points)
+        plan = traced(t, "(4) window taps", _with_sorted_state, plan, *state)
         return traced(t, "(5) transform groups", with_transform_chunk, plan)
     pts_f = traced(t, "(1) fold", _fold, plan, points)
     perm = perm_inv = None

@@ -124,11 +124,11 @@ def section(timer, name: str):
     return _span(timer, name) if _tracing(timer) else _OFF
 
 
-def traced(timer, name: str, fn, *args):
-    """``fn(*args)`` inside :func:`section` ``name``, synchronised on the
-    result when ``timer`` is."""
+def traced(timer, name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` inside :func:`section` ``name``, synchronised
+    on the result when ``timer`` is."""
     if not _tracing(timer):
-        return fn(*args)
+        return fn(*args, **kwargs)
     with _span(timer, name):
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         return out if timer is None else timer.sync(out)

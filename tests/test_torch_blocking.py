@@ -2,6 +2,8 @@
 permutation and per-block point ranges equal the JAX package's packed
 layout (``blocking.packed_layout``) for the same block dims."""
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from nonuniformffts_tpu_torch.ops.kernels.common import (
     spread_smem_bytes,
     spread_tiles,
 )
+from nonuniformffts_tpu_torch.ops.windows import cell_scale
 from torch_port_utils import random_points
 
 torch.set_num_threads(1)
@@ -65,6 +68,122 @@ def test_sort_matches_packed_layout(dtype, shape, block_dims):
     ps = tp.pstarts.numpy()
     for b in range(len(ps) - 1):
         assert (want[ps[b]:ps[b + 1]] == b).all()
+
+
+def set_points_case(rng, case: str, shape_over, block_dims, real) -> np.ndarray:
+    """(D, Np) points of one edge case of the set_points kernels:
+    ``unfolded`` (negative, beyond 2pi, exact multiples of 2pi / N and of
+    2pi), ``empty_ends`` (the first and last blocks hold no point),
+    ``one_block`` (every point in one inner block), ``np1`` and ``np0``."""
+    D = len(shape_over)
+    if case == "np0":
+        return np.zeros((D, 0), real)
+    if case == "np1":
+        return rng.uniform(-7.0, 13.0, (D, 1)).astype(real)
+    if case == "unfolded":
+        pts = rng.uniform(-3 * np.pi, 5 * np.pi, (D, 600))
+        for d, n in enumerate(shape_over):
+            k = rng.integers(-2 * n, 3 * n, 200)
+            pts[d, :200] = k * (2 * np.pi / n)
+        pts[:, 200:204] = np.array([0.0, 2 * np.pi, -2 * np.pi, 4 * np.pi])
+        return pts.astype(real)
+    lo, hi = [], []
+    for n, b in zip(shape_over, block_dims):
+        first, last = (b, n - b) if case == "empty_ends" else (b, 2 * b)
+        lo.append(first * 2 * np.pi / n)
+        hi.append(last * 2 * np.pi / n)
+    pts = rng.uniform(np.array(lo)[:, None], np.array(hi)[:, None], (D, 500))
+    # Inside [lo, hi) after rounding to the points' type.
+    return np.clip(pts, np.array(lo)[:, None] * 1.0001, np.array(hi)[:, None] * 0.9999).astype(real)
+
+
+def emulate_set_points_kernels(pts: torch.Tensor, shape_over, block_dims):
+    """The CUDA set_points kernels' own arithmetic in torch
+    (``csrc/bin_sort.cu``): the key of each point from its split (C-style
+    remainder, then + N where negative; truncating divisions), the stable
+    sort, the cells decoded from the sorted keys, the fractions recomputed
+    from the gathered coordinates, and ``pstarts`` by a binary search a
+    block over the sorted keys."""
+    D, np_ = pts.shape
+    nb = blocking.num_blocks(shape_over, block_dims)
+    nblocks, cpb = blocking.bin_counts(shape_over, block_dims)
+    bid = torch.zeros(np_, dtype=torch.int64)
+    lcell = torch.zeros(np_, dtype=torch.int64)
+    for d, (n, b) in enumerate(zip(shape_over, block_dims)):
+        i = torch.floor(pts[d].to(torch.float64) * cell_scale(n)).to(torch.int64)
+        c = torch.fmod(i, n)
+        c = torch.where((i >= 0) & (i < n), i, torch.where(c < 0, c + n, c))
+        q = torch.div(c, b, rounding_mode="trunc")
+        bid = bid * nb[d] + q
+        lcell = lcell * b + (c - q * b)
+    skeys, perm = torch.sort((bid * cpb + lcell).to(torch.int32), stable=True)
+    key = skeys.to(torch.int64)
+    sbid = torch.div(key, cpb, rounding_mode="trunc")
+    lcell, rest = key - sbid * cpb, sbid
+    cells = torch.empty((D, np_), dtype=torch.int32)
+    fracs = torch.empty((D, np_), dtype=pts.dtype)
+    for d in reversed(range(D)):
+        b = block_dims[d]
+        ql = torch.div(lcell, b, rounding_mode="trunc")
+        qb = torch.div(rest, nb[d], rounding_mode="trunc")
+        cells[d] = ((rest - qb * nb[d]) * b + (lcell - ql * b)).to(torch.int32)
+        lcell, rest = ql, qb
+        r = pts[d][perm].to(torch.float64) * cell_scale(shape_over[d])
+        fracs[d] = (r - torch.floor(r)).to(pts.dtype)
+    # A binary search a block for its first key, all blocks in step.
+    first = torch.arange(nblocks + 1, dtype=torch.int64) * cpb
+    lo = torch.zeros(nblocks + 1, dtype=torch.int64)
+    hi = torch.full((nblocks + 1,), np_, dtype=torch.int64)
+    while bool((lo < hi).any()):
+        live = lo < hi
+        mid = (lo + hi) // 2
+        below = live & (key[mid.clamp(max=max(np_ - 1, 0))] < first)
+        lo = torch.where(below, mid + 1, lo)
+        hi = torch.where(live & ~below, mid, hi)
+    return cells, fracs, perm, lo.to(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["unfolded", "empty_ends", "one_block", "np1", "np0"])
+@pytest.mark.parametrize("real", [np.float32, np.float64], ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("shape_over,block_dims", [((96,), (16,)), ((24, 20), (8, 5)),
+                                                   ((12, 18, 10), (6, 6, 5))], ids=str)
+def test_set_points_kernels_emulated_match_plain_chain(shape_over, block_dims, real, case):
+    """The arithmetic of the CUDA set_points kernels (key, sort, decode,
+    fractions, pstarts by a binary search a block) equals ``cells_and_fracs`` ->
+    ``bin_order`` -> ``sorted_copies`` bit for bit."""
+    rng = np.random.default_rng(len(shape_over))
+    pts = torch.from_numpy(set_points_case(rng, case, shape_over, block_dims, real))
+    kd = [types.SimpleNamespace(n=n) for n in shape_over]
+    cells, fracs = blocking.cells_and_fracs(kd, pts)
+    perm, pstarts = blocking.bin_order(cells, shape_over, block_dims)
+    want = (*blocking.sorted_copies(cells, fracs, perm), perm, pstarts)
+    got = emulate_set_points_kernels(pts, shape_over, block_dims)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    counts = torch.diff(pstarts)
+    if case in ("empty_ends", "one_block"):
+        assert counts[0] == 0 and counts[-1] == 0
+    if case == "one_block":
+        assert int(counts.max()) == pts.shape[1]
+
+
+@pytest.mark.parametrize("case", ["unfolded", "empty_ends", "one_block", "np1", "np0"])
+@pytest.mark.parametrize("shape_over,block_dims", [((96,), (16,)), ((24, 20), (8, 5)),
+                                                   ((12, 18, 10), (6, 6, 5))], ids=str)
+def test_block_starts_equal_histogram_prefix_sum(shape_over, block_dims, case):
+    """``pstarts`` by a binary search a block over the sorted keys equals
+    the prefix sum of the block ids' histogram."""
+    rng = np.random.default_rng(7 + len(shape_over))
+    pts = torch.from_numpy(set_points_case(rng, case, shape_over, block_dims, np.float64))
+    kd = [types.SimpleNamespace(n=n) for n in shape_over]
+    cells, _ = blocking.cells_and_fracs(kd, pts)
+    skeys, _ = torch.sort(blocking.cell_keys(cells, shape_over, block_dims), stable=True)
+    nblocks, _ = blocking.bin_counts(shape_over, block_dims)
+    bid = blocking.block_ids_from_cells(cells, shape_over, block_dims)
+    want = torch.zeros(nblocks + 1, dtype=torch.int32)
+    want[1:] = torch.cumsum(torch.bincount(bid.to(torch.int64), minlength=nblocks), 0)
+    got = blocking.block_starts(skeys, shape_over, block_dims)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("shape_over,m", [((384, 384, 384), 4), ((96, 96, 96), 4),

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import nonuniformffts_tpu_torch as tnufft
+from nonuniformffts_tpu_torch import plan as plan_module
 from nonuniformffts_tpu_torch.ops.kernels import blocked
 from nonuniformffts_tpu_torch.ops.kernels.common import INTERP3D_SPARSE, INTERP3D_THREADS
 
@@ -608,6 +609,93 @@ def test_window_taps_set_once_per_set_points(cuda_device, window, shape, np_, dt
     tnufft.exec_type2(plan, uhat)
     torch.cuda.synchronize()
     assert blocked.LAUNCHES[weights] == n0 + 1
+
+
+#: The main paths' shapes and point counts a dimension (chip_smoke.py).
+SET_POINTS_MAIN = {3: ((256, 256, 256), 16_777_216), 2: ((4096, 4096), 16_777_216),
+                   1: ((1 << 20,), 10_000_000)}
+SET_POINTS_SPANS = {f"nufft:set_points/{part}" for part in (
+    "(1) cell split", "(2) bin sort", "(3) sorted copies", "(4) window taps",
+    "(5) transform groups")}
+
+
+def _set_points_case(rng, case: str, plan, real) -> np.ndarray:
+    """(D, Np) points of one edge case of the set_points kernels, as
+    ``tests/test_torch_blocking.py:set_points_case`` makes them (that file
+    imports JAX): unfolded coordinates (negative, beyond 2pi, exact
+    multiples of 2pi / N and of 2pi), empty first and last blocks, every
+    point in one inner block, one point; ``transform`` takes points in
+    [-1/2, 1/2) for a plan whose point transform scales them by 2pi."""
+    D = plan.ndim
+    if case == "np1":
+        return rng.uniform(-7.0, 13.0, (D, 1)).astype(real)
+    if case == "transform":
+        return rng.uniform(-0.5, 0.5, (D, 3_000)).astype(real)
+    if case == "unfolded":
+        pts = rng.uniform(-3 * np.pi, 5 * np.pi, (D, 20_000))
+        for d, n in enumerate(plan.shape_over):
+            pts[d, :2_000] = rng.integers(-2 * n, 3 * n, 2_000) * (2 * np.pi / n)
+        pts[:, 2_000:2_004] = np.array([0.0, 2 * np.pi, -2 * np.pi, 4 * np.pi])
+        return pts.astype(real)
+    lo, hi = [], []
+    for n, b in zip(plan.shape_over, plan.block_dims):
+        first, last = (b, n - b) if case == "empty_ends" else (b, 2 * b)
+        lo.append(first * 2 * np.pi / n)
+        hi.append(last * 2 * np.pi / n)
+    lo, hi = np.array(lo)[:, None], np.array(hi)[:, None]
+    pts = rng.uniform(lo, hi, (D, 5_000))
+    return np.clip(pts, lo * 1.0001, hi * 0.9999).astype(real)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("case", ["unfolded", "empty_ends", "one_block", "np1", "transform",
+                                  "main"])
+@pytest.mark.parametrize("shape", [(32, 32, 32), (64, 48), (4096,)], ids=str)
+def test_set_points_kernels_match_plain_version(cuda_device, shape, case, dtype):
+    """A CUDA plan's sorted point state from the two set_points kernels
+    around the sort (``csrc/bin_sort.cu``) equals the plain chain's
+    (``plan._sorted_state_plain``, ``blocking.py``) under ``torch.equal``:
+    cells, fractions, order and block starts.  Each ``set_points`` launches
+    each kernel once, blocks the host nowhere (sync debug mode "error"),
+    and still opens the five ``nufft:set_points/...`` spans.  ``main``
+    runs the main path's shape and point count of the dimension."""
+    rng = np.random.default_rng(len(shape))
+    real = np.dtype(dtype).type(0).real.dtype
+    kw = {}
+    if case == "transform":
+        kw["point_transform"] = lambda x: x * (2 * np.pi)
+    if case == "main":
+        shape, np_ = SET_POINTS_MAIN[len(shape)]
+    plan = tnufft.PlanNUFFT(dtype, shape, m=4, sigma=1.5, spread_method="blocked",
+                            device=cuda_device, **kw)
+    if case == "main":
+        gen = torch.Generator(device=cuda_device).manual_seed(np_)
+        pts = torch.rand((len(shape), np_), generator=gen, device=cuda_device,
+                         dtype=plan.real_dtype) * (2 * np.pi + 2) - 1
+    else:
+        pts = torch.from_numpy(_set_points_case(rng, case, plan, real)).to(cuda_device)
+    names = blocked.BIN_SORT_ENTRIES[plan.real_dtype]
+    before = {n: blocked.LAUNCHES[n] for n in names}
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = tnufft.set_points(plan, pts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert all(blocked.LAUNCHES[n] == before[n] + 1 for n in names)
+    labels = {e.name for e in prof.events() if e.name.startswith("nufft:set_points/")}
+    assert labels == SET_POINTS_SPANS
+    cells, fracs, perm, pstarts, num_points = plan_module._sorted_state_plain(plan, pts)
+    assert got.num_points == num_points == pts.shape[1]
+    for g, w in ((got.cells_sorted, cells), (got.fracs_sorted, fracs),
+                 (got.sort_perm, perm), (got.pstarts, pstarts)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    counts = torch.diff(pstarts)
+    if case in ("empty_ends", "one_block"):
+        assert counts[0] == 0 and counts[-1] == 0
+    if case == "one_block":
+        assert int(counts.max()) == pts.shape[1]
 
 
 def test_m_above_10_raises(cuda_device):
