@@ -38,7 +38,10 @@ group's grid freed before the next; type 2 scales every transform once and
 pads, transforms and interpolates one group at a time.  The callbacks run
 on every transform at once either way, so grouped results equal ungrouped
 ones; each stage's timer section adds up over the groups, and a grouped
-exec opens one ``(1) spreading`` or ``(3) interpolation`` section a group.
+exec opens one ``(1) spreading`` or ``(3) interpolation`` section a group
+and writes each group's result into the whole output in a ``(4) group
+copy`` section, a sibling of the stages that an exec in one pass never
+opens.
 The other paths run their groups through the same loops
 (:func:`type1_groups`, :func:`type2_groups`) with their own spread or
 interpolation: the points-chunked plans (``chunked.py``) and the
@@ -206,6 +209,13 @@ def _t2_pass(plan: Plan, interp, spec_fn, uhat: torch.Tensor, *args) -> torch.Te
     return _stage(plan, "(3) interpolation", interp, plan, grid)
 
 
+def _put(out: torch.Tensor, sl: slice, part: torch.Tensor) -> torch.Tensor:
+    """``out[sl] = part``, one group's result written into the whole output;
+    returns ``out``."""
+    out[sl] = part
+    return out
+
+
 def type1_groups(plan: Plan, vp: torch.Tensor, uniform=None,
                  spread=t1_spread_stage) -> torch.Tensor:
     """(C, Np) values (after the nonuniform callback) -> (C,) +
@@ -222,7 +232,8 @@ def type1_groups(plan: Plan, vp: torch.Tensor, uniform=None,
     out = torch.empty((vp.shape[0],) + plan.spectral_shape, dtype=plan.complex_dtype,
                       device=vp.device)
     for sl in groups:
-        out[sl] = _t1_pass(plan, vp[sl], None, spread)
+        part = _t1_pass(plan, vp[sl], None, spread)
+        _stage(plan, "(4) group copy", _put, out, sl, part)
     if uniform is not None:
         out = _stage(plan, "(3) deconvolve + truncate", apply_uniform_callback, out, uniform)
     return out
@@ -242,7 +253,8 @@ def type2_groups(plan: Plan, uhat: torch.Tensor, uniform=None,
     w = _stage(plan, "(1) deconvolve + pad", t2_scale_stage, plan, uhat, uniform)
     vp = torch.empty((uhat.shape[0], plan.num_points), dtype=plan.dtype, device=uhat.device)
     for sl in groups:
-        vp[sl] = _t2_pass(plan, interp, t2_pad_modes_stage, w[sl])
+        part = _t2_pass(plan, interp, t2_pad_modes_stage, w[sl])
+        _stage(plan, "(4) group copy", _put, vp, sl, part)
     return vp
 
 

@@ -46,6 +46,7 @@ import torch
 from ..interpolation import interpolate_cells
 from ..spreading import spread_cells
 from ..windows import WINDOW_KINDS, cell_scale
+from ...utils.timer import traced
 from . import build
 from .common import (
     KERNEL_DIMS,
@@ -350,7 +351,9 @@ def spread_blocked_plain(plan, vp: torch.Tensor) -> torch.Tensor:
 def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
     """Blocked type-1 spreading.  ``vp``: (C, Np) of the plan's dtype in
     original point order.  Returns the oversampled grid ``(C,) +
-    shape_over`` of the same dtype."""
+    shape_over`` of the same dtype.  On the card the kernel adds into a grid
+    zeroed in the section ``grid zero`` (``utils/timer.py:traced``, nested
+    in the exec's ``(1) spreading``); the plain version opens none."""
     if vp.device.type == "cpu":
         return spread_blocked_plain(plan, vp)
     if vp.device.type != "cuda":
@@ -360,8 +363,8 @@ def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
     C, np_ = vp.shape
     if np_ != plan.num_points:
         raise ValueError(f"{np_} values for {plan.num_points} points")
-    grid = torch.zeros((C,) + tuple(plan.shape_over), dtype=vp.dtype,
-                       device=vp.device)
+    grid = traced(plan.timer, "grid zero", torch.zeros, (C,) + tuple(plan.shape_over),
+                  dtype=vp.dtype, device=vp.device)
     if np_ == 0:  # a rank of the spatial mode may own no point
         return grid
     # The 1D kernel reads the values through the sort permutation; the 2D

@@ -154,7 +154,8 @@ def test_timer_labels_add_up_over_groups(with_callbacks):
     """Under grouping each stage runs under today's label once a group; a
     grouped type 2's scaling (and uniform callback) runs once more under
     "(1) deconvolve + pad", a grouped type 1's uniform callback once more
-    under "(3) deconvolve + truncate"; the nonuniform callbacks run once."""
+    under "(3) deconvolve + truncate"; the nonuniform callbacks run once; each
+    exec's "(4) group copy" once a group."""
     C, chunk = 8, 3
     timer = tnufft.Timer(synchronise=True)
     plan = _port_plan(np.complex128, (16, 12), C, timer=timer)
@@ -171,6 +172,7 @@ def test_timer_labels_add_up_over_groups(with_callbacks):
         "exec_type1/(3) deconvolve + truncate": groups + with_callbacks,
         "exec_type2/(1) deconvolve + pad": groups + 1,
         "exec_type2/(2) backward FFT": groups, "exec_type2/(3) interpolation": groups,
+        "exec_type1/(4) group copy": groups, "exec_type2/(4) group copy": groups,
     }
     if with_callbacks:
         want["exec_type1/(0) nonuniform callback"] = 1
