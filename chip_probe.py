@@ -137,6 +137,24 @@ held equal and each kernel's bound by the function's bytes, on uniform
 points and on clustered ones (empty end blocks, every point in the first or
 the last block; ``probe_set_points``).
 
+    python3 chip_probe.py --deconvolve [--reps N]
+
+times the deconvolution's stages, whose kernels are ``csrc/deconvolve.cu``'s
+truncate and pad, at N = 256^3 over the 384^3 grid: complex64 with 32
+transforms a call (the 32-coil cell's), then one transform of each value
+type against the plain torch chain, in turns, beside the bound by bytes
+(``probe_deconvolve``).
+
+    python3 chip_probe.py --alloc-window CELL ... [--seed S] [--seconds T] [--root DIR]
+
+runs each benchmark cell as ``nufftbench/run.py`` does, traced and
+untraced, and prints the device allocations made inside its measured
+stretches: the caching allocator's new segments (counters and history,
+with sizes and the repo's frames) and the ``cudaMalloc`` / ``cudaFree``
+calls in the profiled trace (``probe_alloc_window``).  With ``--root`` the
+harness and the package are those of another tree, so that two trees are
+compared in one call.
+
     python3 chip_probe.py --relayout
 
 instead times the relayout kernels K8a / K8b (``csrc/relayout.cu``) as
@@ -3974,6 +3992,170 @@ def probe_set_points(seed: int, dims, dtypes, nps, reps: int, cases=SET_POINTS_C
                     torch.cuda.empty_cache()
 
 
+#: ``--deconvolve``'s rows: value type and transforms a call (the 32-coil
+#: cell's call, then one transform of each main path).
+DECONVOLVE_ROWS = (("complex64", 32), ("complex64", 1), ("float32", 1), ("complex128", 1),
+                   ("float64", 1))
+
+
+def probe_deconvolve(seed: int, reps: int) -> None:
+    """The deconvolution's three stages (``execution.py``: type 1's
+    ``t1_deconv_stage``, type 2's ``t2_pad_stage`` and the unscaled
+    ``t2_pad_modes_stage`` of a grouped call) at N = 256^3 over the 384^3
+    grid (m = 4, sigma = 1.5) for ``DECONVOLVE_ROWS``, CUDA events, median
+    of ``reps`` after one warm-up, beside their bound by bytes (each kept
+    mode read once, each output written once); with one transform also the
+    plain torch chain (``deconvolve_truncate_plain``,
+    ``deconvolve_pad_plain``), in turns kernel, plain, plain, kernel.  One
+    JSON line a stage."""
+    import torch
+
+    import nonuniformffts_tpu_torch as nufft
+    from chip_smoke import HBM_BYTES_PER_S, cuda_time_ms, nvidia_smi_line
+    from nonuniformffts_tpu_torch import execution as ex
+    from nonuniformffts_tpu_torch.ops import deconvolve
+
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    for name, C in DECONVOLVE_ROWS:
+        plan = nufft.PlanNUFFT(np.dtype(name), SHAPES[3], m=4, sigma=1.5, ntransforms=C,
+                               device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(seed + C)
+        spec = torch.randn((C,) + plan.spectral_shape_over, generator=gen, device="cuda",
+                           dtype=plan.complex_dtype)
+        uhat = torch.randn((C,) + plan.spectral_shape, generator=gen, device="cuda",
+                           dtype=plan.complex_dtype)
+        modes, over = math.prod(plan.spectral_shape), math.prod(plan.spectral_shape_over)
+        nbytes = {"truncate": 2 * modes, "pad": modes + over, "pad_unscaled": modes + over}
+        stages = {
+            "truncate": (lambda: ex.t1_deconv_stage(plan, spec),
+                         lambda: deconvolve.deconvolve_truncate_plain(
+                             spec, plan.index_ranges, plan.phihat_inv, plan.normfactor)),
+            "pad": (lambda: ex.t2_pad_stage(plan, uhat),
+                    lambda: deconvolve.deconvolve_pad_plain(
+                        uhat, plan.spectral_shape_over, plan.index_ranges, plan.phihat_inv)),
+            "pad_unscaled": (lambda: ex.t2_pad_modes_stage(plan, uhat), None),
+        }
+        for stage, (kernel, plain) in stages.items():
+            times = {"kernel": [], "plain": []}
+            order = ("kernel", "plain", "plain", "kernel") if plain and C == 1 else ("kernel",)
+            for side in order:
+                ms, _ = cuda_time_ms(kernel if side == "kernel" else plain, reps=reps)
+                times[side].append(ms)
+            bound_ms = 1e3 * C * nbytes[stage] * spec.element_size() / HBM_BYTES_PER_S
+            kernel_ms = statistics.mean(times["kernel"])
+            print(json.dumps({
+                "probe": "deconvolve", "card": card, "dtype": name, "transforms": C,
+                "stage": stage, "kernel_ms": times["kernel"], "plain_ms": times["plain"] or None,
+                "bound_ms": bound_ms, "bound_share": bound_ms / kernel_ms}), flush=True)
+        del spec, uhat, plan
+        torch.cuda.empty_cache()
+
+
+#: The caching allocator's counters ``--alloc-window`` reads around each
+#: stretch of steps.
+ALLOC_COUNTERS = ("segment.all.allocated", "segment.all.freed", "num_alloc_retries",
+                  "num_device_alloc", "num_device_free")
+
+
+def _our_frames(frames, count: int = 4) -> list:
+    """The innermost ``count`` Python frames of the repo's packages."""
+    return [f"{Path(f['filename']).name}:{f['line']}:{f['name']}" for f in frames
+            if "nonuniformffts_tpu_torch" in f["filename"] or "nufftbench" in f["filename"]][:count]
+
+
+def probe_alloc_window(root: Path, cells, seed: int, seconds: float) -> None:
+    """Which device allocations the benchmark's own runs make inside their
+    measured stretches (``nufftbench/harness.py``), for the package the
+    harness imports (this tree's, or ``--root``'s).  Each cell runs once
+    traced and once untraced through ``harness.run_cell``; around each
+    stretch of steps (``Window.run``: the untraced window, the traced run's
+    profiled stretch and its timed part) the caching allocator's counters
+    (``ALLOC_COUNTERS``) are read, and its history records each segment it
+    maps or frees there with the size and the repo's innermost frames.  The
+    profiled stretch's trace is also searched for ``cudaMalloc`` and
+    ``cudaFree`` calls inside the window (any library's, the caching
+    allocator's included), each with its duration and the ``nufft:`` span
+    and host operation around it.  One JSON line a run."""
+    import torch
+
+    from chip_smoke import nvidia_smi_line
+    from nufftbench import harness
+
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    found = []
+    run, summarise = harness.Window.run, harness.tracing.summarise_file
+
+    def counters():
+        stats = torch.cuda.memory_stats()
+        return {k: stats.get(k, 0) for k in ALLOC_COUNTERS}
+
+    def window_run(win, step, k0, secs, timed=True):
+        torch.cuda.synchronize()
+        before = counters()
+        torch.cuda.memory._record_memory_history(stacks="python", max_entries=200_000)
+        try:
+            return run(win, step, k0, secs, timed)
+        finally:
+            torch.cuda.synchronize()
+            snap = torch.cuda.memory._snapshot()
+            torch.cuda.memory._record_memory_history(enabled=None)
+            after = counters()
+            events = [e for trace in snap["device_traces"] for e in trace
+                      if e["action"] not in ("alloc", "free_requested", "free_completed")]
+            found.append({
+                "stretch": "timed" if timed else "profiled", "first_step": k0,
+                "counters": {k: after[k] - before[k] for k in after},
+                "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+                "segments": [{"action": e["action"], "bytes": e["size"],
+                              "at": _our_frames(e.get("frames", []))} for e in events[:20]]})
+
+    def summarise_file(path):
+        with open(path) as f:
+            spans = [e for e in json.load(f).get("traceEvents", [])
+                     if e.get("ph") == "X" and "dur" in e]
+        win = [e for e in spans if e.get("name") == harness.tracing.WINDOW]
+        if win:
+            lo, hi = float(win[0]["ts"]), float(win[0]["ts"]) + float(win[0]["dur"])
+            host = [e for e in spans if e.get("cat") in ("user_annotation", "cpu_op")]
+            calls = []
+            for e in spans:
+                if e.get("cat") != "cuda_runtime" or e.get("name") not in (
+                        "cudaMalloc", "cudaFree") or not lo <= float(e["ts"]) <= hi:
+                    continue
+                a, b = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+                around = sorted((h for h in host if float(h["ts"]) <= a
+                                 and float(h["ts"]) + float(h["dur"]) >= b),
+                                key=lambda h: float(h["ts"]))
+                labels = [h["name"] for h in around if h["name"].startswith("nufft:")]
+                ops = [h["name"] for h in around if h.get("cat") == "cpu_op"]
+                calls.append({"call": e["name"], "ms": (b - a) * 1e-3,
+                              "at_ms": (a - lo) * 1e-3, "span": labels[-1] if labels else None,
+                              "op": ops[-1] if ops else None})
+            found.append({"stretch": "profiled trace", "runtime_calls": calls})
+        return summarise(path)
+
+    harness.Window.run, harness.tracing.summarise_file = window_run, summarise_file
+    try:
+        for name in cells:
+            cell = harness.load_cell(root, name)
+            for trace in (True, False):
+                found.clear()
+                result = harness.run_cell(cell, seed, seconds, trace, "cuda")
+                metrics = {k: v["value"] for k, v in result["metrics"].items()
+                           if k in ("device_idle_pct", "step_ms")}
+                print(json.dumps({
+                    "probe": "alloc_window", "card": card, "cell": name, "trace": trace,
+                    "correct": result["correct"], "metrics": metrics,
+                    "idle_gaps": result.get("breakdown", {}).get("idle_gaps", [])[:4],
+                    "peak_bytes": result["device"]["memory_peak_bytes"],
+                    "stretches": found}), flush=True)
+                torch.cuda.empty_cache()
+    finally:
+        harness.Window.run, harness.tracing.summarise_file = run, summarise
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4039,6 +4221,15 @@ def main(argv=None) -> int:
     parser.add_argument("--set-points", action="store_true",
                         help="time set_points' key and sorted-state kernels and the sort "
                              "against the plain chain on the main paths' shapes, and stop")
+    parser.add_argument("--deconvolve", action="store_true",
+                        help="time the deconvolution's stages (the kernels of "
+                             "csrc/deconvolve.cu) against the plain chain and their "
+                             "bounds at 256^3 over 384^3, and stop")
+    parser.add_argument("--alloc-window", nargs="+", default=None, metavar="CELL",
+                        help="run each benchmark cell traced and untraced, count the "
+                             "device allocations inside its measured stretches, and stop")
+    parser.add_argument("--seconds", type=float, default=10.0,
+                        help="the measured window of --alloc-window's runs")
     parser.add_argument("--root", default=None,
                         help="import nonuniformffts_tpu_torch from this tree (default: "
                              "the script's own)")
@@ -4090,6 +4281,13 @@ def main(argv=None) -> int:
         return 0
     if args.set_points:
         probe_set_points(args.seed, args.dim, args.dtype, args.np, args.reps)
+        return 0
+    if args.deconvolve:
+        probe_deconvolve(args.seed, args.reps)
+        return 0
+    if args.alloc_window:
+        probe_alloc_window(Path(args.root).resolve() if args.root else ROOT, args.alloc_window,
+                           args.seed, args.seconds)
         return 0
     if args.interp1d_sweep:
         probe_interp1d_sweep(args.seed, args.dtype, args.np, args.reps)

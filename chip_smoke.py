@@ -139,13 +139,20 @@ Phases, in order; the first failure raises and the script exits non-zero:
     Then every spread and interpolation entry point, four dtypes, with
     C = 5 and 32 transforms in one launch at 2^20, 4096^2 and 256^3
     (1,000,000 points) against its plain version run a transform at a
-    time, with phase 4's limits.
+    time, with phase 4's limits;
+16. the deconvolution kernels (``csrc/deconvolve.cu``) at the main-path
+    shapes, N = 256^3 over the 384^3 grid, one transform, all four dtypes:
+    type 1's truncate and type 2's pad against the plain torch chain (each
+    element within 1e-6 relative in float32, 1e-15 in float64, whether
+    bit-equal, one launch a call), timed in turns beside the bound by bytes;
+    the pad with the scaling off equal to the plain padding bit for bit.
 
 Each main-path row sets every launch count to 0 just before it drives the
 path and reads the counts just after; a kernel of the path that was not
 launched fails the run, and so does K3 (a window without coefficients)
 launched other than once for each ``set_points`` call or at all by an
-exec, and so do the two set_points kernels (``csrc/bin_sort.cu``).  At the
+exec, and so do the two set_points kernels (``csrc/bin_sort.cu``); the
+two deconvolution kernels must each launch on every main path.  At the
 smaller Np of each dtype and dimension every kernel is held against its
 plain version and timed; the set_points kernels' cells, fractions, order and
 block starts must equal the plain chain's under ``torch.equal``.  The
@@ -153,8 +160,9 @@ float32-accumulation diagnostic (ROADMAP queue 3, P2) re-spreads the
 complex64 rho = 1 row's own float32 values and fractions, widened to
 float64, with the float64 kernel and a Z2Z FFT, and prints that err1 beside
 the float32 err1 of three calls.  The line before the last is one JSON
-object with each of the 34 kernel entry points (24 spread and
-interpolation, two window-weights, four relayouts, four set_points):
+object with each of the 42 kernel entry points (24 spread and
+interpolation, two window-weights, four relayouts, four set_points, eight
+deconvolution; these carry ``bit_equal``):
 launches on its main
 path, its error against its plain version, both times, the least time the
 card could take for the same work (``bound_ms``) and what bounds it, the
@@ -291,6 +299,12 @@ KERNELS = {
     **{f"nufft_{kind}_{t}": dict(source=f"{_CSRC}/bin_sort.cu",
                                  replaces="none (JAX set_points is jnp + lax.sort)")
        for kind in ("bin_keys", "sorted_state") for t in ("f32", "f64")},
+    # The deconvolution's truncate-and-scale and scale-and-pad, which replace
+    # no TPU kernel.
+    **{f"nufft_deconvolve_{step}_{t}": dict(source=f"{_CSRC}/deconvolve.cu",
+                                            replaces="none (JAX deconvolution is jnp slices, "
+                                                     "concatenations and multiplies)")
+       for step in ("truncate", "pad") for t in ("f32", "real_f32", "f64", "real_f64")},
 }
 #: Each main-path row's set_points comparison by entry point, then row label
 #: (``compare_set_points``).
@@ -392,15 +406,19 @@ def phase_environment():
 
 def _kernel_label(mangled: str) -> str:
     """``spread_3d<M=4, double, 2>``, ``interp_1d<M=4, float, 2, taps,
-    sorted>``, ``interp_2d<M=4, float, 2, point>`` (a ``*_point_kernel``)
-    or ``window_weights<kind=1, M=4, double, 2>`` (window kind, M, scalar,
-    points a thread) from a mangled kernel name."""
+    sorted>``, ``interp_2d<M=4, float, 2, point>`` (a ``*_point_kernel``),
+    ``window_weights<kind=1, M=4, double, 2>`` (window kind, M, scalar,
+    points a thread) or ``deconvolve_pad<float, 2>`` (scalar, values an
+    access) from a mangled kernel name."""
     m = re.search(r"(spread|interp)_(\d)d_(point_)?kernelILi(\d+)E([fd])Li(\d)E(?:Lb([01])E)?"
                   r"(?:Lb([01])E)?", mangled)
     if m:
         return (f"{m[1]}_{m[2]}d<M={m[4]}, {'float' if m[5] == 'f' else 'double'}, {m[6]}"
                 + (", taps" if m[7] == "1" else "") + (", sorted" if m[8] == "1" else "")
                 + (", point" if m[3] else "") + ">")
+    m = re.search(r"(truncate|pad)_kernelI([fd])Li(\d)E", mangled)
+    if m:
+        return f"deconvolve_{m[1]}<{'float' if m[2] == 'f' else 'double'}, {m[3]}>"
     m = re.search(r"window_weights_kernelILi(\d)ELi(\d+)E([fd])Li(\d)E", mangled)
     if m:
         return (f"window_weights<kind={m[1]}, M={m[2]}, "
@@ -565,6 +583,14 @@ def entry_points(plan):
     if blocked.kernel_coefs(plan)[0] is None:
         names.append(blocked.WEIGHTS_ENTRY[plan.real_dtype])
     return names
+
+
+def deconvolve_entry_points(plan):
+    """The deconvolution kernels a plan's transforms launch: type 1's
+    truncate and type 2's pad."""
+    from nonuniformffts_tpu_torch.ops.kernels.common import deconvolve_entry_name
+
+    return [deconvolve_entry_name(step, plan.dtype) for step in ("truncate", "pad")]
 
 
 def compare_kernels(plan, vp, grid, timed: bool, plain_chunk: int = PLAIN_CHUNK,
@@ -938,7 +964,7 @@ def main_path(label: str, dtype, shape, np_list, compare_np: int, seed: int,
     D = len(shape)
     plan0 = _plan(dtype, shape, m, sigma, window)
     bin_names = blocked.BIN_SORT_ENTRIES[plan0.real_dtype]
-    names = entry_points(plan0) + list(bin_names)
+    names = entry_points(plan0) + list(bin_names) + deconvolve_entry_points(plan0)
     log(f"  {label}: grid {plan0.shape_over}, block_dims {plan0.block_dims}, "
         f"kernels {names}")
     a, u_np = _rank1_spectrum(shape, plan0.is_real, seed)
@@ -2612,6 +2638,107 @@ def _nccl_rows(dtype, sigma: float, seed: int, pts, vp, u_ch, factors):
     return rows
 
 
+def _launched_only(name: str, count: int, what: str) -> None:
+    """Raises unless, since the last reset, ``name`` launched ``count`` times
+    and no other entry point launched."""
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    others = {k: v for k, v in blocked.LAUNCHES.items() if v and k != name}
+    if blocked.LAUNCHES[name] != count or others:
+        raise AssertionError(f"{what}: {name} launched {blocked.LAUNCHES[name]} times, "
+                             f"expected {count}; others {others}")
+
+
+def phase_deconvolve(seed: int):
+    """Phase 16: both deconvolution kernels against the plain chain at the
+    main-path shapes, N = 256^3 over the 384^3 grid (m = 4, sigma = 1.5),
+    one transform, four value types: type 1's truncate (from the oversampled
+    spectrum) and type 2's pad (from the modes), each checked (rel L2 within
+    the multiply chain's rounding, whether bit-equal, one launch a call),
+    timed in turns (plain, kernel, kernel, plain; CUDA-event medians of
+    ``REPS``) and beside its bound by bytes (each kept mode read once, each
+    output written once); the pad with the scaling off (a grouped type 2's)
+    is checked to be a copy, bit for bit.  Launches are read from
+    ``blocked.LAUNCHES`` after each call or timed stretch, and each must be
+    what the calls made: one a kernel call, none for the plain chain.
+    Returns (launches, comparisons)."""
+    import torch
+
+    from nonuniformffts_tpu_torch.ops import deconvolve
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    log(f"== phase 16: deconvolution kernels, N = {shape_text(SHAPE_3D)}, m = 4, sigma = 1.5, "
+        f"four dtypes")
+    launches, compared = collections.Counter(), {}
+    rtol = {4: 1e-6, 8: 1e-15}
+    for dtype in (np.complex64, np.float32, np.complex128, np.float64):
+        plan = _plan(dtype, SHAPE_3D, 4, 1.5)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+        spec = _random_values(gen, (1,) + plan.spectral_shape_over, plan.complex_dtype, "cuda")
+        uhat = _random_values(gen, (1,) + plan.spectral_shape, plan.complex_dtype, "cuda")
+        args1 = (plan.index_ranges, plan.phihat_inv, plan.normfactor)
+        args2 = (plan.spectral_shape_over, plan.index_ranges, plan.phihat_inv)
+        esize = spec.element_size()
+        modes, over = math.prod(plan.spectral_shape), math.prod(plan.spectral_shape_over)
+        pairs = {
+            "truncate": (lambda: deconvolve.deconvolve_truncate(spec, *args1),
+                         lambda: deconvolve.deconvolve_truncate_plain(spec, *args1),
+                         2 * modes * esize),
+            "pad": (lambda: deconvolve.deconvolve_pad(uhat, *args2),
+                    lambda: deconvolve.deconvolve_pad_plain(uhat, *args2),
+                    (modes + over) * esize),
+        }
+        tol = rtol[torch.empty((), dtype=plan.real_dtype).element_size()]
+        for step, (kern, plain, nbytes) in pairs.items():
+            name = deconvolve_entry_points(plan)[0 if step == "truncate" else 1]
+            blocked.reset_launch_counts()
+            got = kern()
+            torch.cuda.synchronize()
+            _launched_only(name, 1, "one call")
+            launches[name] += blocked.LAUNCHES[name]
+            blocked.reset_launch_counts()
+            p1, want = cuda_time_ms(plain)
+            k1, _ = cuda_time_ms(kern)
+            k2, _ = cuda_time_ms(kern)
+            p2, _ = cuda_time_ms(plain)
+            torch.cuda.synchronize()
+            # the plain chain launches nothing; each timed kernel call one
+            _launched_only(name, 2 * (REPS + 1), "the timed calls")
+            launches[name] += blocked.LAUNCHES[name]
+            if not got.is_contiguous() or got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{name}: output {tuple(got.shape)} {got.dtype}, "
+                                     f"contiguous {got.is_contiguous()}")
+            err = rel_l2(got, want)
+            diff, nz = (got - want).abs(), want != 0
+            max_rel = float((diff[nz] / want.abs()[nz]).max())
+            if bool((diff[~nz] != 0).any()):
+                raise AssertionError(f"{name}: a zero of the plain version is not zero")
+            equal = bool(torch.equal(got, want))
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+            log(f"  {name} {tuple(want.shape)}: bit-equal {equal}, rel L2 {err:.3e}, max rel {max_rel:.3e}, "
+                f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB, {100 * bound_ms / ms:.1f}% of it)")
+            check(f"{name} max rel vs plain", max_rel, tol)
+            compared[name] = dict(max_abs_err=float((got - want).abs().max()), rel_l2=err,
+                                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                                  bit_equal=equal)
+            del got, want, diff, nz
+        blocked.reset_launch_counts()
+        copy = deconvolve.pad_modes(uhat, plan.spectral_shape_over, plan.index_ranges)
+        torch.cuda.synchronize()
+        pad_name = deconvolve_entry_points(plan)[1]
+        _launched_only(pad_name, 1, "the unscaled pad")
+        launches[pad_name] += blocked.LAUNCHES[pad_name]
+        if not torch.equal(copy, deconvolve.pad_modes_plain(uhat, plan.spectral_shape_over,
+                                                            plan.index_ranges)):
+            raise AssertionError(f"{np.dtype(dtype).name}: the unscaled pad is not a copy")
+        log(f"  {np.dtype(dtype).name}: the unscaled pad equals the plain padding bit for bit")
+        del spec, uhat, copy, plan
+        torch.cuda.empty_cache()
+    return launches, compared
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2663,6 +2790,7 @@ def main(argv=None) -> int:
         f"{NT_NP:,} points")
     transforms = collections.defaultdict(dict)
     phase_ntransforms(args.seed, record, transforms)
+    record(phase_deconvolve(args.seed))
 
     # K3's headline numbers: KB Direct at 1M points in phase 10 (float32
     # taps from complex64, float64 from complex128).
@@ -2685,6 +2813,8 @@ def main(argv=None) -> int:
                       for mode, res in sorted(windows[name].items())},
              **({"shapes": compared[name]["shapes"]} if "shapes" in compared[name] else {}),
              **({"rows": compared[name]["rows"]} if "rows" in compared[name] else {}),
+             **({"bit_equal": compared[name]["bit_equal"]}
+                if "bit_equal" in compared[name] else {}),
              **({"transforms": transforms[name]} if name in transforms else {}))
         for name in KERNELS
     ]

@@ -14,6 +14,13 @@ shifted) at the front of an ``n_over // 2 + 1`` oversampled axis, so its
 range is one slice; callers pass the plan's ``spectral_shape_over``.  The
 optional user callback on uniform data runs in both passes, after the
 ``1/phi_hat`` scaling (``callbacks.py:apply_uniform_callback``).
+
+A spectrum the deconvolution kernels take (``ops/kernels/deconvolve.py:
+takes``: a CUDA complex64 or complex128 tensor) goes through them, one pass
+each way with the same products in the same order; every other runs the
+plain torch chain (``deconvolve_truncate_plain``, ``deconvolve_pad_plain``,
+``pad_modes_plain``).  With a callback, type 2 scales and calls it in the
+chain and pads with the kernel, scaling off.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 
 from ..callbacks import apply_uniform_callback
+from .kernels import deconvolve as kernels
 
 
 def output_wavenumbers(n: int, *, r2c: bool, fftshift: bool) -> np.ndarray:
@@ -78,6 +86,21 @@ def _scale(u: torch.Tensor, phihat_inv: Sequence[torch.Tensor]) -> torch.Tensor:
     return u
 
 
+def deconvolve_truncate_plain(
+    uhat_over: torch.Tensor,  # (C,) + oversampled spectral shape
+    index_ranges,
+    phihat_inv: Sequence[torch.Tensor],
+    normfactor: float,
+    callback=None,
+) -> torch.Tensor:
+    """Plain version of :func:`deconvolve_truncate`: a concatenation an
+    axis, then the multiplies."""
+    out = uhat_over
+    for d, ranges in enumerate(index_ranges):
+        out = truncate_axis(out, 1 + d, ranges)
+    return apply_uniform_callback(_scale(out * normfactor, phihat_inv), callback)
+
+
 def deconvolve_truncate(
     uhat_over: torch.Tensor,  # (C,) + oversampled spectral shape
     index_ranges,
@@ -88,10 +111,11 @@ def deconvolve_truncate(
     """Type-1 step (3): truncate to the output modes, multiply by
     ``normfactor / prod_d phi_hat_d`` (src/NonuniformFFTs.jl:179-185), then
     apply the uniform ``callback``."""
-    out = uhat_over
-    for d, ranges in enumerate(index_ranges):
-        out = truncate_axis(out, 1 + d, ranges)
-    return apply_uniform_callback(_scale(out * normfactor, phihat_inv), callback)
+    if not kernels.takes(uhat_over):
+        return deconvolve_truncate_plain(uhat_over, index_ranges, phihat_inv, normfactor,
+                                         callback)
+    out = kernels.truncate(uhat_over, index_ranges, phihat_inv, normfactor)
+    return apply_uniform_callback(out, callback)
 
 
 def deconvolve_scale(
@@ -104,6 +128,18 @@ def deconvolve_scale(
     return apply_uniform_callback(_scale(uhat_k, phihat_inv), callback)
 
 
+def pad_modes_plain(
+    w: torch.Tensor,  # (C,) + output spectral shape
+    shape_over_spec: Tuple[int, ...],
+    index_ranges,
+) -> torch.Tensor:
+    """Plain version of :func:`pad_modes`: a zeroed grid and its copies an
+    axis."""
+    for d, ranges in enumerate(index_ranges):
+        w = pad_axis(w, 1 + d, ranges, shape_over_spec[d])
+    return w
+
+
 def pad_modes(
     w: torch.Tensor,  # (C,) + output spectral shape
     shape_over_spec: Tuple[int, ...],
@@ -111,9 +147,22 @@ def pad_modes(
 ) -> torch.Tensor:
     """The second half of type-2 step (1): the modes placed into the
     zero-padded oversampled spectrum."""
-    for d, ranges in enumerate(index_ranges):
-        w = pad_axis(w, 1 + d, ranges, shape_over_spec[d])
-    return w
+    if kernels.takes(w):
+        return kernels.pad(w, shape_over_spec, index_ranges)
+    return pad_modes_plain(w, shape_over_spec, index_ranges)
+
+
+def deconvolve_pad_plain(
+    uhat_k: torch.Tensor,  # (C,) + output spectral shape
+    shape_over_spec: Tuple[int, ...],
+    index_ranges,
+    phihat_inv: Sequence[torch.Tensor],
+    callback=None,
+) -> torch.Tensor:
+    """Plain version of :func:`deconvolve_pad`: the multiplies, the
+    callback, then :func:`pad_modes_plain`."""
+    return pad_modes_plain(deconvolve_scale(uhat_k, phihat_inv, callback), shape_over_spec,
+                           index_ranges)
 
 
 def deconvolve_pad(
@@ -126,5 +175,7 @@ def deconvolve_pad(
     """Type-2 step (1): scale by ``1 / prod_d phi_hat_d``, apply the uniform
     ``callback``, and place the modes into the zero-padded oversampled
     spectrum (src/NonuniformFFTs.jl:268-272, 453-480)."""
+    if callback is None and kernels.takes(uhat_k):
+        return kernels.pad(uhat_k, shape_over_spec, index_ranges, phihat_inv)
     return pad_modes(deconvolve_scale(uhat_k, phihat_inv, callback), shape_over_spec,
                      index_ranges)

@@ -33,7 +33,8 @@ two wrappers take CUDA tensors only.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches its kernel or raises.  Each launch adds one to
-``LAUNCHES[entry point]``.
+``LAUNCHES[entry point]``, which also counts the deconvolution kernels'
+launches (``ops/kernels/deconvolve.py``).
 """
 
 from __future__ import annotations
@@ -49,10 +50,12 @@ from ..windows import WINDOW_KINDS, cell_scale
 from ...utils.timer import traced
 from . import build
 from .common import (
+    DECONVOLVE_STEPS,
     KERNEL_DIMS,
     KERNEL_M_RANGE,
     MAX_SMEM_BYTES,
     VALUE_TYPES,
+    deconvolve_entry_name,
     entry_point_name,
     interp1d_gathers,
     interp_tiles,
@@ -76,6 +79,9 @@ LAUNCHES = {
        for dtype in VALUE_TYPES},
     **dict.fromkeys(WEIGHTS_ENTRY.values(), 0),
     **{name: 0 for names in BIN_SORT_ENTRIES.values() for name in names},
+    # csrc/deconvolve.cu, launched by ops/kernels/deconvolve.py
+    **{deconvolve_entry_name(step, dtype): 0
+       for step in DECONVOLVE_STEPS for dtype in VALUE_TYPES},
 }
 
 

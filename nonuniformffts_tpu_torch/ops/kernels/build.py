@@ -76,6 +76,21 @@ class BinGeometry(ctypes.Structure):
         return out
 
 
+class DeconvGeometry(ctypes.Structure):
+    """``csrc/deconvolve.cu:DeconvGeometry``, the transforms and the three
+    axes of the deconvolution kernels (``common.py:DeconvolveAxes``)."""
+
+    _fields_ = [("transforms", ctypes.c_longlong)] + [
+        (name, ctypes.c_int * 3) for name in ("out", "over", "start0", "len0", "start1")]
+
+    @classmethod
+    def of(cls, transforms: int, axes) -> "DeconvGeometry":
+        out = cls(transforms=int(transforms))
+        for name, _ in cls._fields_[1:]:
+            getattr(out, name)[:] = getattr(axes, name)
+        return out
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _HEAD = [_P] * 7 + [ctypes.c_longlong, _I, _I, _I]
@@ -110,6 +125,13 @@ for _vt in ("f32", "f64"):
     _SIGNATURES[f"nufft_bin_keys_{_vt}"] = [_P, _geom, _P, _P, ctypes.c_longlong, _P]
     _SIGNATURES[f"nufft_sorted_state_{_vt}"] = (
         [_P] * 3 + [_geom] + [_P] * 3 + [ctypes.c_longlong, _P])
+
+_geom = ctypes.POINTER(DeconvGeometry)
+for _vt in VALUE_SUFFIXES:
+    # in, out, p0, p1, p2, normfactor | scale, geometry, vec, stream
+    # (csrc/deconvolve.cu)
+    _SIGNATURES[f"nufft_deconvolve_truncate_{_vt}"] = [_P] * 5 + [ctypes.c_double, _geom, _I, _P]
+    _SIGNATURES[f"nufft_deconvolve_pad_{_vt}"] = [_P] * 5 + [_I, _geom, _I, _P]
 
 _lib = None
 #: The kernel library's load in this process (:func:`build` and

@@ -7,8 +7,12 @@ spread kernels (``spread2d_units``, ``spread_tiles``), which the kernels and
 the block geometry chooser share, the staged windows of the 1D
 interpolation kernel (``interp1d_window``, ``interp1d_staged``), the row
 geometry, design and register cap of the 2D interpolation kernel
-(``interp2d_rows``, ``interp2d_chunked_rows``, ``interp2d_min_ctas``) and the staged window and lane groups of the 3D
-interpolation kernel (``interp_tiles``, ``interp_lanes``).
+(``interp2d_rows``, ``interp2d_chunked_rows``, ``interp2d_min_ctas``), the staged window and lane groups of the 3D
+interpolation kernel (``interp_tiles``, ``interp_lanes``), and the index map,
+access width and item count of the deconvolution kernels
+(``deconvolve_axes``, ``source_index``, ``mode_index``,
+``truncate_sources``, ``pad_sources``, ``deconvolve_vector``,
+``deconvolve_items``).
 
 Counterpart of ``nonuniformffts_tpu/ops/pallas/common.py``.  The TPU
 kernels placed the 2M taps of each point into dense weight matrices for the
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -174,6 +178,107 @@ def entry_point_name(kind: str, ndim: int, dtype: torch.dtype) -> str:
     ``kind`` ('spread' or 'interp') kernel for ``ndim``-D plans of
     ``dtype``."""
     return f"nufft_{kind}_{ndim}d_{VALUE_TYPES[dtype][0]}"
+
+
+#: The deconvolution kernels' steps (``csrc/deconvolve.cu``): type 1's
+#: truncate-and-scale and type 2's scale-and-pad.
+DECONVOLVE_STEPS = ("truncate", "pad")
+
+
+def deconvolve_entry_name(step: str, dtype: torch.dtype) -> str:
+    """``nufft_deconvolve_<step>_<suffix>``: the C entry point of the
+    deconvolution ``step`` for a plan of ``dtype`` (a real plan's suffix for
+    its complex spectrum)."""
+    return f"nufft_deconvolve_{step}_{VALUE_TYPES[dtype][0]}"
+
+
+class DeconvolveAxes(NamedTuple):
+    """A plan's spectra as the deconvolution kernels see them
+    (``csrc/deconvolve.cu:DeconvGeometry``): three axes, missing leading
+    ones of length 1 with one run; on axis d output index ``i < len0[d]``
+    sits at ``start0[d] + i`` of the oversampled axis, the others at
+    ``start1[d] + i - len0[d]``."""
+
+    out: Tuple[int, int, int]
+    over: Tuple[int, int, int]
+    start0: Tuple[int, int, int]
+    len0: Tuple[int, int, int]
+    start1: Tuple[int, int, int]
+
+
+def deconvolve_axes(index_ranges, shape_over_spec: Sequence[int]) -> DeconvolveAxes:
+    """The kernels' axes of a plan's ``index_ranges`` (one or two
+    ``(start, length)`` runs an axis, in output order) and oversampled
+    spectral shape."""
+    pad = 3 - len(index_ranges)
+    axes = [((0, 1),)] * pad + [tuple(r) for r in index_ranges]
+    over = (1,) * pad + tuple(int(n) for n in shape_over_spec)
+    runs = [r + ((0, 0),) * (2 - len(r)) for r in axes]
+    return DeconvolveAxes(
+        out=tuple(sum(int(l) for _, l in r) for r in axes), over=over,
+        start0=tuple(int(r[0][0]) for r in runs), len0=tuple(int(r[0][1]) for r in runs),
+        start1=tuple(int(r[1][0]) for r in runs))
+
+
+def source_index(axes: DeconvolveAxes, d: int) -> torch.Tensor:
+    """``csrc/deconvolve.cu:source`` along axis ``d``: the oversampled index
+    each output index reads."""
+    i = torch.arange(axes.out[d])
+    return torch.where(i < axes.len0[d], axes.start0[d] + i, axes.start1[d] + i - axes.len0[d])
+
+
+def mode_index(axes: DeconvolveAxes, d: int) -> torch.Tensor:
+    """``csrc/deconvolve.cu:mode`` along axis ``d``: the output index each
+    oversampled index holds, -1 where pad writes a zero."""
+    j = torch.arange(axes.over[d])
+    a, b = j - axes.start0[d], j - axes.start1[d]
+    len1 = axes.out[d] - axes.len0[d]
+    return torch.where((a >= 0) & (a < axes.len0[d]), a,
+                       torch.where((b >= 0) & (b < len1), axes.len0[d] + b, -1))
+
+
+def truncate_sources(axes: DeconvolveAxes) -> torch.Tensor:
+    """``(out0, out1, out2)``: the flat index into one transform's
+    ``(over0, over1, over2)`` spectrum that each output mode of the truncate
+    kernel reads."""
+    s0, s1, s2 = (source_index(axes, d) for d in range(3))
+    return (s0[:, None, None] * axes.over[1] + s1[None, :, None]) * axes.over[2] + s2
+
+
+def pad_sources(axes: DeconvolveAxes) -> torch.Tensor:
+    """``(over0, over1, over2)``: the flat index into one transform's
+    ``(out0, out1, out2)`` modes that each element of the pad kernel reads,
+    -1 where it writes a zero."""
+    m0, m1, m2 = (mode_index(axes, d) for d in range(3))
+    flat = (m0[:, None, None] * axes.out[1] + m1[None, :, None]) * axes.out[2] + m2
+    kept = (m0[:, None, None] >= 0) & (m1[None, :, None] >= 0) & (m2 >= 0)
+    return torch.where(kept, flat, -1)
+
+
+def deconvolve_vector(axes: DeconvolveAxes, value_bytes: int) -> int:
+    """Values of one access of the deconvolution kernels: 2 complex64 (16
+    bytes) where the last axis's extents and run bounds are even, so that
+    no pair straddles a run or a row and each pair is 16-byte aligned; else
+    1."""
+    last = (axes.out[2], axes.over[2], axes.start0[2], axes.len0[2], axes.start1[2])
+    return 2 if value_bytes == 8 and not any(v % 2 for v in last) else 1
+
+
+#: Accesses of one work item of the deconvolution kernels (a warp's 32 lanes
+#: x 8) and the items of one transform they take, fewer than 2^31 - 1
+#: (``csrc/deconvolve.cu``: ``kItemVecs``, ``kMaxItems``).
+DECONVOLVE_ITEM_VECS = 32 * 8
+DECONVOLVE_MAX_ITEMS = 2**31 - 1
+
+
+def deconvolve_items(axes: DeconvolveAxes, step: str, vec: int) -> int:
+    """``csrc/deconvolve.cu:items_of``: the (row, chunk) work items of one
+    transform of ``step``, over the output rows of truncate or the
+    oversampled rows of pad, ``vec`` values an access.  The kernels index
+    items in 32-bit arithmetic and refuse ``DECONVOLVE_MAX_ITEMS`` or more;
+    their element offsets are 64-bit."""
+    rows = axes.out if step == "truncate" else axes.over
+    return rows[0] * rows[1] * -(-(rows[2] // vec) // DECONVOLVE_ITEM_VECS)
 
 
 def spread_registers(scalar_bytes: int, ncomp: int, m: int, ndim: int) -> int:

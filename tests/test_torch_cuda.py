@@ -5,6 +5,7 @@ here skips.  The file imports no JAX, so on a GPU host without it:
     python -m pytest tests/test_torch_cuda.py --noconftest -s
 """
 
+import math
 import shutil
 import subprocess
 from pathlib import Path
@@ -14,9 +15,16 @@ import pytest
 import torch
 
 import nonuniformffts_tpu_torch as tnufft
+from nonuniformffts_tpu_torch import execution as ex
 from nonuniformffts_tpu_torch import plan as plan_module
-from nonuniformffts_tpu_torch.ops.kernels import blocked
-from nonuniformffts_tpu_torch.ops.kernels.common import INTERP3D_SPARSE, INTERP3D_THREADS
+from nonuniformffts_tpu_torch.ops import deconvolve
+from nonuniformffts_tpu_torch.ops.kernels import blocked, build, common
+from nonuniformffts_tpu_torch.ops.kernels import deconvolve as kernels
+from nonuniformffts_tpu_torch.ops.kernels.common import (
+    INTERP3D_SPARSE,
+    INTERP3D_THREADS,
+    deconvolve_entry_name,
+)
 
 torch.set_num_threads(1)
 
@@ -698,6 +706,125 @@ def test_set_points_kernels_match_plain_version(cuda_device, shape, case, dtype)
         assert int(counts.max()) == pts.shape[1]
 
 
+def _deconvolve_weights(w_tuple, idx):
+    """A uniform callback: a weight growing along the last axis."""
+    return tuple(w * (1.0 + 0.25 * idx[-1]) for w in w_tuple)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("fftshift", [False, True], ids=["fftw", "shift"])
+@pytest.mark.parametrize("shape", [(64,), (63,), (32, 24), (31, 17), (16, 12, 20), (15, 9, 11)],
+                         ids=str)
+def test_deconvolve_kernels_match_plain_version(cuda_device, shape, fftshift, C, dtype):
+    """Both deconvolution kernels against the plain chain on the plan's own
+    ranges and factors: type 1's truncate and type 2's pad, each with and
+    without a uniform callback, and the pad with the scaling off that a
+    grouped type 2 runs (on the group's slice of the modes, which with C = 3
+    may start off a 16-byte boundary).  Each stage launches its kernel once
+    and returns a new contiguous tensor within the multiply chain's
+    rounding of the plain version; the unscaled pad is a copy, equal bit
+    for bit."""
+    plan = tnufft.PlanNUFFT(dtype, shape, m=4, sigma=1.5, ntransforms=C, fftshift=fftshift,
+                            device=cuda_device)
+    rng = np.random.default_rng(len(shape) * 7 + C)
+    spec = torch.from_numpy(_values(rng, np.complex128, (C,) + plan.spectral_shape_over)).to(
+        cuda_device, plan.complex_dtype)
+    uhat = torch.from_numpy(_values(rng, np.complex128, (C,) + plan.spectral_shape)).to(
+        cuda_device, plan.complex_dtype)
+    args1 = (plan.index_ranges, plan.phihat_inv, plan.normfactor)
+    args2 = (plan.spectral_shape_over, plan.index_ranges, plan.phihat_inv)
+    w = uhat[1:] if C > 1 else uhat
+    cases = [
+        ("truncate", lambda: ex.t1_deconv_stage(plan, spec),
+         lambda: deconvolve.deconvolve_truncate_plain(spec, *args1)),
+        ("truncate", lambda: ex.t1_deconv_stage(plan, spec, _deconvolve_weights),
+         lambda: deconvolve.deconvolve_truncate_plain(spec, *args1, _deconvolve_weights)),
+        ("pad", lambda: ex.t2_pad_stage(plan, uhat),
+         lambda: deconvolve.deconvolve_pad_plain(uhat, *args2)),
+        ("pad", lambda: ex.t2_pad_stage(plan, uhat, _deconvolve_weights),
+         lambda: deconvolve.deconvolve_pad_plain(uhat, *args2, _deconvolve_weights)),
+        ("pad", lambda: ex.t2_pad_modes_stage(plan, w),
+         lambda: deconvolve.pad_modes_plain(w, plan.spectral_shape_over, plan.index_ranges)),
+    ]
+    rtol = {torch.float32: 1e-6, torch.float64: 1e-15}[plan.real_dtype]
+    for i, (step, kern, plain) in enumerate(cases):
+        name = deconvolve_entry_name(step, plan.dtype)
+        before = blocked.LAUNCHES[name]
+        got = kern()
+        torch.cuda.synchronize()
+        assert blocked.LAUNCHES[name] == before + 1, (i, name)
+        want = plain()
+        assert got.is_contiguous() and got.dtype == want.dtype and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+        if i == len(cases) - 1:
+            assert torch.equal(got, want)
+        print(f"{name} case {i}: bit-equal {torch.equal(got, want)}")
+
+
+@pytest.mark.parametrize("step", ["truncate", "pad"])
+def test_deconvolve_kernels_take_transforms_past_2_31_elements(cuda_device, step):
+    """864^3 modes over a 1297^3 oversampled spectrum in complex64: 2.18e9
+    elements a transform (17.4 GB), one value an access (odd extents).  The
+    kernels index elements in 64 bits, so the truncate (factors of one,
+    normfactor 1) gathers and the unscaled pad copies each value exactly:
+    planes at both ends and in the middle of the grid equal the index map's
+    gather, and the pad's zeros are zero."""
+    rows = (864,) * 3
+    over = (1297,) * 3
+    ranges = tuple(deconvolve.truncate_ranges(n, m, r2c=False, fftshift=False)
+                   for n, m in zip(rows, over))
+    axes = common.deconvolve_axes(ranges, over)
+    assert math.prod(over) > 2**31 and common.deconvolve_vector(axes, 8) == 1
+    idx = [t.to(cuda_device) for t in (common.source_index(axes, d) if step == "truncate"
+                                        else common.mode_index(axes, d) for d in range(3))]
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    blocked.reset_launch_counts()
+    if step == "truncate":
+        x = torch.randn((1,) + over, dtype=torch.complex64, device=cuda_device, generator=gen)
+        ones = [torch.ones(n, dtype=torch.float32, device=cuda_device) for n in rows]
+        got = kernels.truncate(x, ranges, ones, 1.0)
+        planes = (0, 431, 863)
+    else:
+        x = torch.randn((1,) + rows, dtype=torch.complex64, device=cuda_device, generator=gen)
+        got = kernels.pad(x, over, ranges)
+        planes = (0, 431, 600, 865, 1296)  # 600 lies between the runs: zeros
+    torch.cuda.synchronize()
+    assert blocked.LAUNCHES[deconvolve_entry_name(step, torch.complex64)] == 1
+    assert got.is_contiguous() and got.shape == (1,) + (rows if step == "truncate" else over)
+    i1, i2 = idx[1], idx[2]
+    for i0 in planes:
+        j0 = int(idx[0][i0])
+        if step == "truncate":
+            want = x[0, j0].index_select(0, i1).index_select(1, i2)
+        elif j0 < 0:
+            want = torch.zeros(over[1:], dtype=x.dtype, device=cuda_device)
+        else:
+            kept = (i1[:, None] >= 0) & (i2[None, :] >= 0)
+            want = x[0, j0].index_select(0, i1.clamp(min=0)).index_select(1, i2.clamp(min=0))
+            want = torch.where(kept, want, torch.zeros((), dtype=x.dtype, device=cuda_device))
+        assert torch.equal(got[0, i0], want), (step, i0)
+
+
+def test_deconvolve_kernels_refuse_past_their_item_count(cuda_device):
+    """Every entry point refuses, before any launch, a step whose (row,
+    chunk) items of one transform reach 2^31 - 1 (the count it indexes in
+    32 bits): cudaErrorInvalidValue (1), with no memory behind the
+    pointers."""
+    lib = build.load()
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for rows in ((46341, 46341, 1), (1, 2**30, 257)):
+        axes = common.deconvolve_axes(tuple(((0, n),) for n in rows), rows)
+        assert common.deconvolve_items(axes, "pad", 1) >= common.DECONVOLVE_MAX_ITEMS
+        geom = build.DeconvGeometry.of(1, axes)
+        for dtype in common.VALUE_TYPES:
+            truncate = getattr(lib, deconvolve_entry_name("truncate", dtype))
+            pad = getattr(lib, deconvolve_entry_name("pad", dtype))
+            assert truncate(None, None, None, None, None, 1.0, geom, 1, stream) == 1, rows
+            assert pad(None, None, None, None, None, 0, geom, 1, stream) == 1, rows
+    torch.cuda.synchronize()
+
+
 def test_m_above_10_raises(cuda_device):
     with pytest.raises(NotImplementedError, match="documented maximum"):
         tnufft.PlanNUFFT(np.complex64, (64, 64), m=11, sigma=2.0, device=cuda_device)
@@ -991,7 +1118,6 @@ def test_point_sharded_groups_match_one_pass_on_card(nccl_group, dtype):
     with the plan's group size forced to 2, against one pass."""
     import dataclasses
 
-    from nonuniformffts_tpu_torch import execution as ex
     from nonuniformffts_tpu_torch.parallel import exec_type1_sharded, exec_type2_sharded
 
     pts, v, tol = _groups_inputs(dtype, 3, nccl_group)
@@ -1015,7 +1141,6 @@ def test_spatial_groups_match_one_pass_on_card(nccl_group, dtype, spectrum):
     chain), against one pass."""
     import dataclasses
 
-    from nonuniformffts_tpu_torch import execution as ex
     from nonuniformffts_tpu_torch.parallel import SpatialNUFFT
 
     pts, v, tol = _groups_inputs(dtype, 3, nccl_group)
