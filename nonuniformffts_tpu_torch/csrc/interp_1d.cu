@@ -12,7 +12,7 @@
 // padded block out of the grid, the kernel contracted it with a dense
 // weight matrix on the MXU, and a masked sort restored input order.
 //
-// The first design here (chip_probe.py:_POINT_INTERP_1D_SRC) took
+// The first design here (PERF.md) took
 // a thread a point: horner_taps' runtime loop a tap, 2M cells from global
 // memory, the result scattered to out[c, perm[j]].  Taken apart at 10M
 // points and M = 4 (chip_probe.py --interp1d-parts) it spent 55-65% of its

@@ -14,7 +14,7 @@
 // matrices on the MXU, and a masked sort put the results back in input
 // order.
 //
-// The first design here (chip_probe.py:_POINT_INTERP_2D_SRC) took a thread
+// The first design here (interp_2d_point_kernel below) took a thread
 // a bin-sorted point with its x loop rolled: each step evaluated one x tap
 // by a runtime Horner loop, then loaded one row of 2M cells at 64-bit
 // addresses.  Taken apart on the H100 (chip_probe.py --interp2d-parts,

@@ -58,52 +58,35 @@
 // (chip_probe.py --interp3d-parts: without the copy, the taps and the loads
 // a complex64 run at rho = 1 still takes about half its time), so the
 // kernel runs 1.03-1.27x the per-point form it replaced there and 1.1-1.8x
-// below (PERF.md).  The tunables below are -D flags for chip_probe.py
-// --interp3d.
+// below (PERF.md).
 #include <cstdint>
 
 #include "window.cuh"
 
-// Threads of one CTA.
-#ifndef NUFFT_INTERP3D_THREADS
-#define NUFFT_INTERP3D_THREADS 256
-#endif
-// Resident CTAs an SM the register allocation must allow (0: 3 for float,
-// 2 for double values, as chip_probe.py --interp3d measured).
-#ifndef NUFFT_INTERP3D_MIN_CTAS
-#define NUFFT_INTERP3D_MIN_CTAS 0
-#endif
-// Blocks with fewer points are read from global memory (0: none).
-#ifndef NUFFT_INTERP3D_SPARSE
-#define NUFFT_INTERP3D_SPARSE 64
-#endif
-// Points whose taps the CTA holds at a time (0: batch_of).
-#ifndef NUFFT_INTERP3D_BATCH
-#define NUFFT_INTERP3D_BATCH 0
-#endif
-
 namespace {
 
 // Must match ops/kernels/common.py:INTERP3D_* and MAX_SMEM_BYTES.
-constexpr int kThreads = NUFFT_INTERP3D_THREADS;
-constexpr int kSparse = NUFFT_INTERP3D_SPARSE;
+constexpr int kThreads = 256;  // threads of one CTA
+// Blocks with fewer points are read from global memory.
+constexpr int kSparse = 64;
 constexpr int kMaxGroup = 64;  // most spatial blocks one CTA covers
 
-// Points whose taps the CTA holds at a time, as chip_probe.py --interp3d
-// measured at the main path's block dims: 64 for float64 (its (24, 8, 8)
+// Points whose taps the CTA holds at a time, as measured on the H100 at
+// the main path's block dims (PERF.md): 64 for float64 (its (24, 8, 8)
 // window leaves room for no more at two CTAs an SM), 128 for complex values
 // (more takes L1 from the sparse blocks' reads), 256 for float32; halved
 // while the taps exceed 64 KB.
 template <int M, typename T, int NCOMP>
 __host__ __device__ constexpr int batch_of() {
-  if (NUFFT_INTERP3D_BATCH) return NUFFT_INTERP3D_BATCH;
   int b = NCOMP == 2 ? 128 : sizeof(T) == 8 ? 64 : 256;
   while (b * 6 * M * int(sizeof(T)) > 65536) b /= 2;
   return b;
 }
+// Resident CTAs an SM the register allocation must allow: 3 for float, 2
+// for double values, as measured on the H100 (PERF.md).
 template <typename T>
 constexpr int min_ctas_of() {
-  return NUFFT_INTERP3D_MIN_CTAS ? NUFFT_INTERP3D_MIN_CTAS : sizeof(T) == 4 ? 3 : 2;
+  return sizeof(T) == 4 ? 3 : 2;
 }
 constexpr size_t kMaxSmem = 232448;
 
@@ -295,7 +278,7 @@ __global__ void __launch_bounds__(kThreads, min_ctas_of<T>()) interp_3d_kernel(
     dense = dense || n >= kSparse;
   }
   const bool any_dense = __syncthreads_or(dense);
-  const bool any_sparse = kSparse > 0 && __syncthreads_or(sparse);
+  const bool any_sparse = __syncthreads_or(sparse);
 
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
   // Contraction lanes: this lane's z tap and first row.

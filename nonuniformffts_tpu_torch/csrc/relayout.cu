@@ -56,10 +56,8 @@
 // - The wrapper resolves the entry point once and checks its input once;
 //   this file caches the SM count and the shared-memory opt-in per device.
 //
-// The NUFFT_RELAYOUT_* macros below are the design's tunables.  The
-// package builds their defaults; chip_probe.py --relayout builds other
-// values (build.py:build_variants, -D flags) to time the alternatives
-// beside these (PERF.md).
+// The constants below are the design's; each was timed on the H100 against
+// other values (PERF.md).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -70,41 +68,15 @@
 #define NUFFT_WANT(IDX) 1
 #endif
 
-#ifndef NUFFT_RELAYOUT_STAGES
-#define NUFFT_RELAYOUT_STAGES 4  // TMA ring stages a CTA
-#endif
-#ifndef NUFFT_RELAYOUT_CHUNK_BYTES
-#define NUFFT_RELAYOUT_CHUNK_BYTES 16384  // bytes a stage
-#endif
-#ifndef NUFFT_RELAYOUT_CTAS_PER_SM
-#define NUFFT_RELAYOUT_CTAS_PER_SM 2
-#endif
-#ifndef NUFFT_RELAYOUT_TMA_MIN_RUN_BYTES
-#define NUFFT_RELAYOUT_TMA_MIN_RUN_BYTES 4096  // shorter runs: register path
-#endif
-#ifndef NUFFT_RELAYOUT_UNROLL
-#define NUFFT_RELAYOUT_UNROLL 4  // register path: loads in flight a lane
-#endif
-#ifndef NUFFT_RELAYOUT_L2_HINT
-#define NUFFT_RELAYOUT_L2_HINT 1  // 0: bulk copies without the L2 policy
-#endif
-#if NUFFT_RELAYOUT_L2_HINT
-#define NUFFT_L2_HINT ".L2::cache_hint"
-#define NUFFT_L2_OPERAND(I) ", %" #I
-#else
-#define NUFFT_L2_HINT ""
-#define NUFFT_L2_OPERAND(I) ""
-#endif
-
 namespace {
 
-constexpr int kStages = NUFFT_RELAYOUT_STAGES;
-constexpr int kChunkBytes = NUFFT_RELAYOUT_CHUNK_BYTES;
-constexpr long long kTmaMinRunBytes = NUFFT_RELAYOUT_TMA_MIN_RUN_BYTES;
-constexpr int kCtasPerSm = NUFFT_RELAYOUT_CTAS_PER_SM;
-constexpr int kThreads = 256;      // register path
-constexpr int kUnroll = NUFFT_RELAYOUT_UNROLL;
-constexpr int kRegCtasPerSm = 8;   // register path: 2,048 threads an SM
+constexpr int kStages = 4;                   // TMA ring stages a CTA
+constexpr int kChunkBytes = 16384;           // bytes a stage
+constexpr long long kTmaMinRunBytes = 4096;  // shorter runs: register path
+constexpr int kCtasPerSm = 2;                // TMA path
+constexpr int kThreads = 256;                // register path
+constexpr int kUnroll = 4;                   // register path: loads in flight a lane
+constexpr int kRegCtasPerSm = 8;             // register path: 2,048 threads an SM
 constexpr int kMaxDevices = 64;
 
 // The run decomposition (ops/kernels/relayout.py:RunGeometry): run r =
@@ -186,8 +158,8 @@ __global__ void __launch_bounds__(32) relayout_tma_kernel(const char* __restrict
                  "r"(bytes)
                  : "memory");
     asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" NUFFT_L2_HINT
-        " [%0], [%1], %2, [%3]" NUFFT_L2_OPERAND(4) ";\n"
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+        " [%0], [%1], %2, [%3], %4;\n"
         ::"r"(smem_addr(stage + s * kChunkBytes)), "l"(src + (kToGrid ? blk_off : grid_off)),
         "r"(bytes), "r"(bar), "l"(policy)
         : "memory");
@@ -198,8 +170,8 @@ __global__ void __launch_bounds__(32) relayout_tma_kernel(const char* __restrict
     const int s = (int)(k % kStages);
     wait_parity(smem_addr(&full[s]), (uint32_t)((k / kStages) & 1));
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group" NUFFT_L2_HINT
-                 " [%0], [%1], %2" NUFFT_L2_OPERAND(3) ";\n"
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
+                 " [%0], [%1], %2, %3;\n"
                  ::"l"(out[s]), "r"(smem_addr(stage + s * kChunkBytes)), "r"(out_bytes[s]),
                  "l"(policy)
                  : "memory");

@@ -74,7 +74,7 @@ using Acc = double;
 // (__launch_bounds__): 3 for float values and 2 for double up to M = 4,
 // one fewer past it, where the 2M NCOMP double sums take more registers;
 // one for complex64 past M = 8, whose 4M double sums spill at two (460 B at
-// M = 10, 21% slower at 10M points: chip_probe.py --spread1d --m 10).
+// M = 10, 21% slower at 10M points; PERF.md).
 constexpr int min_ctas(int scalar_bytes, int ncomp, int m) {
   if (scalar_bytes == 4 && ncomp == 2 && m > 8) return 1;
   return (scalar_bytes == 4 ? 3 : 2) - (m > 4 ? 1 : 0);

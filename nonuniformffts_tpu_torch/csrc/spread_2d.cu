@@ -69,27 +69,15 @@
 // low density the flush's global reductions over the halo.  The design it
 // replaced, a CTA a block with its sum in shared memory and each warp
 // adding one point's (2M)^2 tap products by atomicAdd (compare-and-swap
-// loops in SASS, NCOMP (2M)^2 a point), is kept as a probe source
-// (chip_probe.py --spread2d).  Products and sums are double: float values
-// and taps are widened on their way into shared memory, so there is no
-// TF32 anywhere and float32 plans keep the double sums that ROADMAP queue 3,
-// P2 asked for.
+// loops in SASS, NCOMP (2M)^2 a point), ran 4.9-5.4x slower (PERF.md).
+// Products and sums are double: float values and taps are widened on their
+// way into shared memory, so there is no TF32 anywhere and float32 plans
+// keep the double sums that ROADMAP queue 3, P2 asked for.
 #include <cstdint>
 #include <type_traits>
 
 #include "spread_mma.cuh"
 #include "window.cuh"
-
-// Blocks a warp walks, for float and for double grids: with float values a
-// run hides each block's loads behind the block before it; double grids
-// spend their low-density time in the flush's f64 reductions, and ran
-// fastest a block a warp (chip_probe.py --spread2d, PERF.md).
-#ifndef NUFFT_SPREAD2D_RUNS_F32
-#define NUFFT_SPREAD2D_RUNS_F32 4
-#endif
-#ifndef NUFFT_SPREAD2D_RUNS_F64
-#define NUFFT_SPREAD2D_RUNS_F64 1
-#endif
 
 namespace {
 
@@ -103,10 +91,13 @@ constexpr int kUnitCols = 8 * kColTiles;
 // Doubles from one staged row to the next: 4 past the batch, so the 8 rows
 // x 4 points of a fragment load fall on distinct bank pairs.
 constexpr int kStride = kBatch + 4;
-// Blocks a warp walks.
+// Blocks a warp walks, 4 for float and 1 for double grids: with float
+// values a run hides each block's loads behind the block before it; double
+// grids spend their low-density time in the flush's f64 reductions, and
+// ran fastest a block a warp (PERF.md).
 template <typename T>
 __host__ __device__ constexpr int runs_of() {
-  return sizeof(T) == 4 ? NUFFT_SPREAD2D_RUNS_F32 : NUFFT_SPREAD2D_RUNS_F64;
+  return sizeof(T) == 4 ? 4 : 1;
 }
 // Doubles of one warp's slice: the unit's A rows, then its B rows.
 constexpr int kWarpDoubles = (kUnitRows + kUnitCols) * kStride;

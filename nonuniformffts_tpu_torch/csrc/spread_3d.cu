@@ -65,34 +65,23 @@
 // at rho = 1.  Products and sums are double: float values and taps are
 // widened on their way into shared memory, so there is no TF32 anywhere and
 // float32 plans keep the double sums that ROADMAP queue 3, P2 asked for.
-// The MMA shape is NUFFT_SPREAD3D_ATOM_ROWS x 8 x NUFFT_SPREAD3D_K:
-// m16n8k8 (sm_90, the default: 7-11% faster than m16n8k4 at rho = 1 and
-// 1-3% at the main path's smaller Np), m16n8k4 or m8n8k4 (sm_80);
-// chip_probe.py --spread3d times them.  A k = 8 step carries the work of an
-// unrolled pair of k = 4 steps: unrolled itself, it spilled at 128 registers.
+// The MMA shape is m16n8k8 (sm_90): 7-11% faster than m16n8k4 at rho = 1
+// and 1-3% at the main path's smaller Np, and ahead of m8n8k4 (sm_80;
+// PERF.md).  A k = 8 step carries the work of an unrolled pair of k = 4
+// steps: unrolled itself, it spilled at 128 registers.
 #include <cstdint>
 #include <type_traits>
 
 #include "spread_mma.cuh"
 #include "window.cuh"
 
-#ifndef NUFFT_SPREAD3D_ATOM_ROWS
-#define NUFFT_SPREAD3D_ATOM_ROWS 16
-#endif
-#ifndef NUFFT_SPREAD3D_K
-#define NUFFT_SPREAD3D_K 8
-#endif
-#ifndef NUFFT_SPREAD3D_BATCH
-#define NUFFT_SPREAD3D_BATCH 64
-#endif
-
 namespace {
 
 // Must match ops/kernels/common.py:SPREAD3D_*.
 constexpr int kMaxWarps = 16;                          // SPREAD3D_MAX_WARPS
-constexpr int kBatch = NUFFT_SPREAD3D_BATCH;           // SPREAD3D_BATCH
-constexpr int kAtomRows = NUFFT_SPREAD3D_ATOM_ROWS;    // SPREAD3D_ATOM_ROWS
-constexpr int kK = NUFFT_SPREAD3D_K;                   // points an MMA takes
+constexpr int kBatch = 64;                             // SPREAD3D_BATCH
+constexpr int kAtomRows = 16;                          // SPREAD3D_ATOM_ROWS
+constexpr int kK = 8;                                  // points an MMA takes
 constexpr int kUnitRows = 32;                          // SPREAD3D_UNIT_ROWS
 constexpr int kColTiles = 4;                           // SPREAD3D_UNIT_COL_TILES
 constexpr int kRowTiles = kUnitRows / kAtomRows;
@@ -101,8 +90,6 @@ constexpr int kQuads = kK / 4;          // 4-point quarters of one MMA's k
 // Doubles from one dense operand row to the next: 4 past the batch, so the
 // 8 rows x 4 points of a fragment load fall on distinct bank pairs.
 constexpr int kStride = kBatch + 4;
-static_assert((kAtomRows == 8 && kK == 4) || (kAtomRows == 16 && (kK == 4 || kK == 8)),
-              "mma.sync f64: m8n8k4, m16n8k4 or m16n8k8");
 static_assert(kBatch % kK == 0, "a batch is whole k-steps");
 
 // The tile geometry of one padded block (ops/kernels/common.py:spread_tiles).

@@ -8,25 +8,9 @@
 
 namespace nufft {
 
-// D += A B on the FP64 tensor cores.  Lane (g, t) = (lane / 4, lane % 4)
-// holds A[g + 8h][t + 4q] as a[q * halves + h], B[t + 4q][g] as b[q], and
-// D[g + 8h][2t + e] as d[2h + e].  m8n8k4 (sm_80): h, q = 0;
-// m16n8k4 and m16n8k8 (sm_90): h = 0, 1 and q = 0 or 0, 1.
-__device__ __forceinline__ void mma_f64(double (&d)[2], const double (&a)[1],
-                                        const double (&b)[1]) {
-  asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
-      : "+d"(d[0]), "+d"(d[1])
-      : "d"(a[0]), "d"(b[0]));
-}
-__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[2],
-                                        const double (&b)[1]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
-      "{%0, %1, %2, %3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(b[0]));
-}
+// D += A B on the FP64 tensor cores, m16n8k8 (sm_90).  Lane (g, t) =
+// (lane / 4, lane % 4) holds A[g + 8h][t + 4q] as a[2q + h], B[t + 4q][g]
+// as b[q], and D[g + 8h][2t + e] as d[2h + e], h, q = 0, 1.
 __device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
                                         const double (&b)[2]) {
   asm volatile(

@@ -29,7 +29,7 @@
 // - The vectors are what gains: at M = 4 in float, 16.8M points in 3D, KB
 //   and BKB Direct ran 1.17x and 1.26x faster than a point a thread with
 //   the same unrolled taps, which ran no faster than with rolled ones
-//   (chip_probe.py --weights, WEIGHTS_VARIANTS); in double and for the
+//   (PERF.md); in double and for the
 //   store-bound Gaussian and B-spline all three ran within 3%.
 //
 // What bounds it on the H100 (chip_probe.py --weights): the writes, np D 2M

@@ -18,7 +18,7 @@ evaluation modes, for M in 2..10.  The spread and interpolation kernels
 evaluate the (B)KB FastApproximation taps themselves from the coefficient
 stack; for every other window ``set_points`` launches K3 once
 (``nufft_window_weights_<f32|f64>``, ``csrc/window_weights.cu``, through
-``with_window_taps``), which writes each sorted point's taps from the
+``window_taps``), which writes each sorted point's taps from the
 window's scalars (``ops/windows.py:window_pack``), and the plan keeps that
 table (``Plan.wtaps_sorted``) for the kernels of every exec to read.
 
@@ -140,22 +140,26 @@ def check_kernel_support(plan) -> None:
         )
 
 
-def _check_cuda_inputs(x: torch.Tensor, plan, what: str) -> None:
+def _launch_args(x: torch.Tensor, plan, what: str):
+    """The coefficient pointer, the window-taps pointer (the plan's K3
+    table, for every window but (B)KB FastApproximation) and ``ncoef`` of a
+    launch on ``x`` (the caller's values or grid), absent pointers 0, once
+    ``x`` is of the plan's dtype and the plan's point state lies on its
+    device, contiguous, of the kernels' dtypes.  The plan's support by the
+    kernels was checked where it was made (``check_kernel_support``)."""
     if x.dtype != plan.dtype:
         raise TypeError(f"{what} must be {plan.dtype}, got {x.dtype}")
-    coefs, _ = kernel_coefs(plan)
+    coefs, ncoef = kernel_coefs(plan)
+    taps = plan.wtaps_sorted
     state = [(plan.cells_sorted, torch.int32), (plan.fracs_sorted, plan.real_dtype),
-             (plan.sort_perm, torch.int64), (plan.pstarts, torch.int32)]
-    if coefs is not None:
-        state.append((coefs, plan.real_dtype))
-    else:
-        taps = plan.wtaps_sorted
+             (plan.sort_perm, torch.int64), (plan.pstarts, torch.int32),
+             (taps if coefs is None else coefs, plan.real_dtype)]
+    if coefs is None:
         if taps is None:
             raise ValueError("the plan holds no window taps: call set_points first")
         if tuple(taps.shape) != (plan.ndim, 2 * plan.m, plan.num_points):
             raise ValueError(f"window taps of shape {tuple(taps.shape)} for "
                              f"{plan.num_points} points")
-        state.append((taps, plan.real_dtype))
     for t, dt in state:
         if t.device != x.device:
             raise ValueError(
@@ -164,6 +168,8 @@ def _check_cuda_inputs(x: torch.Tensor, plan, what: str) -> None:
             )
         if t.dtype != dt or not t.is_contiguous():
             raise TypeError(f"plan point state must be contiguous {dt}")
+    return (0 if coefs is None else coefs.data_ptr(),
+            0 if coefs is not None else taps.data_ptr(), ncoef)
 
 
 def _raise_on_error(name: str, err: int) -> None:
@@ -216,15 +222,14 @@ def window_weights_blocked(plan) -> torch.Tensor:
     return out
 
 
-def with_window_taps(plan):
-    """``plan``, whose bin-sorted point state is set, with the window taps
-    its kernels read from memory (``wtaps_sorted``): K3's ``(D, 2M, Np)``
-    table for a window the kernels do not evaluate themselves (any but
-    (B)KB FastApproximation), else none.  ``set_points`` and every other
-    builder of blocked point state call it once, so that no exec launches
-    K3; on the CPU the table comes from the plain version."""
-    taps = None if kernel_coefs(plan)[0] is not None else window_weights_blocked(plan)
-    return dataclasses.replace(plan, wtaps_sorted=taps)
+def window_taps(plan):
+    """The window taps that the kernels of ``plan``, whose bin-sorted point
+    state is set, read from memory: K3's ``(D, 2M, Np)`` table for a window
+    they do not evaluate themselves (any but (B)KB FastApproximation), else
+    None.  ``set_points`` and every other builder of blocked point state
+    keep it as ``wtaps_sorted``, so that no exec launches K3; on the CPU
+    the table comes from the plain version."""
+    return None if kernel_coefs(plan)[0] is not None else window_weights_blocked(plan)
 
 
 # ---------------------------------------------------------------------------
@@ -331,15 +336,6 @@ def interp1d_inverse(plan, perm: torch.Tensor):
     return inv
 
 
-def _launch_args(plan):
-    """The coefficient pointer, the window-taps pointer (the plan's K3
-    table, for every window but (B)KB FastApproximation) and ``ncoef`` of
-    a launch; absent pointers are 0."""
-    coefs, ncoef = kernel_coefs(plan)
-    return (0 if coefs is None else coefs.data_ptr(),
-            0 if coefs is not None else plan.wtaps_sorted.data_ptr(), ncoef)
-
-
 # ---------------------------------------------------------------------------
 # K4 (1D, 2D), K1 / K6a (3D): spread
 # ---------------------------------------------------------------------------
@@ -364,8 +360,7 @@ def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
         return spread_blocked_plain(plan, vp)
     if vp.device.type != "cuda":
         raise ValueError(f"no spread kernel for device {vp.device}")
-    check_kernel_support(plan)
-    _check_cuda_inputs(vp, plan, "values")
+    coefs, wtaps, ncoef = _launch_args(vp, plan, "values")
     C, np_ = vp.shape
     if np_ != plan.num_points:
         raise ValueError(f"{np_} values for {plan.num_points} points")
@@ -379,7 +374,6 @@ def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
     vals = vp.contiguous() if perm else vp[:, plan.sort_perm].contiguous()
     name = entry_point("spread", plan)
     fn = getattr(build.load(), name)
-    coefs, wtaps, ncoef = _launch_args(plan)
     with torch.cuda.device(vp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
@@ -419,8 +413,7 @@ def interpolate_blocked(plan, grid: torch.Tensor) -> torch.Tensor:
         return interpolate_blocked_plain(plan, grid)
     if grid.device.type != "cuda":
         raise ValueError(f"no interpolation kernel for device {grid.device}")
-    check_kernel_support(plan)
-    _check_cuda_inputs(grid, plan, "grid")
+    coefs, wtaps, ncoef = _launch_args(grid, plan, "grid")
     if tuple(grid.shape[1:]) != tuple(plan.shape_over):
         raise ValueError(
             f"grid shape {tuple(grid.shape[1:])} != oversampled grid "
@@ -434,7 +427,6 @@ def interpolate_blocked(plan, grid: torch.Tensor) -> torch.Tensor:
         return out
     name = entry_point("interp", plan)
     fn = getattr(build.load(), name)
-    coefs, wtaps, ncoef = _launch_args(plan)
     # The 1D kernel scatters an output of up to 8 MiB to perm[j] a point a
     # thread, and puts a larger one in order through a sorted scratch table
     # and the inverse permutation (csrc/interp_1d.cu).

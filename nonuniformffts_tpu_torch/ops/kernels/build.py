@@ -192,11 +192,11 @@ def build() -> Path:
     return lib_path
 
 
-def _compile(lib_path: Path, sources=None, flags=(), log_path: Path = PTXAS_LOG) -> None:
-    """Compile every source (default: all of ``csrc/``) once per value type,
-    all at once, with ``flags`` added, and link into ``lib_path``."""
+def _compile(lib_path: Path) -> None:
+    """Compile every source of ``csrc/`` once per value type, all at once,
+    and link into ``lib_path``."""
     nvcc = _nvcc()
-    cu = _sources()[0] if sources is None else [CSRC_DIR / name for name in sources]
+    cu = _sources()[0]
     with tempfile.TemporaryDirectory(dir=lib_path.parent) as tmp:
         t0 = time.perf_counter()
         jobs = []
@@ -204,7 +204,7 @@ def _compile(lib_path: Path, sources=None, flags=(), log_path: Path = PTXAS_LOG)
             for idx, vt in enumerate(VALUE_SUFFIXES):
                 obj = Path(tmp) / f"{src.stem}_{vt}.o"
                 log = open(Path(tmp) / f"{src.stem}_{vt}.log", "w+")
-                cmd = [nvcc, *COMPILE_FLAGS, *flags, f"-DNUFFT_ONLY={idx}", f"-I{CSRC_DIR}",
+                cmd = [nvcc, *COMPILE_FLAGS, f"-DNUFFT_ONLY={idx}", f"-I{CSRC_DIR}",
                        "-c", "-o", str(obj), str(src)]
                 proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True)
                 jobs.append((f"{src.name} [{vt}]", obj, proc, log))
@@ -222,7 +222,7 @@ def _compile(lib_path: Path, sources=None, flags=(), log_path: Path = PTXAS_LOG)
             logs.append(f"--- {name} ({done[name]:.1f} s)\n{err}")
             if proc.returncode != 0:
                 failed.append(f"{name}: nvcc exit {proc.returncode}\n{err}")
-        log_path.write_text("\n".join(logs))
+        PTXAS_LOG.write_text("\n".join(logs))
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         out = Path(tmp) / lib_path.name
@@ -244,28 +244,6 @@ def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
-
-
-def build_variants(variants, sources=("relayout.cu",)):
-    """Build ``sources`` (file names in ``csrc/``) once for each variant, a
-    name mapped to extra nvcc flags (``-D`` values of a source's tunables),
-    all variants at once, each into its own library under
-    ``BUILD_DIR/variants/``; returns ``{name: loaded library}``.  For timing
-    design alternatives (``chip_probe.py --relayout``); the package itself
-    loads :func:`load`'s library only."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    paths = {}
-    for i, name in enumerate(variants):
-        d = BUILD_DIR / "variants" / str(i)
-        d.mkdir(parents=True, exist_ok=True)
-        paths[name] = d / LIB_NAME
-    with ThreadPoolExecutor(len(variants)) as pool:
-        for f in [pool.submit(_compile, paths[name], sources, tuple(flags),
-                              paths[name].parent / "ptxas.log")
-                  for name, flags in variants.items()]:
-            f.result()
-    return {name: _typed(ctypes.CDLL(str(path))) for name, path in paths.items()}
 
 
 def load() -> ctypes.CDLL:

@@ -67,7 +67,7 @@ SPREAD1D_THREADS = 256
 # an n-tile of 8 columns is one z row's run.  G is cut into units of
 # ``SPREAD3D_UNIT_ROWS`` rows x ``SPREAD3D_UNIT_COL_TILES`` n-tiles, one unit
 # a warp, kept in registers (32 doubles a lane) across the block's points.
-#: Rows of one MMA tile (``NUFFT_SPREAD3D_ATOM_ROWS``): 16 for
+#: Rows of one MMA tile (``kAtomRows``): 16 for
 #: ``mma.sync.m16n8k8.f64``, which ran faster than m16n8k4 and m8n8k4 at
 #: rho = 1 (PERF.md).
 SPREAD3D_ATOM_ROWS = 16
@@ -105,10 +105,10 @@ SPREAD2D_UNIT_COL_TILES = 4
 # (3, 2M, batch) and int32 cells (3, batch), the blocks' point ranges and
 # three int32 offset tables (one entry per padded index of each dim); a
 # group of lanes contracts each point.
-#: Threads of one interpolation CTA (``NUFFT_INTERP3D_THREADS``).
+#: Threads of one interpolation CTA (``kThreads``).
 INTERP3D_THREADS = 256
 #: Blocks with fewer points are read from global memory instead of staged
-#: (``NUFFT_INTERP3D_SPARSE``).
+#: (``kSparse``).
 INTERP3D_SPARSE = 64
 #: Most spatial blocks one CTA covers (``csrc/interp_3d.cu:kMaxGroup``).
 INTERP3D_MAX_GROUP = 64
@@ -122,7 +122,7 @@ WAVEFRONT_BYTES = 128
 # holds its first cell (``interp1d_window``, ``interp1d_staged``), the
 # others read the grid in global memory.
 #: A block is staged when it holds a point for every this many cells of its
-#: window (``NUFFT_INTERP1D_SPARSE``).
+#: window (``kSparse``).
 INTERP1D_SPARSE = 8
 #: Shared memory for the staged windows of one pass over the transforms
 #: (``kStageBytes``).

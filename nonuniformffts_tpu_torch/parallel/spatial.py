@@ -79,7 +79,7 @@ from .. import execution as ex
 from ..blocking import bin_sort, cells_and_fracs, choose_geometry
 from ..ops.deconvolve import pad_axis, truncate_axis
 from ..ops.kernels.blocked import (check_kernel_support, interpolate_blocked, spread_blocked,
-                                   with_window_taps)
+                                   window_taps)
 from ..ops.kernels.common import VALUE_TYPES
 from ..ops.kernels.relayout import relayout_to_blocks, relayout_to_grid
 from ..plan import (Plan, PlanNUFFT, WorkingSet, _as_real_tensor, _canonicalise_points,
@@ -289,10 +289,11 @@ class SpatialNUFFT:
             cells_r.contiguous(), fracs_r.contiguous(), self.ext_shape_over,
             self._slab_plan.block_dims,
         )
-        local = with_window_taps(dataclasses.replace(
+        local = dataclasses.replace(
             self._slab_plan, cells_sorted=cells_s, fracs_sorted=fracs_s,
             sort_perm=perm_l, pstarts=pstarts, num_points_static=int(recv_idx.numel()),
-        ))
+        )
+        local = dataclasses.replace(local, wtaps_sorted=window_taps(local))
         sharing = comm.ranks_sharing(census[:, 1:], key)
         st = SpatialPoints(send_idx=send_idx, send_pos=send_pos, recv_idx=recv_idx,
                            local=local, cap=cap, num_points=np_total, ranks_on_device=sharing)

@@ -11,6 +11,7 @@ per-block ranges on the blocked path).  The plan's tensors live on
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Optional, Tuple
 
@@ -24,7 +25,7 @@ from .ops.kernels.blocked import (
     check_kernel_support,
     interp1d_inverse,
     sorted_state,
-    with_window_taps,
+    window_taps,
 )
 from .ops.kernels.common import VALUE_TYPES, coefficient_stack
 from .ops.windows import (
@@ -99,7 +100,7 @@ class Plan:
     cells_sorted: Optional[torch.Tensor] = None  # (D, Np) int32, blocked
     fracs_sorted: Optional[torch.Tensor] = None  # (D, Np), blocked
     # (D, 2M, Np) window taps of the sorted points, blocked, every window but
-    # (B)KB FastApproximation (ops/kernels/blocked.py:with_window_taps)
+    # (B)KB FastApproximation (ops/kernels/blocked.py:window_taps)
     wtaps_sorted: Optional[torch.Tensor] = None
     sort_perm: Optional[torch.Tensor] = None  # (Np,) int64, blocked
     # (Np,) int32, 1D blocked with outputs past INTERP1D_GATHER_BYTES: the
@@ -150,9 +151,12 @@ class Plan:
             return self.shape_over[:-1] + (self.shape_over[-1] // 2 + 1,)
         return self.shape_over
 
-    @property
+    @functools.cached_property
     def window(self) -> WindowPack:
-        """The window's scalars as the CUDA kernels read them."""
+        """The window's scalars as the CUDA kernels read them, computed once
+        a plan object: a plan made from it (``dataclasses.replace``, as the
+        spatial mode's slab plan with its own dim-0 ``kernel_data``) computes
+        its own."""
         return window_pack(self.kernel_data, self.evalmode)
 
     @property
@@ -622,18 +626,26 @@ def model_arguments(plan: Plan) -> dict:
                 m=plan.m, chunk_size=plan.chunk_size)
 
 
-def with_transform_chunk(plan: Plan, *, ranks_on_device: int = 1, **model_kw) -> Plan:
-    """``plan`` with ``transform_chunk`` chosen for the card it runs on (its
-    share of it, :func:`device_share_bytes`), for CUDA plans on the blocked and
-    reference paths (the direct path bounds its factors by points,
-    ``ops/direct.py``); other plans as they are.  ``model_kw`` replaces
-    arguments of :func:`model_arguments` where the exec that runs the plan
-    holds more than the plan's own (a points-chunked, point-sharded or
-    spatial exec)."""
+def card_transform_chunk(plan: Plan, *, ranks_on_device: int = 1,
+                         **model_kw) -> Optional[int]:
+    """The ``transform_chunk`` of ``plan`` chosen for the card it runs on
+    (its share of it, :func:`device_share_bytes`), for CUDA plans on the
+    blocked and reference paths (the direct path bounds its factors by
+    points, ``ops/direct.py``); other plans keep theirs.  ``model_kw``
+    replaces arguments of :func:`model_arguments` where the exec that runs
+    the plan holds more than the plan's own (a points-chunked, point-sharded
+    or spatial exec)."""
     if plan.device.type != "cuda" or plan.spread_method not in ("blocked", "reference"):
-        return plan
+        return plan.transform_chunk
     budget = device_share_bytes(plan.device, ranks_on_device)
-    chunk = choose_transform_chunk(device_bytes=budget, **{**model_arguments(plan), **model_kw})
+    return choose_transform_chunk(device_bytes=budget, **{**model_arguments(plan), **model_kw})
+
+
+def with_transform_chunk(plan: Plan, *, ranks_on_device: int = 1, **model_kw) -> Plan:
+    """``plan`` with its :func:`card_transform_chunk`."""
+    chunk = card_transform_chunk(plan, ranks_on_device=ranks_on_device, **model_kw)
+    if chunk == plan.transform_chunk:
+        return plan
     return dataclasses.replace(plan, transform_chunk=chunk)
 
 
@@ -644,7 +656,7 @@ def set_points(plan: Plan, points) -> Plan:
     (B)KB FastApproximation also gets its sorted points' taps,
     ``wtaps_sorted``, for every exec).  A CUDA plan on the blocked or
     reference path also gets its ``transform_chunk`` from the card's memory
-    (:func:`with_transform_chunk`).  A plan's timer times it under
+    (:func:`card_transform_chunk`).  A plan's timer times it under
     ``"set_points"`` and its parts under ``"set_points/(k) ..."``: on the
     blocked path ``(1) cell split``, ``(2) bin sort``, ``(3) sorted
     copies``, ``(4) window taps`` and ``(5) transform groups``; on the
@@ -714,21 +726,32 @@ def _sorted_state_plain(plan: Plan, points):
     return cells_s, fracs_s, perm, pstarts, num_points
 
 
-def _with_sorted_state(plan: Plan, cells_s, fracs_s, perm, pstarts, num_points) -> Plan:
-    """``plan`` holding the blocked path's sorted point state, with its
-    window taps and, for a large 1D interpolation, the inverse order."""
-    return with_window_taps(dataclasses.replace(
+def _with_sorted_state(plan: Plan, cells_s, fracs_s, perm, pstarts, num_points):
+    """``plan`` holding the blocked path's sorted point state (and, for a
+    large 1D interpolation, the inverse order), and the window taps of that
+    state (``window_taps``)."""
+    plan = dataclasses.replace(
         plan,
         points=None,
         point_perm=None,
         point_perm_inv=None,
         cells_sorted=cells_s,
         fracs_sorted=fracs_s,
+        wtaps_sorted=None,
         sort_perm=perm,
         sort_perm_inv=interp1d_inverse(plan, perm),
         pstarts=pstarts,
         num_points_static=num_points,
-    ))
+    )
+    return plan, window_taps(plan)
+
+
+def _with_taps_and_groups(plan: Plan, taps) -> Plan:
+    """``plan`` with its window taps and its ``transform_chunk``
+    (:func:`card_transform_chunk`, the taps counted in its point state)."""
+    taps_bytes = 0 if taps is None else taps.numel() * taps.element_size()
+    chunk = card_transform_chunk(plan, point_state_bytes=point_state_bytes(plan) + taps_bytes)
+    return dataclasses.replace(plan, wtaps_sorted=taps, transform_chunk=chunk)
 
 
 def _fold(plan: Plan, points) -> torch.Tensor:
@@ -751,11 +774,12 @@ def _set_points(plan: Plan, points) -> Plan:
     t = plan.timer
     if plan.spread_method == "blocked":
         # The split's intermediates are freed before a window's tap table
-        # is made.
+        # is made.  The K3 table reads the sorted state from a plan, so the
+        # state goes in first; the taps and the group size go in together.
         state = (_sorted_state_kernels if plan.device.type == "cuda"
                  else _sorted_state_plain)(plan, points)
-        plan = traced(t, "(4) window taps", _with_sorted_state, plan, *state)
-        return traced(t, "(5) transform groups", with_transform_chunk, plan)
+        plan, taps = traced(t, "(4) window taps", _with_sorted_state, plan, *state)
+        return traced(t, "(5) transform groups", _with_taps_and_groups, plan, taps)
     pts_f = traced(t, "(1) fold", _fold, plan, points)
     perm = perm_inv = None
     if plan.sort_points:

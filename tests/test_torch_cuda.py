@@ -825,6 +825,33 @@ def test_deconvolve_kernels_refuse_past_their_item_count(cuda_device):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("kernel", ["BackwardsKaiserBesselKernel", "GaussianKernel"])
+def test_execs_repeat_no_plan_decision(cuda_device, kernel, monkeypatch):
+    """The blocked plan's kernel decisions are made once a plan: over three
+    exec_type1 / exec_type2 pairs the window is packed once (the first exec
+    reads the plan ``set_points`` returned), and neither exec calls
+    ``check_kernel_support``, which ran where the plan was made."""
+    from nonuniformffts_tpu_torch.ops.windows import window_pack
+
+    packed, checked = [], []
+    monkeypatch.setattr(plan_module, "window_pack",
+                        lambda *a: packed.append(a) or window_pack(*a))
+    monkeypatch.setattr(blocked, "check_kernel_support", checked.append)
+    rng = np.random.default_rng(7)
+    plan = tnufft.set_points(
+        tnufft.PlanNUFFT(np.complex128, (32, 32, 32), m=4, sigma=1.5,
+                         kernel=getattr(tnufft, kernel)(), spread_method="blocked",
+                         device=cuda_device),
+        torch.as_tensor(rng.uniform(0, 2 * np.pi, (3, 2_000)), device=cuda_device))
+    v = torch.as_tensor(_values(rng, np.complex128, 2_000), device=cuda_device)
+    before = len(packed)
+    for _ in range(3):
+        tnufft.exec_type2(plan, tnufft.exec_type1(plan, v))
+    torch.cuda.synchronize()
+    assert len(packed) - before == 1
+    assert checked == []
+
+
 def test_m_above_10_raises(cuda_device):
     with pytest.raises(NotImplementedError, match="documented maximum"):
         tnufft.PlanNUFFT(np.complex64, (64, 64), m=11, sigma=2.0, device=cuda_device)

@@ -239,22 +239,22 @@ def test_1d_spread_smem_fits(dtype, m):
         assert all(a[1] == c[0] for a, c in zip(rounds, rounds[1:]))
 
 
-@pytest.mark.parametrize("stem, table", [("spread_1d", "SPREAD1D_PARTS"),
-                                         ("spread_1d", "SPREAD1D_VARIANTS"),
+@pytest.mark.parametrize("stem, table", [("spread_3d", "SPREAD3D_PARTS"),
+                                         ("interp_3d", "INTERP3D_PARTS"),
+                                         ("spread_2d", "SPREAD2D_PARTS"),
+                                         ("spread_1d", "SPREAD1D_PARTS"),
                                          ("interp_2d", "INTERP2D_PARTS"),
-                                         ("interp_2d", "INTERP2D_VARIANTS"),
                                          ("interp_2d", "POINT_INTERP2D_PARTS"),
+                                         ("interp_2d", "INTERP2D_DESIGNS"),
                                          ("interp_1d", "INTERP1D_PARTS"),
-                                         ("interp_1d", "INTERP1D_VARIANTS"),
-                                         ("window_weights", "WEIGHTS_PARTS"),
-                                         ("window_weights", "WEIGHTS_VARIANTS")])
+                                         ("window_weights", "WEIGHTS_PARTS")])
 def test_probe_parts_edit_the_shipped_sources(stem, table):
-    """Every line that ``chip_probe.py --spread1d-parts`` / ``--interp2d-parts``
-    / ``--interp1d-parts`` / ``--weights`` replaces to take a phase out, and
-    that ``--spread1d`` / ``--interp2d`` / ``--interp1d`` replaces for a
-    variant, is in the shipped kernel's source (the per-point 2D kernel's
-    parts: in its copy in the probe), and each copy differs from it: a
-    stale edit would fail the probe on the card."""
+    """Every line that a ``chip_probe.py`` parts probe (``--spread3d-parts``
+    .. ``--interp1d-parts``, ``--weights``) replaces to take a phase out, and
+    that ``--interp2d`` replaces for the 2D interpolation's first design, is
+    in the shipped kernel's source as the probe builds it (``spread_mma.cuh``
+    written in place of its include), and each copy differs from it: a stale
+    edit would fail the probe on the card."""
     import importlib.util
     from pathlib import Path
 
@@ -263,15 +263,11 @@ def test_probe_parts_edit_the_shipped_sources(stem, table):
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
     parts = getattr(probe, table)
-    # The per-point 2D kernel's parts edit its copy in the probe.
-    base = "point" if table == "POINT_INTERP2D_PARTS" else "shipped"
-    source = probe._POINT_INTERP_2D_SRC if base == "point" else None
-    texts = probe._edited_sources(stem, parts, (4, 8, 10), source, base)
-    assert "CASE(4) CASE(8) CASE(10)" in texts[base]
-    names = {k if base == "shipped" else f"{base}_{k}" for k in parts}
-    assert set(texts) == {base, *names}
-    assert all(texts[k] != texts[base] for k in names)
-
+    texts = probe._edited_sources(stem, parts, (4, 8, 10))
+    assert "CASE(4) CASE(8) CASE(10)" in texts["shipped"]
+    assert '#include "spread_mma.cuh"' not in texts["shipped"]
+    assert set(texts) == {"shipped", *parts}
+    assert all(texts[k] != texts["shipped"] for k in parts)
 
 
 def emulate_interp_1d(plan, grid: torch.Tensor, log=None) -> torch.Tensor:

@@ -106,7 +106,7 @@ def test_transforms_read_the_stored_taps(window, monkeypatch):
     for name in ("window_weights_blocked", "window_weights_blocked_plain", "window_weights"):
         monkeypatch.setattr(blocked, name, _no_taps)
     monkeypatch.setattr(kcommon, "window_weights", _no_taps)
-    coefs, taps, ncoef = blocked._launch_args(tp)
+    coefs, taps, ncoef = blocked._launch_args(torch.zeros(1, 300, dtype=tp.dtype), tp, "values")
     assert (coefs, taps, ncoef) == (0, tp.wtaps_sorted.data_ptr(), 0)
     u1, v2 = tnufft.exec_type1(tp, v).numpy(), tnufft.exec_type2(tp, u).numpy()
     jpp = jnufft.set_points(jp, pts)
@@ -123,10 +123,32 @@ def test_plan_without_stored_taps_refuses_the_kernels():
                              _points(np.random.default_rng(2), np.complex128, 1, 50))
     bare = dataclasses.replace(plan, wtaps_sorted=None)
     with pytest.raises(ValueError, match="set_points"):
-        blocked._check_cuda_inputs(torch.zeros(1, 50, dtype=torch.complex128), bare, "values")
+        blocked._launch_args(torch.zeros(1, 50, dtype=torch.complex128), bare, "values")
     wrong = dataclasses.replace(plan, wtaps_sorted=plan.wtaps_sorted[:, :, :49])
     with pytest.raises(ValueError, match="window taps of shape"):
-        blocked._check_cuda_inputs(torch.zeros(1, 50, dtype=torch.complex128), wrong, "values")
+        blocked._launch_args(torch.zeros(1, 50, dtype=torch.complex128), wrong, "values")
+
+
+def test_window_packed_once_a_plan(monkeypatch):
+    """``Plan.window`` packs the window's scalars once a plan object, however
+    often ``set_points`` and the kernels' wrappers read it, and a plan made
+    from it by ``dataclasses.replace`` with another window packs its own:
+    no stale pack is carried over."""
+    from nonuniformffts_tpu_torch import plan as plan_module
+    from nonuniformffts_tpu_torch.ops.windows import window_pack
+
+    packed = []
+    monkeypatch.setattr(plan_module, "window_pack",
+                        lambda *a: packed.append(a) or window_pack(*a))
+    tp = _plan(np.complex128, (16, 12), ("BackwardsKaiserBesselKernel", "FastApproximation"))
+    assert all(tp.window is tp.window for _ in range(3)) and len(packed) == 1
+    for _ in range(3):
+        assert blocked.kernel_coefs(tp)[1] == tp.coefs.shape[-1]
+        blocked.check_kernel_support(tp)
+    assert len(packed) == 1
+    direct = dataclasses.replace(tp, evalmode=tnufft.Direct())
+    assert direct.window == window_pack(direct.kernel_data, direct.evalmode) != tp.window
+    assert blocked.kernel_coefs(direct) == (None, 0) and len(packed) == 2
 
 
 @pytest.mark.parametrize("window", ["gauss", "spline"])
