@@ -31,6 +31,14 @@ against the plain version, and at the geometries around it
 ``--spread2d`` sweeps the 2D main path's two densities and fits the 2D
 model to them (``fit_spread2d``), with the pick the fit makes.
 
+    python3 chip_probe.py --spread3d --against FILE [--nchan C ...] [--dtype T ...]
+                          [--np N ...] [--reps N]
+
+times another ``spread_3d.cu`` (an earlier commit's, ``git show
+<commit>:nonuniformffts_tpu_torch/csrc/spread_3d.cu > FILE``) against the
+shipped one in turns at the pick, C transforms a launch, with the share of
+non-empty blocks whose points fit one batch.
+
     python3 chip_probe.py --spread3d-parts | --interp3d-parts | --spread2d-parts |
                           --interp2d-parts | --spread1d-parts | --interp1d-parts
                           [--m M ...] [--dtype T ...] [--np N ...] [--reps N]
@@ -41,7 +49,8 @@ time a kernel beside copies of its source with one phase taken out
 ``SPREAD1D_PARTS``, ``INTERP1D_PARTS``), to show where its time goes: raw
 launches in turns on the same sorted points, beside the wrapper call and
 its host time, at each dtype's main-path Np and 16,777,216 (1D: 1M and 10M;
-``probe_parts``).
+``probe_parts``); a spread at each C of ``--nchan C ...`` transforms a
+launch.
 
     python3 chip_probe.py --interp2d [--m M ...] [--dtype T ...] [--np N ...] [--reps N]
 
@@ -177,6 +186,23 @@ def _registers(log: Path, kernel: str) -> str:
                      for k, m, t, n, b, sp, r in regs)
 
 
+def _ptxas_lines(log: Path) -> dict:
+    """Each kernel instantiation's ptxas lines in the log ``log`` (stack,
+    spills, registers, barriers, shared memory), by its label
+    (``chip_smoke._kernel_label``)."""
+    from chip_smoke import _kernel_label
+
+    lines = {}
+    for part in re.split(r"Compiling entry function '", log.read_text())[1:]:
+        name = part.split("'", 1)[0]
+        props = re.search(r"(\d+ bytes stack frame, \d+ bytes spill stores, \d+ bytes spill "
+                          r"loads)", part)
+        used = re.search(r"(Used \d+ registers[^\n]*)", part)
+        lines[_kernel_label(name)] = (f"{props[1] if props else '?'}; "
+                                      f"{used[1] if used else '?'}")
+    return lines
+
+
 def _probe_log(stem: str) -> Path:
     """The ptxas log of the probe's build ``stem`` (``_probe_library``)."""
     return ROOT / "build" / "chip_probe" / f"{stem}.ptxas.log"
@@ -302,9 +328,11 @@ SPREAD2D_FIT_NP = (1_000_000, 16_777_216)
 
 def _raw_spread(lib, plan, vals):
     """One launch of the spread entry point of ``lib`` for the plan's
-    dimension and value type on its sorted state (one transform); ``vals``
-    in sorted order in 2D and 3D, in the caller's order in 1D, where the
-    kernel reads them through ``plan.sort_perm``.  Returns the grid."""
+    dimension and value type on its sorted state, of the ``nchan`` =
+    ``vals.shape[0]`` transforms of ``vals`` (in 3D one transform runs the
+    per-transform kernel, more the shared-staging one); ``vals`` in sorted
+    order in 2D and 3D, in the caller's order in 1D, where the kernel reads
+    them through ``plan.sort_perm``.  Returns the grid."""
     import torch
 
     from nonuniformffts_tpu_torch.ops.kernels import build
@@ -314,10 +342,11 @@ def _raw_spread(lib, plan, vals):
     fn = getattr(lib, name)
     fn.argtypes = build._SIGNATURES[name]
     perm = (plan.sort_perm.data_ptr(),) if plan.ndim == 1 else ()
-    grid = torch.zeros((1,) + plan.shape_over, dtype=vals.dtype, device=vals.device)
+    nchan = vals.shape[0]
+    grid = torch.zeros((nchan,) + plan.shape_over, dtype=vals.dtype, device=vals.device)
     err = fn(vals.data_ptr(), plan.cells_sorted.data_ptr(), plan.fracs_sorted.data_ptr(),
              plan.pstarts.data_ptr(), plan.coefs.data_ptr(), 0, grid.data_ptr(), *perm,
-             plan.num_points, 1, plan.m, plan.coefs.shape[-1], *plan.shape_over,
+             plan.num_points, nchan, plan.m, plan.coefs.shape[-1], *plan.shape_over,
              *plan.block_dims, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
@@ -370,6 +399,38 @@ def _raw_interp(lib, plan, grid, design: str = "nufft", gather=None, inv=None):
     return out
 
 
+def _plain_ends(plan, vp):
+    """The plain version of the first and the last transform of ``vp``,
+    ``(indices, grids)``: a plain spread of all of them at C = 32 and 16.8M
+    points would need 29 GB of float64 sums."""
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+
+    idx = sorted({0, vp.shape[0] - 1})
+    chunked = dataclasses.replace(plan, chunk_size=1 << 16)
+    return idx, [blocked.spread_blocked_plain(chunked, vp[c : c + 1])[0] for c in idx]
+
+
+def _ends_err(got, ends) -> float:
+    """The larger relative L2 gap of ``got``'s transforms at ``ends``
+    (``_plain_ends``) to their plain versions."""
+    from chip_smoke import rel_l2
+
+    return max(rel_l2(got[c], w) for c, w in zip(*ends))
+
+
+def _points_a_block(plan) -> dict:
+    """Mean and largest points a block, the share of empty blocks, and the
+    share of non-empty blocks whose points fit one batch of the 3D spread
+    (``SPREAD3D_BATCH``: the shared-staging kernel stages them once)."""
+    from nonuniformffts_tpu_torch.ops.kernels.common import SPREAD3D_BATCH
+
+    counts = (plan.pstarts[1:] - plan.pstarts[:-1]).float()
+    full = counts > 0
+    return {"mean": float(counts.mean()), "max": int(counts.max()),
+            "empty_share": float((~full).float().mean()),
+            "one_batch_share": float(((counts <= SPREAD3D_BATCH) & full).sum() / full.sum())}
+
+
 def _sweep(lib, plan0, pts, vp, dims):
     """The spread kernel's raw launch (``lib``) at each block geometry of
     ``dims``, in order and reversed, one plan at a time (CUDA events, median
@@ -406,25 +467,42 @@ def _checked_pick(lib, plan0, pts, vp, tol: float) -> None:
         raise AssertionError(f"{plan.dtype} {plan.num_points}: rel L2 {err:.3e} vs plain")
 
 
-def probe_spread3d(seed: int, dtypes, nps) -> None:
+def probe_spread3d(seed: int, dtypes, nps, nchans=(1,), against=None, reps: int = 5) -> None:
     """The 3D spread kernel at the chooser's pick and at
     ``SPREAD3D_GEOMETRIES`` (``_sweep``), on the same points and values,
     the pick held against the plain version: the sweep that
     ``blocking.py:spread3d_cost`` was fitted to.  3D, N = 256^3 (grid
     384^3), m = 4, sigma = 1.5, BKB FastApproximation, uniform points, each
     dtype at its main-path Np and at 16,777,216.  One JSON line a dtype and
-    Np."""
+    Np.
+
+    With ``against`` (the path of another ``spread_3d.cu``, e.g. an
+    earlier commit's), no sweep: that source and the shipped one, each
+    built for M = 4 alone, as raw launches of each C of ``nchans``
+    transforms in turns (in order, then reversed; CUDA events, median of
+    ``reps`` after one warm-up) at the pick, both held against the plain
+    version of the first and last transform, beside the grid's zeroing
+    (inside each launch's time) and the points a block.  The ptxas lines of
+    both builds' instantiations come first."""
     import torch
 
     import nonuniformffts_tpu_torch as nufft
-    from chip_smoke import nvidia_smi_line
+    from chip_smoke import cuda_time_ms, nvidia_smi_line
     from nonuniformffts_tpu_torch.ops.kernels import build
 
     card = nvidia_smi_line()
     print(card, flush=True)
     dev = torch.device("cuda")
-    lib = build.load()
-    print(f"ptxas: {_registers(build.PTXAS_LOG, 'spread_3d_kernel')}", flush=True)
+    if against is not None:
+        texts = {"shipped": _m_only(_inlined_source("spread_3d")),
+                 "against": _m_only(_inlined_source("spread_3d", Path(against).read_text()))}
+        libs = _build_all("spread3d_against_", texts)
+        for k in libs:
+            print(f"ptxas {k}: {_ptxas_lines(_probe_log(f'spread3d_against_{k}'))}", flush=True)
+    else:
+        libs = {"shipped": build.load()}
+        print(f"ptxas: {_registers(build.PTXAS_LOG, 'spread_3d_(?:shared_)?kernel')}", flush=True)
+    keys = list(libs)
     for name in dtypes:
         plan0 = nufft.PlanNUFFT(np.dtype(name), SHAPES[3], m=4, sigma=1.5,
                                 spread_method="blocked", device=dev)
@@ -435,28 +513,67 @@ def probe_spread3d(seed: int, dtypes, nps) -> None:
             gen = torch.Generator(device=dev).manual_seed(seed + np_)
             pts = torch.rand((3, np_), generator=gen, device=dev,
                              dtype=plan0.real_dtype) * (2 * math.pi)
-            vp = torch.randn((1, np_), generator=gen, device=dev, dtype=plan0.dtype)
-            _checked_pick(lib, plan0, pts, vp, tol)
-            sweep = _sweep(lib, plan0, pts, vp, dims)
-            print(json.dumps({"probe": "spread3d", "card": card, "dtype": name, "np": np_,
-                              "chosen": list(plan0.block_dims),
-                              "geometries_ms": {"x".join(map(str, g)): t
-                                                for g, t in sweep.items()}}), flush=True)
+            if against is None:
+                vp = torch.randn((1, np_), generator=gen, device=dev, dtype=plan0.dtype)
+                _checked_pick(libs["shipped"], plan0, pts, vp, tol)
+                sweep = _sweep(libs["shipped"], plan0, pts, vp, dims)
+                print(json.dumps({"probe": "spread3d", "card": card, "dtype": name, "np": np_,
+                                  "chosen": list(plan0.block_dims),
+                                  "geometries_ms": {"x".join(map(str, g)): t
+                                                    for g, t in sweep.items()}}), flush=True)
+                continue
+            plan = nufft.set_points(plan0, pts)
+            for C in nchans:
+                vp = torch.randn((C, np_), generator=gen, device=dev, dtype=plan0.dtype)
+                vals = vp[:, plan.sort_perm].contiguous()
+                ends = _plain_ends(plan, vp)
+                times, errs = {k: [] for k in keys}, {}
+                for order in (keys, keys[::-1]):
+                    for k in order:
+                        ms_, got = cuda_time_ms(lambda lib=libs[k]: _raw_spread(lib, plan, vals),
+                                                reps=reps)
+                        times[k].append(ms_)
+                        errs[k] = max(errs.get(k, 0.0), _ends_err(got, ends))
+                        if not errs[k] <= tol:
+                            raise AssertionError(f"spread3d {k} {name} {np_} C={C}: rel L2 "
+                                                 f"{errs[k]:.3e} vs plain")
+                        del got
+                zero_ms, _ = cuda_time_ms(lambda: torch.zeros((C,) + plan.shape_over,
+                                                              dtype=plan.dtype, device=dev),
+                                          reps=reps)
+                ms = {k: statistics.median(t) for k, t in times.items()}
+                print(json.dumps({"probe": "spread3d_against", "card": card, "dtype": name,
+                                  "np": np_, "nchan": C, "block_dims": list(plan.block_dims),
+                                  "points_a_block": _points_a_block(plan), "ms": ms,
+                                  "runs_ms": times, "zero_ms": zero_ms,
+                                  "shipped_over_against": ms["shipped"] / ms["against"],
+                                  "rel_l2": errs}), flush=True)
+                del vp, vals, ends
+                torch.cuda.empty_cache()
+            del plan, pts
+            torch.cuda.empty_cache()
 
 
 #: Copies of csrc/spread_3d.cu with one phase taken out, for
 #: ``--spread3d-parts``: each maps a line of the source (spread_mma.cuh
-#: written in place of its include) to its replacement.
+#: written in place of its include) to its replacement, in both kernels
+#: where both hold it (the flush is one function of both).
 #: Their grids are wrong; only their times and registers are read.  Without
 #: the flush the compiler drops the accumulators too (40 registers against
 #: 128), so "no_flush" times neither; "flush_sum" keeps them live.
 SPREAD3D_PARTS = {
-    "no_mma": {"mma_f64(acc[c][r], a[r], b);": "acc[c][r][0] += a[r][0] * b[0];"},
+    "no_mma": {"mma_f64(acc[c][r], a[r], b);": "acc[c][r][0] += a[r][0] * b[0];",
+               "mma_f64(acc[c][r], a, b);": "acc[c][r][0] += a[0] * b[0];"},
     "no_dense": {"for (int e = warp; e < dense; e += nwarps) {":
                  "for (int e = warp; e < 0; e += nwarps) {"},
     "no_taps": {"for (int e = warp; e < 3 * S; e += nwarps) {":
                 "for (int e = warp; e < 0; e += nwarps) {"},
-    "no_flush": {"    if (!active) continue;\n\n    // Flush.": "    continue;\n\n    // Flush."},
+    # The values' global reads: each point's value a number from its index.
+    "no_values": {"          v = vrow[p0 + p];": "          v.c[0] = T(p + 1);",
+                  "      if (p < nb) v = vals[(long long)(c0 + c) * np + p0 + p];":
+                  "      if (p < nb) v.c[0] = T(p + 1);"},
+    "no_flush": {"    int oz, int n0, int n1, int n2) {\n  // Flush.":
+                 "    int oz, int n0, int n1, int n2) {\n  return;\n  // Flush."},
     # The flush's complex64 / complex128 reductions as plain stores, and as
     # no write at all (a store under a condition that never holds).
     "flush_stores": {"  red_v2(p, float(re), float(im));":
@@ -464,12 +581,12 @@ SPREAD3D_PARTS = {
                      "  atomicAdd(p, re);\n  atomicAdd(p + 1, im);": "  p[0] = re;\n  p[1] = im;"},
     # The accumulators kept live by one conditional write of their sum, in
     # place of the flush's code.
-    "flush_sum": {"    if (!active) continue;\n\n    // Flush.":
-                  "    if (!active) continue;\n    {\n      double sum = 0.0;\n"
-                  "#pragma unroll\n      for (int c = 0; c < kColTiles; ++c)\n"
-                  "#pragma unroll\n        for (int r = 0; r < kRowTiles; ++r)\n"
-                  "#pragma unroll\n          for (int e = 0; e < 2 * kHalves; ++e) sum += acc[c][r][e];\n"
-                  "      if (sum == 1.25e-300) gch[tid] = T(sum);\n    }\n    continue;\n\n    // Flush."},
+    "flush_sum": {"    int oz, int n0, int n1, int n2) {\n  // Flush.":
+                  "    int oz, int n0, int n1, int n2) {\n  {\n    double sum = 0.0;\n"
+                  "#pragma unroll\n    for (int c = 0; c < kColTiles; ++c)\n"
+                  "#pragma unroll\n      for (int r = 0; r < kRowTiles; ++r)\n"
+                  "#pragma unroll\n        for (int e = 0; e < 2 * kHalves; ++e) sum += acc[c][r][e];\n"
+                  "    if (sum == 1.25e-300) gch[t4] = T(sum);\n    return;\n  }\n  // Flush."},
     "flush_no_write": {"  red_v2(p, float(re), float(im));":
                        "  if (re == 1.25e-300) p[0] = float(im);",
                        "  atomicAdd(p, re);\n  atomicAdd(p + 1, im);":
@@ -571,12 +688,14 @@ SPREAD2D_PARTS = {
 }
 
 
-def _inlined_source(stem: str) -> str:
-    """``csrc/<stem>.cu`` with ``spread_mma.cuh`` written in place of its
-    include, so that a probe can edit the header's code too."""
+def _inlined_source(stem: str, src: str = None) -> str:
+    """``csrc/<stem>.cu`` (or the source text ``src``) with
+    ``spread_mma.cuh`` written in place of its include, so that a probe can
+    edit the header's code too."""
     from nonuniformffts_tpu_torch.ops.kernels import build
 
-    src = (build.CSRC_DIR / f"{stem}.cu").read_text()
+    if src is None:
+        src = (build.CSRC_DIR / f"{stem}.cu").read_text()
     header = (build.CSRC_DIR / "spread_mma.cuh").read_text().replace("#pragma once\n", "")
     return src.replace('#include "spread_mma.cuh"\n', header)
 
@@ -1339,7 +1458,7 @@ def probe_interp1d_sweep(seed: int, dtypes, nps, reps: int) -> None:
 #: stem, the kernel's name in a ptxas log (a regular expression), the
 #: dimension and the copies (a ``*_PARTS`` table).
 PARTS = {
-    "spread3d": ("spread_3d", "spread_3d_kernel", 3, SPREAD3D_PARTS),
+    "spread3d": ("spread_3d", "spread_3d_(?:shared_)?kernel", 3, SPREAD3D_PARTS),
     "interp3d": ("interp_3d", "interp_3d_kernel", 3, INTERP3D_PARTS),
     "spread2d": ("spread_2d", "spread_2d_kernel", 2, SPREAD2D_PARTS),
     "interp2d": ("interp_2d", "interp_2d_(?:point_)?kernel", 2,
@@ -1350,7 +1469,7 @@ PARTS = {
 
 
 def probe_parts(kind: str, seed: int, dtypes, nps, ms, reps: int = 5,
-                designs: bool = False) -> None:
+                designs: bool = False, nchans=(1,)) -> None:
     """``--<kind>-parts`` (``kind`` a key of ``PARTS``), and with
     ``designs`` ``--interp2d``: the shipped source and its copies (the
     parts; or ``INTERP2D_DESIGNS`` and the staged design,
@@ -1363,9 +1482,11 @@ def probe_parts(kind: str, seed: int, dtypes, nps, ms, reps: int = 5,
     allocation and the launch path) and its host time.  sigma = 1.5, BKB
     FastApproximation, uniform points, the chooser's block dims; each dtype
     at its main-path Np and 16,777,216 (1D: 1M and 10M), and with
-    ``designs`` also at 377,487 (rho = 0.01).  One JSON line a dtype, M and
-    Np, with the bound (``chip_smoke.kernel_bound``) and the points a
-    block."""
+    ``designs`` also at 377,487 (rho = 0.01).  A spread runs each C of
+    ``nchans`` transforms a launch (in 3D more than one runs the
+    shared-staging kernel), held against the plain version of its first
+    and last transform.  One JSON line a dtype, M, Np and C, with the bound
+    (``chip_smoke.kernel_bound``) and the points a block."""
     import torch
 
     import nonuniformffts_tpu_torch as nufft
@@ -1398,52 +1519,56 @@ def probe_parts(kind: str, seed: int, dtypes, nps, ms, reps: int = 5,
                                  dtype=plan0.real_dtype) * (2 * math.pi)
                 plan = nufft.set_points(plan0, pts)
                 chunked = dataclasses.replace(plan, chunk_size=1 << 16)
-                if spread:
-                    vp = torch.randn((1, np_), generator=gen, device=dev, dtype=plan0.dtype)
-                    vals = vp if D == 1 else vp[:, plan.sort_perm].contiguous()
-                    want = blocked.spread_blocked_plain(chunked, vp)
-                    runs = {k: (lambda lib=lib: _raw_spread(lib, plan, vals))
+                for C in nchans if spread else (1,):
+                    if spread:
+                        vp = torch.randn((C, np_), generator=gen, device=dev, dtype=plan0.dtype)
+                        vals = vp if D == 1 else vp[:, plan.sort_perm].contiguous()
+                        ends = _plain_ends(plan, vp)
+                        runs = {k: (lambda lib=lib: _raw_spread(lib, plan, vals))
+                                for k, lib in libs.items()}
+                        wrapper = lambda: blocked.spread_blocked(plan, vp)  # noqa: E731
+                        error = lambda got: _ends_err(got, ends)  # noqa: E731
+                    else:
+                        grid = torch.randn((1,) + plan.shape_over, generator=gen, device=dev,
+                                           dtype=plan0.dtype)
+                        want = blocked.interpolate_blocked_plain(chunked, grid)
+                        runs = {k: (lambda lib=lib, k=k: _raw_interp(
+                            lib, plan, grid, "staged" if k == "staged" else "nufft"))
                             for k, lib in libs.items()}
-                    wrapper = lambda: blocked.spread_blocked(plan, vp)  # noqa: E731
-                else:
-                    grid = torch.randn((1,) + plan.shape_over, generator=gen, device=dev,
-                                       dtype=plan0.dtype)
-                    want = blocked.interpolate_blocked_plain(chunked, grid)
-                    runs = {k: (lambda lib=lib, k=k: _raw_interp(
-                        lib, plan, grid, "staged" if k == "staged" else "nufft"))
-                        for k, lib in libs.items()}
-                    wrapper = lambda: blocked.interpolate_blocked(plan, grid)  # noqa: E731
-                times, errs = {k: [] for k in runs}, {}
-                for order in (keys, keys[::-1]):
-                    for k in order:
-                        ms_, got = cuda_time_ms(runs[k], reps=reps)
-                        times[k].append(ms_)
-                        err = rel_l2(got, want)
-                        errs[k] = max(errs.get(k, 0.0), err)
-                        if (designs or k == "shipped") and not err <= tol:
-                            raise AssertionError(f"{label} {name} m={m} {np_} {k}: rel L2 "
-                                                 f"{err:.3e} vs plain")
-                        del got
-                call_ms, got = cuda_time_ms(wrapper)
-                err = rel_l2(got, want)
-                if not err <= tol:
-                    raise AssertionError(f"{label} {name} m={m} {np_} wrapper: rel L2 {err:.3e}")
-                del got
-                counts = (plan.pstarts[1:] - plan.pstarts[:-1]).float()
-                bound_ms, bound_by = kernel_bound("spread" if spread else "interp", plan, 1)
-                line = {"probe": label, "card": card, "dtype": name, "m": m, "np": np_,
-                        "block_dims": list(plan.block_dims),
-                        "points_a_block": {"mean": float(counts.mean()),
-                                           "max": int(counts.max()),
-                                           "empty_share": float((counts == 0).float().mean())},
-                        "ms": {k: statistics.median(t) for k, t in times.items()},
-                        "call_ms": call_ms, "call_host_us": _host_us(wrapper, 100),
-                        "rel_l2": errs, "bound_ms": bound_ms, "bound_by": bound_by}
-                if designs:
-                    for k in keys[1:]:
-                        line[f"{k}_over_shipped"] = line["ms"][k] / line["ms"]["shipped"]
-                print(json.dumps(line), flush=True)
-                del plan, chunked, want, pts, runs, wrapper
+                        wrapper = lambda: blocked.interpolate_blocked(plan, grid)  # noqa: E731
+                        error = lambda got: rel_l2(got, want)  # noqa: E731
+                    times, errs = {k: [] for k in runs}, {}
+                    for order in (keys, keys[::-1]):
+                        for k in order:
+                            ms_, got = cuda_time_ms(runs[k], reps=reps)
+                            times[k].append(ms_)
+                            err = error(got)
+                            errs[k] = max(errs.get(k, 0.0), err)
+                            if (designs or k == "shipped") and not err <= tol:
+                                raise AssertionError(f"{label} {name} m={m} {np_} C={C} {k}: "
+                                                     f"rel L2 {err:.3e} vs plain")
+                            del got
+                    call_ms, got = cuda_time_ms(wrapper)
+                    err = error(got)
+                    if not err <= tol:
+                        raise AssertionError(f"{label} {name} m={m} {np_} C={C} wrapper: rel L2 "
+                                             f"{err:.3e}")
+                    del got
+                    bound_ms, bound_by = kernel_bound("spread" if spread else "interp", plan, C)
+                    line = {"probe": label, "card": card, "dtype": name, "m": m, "np": np_,
+                            "nchan": C, "block_dims": list(plan.block_dims),
+                            "points_a_block": _points_a_block(plan),
+                            "ms": {k: statistics.median(t) for k, t in times.items()},
+                            "call_ms": call_ms,
+                            "call_host_us": _host_us(wrapper, 100 if C == 1 else 5),
+                            "rel_l2": errs, "bound_ms": bound_ms, "bound_by": bound_by}
+                    if designs:
+                        for k in keys[1:]:
+                            line[f"{k}_over_shipped"] = line["ms"][k] / line["ms"]["shipped"]
+                    print(json.dumps(line), flush=True)
+                    del runs, wrapper, error
+                    torch.cuda.empty_cache()
+                del plan, chunked, pts
                 torch.cuda.empty_cache()
 
 
@@ -2044,6 +2169,12 @@ def main(argv=None) -> int:
                              "--interp1d-sweep, --exec-1d and --set-points")
     parser.add_argument("--m", type=int, nargs="+", default=[4],
                         help="the M of the -parts probes, --interp2d and --weights")
+    parser.add_argument("--nchan", type=int, nargs="+", default=[1],
+                        help="transforms a launch of the spread -parts probes and of "
+                             "--spread3d --against")
+    parser.add_argument("--against", default=None, metavar="SPREAD_3D_CU",
+                        help="with --spread3d: time this spread_3d.cu against the shipped "
+                             "one in turns at the chooser's pick, in place of the sweep")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     if args.root is not None:
@@ -2057,14 +2188,15 @@ def main(argv=None) -> int:
         probe_gloo()
         return 0
     if args.spread3d:
-        probe_spread3d(args.seed, args.dtype, args.np)
+        probe_spread3d(args.seed, args.dtype, args.np, args.nchan, args.against, args.reps)
         return 0
     if args.spread2d:
         probe_spread2d(args.seed, args.dtype, args.np)
         return 0
     parts = [kind for kind in PARTS if getattr(args, kind + "_parts")]
     for kind in parts:
-        probe_parts(kind, args.seed, args.dtype, args.np, args.m, args.reps)
+        probe_parts(kind, args.seed, args.dtype, args.np, args.m, args.reps,
+                    nchans=args.nchan)
     if args.interp2d:
         probe_parts("interp2d", args.seed, args.dtype, args.np, args.m, args.reps,
                     designs=True)

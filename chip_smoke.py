@@ -14,7 +14,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
    every 2D and 3D spread instantiation must hold DMMA and no
    shared-memory atomic;
 3. the 3D complex64 kernels against their plain PyTorch versions on the
-   card: a 64^3 plan (grid 96^3), 200,000 uniform points, and the
+   card: a 64^3 plan (grid 96^3), 200,000 uniform points, the spread also
+   at 32 transforms a launch (the shared-staging kernel), and the
    interpolation kernel's branch for blocks below ``INTERP3D_SPARSE``
    points (read from global memory, not staged) at 2,000 points;
 4. the 3D complex64 main path at full size: N = 256^3, m = 4, sigma = 1.5,
@@ -405,17 +406,18 @@ def phase_environment():
 
 
 def _kernel_label(mangled: str) -> str:
-    """``spread_3d<M=4, double, 2>``, ``interp_1d<M=4, float, 2, taps,
+    """``spread_3d<M=4, double, 2>``, ``spread_3d<M=4, float, 2, shared>``
+    (``spread_3d_shared_kernel``), ``interp_1d<M=4, float, 2, taps,
     sorted>``, ``interp_2d<M=4, float, 2, point>`` (a ``*_point_kernel``),
     ``window_weights<kind=1, M=4, double, 2>`` (window kind, M, scalar,
     points a thread) or ``deconvolve_pad<float, 2>`` (scalar, values an
     access) from a mangled kernel name."""
-    m = re.search(r"(spread|interp)_(\d)d_(point_)?kernelILi(\d+)E([fd])Li(\d)E(?:Lb([01])E)?"
-                  r"(?:Lb([01])E)?", mangled)
+    m = re.search(r"(spread|interp)_(\d)d_(point_|shared_)?kernelILi(\d+)E([fd])Li(\d)E"
+                  r"(?:Lb([01])E)?(?:Lb([01])E)?", mangled)
     if m:
         return (f"{m[1]}_{m[2]}d<M={m[4]}, {'float' if m[5] == 'f' else 'double'}, {m[6]}"
                 + (", taps" if m[7] == "1" else "") + (", sorted" if m[8] == "1" else "")
-                + (", point" if m[3] else "") + ">")
+                + (f", {m[3][:-1]}" if m[3] else "") + ">")
     m = re.search(r"(truncate|pad)_kernelI([fd])Li(\d)E", mangled)
     if m:
         return f"deconvolve_{m[1]}<{'float' if m[2] == 'f' else 'double'}, {m[3]}>"
@@ -750,6 +752,16 @@ def check_kernel(kind: str, plan, vp, gen):
                 bound_by=bound_by)
 
 
+def _shared_staging(plan, C: int) -> bool:
+    """Whether a 3D spread launch of ``C`` transforms on ``plan`` runs the
+    shared-staging kernel (``common.spread3d_cta_transforms``)."""
+    from nonuniformffts_tpu_torch.ops.kernels import blocked
+    from nonuniformffts_tpu_torch.ops.kernels.common import VALUE_TYPES, spread3d_cta_transforms
+
+    return spread3d_cta_transforms(plan.block_dims, plan.m, blocked.kernel_coefs(plan)[1],
+                                   *VALUE_TYPES[plan.dtype][1:], C) > 1
+
+
 def phase_kernels(seed: int):
     import torch
 
@@ -772,6 +784,21 @@ def phase_kernels(seed: int):
     log(f"  launches { {n: blocked.LAUNCHES[n] for n in names} }")
     if min(blocked.LAUNCHES[n] for n in names) < 1:
         raise AssertionError("a kernel was not launched in phase 3")
+    # 32 transforms in one launch: the shared-staging kernel
+    # (csrc/spread_3d.cu:spread_3d_shared_kernel), a transform at a time
+    # against the plain version.
+    vp32 = _random_values(gen, (32, 200_000), torch.complex64, dev)
+    g32 = blocked.spread_blocked(plan, vp32)
+    torch.cuda.synchronize()
+    served = blocked.SPREAD3D_SHARED[names[0]]
+    err = max(rel_l2(g32[c], blocked.spread_blocked_plain(plan, vp32[c : c + 1])[0])
+              for c in range(32))
+    log(f"  {names[0]} at C = 32 (shared staging, {served} transforms served): rel L2 "
+        f"{err:.3e} vs plain, the worst transform")
+    check("spread_3d shared staging at C = 32 vs plain", err, KERNEL_TOL[4])
+    if served != (32 if _shared_staging(plan, 32) else 0):
+        raise AssertionError(f"the shared-staging kernel served {served} of 32 transforms")
+    del vp32, g32
     # 2,000 points over the same blocks: every block holds fewer than
     # INTERP3D_SPARSE points, so the interpolation kernel reads them from
     # global memory rather than staging them.
@@ -2530,7 +2557,15 @@ def check_kernels_many(shape, C: int, seed: int, transforms):
             else:
                 x = _random_values(gen, (C,) + plan.shape_over, plan.dtype, dev)
                 kern, ref = blocked.interpolate_blocked, blocked.interpolate_blocked_plain
+            name = blocked.entry_point(kind, plan)
+            shared = dict(blocked.SPREAD3D_SHARED)
             ms, got = cuda_time_ms(lambda: kern(plan, x), reps=3)
+            if name in shared:  # one warm-up launch and three timed ones
+                want = 4 * C if _shared_staging(plan, C) else 0
+                if blocked.SPREAD3D_SHARED[name] - shared[name] != want:
+                    raise AssertionError(f"{name} at C = {C}: the shared-staging kernel served "
+                                         f"{blocked.SPREAD3D_SHARED[name] - shared[name]} "
+                                         f"transforms in 4 launches, not {want}")
             num = den = max_abs = 0.0
             start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -2542,7 +2577,6 @@ def check_kernels_many(shape, C: int, seed: int, transforms):
             stop.record()
             stop.synchronize()
             err = math.sqrt(num / den)
-            name = blocked.entry_point(kind, plan)
             bound_ms, bound_by = kernel_bound(kind, plan, C)
             log(f"  {name}, C = {C}, {shape_text(shape)}: rel L2 {err:.3e}, max abs "
                 f"{max_abs:.3e} vs plain, kernel {ms:.3f} ms ({ms / C:.3f} a transform), "

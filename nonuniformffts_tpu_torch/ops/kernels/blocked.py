@@ -34,7 +34,11 @@ two wrappers take CUDA tensors only.
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches its kernel or raises.  Each launch adds one to
 ``LAUNCHES[entry point]``, which also counts the deconvolution kernels'
-launches (``ops/kernels/deconvolve.py``).
+launches (``ops/kernels/deconvolve.py``).  A 3D spread launch of C > 1
+transforms whose CTAs serve several of them
+(``common.spread3d_cta_transforms``) runs the shared-staging kernel
+(``csrc/spread_3d.cu``: a CTA a block and a group of transforms) and adds
+C to ``SPREAD3D_SHARED[entry point]``.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from .common import (
     entry_point_name,
     interp1d_gathers,
     interp_tiles,
+    spread3d_cta_transforms,
     spread_smem_bytes,
     window_weights,
 )
@@ -84,10 +89,18 @@ LAUNCHES = {
        for step in DECONVOLVE_STEPS for dtype in VALUE_TYPES},
 }
 
+#: Transforms that the 3D spread's shared-staging kernel served in this
+#: process, by entry point: a launch of C > 1 transforms whose CTAs serve
+#: several of them adds C; any other runs the per-transform kernel and adds
+#: nothing.
+SPREAD3D_SHARED = {entry_point_name("spread", 3, dtype): 0 for dtype in VALUE_TYPES}
+
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Zero ``LAUNCHES`` and ``SPREAD3D_SHARED``."""
+    for counts in (LAUNCHES, SPREAD3D_SHARED):
+        for name in counts:
+            counts[name] = 0
 
 
 def entry_point(kind: str, plan) -> str:
@@ -125,7 +138,9 @@ def check_kernel_support(plan) -> None:
     _, ncoef = kernel_coefs(plan)
     _, scalar_bytes, ncomp = VALUE_TYPES[plan.dtype]
     # The 1D interpolation kernel reads a block too wide to stage from
-    # global memory (interp1d_window), so it refuses no block dims.
+    # global memory (interp1d_window), so it refuses no block dims.  A 3D
+    # spread's shared-staging kernel takes a group of transforms only where
+    # it fits (common.spread3d_cta_transforms), else the kernel checked here.
     smem = spread_smem_bytes(plan.block_dims, plan.m, ncoef, scalar_bytes, ncomp)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
@@ -384,6 +399,9 @@ def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
         )
     _raise_on_error(name, err)
     LAUNCHES[name] += 1
+    if plan.ndim == 3 and spread3d_cta_transforms(plan.block_dims, plan.m, ncoef,
+                                                  *VALUE_TYPES[plan.dtype][1:], C) > 1:
+        SPREAD3D_SHARED[name] += C
     return grid
 
 

@@ -81,6 +81,16 @@ SPREAD3D_MAX_WARPS = 16
 #: and the doubles from one staged operand row to the next.
 SPREAD3D_BATCH = 64
 SPREAD3D_STRIDE = SPREAD3D_BATCH + 4
+#: Registers a thread of the 3D spread kernels takes at most
+#: (``__launch_bounds__`` of ``SPREAD3D_MAX_WARPS`` warps): 128.
+SPREAD3D_MAX_REGISTERS = SM_REGISTERS // (SPREAD3D_MAX_WARPS * 32)
+#: Grid bytes that the transforms of one CTA of the 3D shared-staging
+#: kernel cover at most (``kCtaGridBytes``): a CTA adds into one padded
+#: block of each of its transforms' grids, and with more the halos that
+#: neighbouring CTAs add to fall out of L2 between their flushes (16
+#: complex64 or float32 transforms at the main paths' blocks, 8 complex128
+#: or float64: the fastest of 8, 16 and 32 in each dtype, PERF.md §6).
+SPREAD3D_CTA_GRID_BYTES = 448 * 1024
 
 # The 2D spread kernel's units (``csrc/spread_2d.cu``, which must match): the
 # 3D kernel's product with the z factor dropped, G (NCOMP pd0 x pd1') +=
@@ -629,19 +639,54 @@ def row_pitch(taps: int, scalar_bytes: int) -> int:
     return -(-taps * scalar_bytes // 16) * 16 // scalar_bytes
 
 
+def _spread3d_shared_bytes(t: SpreadTiles, m: int, ncoef: int, scalar_bytes: int, ncomp: int,
+                           ctrans: int) -> int:
+    """Dynamic shared memory of one CTA of the 3D shared-staging kernel
+    (``csrc/spread_3d.cu:shared_smem_bytes``) serving ``ctrans``
+    transforms."""
+    ntaps = 3 * 2 * m
+    rows = t.rows // ncomp + t.padded[1] + 8 * t.z_tiles
+    return (8 * (SPREAD3D_STRIDE * (rows + ncomp * ctrans) + ntaps * SPREAD3D_BATCH)
+            + 4 * 3 * SPREAD3D_BATCH + scalar_bytes * ntaps * ncoef)
+
+
+def spread3d_cta_transforms(block_dims: Sequence[int], m: int, ncoef: int, scalar_bytes: int,
+                            ncomp: int, nchan: int) -> int:
+    """Transforms one CTA of a 3D spread launch of ``nchan`` transforms
+    serves (``csrc/spread_3d.cu:cta_transforms``, which must match).  1 runs
+    ``spread_3d_kernel``, a CTA a (block, transform); more runs
+    ``spread_3d_shared_kernel``, a CTA a block and a group of transforms
+    whose point state it stages once: as many as keep their padded blocks
+    within ``SPREAD3D_CTA_GRID_BYTES`` and their values within the CTA's
+    shared memory beside the rest, while an SM still holds the CTAs its
+    register file allows at ``SPREAD3D_MAX_REGISTERS`` a thread; at least
+    one."""
+    t = spread_tiles(block_dims, m, ncomp)
+    block = scalar_bytes * ncomp * math.prod(t.padded)
+    ctas = max(1, SM_REGISTERS // (SPREAD3D_MAX_REGISTERS * 32 * t.warps))
+    budget = min(MAX_SMEM_BYTES, SM_SMEM_BYTES // ctas - SMEM_RESERVED_PER_CTA)
+    base = _spread3d_shared_bytes(t, m, ncoef, scalar_bytes, ncomp, 0)
+    fit = (budget - base) // (8 * SPREAD3D_STRIDE * ncomp) if budget > base else 0
+    return max(1, min(nchan, SPREAD3D_CTA_GRID_BYTES // block, fit))
+
+
 def spread_smem_bytes(block_dims: Sequence[int], m: int, ncoef: int,
-                      scalar_bytes: int = 4, ncomp: int = 2) -> int:
+                      scalar_bytes: int = 4, ncomp: int = 2, nchan: int = 1) -> int:
     """Dynamic shared memory of one spread CTA for ``D = len(block_dims)``
     (must match ``spread_smem_bytes`` in ``csrc/spread_<D>d.cu``).
     ``ncoef`` is 0 for a window without a coefficient stack (any but (B)KB
     FastApproximation): nothing is staged for it.
 
-    3D: the dense operands of one staged batch of ``SPREAD3D_BATCH`` points
-    (A's rows, the y and z taps at every padded row: ``SpreadTiles.rows +
-    pd1 + cols / pd1`` rows of ``SPREAD3D_STRIDE`` doubles), the batch's
-    compact 3 x 2M taps and ``ncomp`` values in double and its local cells
-    in int32, then the ``(3, 2M, ncoef)`` coefficient stack; the sums live
-    in registers.  2D: each of ``SPREAD2D_WARPS`` warps' unit rows (A's and
+    3D, a launch of ``nchan`` transforms whose CTAs serve one each
+    (``spread3d_cta_transforms`` 1): the dense operands of one staged batch
+    of ``SPREAD3D_BATCH`` points (A's rows, the y and z taps at every padded
+    row: ``SpreadTiles.rows + pd1 + cols / pd1`` rows of ``SPREAD3D_STRIDE``
+    doubles), the batch's compact 3 x 2M taps and ``ncomp`` values in double
+    and its local cells in int32, then the ``(3, 2M, ncoef)`` coefficient
+    stack; the sums live in registers.  3D, CTAs of several transforms (the
+    shared-staging kernel): the x taps at ``rows / ncomp`` padded rows in
+    place of A's rows, and the values of the CTA's transforms in ``ncomp``
+    rows of ``SPREAD3D_STRIDE`` doubles each.  2D: each of ``SPREAD2D_WARPS`` warps' unit rows (A's and
     B's, ``SPREAD2D_UNIT_ROWS`` + 8 ``SPREAD2D_UNIT_COL_TILES`` rows of
     ``SPREAD2D_STRIDE`` doubles), then the two dims' coefficient-major
     ``(ncoef, 2M)`` stacks, ``spread2d_coef_stride`` apart; the block dims
@@ -657,6 +702,9 @@ def spread_smem_bytes(block_dims: Sequence[int], m: int, ncoef: int,
                 + 4 * (int(block_dims[0]) + 1))
     if D == 3:
         t = spread_tiles(block_dims, m, ncomp)
+        ctrans = spread3d_cta_transforms(block_dims, m, ncoef, scalar_bytes, ncomp, nchan)
+        if ctrans > 1:
+            return _spread3d_shared_bytes(t, m, ncoef, scalar_bytes, ncomp, ctrans)
         dense = t.rows + t.padded[1] + 8 * t.z_tiles
         return (8 * (SPREAD3D_STRIDE * dense + (ntaps + ncomp) * SPREAD3D_BATCH)
                 + 4 * 3 * SPREAD3D_BATCH + scalar_bytes * ntaps * ncoef)

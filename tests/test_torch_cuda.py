@@ -225,6 +225,123 @@ def test_spread_3d_matches_plain_version(cuda_device, case, dtype):
     assert _rel_err(g_k, g_p) <= KERNEL_TOL[np.dtype(real).itemsize]
 
 
+# The 3D shared-staging kernel (csrc/spread_3d.cu:spread_3d_shared_kernel,
+# launches of C > 1 transforms) at three densities and over several passes:
+# (shape, sigma, m, block_dims, points, where they lie, what the blocks hold).
+SHARED_3D_CASES = {
+    # ~9 points a block: every block fits one batch (staged once).
+    "one_batch": ((32, 32, 32), 1.5, 4, (8, 8, 8), 2_000, "uniform", "one_batch"),
+    # ~93 points a block: most blocks take two batches, restaged a transform.
+    "restaged": ((32, 32, 32), 1.5, 4, (8, 8, 8), 20_000, "uniform", "some_restaged"),
+    # One octant: most blocks empty, the rest one batch.
+    "empty_blocks": ((32, 32, 32), 1.5, 4, (8, 8, 8), 100, "corner", "some_empty"),
+    # m = 10 at (8, 8, 8): several passes of 16 warps over one staged batch.
+    "m10_passes": ((16, 16, 16), 2.0, 10, (8, 8, 8), 2_000, "uniform", "one_batch"),
+    # m = 2 at (4, 4, 4): two warps a CTA, whose shared memory holds the
+    # values of 7 transforms, where L2 would allow 83 to 334.
+    "small_blocks": ((16, 16, 16), 2.0, 2, (4, 4, 4), 2_000, "uniform", "some_empty"),
+}
+
+
+def _shared_plan(case, dtype, C, device, seed):
+    shape, sigma, m, bd, np_, where, holds = SHARED_3D_CASES[case]
+    rng = np.random.default_rng(seed)
+    real = np.dtype(dtype).type(0).real.dtype
+    hi = np.pi / 2 if where == "corner" else 2 * np.pi
+    pts = rng.uniform(0.0, hi, (3, np_)).astype(real)
+    plan = tnufft.PlanNUFFT(dtype, shape, m=m, sigma=sigma, ntransforms=C,
+                            spread_method="blocked", block_dims=bd, device=device)
+    plan = tnufft.set_points(plan, torch.from_numpy(pts).to(device))
+    counts = plan.pstarts[1:] - plan.pstarts[:-1]
+    batch = common.SPREAD3D_BATCH
+    assert {"one_batch": bool(counts.max() <= batch),
+            "some_restaged": bool((counts > batch).any()),
+            "some_empty": bool((counts == 0).any() and counts.max() <= batch)}[holds]
+    vp = torch.from_numpy(_values(rng, dtype, (C, np_))).to(device)
+    return plan, vp, KERNEL_TOL[np.dtype(real).itemsize]
+
+
+def _shared_launch(plan, vp):
+    """One spread launch of ``vp``'s transforms; checks that it is one
+    launch and that the shared-staging kernel served its transforms where
+    a CTA serves more than one (every case but ``m10_passes`` in
+    complex128, whose padded blocks exceed SPREAD3D_CTA_GRID_BYTES / 2)."""
+    name = blocked.entry_point("spread", plan)
+    before = blocked.LAUNCHES[name], blocked.SPREAD3D_SHARED[name]
+    grid = blocked.spread_blocked(plan, vp)
+    torch.cuda.synchronize()
+    C = vp.shape[0]
+    _, sb, ncomp = common.VALUE_TYPES[plan.dtype]
+    shared = common.spread3d_cta_transforms(plan.block_dims, plan.m, blocked.kernel_coefs(plan)[1],
+                                            sb, ncomp, C) > 1
+    assert blocked.LAUNCHES[name] == before[0] + 1
+    assert blocked.SPREAD3D_SHARED[name] == before[1] + (C if shared else 0)
+    return grid
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("C", [2, 3, 32])
+@pytest.mark.parametrize("case", list(SHARED_3D_CASES))
+def test_spread_3d_shared_staging_matches_one_transform_launches(cuda_device, case, C, dtype):
+    """A 3D spread launch of C transforms (the shared-staging kernel)
+    against C launches of one transform each (the per-transform kernel) and
+    against the plain version, transform by transform."""
+    plan, vp, tol = _shared_plan(case, dtype, C, cuda_device, seed=C + len(case))
+    g_k = _shared_launch(plan, vp)
+    g_p = blocked.spread_blocked_plain(plan, vp)
+    assert g_k.shape == g_p.shape and g_k.dtype == g_p.dtype == plan.dtype
+    for c in range(C):
+        g_1 = _shared_launch(plan, vp[c : c + 1])[0]
+        assert _rel_err(g_k[c], g_1) <= tol
+        assert _rel_err(g_k[c], g_p[c]) <= tol
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("case", ["one_batch", "small_blocks"])
+def test_spread_3d_shared_staging_in_groups_of_transforms(cuda_device, case, dtype):
+    """More transforms than one CTA serves
+    (``common.spread3d_cta_transforms``, set by L2 at (8, 8, 8) and by
+    shared memory at the small blocks): CTAs of a group each along
+    blockIdx.y, the last one short, against the plain version."""
+    bd, m = SHARED_3D_CASES[case][3], SHARED_3D_CASES[case][2]
+    plan, _, _ = _shared_plan(case, dtype, 1, cuda_device, seed=5)
+    _, sb, ncomp = common.VALUE_TYPES[plan.dtype]
+    cta = common.spread3d_cta_transforms(bd, m, blocked.kernel_coefs(plan)[1], sb, ncomp, 10_000)
+    C = 2 * cta + 3
+    plan, vp, tol = _shared_plan(case, dtype, C, cuda_device, seed=5)
+    assert 1 < cta < C
+    g_k = _shared_launch(plan, vp)
+    g_p = blocked.spread_blocked_plain(plan, vp)
+    for c in sorted({0, cta - 1, cta, 2 * cta, C - 1}):
+        assert _rel_err(g_k[c], g_p[c]) <= tol
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("C, chunk", [(7, 3), (3, 2)])
+def test_spread_3d_groups_of_many_transforms(cuda_device, C, chunk, dtype):
+    """A grouped 3D exec (7 transforms in groups of 3, 2 and 2; 3 in groups
+    of 2 and 1): each group of more than one transform runs the
+    shared-staging kernel, one of a single transform the per-transform
+    kernel; the same as the one-pass exec, which runs all C shared."""
+    import dataclasses
+
+    plan, vp, _ = _shared_plan("one_batch", dtype, C, cuda_device, seed=11)
+    grouped = dataclasses.replace(plan, transform_chunk=chunk)
+    sizes = [g.stop - g.start for g in plan_module.transform_groups(C, chunk)]
+    name = blocked.entry_point("spread", plan)
+    before = blocked.LAUNCHES[name], blocked.SPREAD3D_SHARED[name]
+    got = tnufft.exec_type1(grouped, vp)
+    torch.cuda.synchronize()
+    assert blocked.LAUNCHES[name] == before[0] + len(sizes)
+    shared = sum(n for n in sizes if n > 1)
+    assert blocked.SPREAD3D_SHARED[name] == before[1] + shared
+    want = tnufft.exec_type1(plan, vp)
+    torch.cuda.synchronize()
+    assert blocked.SPREAD3D_SHARED[name] == before[1] + shared + C
+    real = np.dtype(dtype).type(0).real.dtype
+    assert _rel_err(got, want) <= (1e-6 if real == np.float32 else 1e-12)
+
+
 # The 2D spread kernel's edges (csrc/spread_2d.cu): (shape, sigma, m,
 # block_dims, transforms, where the points lie, points, window).  The cases
 # of tests/test_torch_spread_tiles.py:UNIT_CASES_2D, the chooser's own pick,

@@ -28,12 +28,18 @@ from nonuniformffts_tpu_torch.ops.kernels.common import (
     MAX_SMEM_BYTES,
     NUM_SMS,
     SM_REGISTERS,
+    SM_SMEM_BYTES,
+    SMEM_RESERVED_PER_CTA,
     SPREAD2D_BATCH,
+    SPREAD3D_CTA_GRID_BYTES,
+    SPREAD3D_MAX_REGISTERS,
     SPREAD3D_MAX_WARPS,
+    SPREAD3D_STRIDE,
     SPREAD3D_UNIT_COL_TILES,
     SPREAD3D_UNIT_ROWS,
     VALUE_TYPES,
     spread2d_units,
+    spread3d_cta_transforms,
     spread_registers,
     spread_smem_bytes,
     spread_tiles,
@@ -199,6 +205,63 @@ def test_3d_chooser_is_the_cost_models_minimum():
         if 384 ** 3 // (dims[0] * dims[1] * dims[2]) >= 2 * NUM_SMS:
             assert blocking.spread3d_cost(dims, 4, 2) >= best
     assert spread_tiles(bd, 4, 2).passes == 1
+
+
+def test_3d_shared_staging_at_the_32_coil_plan():
+    """The 32-coil cell's plan (complex64, 256^3, m = 4, sigma = 1.5, BKB
+    Fast, 32 transforms): a launch of one transform runs the per-transform
+    kernel at the bytes it had before the shared-staging kernel came
+    (49,120); one of 32 runs the shared-staging kernel, two CTAs a block of
+    16 transforms each, whose values it stages at once in 56,800 B, room
+    for the 2 CTAs an SM that its 8 warps at 128 registers allow.  At the
+    other dtypes' main-path blocks a CTA serves 16 (float32) or 8 (64-bit)
+    transforms."""
+    plan = tnufft.PlanNUFFT(np.complex64, (256,) * 3, m=4, sigma=1.5, ntransforms=32,
+                            spread_method="blocked", device="cpu")
+    bd, (_, ncoef) = plan.block_dims, blocked.kernel_coefs(plan)
+    assert plan.shape_over == (384,) * 3 and bd == (8, 8, 8) and ncoef == 8
+    assert spread_tiles(bd, 4, 2).warps == 8 and SPREAD3D_MAX_REGISTERS == 128
+    assert spread3d_cta_transforms(bd, 4, ncoef, 4, 2, 1) == 1
+    assert spread_smem_bytes(bd, 4, ncoef, 4, 2) == spread_smem_bytes(bd, 4, ncoef, 4, 2, 1)
+    assert spread_smem_bytes(bd, 4, ncoef, 4, 2, 1) == 49_120
+    assert spread3d_cta_transforms(bd, 4, ncoef, 4, 2, 32) == 16
+    assert spread_smem_bytes(bd, 4, ncoef, 4, 2, 32) == 56_800
+    assert SM_SMEM_BYTES // (56_800 + SMEM_RESERVED_PER_CTA) >= 2
+    blocked.check_kernel_support(plan)
+    for dtype, cta in ((np.float32, 16), (np.complex128, 8), (np.float64, 8)):
+        _, sb, ncomp = VALUE_TYPES[torch.from_numpy(np.zeros(1, dtype)).dtype]
+        pick = blocking.choose_geometry((384,) * 3, 4, sb, ncomp)
+        assert spread3d_cta_transforms(pick, 4, ncoef, sb, ncomp, 32) == cta
+
+
+@pytest.mark.parametrize("nchan", [2, 3, 32, 1000])
+@pytest.mark.parametrize("dtype", list(VALUE_TYPES), ids=str)
+@pytest.mark.parametrize("m", [2, 4, 8, 10])
+def test_3d_shared_staging_keeps_the_register_bound_residency(m, dtype, nchan):
+    """At every 3D pick (grid 384^3) a launch of ``nchan`` > 1 transforms
+    gives each CTA as many of them as keep their padded blocks within
+    SPREAD3D_CTA_GRID_BYTES and their values within its shared memory (one:
+    the per-transform kernel, at its bytes): its bytes stay within what one
+    CTA may take and leave an SM the CTAs its register file allows at 128
+    registers a thread, and one transform more would break a limit where
+    not all ``nchan`` are served."""
+    _, sb, ncomp = VALUE_TYPES[dtype]
+    bd = blocking.choose_geometry((384, 384, 384), m, sb, ncomp)
+    t = spread_tiles(bd, m, ncomp)
+    block = sb * ncomp * int(np.prod(t.padded))
+    ctas = max(1, SM_REGISTERS // (SPREAD3D_MAX_REGISTERS * 32 * t.warps))
+    cta = spread3d_cta_transforms(bd, m, m + 4, sb, ncomp, nchan)
+    smem = spread_smem_bytes(bd, m, m + 4, sb, ncomp, nchan)
+    assert 1 <= cta <= nchan
+    if cta == 1:
+        assert smem == spread_smem_bytes(bd, m, m + 4, sb, ncomp)
+        return
+    assert cta * block <= SPREAD3D_CTA_GRID_BYTES and smem <= MAX_SMEM_BYTES
+    assert SM_SMEM_BYTES // (smem + SMEM_RESERVED_PER_CTA) >= ctas
+    if cta < nchan:
+        more = smem + 8 * SPREAD3D_STRIDE * ncomp
+        assert ((cta + 1) * block > SPREAD3D_CTA_GRID_BYTES or more > MAX_SMEM_BYTES
+                or SM_SMEM_BYTES // (more + SMEM_RESERVED_PER_CTA) < ctas)
 
 
 def emulate_spread_2d(plan, vp: torch.Tensor) -> torch.Tensor:
