@@ -16,11 +16,14 @@ Everything a cell is made of is found by name:
 
 A step is the mix's calls through the program's public API:
 ``set_points`` on the step's points (moving mixes), then each of
-``execs``, then ``torch.cuda.synchronize()``.  The window runs steps for
-the given seconds.  With ``trace`` the window is split: a short stretch
-under ``torch.profiler`` (the device's busy time and the breakdown), then
-the rest on a plan built with ``Timer(synchronise=True)`` (the program's
-own stage spans).
+``execs``, then ``torch.cuda.synchronize()``; a mix with ``nchunks`` above
+1 makes them ``set_points_chunked`` and ``exec_type{1,2}_chunked`` on a
+``ChunkedPlanNUFFT``.  The window runs steps for the given seconds.  With
+``trace`` the window is split: a short stretch under ``torch.profiler``
+(the device's busy time and the breakdown), then the rest on a plan built
+with ``Timer(synchronise=True)`` (the program's own stage spans).  The
+profiled stretch's trace events stay in the ``Record`` for the readers
+that take a metric from the trace.
 
 The check: two steps of the window are compared with the reference, one
 drawn from the seed among the window's first ``EARLY_STEPS`` (of the timed
@@ -131,6 +134,9 @@ class Record:
     timer_steps: int = 0
     # the profiled stretch of a traced run (trace.py), or None
     device: dict | None = None
+    # the profiled stretch's trace events and the steps inside its window
+    trace_events: list = dataclasses.field(default_factory=list)
+    trace_steps: int = 0
 
     def per_step_s(self, *labels: str) -> float | None:
         """Seconds a timed step in the Timer's sections ``labels``
@@ -147,7 +153,11 @@ def _sync(device: torch.device) -> None:
 
 
 class Steps:
-    """The program driven through its public API: a plan and the step."""
+    """The program driven through its public API: a plan and the step.
+
+    The mix's ``nchunks`` picks the API: 1, ``PlanNUFFT`` with
+    ``set_points`` and ``exec_type{1,2}``; more, ``ChunkedPlanNUFFT`` with
+    the same names ending in ``_chunked``, the same arguments otherwise."""
 
     def __init__(self, cell: Cell, traffic: Traffic, device, dtype: str, timer=None,
                  marks: bool = False):
@@ -156,38 +166,60 @@ class Steps:
         self.nufft, self.traffic, self.device = nufft, traffic, device
         cfg = cell.config
         self.dtype = TORCH_DTYPES[dtype]
-        self.plan = nufft.PlanNUFFT(
-            np.dtype(dtype), tuple(cfg["shape"]), m=cfg["m"], sigma=cfg["sigma"],
-            kernel=getattr(nufft, cfg["kernel"])(),
-            kernel_evalmode=getattr(nufft, cfg["kernel_evalmode"])(),
-            ntransforms=traffic.shapes.ntransforms, spread_method=cfg["spread_method"],
-            device=device, timer=timer)
+        args = (np.dtype(dtype), tuple(cfg["shape"]))
+        kwargs = dict(m=cfg["m"], sigma=cfg["sigma"], kernel=getattr(nufft, cfg["kernel"])(),
+                      kernel_evalmode=getattr(nufft, cfg["kernel_evalmode"])(),
+                      ntransforms=traffic.shapes.ntransforms,
+                      spread_method=cfg["spread_method"], device=device, timer=timer)
+        self.suffix, self.exec_timer = "", None
+        if traffic.nchunks == 1:
+            self.plan = nufft.PlanNUFFT(*args, **kwargs)
+        else:
+            self.suffix = "_chunked"
+            try:
+                self.plan = nufft.ChunkedPlanNUFFT(*args, nchunks=traffic.nchunks, **kwargs)
+            except NotImplementedError:
+                # A program whose chunked plans refuse a timer: the template
+                # carries it, so each chunk's set_points and every stage is
+                # the timer's section, and the step opens each exec's
+                # section as exec_type1 and exec_type2 open theirs.
+                self.plan = nufft.ChunkedPlan(nchunks=traffic.nchunks,
+                                              template=nufft.PlanNUFFT(*args, **kwargs))
+                self.exec_timer = timer
         self.values = traffic.values.to(self.dtype)
         spec_dtype = torch.complex64 if self.dtype in (torch.complex64, torch.float32) \
             else torch.complex128
         self.spectrum = traffic.spectrum.to(spec_dtype)
         self.marks = marks
         if not traffic.moving:
-            self.plan = nufft.set_points(self.plan, traffic.points(0))
+            self.plan = self._api("set_points")(self.plan, traffic.points(0))
 
     def _mark(self, name: str):
         if self.marks:
             return torch.profiler.record_function(tracing.CALL_PREFIX + name)
         return contextlib.nullcontext()
 
+    def _api(self, name: str):
+        """The program's function ``name`` for this step's plan, looked up
+        at the call."""
+        return getattr(self.nufft, name + self.suffix)
+
+    def _section(self, name: str):
+        if self.exec_timer is not None:
+            return self.exec_timer.section(name)
+        return contextlib.nullcontext()
+
     def __call__(self, k: int) -> dict:
-        nufft, out = self.nufft, {}
+        out = {}
         if self.traffic.moving:
             with self._mark("points"):
                 pts = self.traffic.points(k)
             with self._mark("set_points"):
-                self.plan = nufft.set_points(self.plan, pts)
+                self.plan = self._api("set_points")(self.plan, pts)
         for name in self.traffic.execs:
-            with self._mark(name):
-                if name == "exec_type1":
-                    out[name] = nufft.exec_type1(self.plan, self.values)
-                else:
-                    out[name] = nufft.exec_type2(self.plan, self.spectrum)
+            arg = self.values if name == "exec_type1" else self.spectrum
+            with self._mark(name), self._section(name):
+                out[name] = self._api(name)(self.plan, arg)
         with self._mark("synchronize"):
             _sync(self.device)
         return out
@@ -248,7 +280,8 @@ class Window:
 def _profile(step, win: Window, k0: int, seconds: float, device) -> tuple:
     """Steps under ``torch.profiler`` for ``seconds`` (the first
     ``PROFILE_WARMUP`` outside the annotated window), counted in ``win``
-    but not timed; returns (next step, trace summary or None)."""
+    but not timed; returns (next step, trace summary or None, the trace's
+    events, the steps inside the window)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -257,13 +290,15 @@ def _profile(step, win: Window, k0: int, seconds: float, device) -> tuple:
         for _ in range(PROFILE_WARMUP):
             win.one(step, k)
             k += 1
+        k_window = k
         with torch.profiler.record_function(tracing.WINDOW):
             k = win.run(step, k, seconds, timed=False)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         summary = tracing.summarise_file(path)
-    return k, summary
+        events = tracing.load_events(path)
+    return k, summary, events, k - k_window
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -341,7 +376,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             torch.cuda.reset_peak_memory_stats(device)
         rec.setup_s = phases["warmup"] = time.perf_counter() - t_start
         t_prof = min(PROFILE_SECONDS, PROFILE_SHARE * seconds)
-        k, rec.device = _profile(plain, win, k, t_prof, device)
+        k, rec.device, rec.trace_events, rec.trace_steps = _profile(plain, win, k, t_prof,
+                                                                    device)
         del plain
         win.run(timed, k, seconds - t_prof)
         rec.timer_times = dict(timer.times)

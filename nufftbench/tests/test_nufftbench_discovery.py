@@ -9,11 +9,15 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[2]
 
 DRIVE = r"""
 import json, sys
 from pathlib import Path
+
+import pytest
 root = Path(sys.argv[1])
 sys.path.insert(0, str(root))
 from nufftbench import harness
@@ -81,3 +85,20 @@ def test_new_files_are_found(tmp_path):
     # every file that was there is unchanged
     after = _snapshot(tmp_path)
     assert all(after[k] == v for k, v in before.items())
+
+
+@pytest.mark.parametrize("name", [w["name"] for w in json.loads(
+    (ROOT / "BENCHMARK.json").read_text())["workloads"]])
+def test_every_cell_is_found(name):
+    """Each cell of BENCHMARK.json loads with its configuration, mix and
+    limits, and every metric it reports has its reader."""
+    from nufftbench import harness
+    from nufftbench.traffic import Traffic
+
+    cell = harness.load_cell(ROOT, name)
+    assert set(cell.limits["limits"]) == {harness.CHECKS[n] for n in cell.traffic["execs"]}
+    assert cell.per_layer and {"setup_s", "step_ms"} <= {m["name"] for m in cell.end_to_end}
+    for m in cell.per_layer + cell.end_to_end:
+        assert callable(harness.metric_reader(m["name"]))
+    small = dict(cell.config, shape=[4, 4, 4])
+    assert Traffic(small, cell.traffic, 1, "cpu").nchunks == cell.traffic.get("nchunks", 1)

@@ -59,3 +59,12 @@ def test_top_entries_are_capped():
     s = trace.summarise(events)
     assert len(s["device_ops"]) == trace.TOP and len(s["idle_gaps"]) <= trace.TOP
     assert s["device_ops"][0][0] == "k29"
+
+
+def test_a_trace_file_is_read_back(tmp_path):
+    import json
+
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": EVENTS}))
+    assert trace.load_events(path) == EVENTS
+    assert trace.summarise_file(path) == trace.summarise(EVENTS)

@@ -90,6 +90,11 @@ def summarise(events) -> dict | None:
             "device_ops": top(by_name), "idle_gaps": top(idle)}
 
 
-def summarise_file(path) -> dict | None:
+def load_events(path) -> list:
+    """The ``traceEvents`` of a Chrome trace file."""
     with open(path) as f:
-        return summarise(json.load(f).get("traceEvents", []))
+        return json.load(f).get("traceEvents", [])
+
+
+def summarise_file(path) -> dict | None:
+    return summarise(load_events(path))

@@ -14,7 +14,13 @@ A mix file (``traffic/<name>.json``) holds:
   the uniform grid, each axis uniform in [-max, max] (moving mixes);
 - ``execs``: the transforms a step runs, in order, from ``exec_type1`` and
   ``exec_type2``;
-- ``ntransforms``: transforms a call over the shared points.
+- ``ntransforms``: transforms a call over the shared points;
+- ``nchunks`` (1 where absent): the slices of the points a plan runs.  At
+  1 a step runs ``PlanNUFFT`` through ``set_points`` and
+  ``exec_type{1,2}``; above 1, ``ChunkedPlanNUFFT`` with that many chunks
+  through ``set_points_chunked`` and ``exec_type{1,2}_chunked``, on the same
+  points, values and spectrum.  A user picks it for the number of points,
+  so it sits beside ``density``.
 
 Every seed gives the same sizes; the seed changes only the draws.  The
 values (the configuration's value type) and the type-2 spectrum (complex,
@@ -51,6 +57,9 @@ class Traffic:
         self.execs = tuple(traffic["execs"])
         if not self.execs or any(e not in EXECS for e in self.execs):
             raise ValueError(f"execs must be drawn from {EXECS}, got {self.execs}")
+        self.nchunks = int(traffic.get("nchunks", 1))
+        if self.nchunks < 1:
+            raise ValueError(f"nchunks must be at least 1, got {self.nchunks}")
         s = self.shapes
         dev = torch.device(device)
         gen = torch.Generator(device=dev).manual_seed(seed_state(seed))
