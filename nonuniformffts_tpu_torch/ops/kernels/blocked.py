@@ -38,7 +38,16 @@ launches (``ops/kernels/deconvolve.py``).  A 3D spread launch of C > 1
 transforms whose CTAs serve several of them
 (``common.spread3d_cta_transforms``) runs the shared-staging kernel
 (``csrc/spread_3d.cu``: a CTA a block and a group of transforms) and adds
-C to ``SPREAD3D_SHARED[entry point]``.
+C to ``SPREAD3D_SHARED[entry point]``.  A 2D interpolation launch whose
+value type and M pick the whole-chunk rows design (``interp2d_rows_served``,
+``common.INTERP2D_ROWS_M``, the kernel's ``rows_mask``) adds C to
+``INTERP2D_ROWS[entry point]``; the first design (``interp_2d_point_kernel``)
+adds nothing.  ``reset_launch_counts`` zeros all three counters.
+
+The 2D and 3D spread wrappers gather the values into sorted point order in
+the section ``value gather`` (``utils/timer.py:traced``, nested in the
+exec's ``(1) spreading``), beside the grid's ``grid zero``; the 1D kernel
+gathers them itself, and the plain versions open neither section.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from .common import (
     deconvolve_entry_name,
     entry_point_name,
     interp1d_gathers,
+    interp2d_chunked_rows,
     interp_tiles,
     spread3d_cta_transforms,
     spread_smem_bytes,
@@ -95,10 +105,14 @@ LAUNCHES = {
 #: nothing.
 SPREAD3D_SHARED = {entry_point_name("spread", 3, dtype): 0 for dtype in VALUE_TYPES}
 
+#: Transforms that the 2D interpolation's whole-chunk rows design served in
+#: this process, by entry point: a launch adds ``interp2d_rows_served``.
+INTERP2D_ROWS = {entry_point_name("interp", 2, dtype): 0 for dtype in VALUE_TYPES}
+
 
 def reset_launch_counts() -> None:
-    """Zero ``LAUNCHES`` and ``SPREAD3D_SHARED``."""
-    for counts in (LAUNCHES, SPREAD3D_SHARED):
+    """Zero ``LAUNCHES``, ``SPREAD3D_SHARED`` and ``INTERP2D_ROWS``."""
+    for counts in (LAUNCHES, SPREAD3D_SHARED, INTERP2D_ROWS):
         for name in counts:
             counts[name] = 0
 
@@ -365,12 +379,19 @@ def spread_blocked_plain(plan, vp: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _sorted_values(vp: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """``vp`` (C, Np) in the sorted point order ``perm``, contiguous."""
+    return vp[:, perm].contiguous()
+
+
 def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
     """Blocked type-1 spreading.  ``vp``: (C, Np) of the plan's dtype in
     original point order.  Returns the oversampled grid ``(C,) +
     shape_over`` of the same dtype.  On the card the kernel adds into a grid
     zeroed in the section ``grid zero`` (``utils/timer.py:traced``, nested
-    in the exec's ``(1) spreading``); the plain version opens none."""
+    in the exec's ``(1) spreading``), and in 2D and 3D reads the values
+    gathered into sorted order in the section ``value gather``; the plain
+    version opens neither."""
     if vp.device.type == "cpu":
         return spread_blocked_plain(plan, vp)
     if vp.device.type != "cuda":
@@ -386,7 +407,8 @@ def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
     # The 1D kernel reads the values through the sort permutation; the 2D
     # and 3D kernels take them sorted.
     perm = (plan.sort_perm.data_ptr(),) if plan.ndim == 1 else ()
-    vals = vp.contiguous() if perm else vp[:, plan.sort_perm].contiguous()
+    vals = (vp.contiguous() if perm
+            else traced(plan.timer, "value gather", _sorted_values, vp, plan.sort_perm))
     name = entry_point("spread", plan)
     fn = getattr(build.load(), name)
     with torch.cuda.device(vp.device):
@@ -408,6 +430,16 @@ def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # K5 (1D, 2D), K2 / K6b (3D): interpolate
 # ---------------------------------------------------------------------------
+
+
+def interp2d_rows_served(plan, ntransforms: int) -> int:
+    """Transforms of one interpolation launch on ``plan`` that the 2D
+    kernel's whole-chunk rows design serves: all ``ntransforms`` of a 2D plan
+    whose value type and M pick it (``common.interp2d_chunked_rows``), else
+    0 (any other dimension, or the first design's ``interp_2d_point_kernel``)."""
+    _, scalar_bytes, ncomp = VALUE_TYPES[plan.dtype]
+    return ntransforms if plan.ndim == 2 and interp2d_chunked_rows(scalar_bytes, ncomp,
+                                                                   plan.m) else 0
 
 
 def interpolate_blocked_plain(plan, grid: torch.Tensor) -> torch.Tensor:
@@ -471,4 +503,7 @@ def interpolate_blocked(plan, grid: torch.Tensor) -> torch.Tensor:
         )
     _raise_on_error(name, err)
     LAUNCHES[name] += 1
+    served = interp2d_rows_served(plan, C)
+    if served:
+        INTERP2D_ROWS[name] += served
     return out

@@ -342,6 +342,90 @@ def test_spread_3d_groups_of_many_transforms(cuda_device, C, chunk, dtype):
     assert _rel_err(got, want) <= (1e-6 if real == np.float32 else 1e-12)
 
 
+#: The spread's value gather (ops/kernels/blocked.py): a grid of each
+#: dimension, its points on a lattice 12 cells apart, so that no cell of the
+#: oversampled grid takes more than one point's taps (2M = 8 cells) and the
+#: atomic adds leave every grid bit-equal from run to run.
+GATHER_SHAPES = {1: (64,), 2: (64, 48), 3: (24, 24, 24)}
+GATHER = "exec_type1/(1) spreading/value gather"
+
+
+def _lattice_plan(dtype, shape, device, timer=None, C=2, seed=0):
+    """A blocked plan on ``shape`` (sigma 1.5, M = 4) whose points sit one a
+    lattice node, 12 cells apart on each axis, each at a random offset
+    within its cell; and its (C, Np) values."""
+    rng = np.random.default_rng(seed)
+    real = np.dtype(dtype).type(0).real.dtype
+    plan = tnufft.PlanNUFFT(dtype, shape, m=4, sigma=1.5, ntransforms=C,
+                            spread_method="blocked", device=device, timer=timer)
+    axes = np.meshgrid(*[np.arange(0, n, 12) for n in plan.shape_over], indexing="ij")
+    nodes = np.stack([a.ravel() for a in axes])
+    cells = nodes + rng.uniform(0.0, 1.0, nodes.shape)
+    pts = cells * (2 * np.pi / np.array(plan.shape_over, dtype=np.float64)[:, None])
+    perm = rng.permutation(pts.shape[1])  # not in sorted order
+    pts = torch.from_numpy(pts[:, perm].astype(real)).to(device)
+    vp = torch.from_numpy(_values(rng, dtype, (C, pts.shape[1]))).to(device)
+    return tnufft.set_points(plan, pts), vp
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_value_gather_section_leaves_the_grid_bit_equal(cuda_device, ndim, dtype):
+    """A spread with a synchronised Timer gives the grid an untimed plan
+    gives, bit for bit; the Timer holds the ``value gather`` inside the
+    spreading once a type 1 in 2D and 3D, and never in 1D, whose kernel
+    reads the values through the permutation itself."""
+    shape = GATHER_SHAPES[ndim]
+    timer = tnufft.Timer(synchronise=True)
+    timed, vp = _lattice_plan(dtype, shape, cuda_device, timer=timer, seed=ndim)
+    plain, _ = _lattice_plan(dtype, shape, cuda_device, seed=ndim)
+    got = tnufft.exec_type1(timed, vp)
+    want = tnufft.exec_type1(plain, vp)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert timer.counts["exec_type1/(1) spreading"] == 1
+    assert timer.counts["exec_type1/(1) spreading/grid zero"] == 1
+    gathers = [label for label in timer.times if label.endswith("value gather")]
+    assert gathers == ([GATHER] if ndim > 1 else [])
+    assert timer.counts.get(GATHER, 0) == (1 if ndim > 1 else 0)
+    # the wrapper alone, outside any exec: its section is the top one
+    grid_t, grid_p = blocked.spread_blocked(timed, vp), blocked.spread_blocked(plain, vp)
+    torch.cuda.synchronize()
+    assert torch.equal(grid_t, grid_p) and bool(grid_p.abs().sum() > 0)
+    assert timer.counts.get("value gather", 0) == (1 if ndim > 1 else 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("m", [4, 9])
+def test_interp_2d_rows_counter(cuda_device, m, dtype):
+    """A 2D interpolation of C transforms adds C to ``INTERP2D_ROWS`` where
+    the value type and M pick the whole-chunk rows (complex128 at M = 4, the
+    2D deployment's plan, and every value type at M = 9), else nothing; a
+    3D interpolation adds nothing."""
+    C = 3
+    rng = np.random.default_rng(m)
+    real = np.dtype(dtype).type(0).real.dtype
+    for shape in ((64, 48), (24, 24, 24)):
+        plan = tnufft.PlanNUFFT(dtype, shape, m=m, sigma=1.5, ntransforms=C,
+                                spread_method="blocked", device=cuda_device)
+        pts = torch.from_numpy(rng.uniform(0, 2 * np.pi, (len(shape), 2_000)).astype(real))
+        plan = tnufft.set_points(plan, pts.to(cuda_device))
+        name = blocked.entry_point("interp", plan)
+        key = common.entry_point_name("interp", 2, plan.dtype)
+        before = blocked.LAUNCHES[name], dict(blocked.INTERP2D_ROWS)
+        u = torch.from_numpy(_values(rng, np.complex128, (C,) + plan.spectral_shape))
+        tnufft.exec_type2(plan, u.to(cuda_device, torch.complex128 if real == np.float64
+                                     else torch.complex64))
+        torch.cuda.synchronize()
+        assert blocked.LAUNCHES[name] == before[0] + 1
+        _, sb, ncomp = common.VALUE_TYPES[plan.dtype]
+        rows = len(shape) == 2 and m in common.INTERP2D_ROWS_M[sb, ncomp]
+        assert blocked.INTERP2D_ROWS[key] == before[1][key] + (C if rows else 0)
+        assert all(blocked.INTERP2D_ROWS[k] == v for k, v in before[1].items() if k != key)
+        if np.dtype(dtype) == np.complex128 and m == 4:
+            assert rows == (len(shape) == 2)
+
+
 # The 2D spread kernel's edges (csrc/spread_2d.cu): (shape, sigma, m,
 # block_dims, transforms, where the points lie, points, window).  The cases
 # of tests/test_torch_spread_tiles.py:UNIT_CASES_2D, the chooser's own pick,

@@ -2,7 +2,8 @@
 transforms, in one pass and in forced groups, against the benchmark's plain
 float64 reference (``nufftbench/references/nufft.py``), grouped against one
 pass, and the Timer's labels for what the groups add: each exec's ``(4)
-group copy``, and on the card the spread's ``grid zero``.  The tests marked
+group copy``, and on the card the spread's ``grid zero`` and ``value
+gather``.  The tests marked
 ``cuda`` skip without a card; the file imports no JAX, so on a GPU host:
 
     python -m pytest tests/test_torch_multicoil.py --noconftest -q
@@ -48,6 +49,7 @@ SET_POINTS = ["set_points", "set_points/(1) cell split", "set_points/(2) bin sor
               "set_points/(3) sorted copies", "set_points/(4) window taps",
               "set_points/(5) transform groups"]
 GRID_ZERO = "exec_type1/(1) spreading/grid zero"
+VALUE_GATHER = "exec_type1/(1) spreading/value gather"
 GROUP_COPY = ["exec_type1/(4) group copy", "exec_type2/(4) group copy"]
 
 
@@ -130,13 +132,14 @@ def _timed_counts(chunk, method="blocked", device="cpu", shape=(16, 12, 20)):
 def _want(groups, zero):
     """Each stage once a group, a grouped type 2's scaling once more, each
     exec's ``group copy`` once a group when there are groups, and the
-    spread's ``grid zero`` once a group where ``zero``."""
+    spread's ``grid zero`` and ``value gather`` once a group where ``zero``
+    (on the card)."""
     want = {"exec_type1": 1, "exec_type2": 1, **dict.fromkeys(STAGES, groups)}
     if groups > 1:
         want.update(dict.fromkeys(GROUP_COPY, groups))
         want["exec_type2/(1) deconvolve + pad"] += 1
     if zero:
-        want[GRID_ZERO] = groups
+        want[GRID_ZERO] = want[VALUE_GATHER] = groups
     return want
 
 
@@ -152,6 +155,7 @@ def test_group_copy_only_in_groups(chunk):
 def test_no_new_labels_off_the_blocked_path(method):
     counts = _timed_counts(None, method)
     assert GRID_ZERO not in counts and not set(GROUP_COPY) & set(counts)
+    assert VALUE_GATHER not in counts
 
 
 @pytest.fixture
@@ -164,9 +168,9 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("chunk", [None, CHUNK], ids=["one_pass", "groups"])
 def test_grid_zero_on_the_card(card, chunk):
-    """On the card the spread kernel's grid is zeroed in ``grid zero``,
-    once a group, inside the spreading; the results still meet the
-    reference."""
+    """On the card the spread kernel's grid is zeroed in ``grid zero`` and
+    its values gathered in ``value gather``, once a group each, inside the
+    spreading; the results still meet the reference."""
     shape = (16, 12, 20)
     groups = len(transform_groups(C, chunk))
     assert _timed_counts(chunk, device=card) == _want(groups, zero=True)
