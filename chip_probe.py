@@ -340,12 +340,22 @@ def _raw_spread(lib, plan, vals):
 
     name = f"nufft_spread_{plan.ndim}d_{VALUE_TYPES[plan.dtype][0]}"
     fn = getattr(lib, name)
-    fn.argtypes = build._SIGNATURES[name]
-    perm = (plan.sort_perm.data_ptr(),) if plan.ndim == 1 else ()
+    sig = build._SIGNATURES[name]
+    extra = (plan.sort_perm.data_ptr(),) if plan.ndim == 1 else ()
+    if plan.ndim == 3:
+        # A build whose kernel takes its items from a counter (it exports
+        # the batch counts) takes the counter after the grid; an earlier
+        # design's does not.
+        if hasattr(lib, f"nufft_spread_3d_batches_{VALUE_TYPES[plan.dtype][0]}"):
+            work = torch.zeros(1, dtype=torch.int32, device=vals.device)
+            extra = (work.data_ptr(),)
+        else:
+            sig = sig[:7] + sig[8:]
+    fn.argtypes = sig
     nchan = vals.shape[0]
     grid = torch.zeros((nchan,) + plan.shape_over, dtype=vals.dtype, device=vals.device)
     err = fn(vals.data_ptr(), plan.cells_sorted.data_ptr(), plan.fracs_sorted.data_ptr(),
-             plan.pstarts.data_ptr(), plan.coefs.data_ptr(), 0, grid.data_ptr(), *perm,
+             plan.pstarts.data_ptr(), plan.coefs.data_ptr(), 0, grid.data_ptr(), *extra,
              plan.num_points, nchan, plan.m, plan.coefs.shape[-1], *plan.shape_over,
              *plan.block_dims, torch.cuda.current_stream().cuda_stream)
     if err:
@@ -557,21 +567,44 @@ def probe_spread3d(seed: int, dtypes, nps, nchans=(1,), against=None, reps: int 
 #: Copies of csrc/spread_3d.cu with one phase taken out, for
 #: ``--spread3d-parts``: each maps a line of the source (spread_mma.cuh
 #: written in place of its include) to its replacement, in both kernels
-#: where both hold it (the flush is one function of both).
+#: where both hold it (the flush is one function of both).  In the
+#: one-transform kernel "no_taps" writes a number from the tap's index in
+#: place of each tap (no Horner chains, no copied tap read), "no_dense"
+#: leaves out the build of the dense operands (the k-steps read the stale
+#: buffer), "no_values" the values' copies; "one_buffer" stages into one
+#: buffer (the copies still run under the k-steps, the build after every
+#: warp's), "no_overlap" also waits for the copies before the k-steps: the
+#: batches' phases one after another, as before the pipeline.
 #: Their grids are wrong; only their times and registers are read.  Without
 #: the flush the compiler drops the accumulators too (40 registers against
 #: 128), so "no_flush" times neither; "flush_sum" keeps them live.
 SPREAD3D_PARTS = {
     "no_mma": {"mma_f64(acc[c][r], a[r], b);": "acc[c][r][0] += a[r][0] * b[0];",
                "mma_f64(acc[c][r], a, b);": "acc[c][r][0] += a[0] * b[0];"},
-    "no_dense": {"for (int e = warp; e < dense; e += nwarps) {":
+    "no_dense": {"      build(nxt, s_dense + buf * dense * kStride);\n": "",
+                 "for (int e = warp; e < dense; e += nwarps) {":
                  "for (int e = warp; e < 0; e += nwarps) {"},
-    "no_taps": {"for (int e = warp; e < 3 * S; e += nwarps) {":
+    "no_taps": {"for (int u = 0; u < kTaps; ++u) w[u] = s_f[(d * S + t0 + u) * kBatch + p];":
+                "for (int u = 0; u < kTaps; ++u) w[u] = T(t0 + u + 1);",
+                "for (int u = 0; u < kTaps; ++u) w[u] = cs[(ncoef - 1) * S + t0 + u];":
+                "for (int u = 0; u < kTaps; ++u) w[u] = T(t0 + u + 1);",
+                "            for (int c = ncoef - 2; c >= 0; --c)\n":
+                "            for (int c = ncoef - 2; c < -1; --c)\n",
+                "for (int e = warp; e < 3 * S; e += nwarps) {":
                 "for (int e = warp; e < 0; e += nwarps) {"},
-    # The values' global reads: each point's value a number from its index.
-    "no_values": {"          v = vrow[p0 + p];": "          v.c[0] = T(p + 1);",
+    # The values' global reads: no copy (the build reads what the buffer
+    # holds), and in the shared kernel each point's value a number from its
+    # index.
+    "no_values": {"      if (d == 0) nufft::cp_async<sizeof(V)>(s_v + q, vrow + j);":
+                  "      if (d == 0 && j < 0) nufft::cp_async<sizeof(V)>(s_v + q, vrow + j);",
                   "      if (p < nb) v = vals[(long long)(c0 + c) * np + p0 + p];":
                   "      if (p < nb) v.c[0] = T(p + 1);"},
+    "one_buffer": {"  return spread_smem_bytes<T, NCOMP>(m, ncoef, b0, b1, b2, 2) <= budget ? 2 : 1;":
+                   "  return 1;"},
+    "no_overlap": {"  return spread_smem_bytes<T, NCOMP>(m, ncoef, b0, b1, b2, 2) <= budget ? 2 : 1;":
+                   "  return 1;",
+                   "    if (more) issue(nxt);  // lands while this batch's k-steps run\n":
+                   "    if (more) issue(nxt);\n    nufft::cp_async_wait_all();\n"},
     "no_flush": {"    int oz, int n0, int n1, int n2) {\n  // Flush.":
                  "    int oz, int n0, int n1, int n2) {\n  return;\n  // Flush."},
     # The flush's complex64 / complex128 reductions as plain stores, and as

@@ -38,11 +38,17 @@ launches (``ops/kernels/deconvolve.py``).  A 3D spread launch of C > 1
 transforms whose CTAs serve several of them
 (``common.spread3d_cta_transforms``) runs the shared-staging kernel
 (``csrc/spread_3d.cu``: a CTA a block and a group of transforms) and adds
-C to ``SPREAD3D_SHARED[entry point]``.  A 2D interpolation launch whose
-value type and M pick the whole-chunk rows design (``interp2d_rows_served``,
-``common.INTERP2D_ROWS_M``, the kernel's ``rows_mask``) adds C to
-``INTERP2D_ROWS[entry point]``; the first design (``interp_2d_point_kernel``)
-adds nothing.  ``reset_launch_counts`` zeros all three counters.
+C to ``SPREAD3D_SHARED[entry point]``; any other 3D spread launch runs the
+pipelined kernel (persistent CTAs that take their (block, transform) items
+in launch order from a zeroed counter that the wrapper passes, and stage
+the next batch while the current one's MMAs run) and adds C to
+``SPREAD3D_PIPELINED[entry point]``, and the kernel adds its batches to a
+device counter that ``spread3d_batches`` reads.  A 2D interpolation launch
+whose value type and M pick the whole-chunk rows design
+(``interp2d_rows_served``, ``common.INTERP2D_ROWS_M``, the kernel's
+``rows_mask``) adds C to ``INTERP2D_ROWS[entry point]``; the first design
+(``interp_2d_point_kernel``) adds nothing.  ``reset_launch_counts`` zeros
+the four host counters.
 
 The 2D and 3D spread wrappers gather the values into sorted point order in
 the section ``value gather`` (``utils/timer.py:traced``, nested in the
@@ -52,6 +58,7 @@ gathers them itself, and the plain versions open neither section.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -105,16 +112,36 @@ LAUNCHES = {
 #: nothing.
 SPREAD3D_SHARED = {entry_point_name("spread", 3, dtype): 0 for dtype in VALUE_TYPES}
 
+#: Transforms that the 3D spread's pipelined one-transform kernel served in
+#: this process, by entry point: a 3D launch of C transforms whose CTAs
+#: serve one each adds C.
+SPREAD3D_PIPELINED = {entry_point_name("spread", 3, dtype): 0 for dtype in VALUE_TYPES}
+
 #: Transforms that the 2D interpolation's whole-chunk rows design served in
 #: this process, by entry point: a launch adds ``interp2d_rows_served``.
 INTERP2D_ROWS = {entry_point_name("interp", 2, dtype): 0 for dtype in VALUE_TYPES}
 
 
 def reset_launch_counts() -> None:
-    """Zero ``LAUNCHES``, ``SPREAD3D_SHARED`` and ``INTERP2D_ROWS``."""
-    for counts in (LAUNCHES, SPREAD3D_SHARED, INTERP2D_ROWS):
+    """Zero ``LAUNCHES``, ``SPREAD3D_SHARED``, ``SPREAD3D_PIPELINED`` and
+    ``INTERP2D_ROWS``."""
+    for counts in (LAUNCHES, SPREAD3D_SHARED, SPREAD3D_PIPELINED, INTERP2D_ROWS):
         for name in counts:
             counts[name] = 0
+
+
+def spread3d_batches(dtype: torch.dtype):
+    """``(staged, overlapped)``: the batches that the 3D spread's pipelined
+    kernel of ``dtype``'s value type staged on the current card since the
+    kernel library was loaded, and those of them staged while another
+    batch's MMAs ran (all but each CTA's first where a CTA holds two operand
+    buffers, ``common.spread3d_buffers``).  Waits for the card: for tests
+    and probes, never on the exec path."""
+    name = f"nufft_spread_3d_batches_{VALUE_TYPES[dtype][0]}"
+    counts = (ctypes.c_ulonglong * 2)()
+    torch.cuda.synchronize()
+    _raise_on_error(name, getattr(build.load(), name)(counts))
+    return int(counts[0]), int(counts[1])
 
 
 def entry_point(kind: str, plan) -> str:
@@ -136,9 +163,10 @@ def kernel_coefs(plan):
 def check_kernel_support(plan) -> None:
     """Raise unless the CUDA kernels take this plan (1-3D, complex or real
     of 32 or 64 bits, any window in either mode, M in 2..10, the spread and
-    interpolation CTAs' shared memory within the card's: in 3D one staged
-    batch of the spread and one x plane of the interpolation window a pass,
-    so any block dims)."""
+    interpolation CTAs' shared memory within the card's: in 3D the spread's
+    operands of a batch, in two buffers where they fit and else in one
+    (``common.spread3d_buffers``), and one x plane of the interpolation
+    window a pass, so any block dims)."""
     if plan.ndim not in KERNEL_DIMS:
         raise NotImplementedError(f"no CUDA kernel takes {plan.ndim}D plans")
     if plan.dtype not in VALUE_TYPES:
@@ -405,9 +433,18 @@ def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
     if np_ == 0:  # a rank of the spatial mode may own no point
         return grid
     # The 1D kernel reads the values through the sort permutation; the 2D
-    # and 3D kernels take them sorted.
-    perm = (plan.sort_perm.data_ptr(),) if plan.ndim == 1 else ()
-    vals = (vp.contiguous() if perm
+    # and 3D kernels take them sorted, and the 3D pipelined kernel a zeroed
+    # counter from which its CTAs take their items.
+    shared = plan.ndim == 3 and spread3d_cta_transforms(
+        plan.block_dims, plan.m, ncoef, *VALUE_TYPES[plan.dtype][1:], C) > 1
+    extra, work = (), None
+    if plan.ndim == 1:
+        extra = (plan.sort_perm.data_ptr(),)
+    elif plan.ndim == 3:
+        if not shared:
+            work = torch.zeros(1, dtype=torch.int32, device=vp.device)
+        extra = (0 if shared else work.data_ptr(),)
+    vals = (vp.contiguous() if plan.ndim == 1
             else traced(plan.timer, "value gather", _sorted_values, vp, plan.sort_perm))
     name = entry_point("spread", plan)
     fn = getattr(build.load(), name)
@@ -416,14 +453,13 @@ def spread_blocked(plan, vp: torch.Tensor) -> torch.Tensor:
         err = fn(
             vals.data_ptr(), plan.cells_sorted.data_ptr(),
             plan.fracs_sorted.data_ptr(), plan.pstarts.data_ptr(),
-            coefs, wtaps, grid.data_ptr(), *perm, np_, C, plan.m, ncoef,
+            coefs, wtaps, grid.data_ptr(), *extra, np_, C, plan.m, ncoef,
             *plan.shape_over, *plan.block_dims, stream,
         )
     _raise_on_error(name, err)
     LAUNCHES[name] += 1
-    if plan.ndim == 3 and spread3d_cta_transforms(plan.block_dims, plan.m, ncoef,
-                                                  *VALUE_TYPES[plan.dtype][1:], C) > 1:
-        SPREAD3D_SHARED[name] += C
+    if plan.ndim == 3:
+        (SPREAD3D_SHARED if shared else SPREAD3D_PIPELINED)[name] += C
     return grid
 
 

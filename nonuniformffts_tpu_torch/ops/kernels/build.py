@@ -97,11 +97,15 @@ _HEAD = [_P] * 7 + [ctypes.c_longlong, _I, _I, _I]
 _SIGNATURES = {}
 for _d in KERNEL_DIMS:
     for _vt in VALUE_SUFFIXES:
-        # vals, cells, fracs, pstarts, coefs, wtaps, grid, [perm,] np, nchan,
-        # m, ncoef, n_0..n_{D-1}, b_0..b_{D-1}, stream: the 1D kernel reads
-        # the values in the caller's order (csrc/spread_1d.cu)
+        # vals, cells, fracs, pstarts, coefs, wtaps, grid, [perm | work,] np,
+        # nchan, m, ncoef, n_0..n_{D-1}, b_0..b_{D-1}, stream: the 1D kernel
+        # reads the values in the caller's order (csrc/spread_1d.cu), the 3D
+        # one takes a zeroed int32 counter (csrc/spread_3d.cu)
         _SIGNATURES[f"nufft_spread_{_d}d_{_vt}"] = (
-            _HEAD[:7] + [_P] * (_d == 1) + _HEAD[7:] + [_I] * (2 * _d) + [_P])
+            _HEAD[:7] + [_P] * (_d != 2) + _HEAD[7:] + [_I] * (2 * _d) + [_P])
+        if _d == 3:
+            # counts[2]: the pipelined kernel's batch counter (csrc/spread_3d.cu)
+            _SIGNATURES[f"nufft_spread_3d_batches_{_vt}"] = [_P]
         # grid, cells, fracs, perm, [pstarts,] coefs, wtaps, out, [sorted,
         # inv,] np, nchan, m, ncoef, n_0..n_{D-1}, [b_0..b_{D-1},]
         # normfactor, stream: the 1D and 3D kernels walk the blocks, and the

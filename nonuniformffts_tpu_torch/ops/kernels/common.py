@@ -41,6 +41,9 @@ SM_SMEM_BYTES = 233_472
 SMEM_RESERVED_PER_CTA = 1024
 #: Registers of one SM.
 SM_REGISTERS = 65_536
+#: Threads and CTAs one SM holds at most.
+SM_THREADS = 2048
+SM_CTAS = 32
 #: Half-supports M the kernels are instantiated for (``csrc/window.cuh:
 #: NUFFT_FOR_EACH_M``); 10 is the JAX package's documented maximum.
 KERNEL_M_RANGE = range(2, 11)
@@ -650,6 +653,62 @@ def _spread3d_shared_bytes(t: SpreadTiles, m: int, ncoef: int, scalar_bytes: int
             + 4 * 3 * SPREAD3D_BATCH + scalar_bytes * ntaps * ncoef)
 
 
+def spread3d_build_tasks(ncoef: int) -> int:
+    """Tasks of one batch's build in the 3D one-transform kernel
+    (``csrc/spread_3d.cu:build_tasks``): for the Horner window (``ncoef`` >
+    0) the x dim's padded cells in two halves, y and z, so that at the main
+    paths' blocks each of the four tasks writes about 15 rows; with the
+    window-weights taps (``ncoef`` 0), whose 2M taps each task copies, x, y
+    and z."""
+    return 4 if ncoef else 3
+
+
+def _spread3d_bytes(t: SpreadTiles, m: int, ncoef: int, scalar_bytes: int, ncomp: int,
+                    nbuf: int) -> int:
+    """Dynamic shared memory of one CTA of the 3D one-transform kernel
+    (``csrc/spread_3d.cu:spread_smem_bytes``) with ``nbuf`` dense operand
+    buffers."""
+    tasks = spread3d_build_tasks(ncoef)
+    dense = t.rows + t.padded[1] + 8 * t.z_tiles
+    state = ((tasks - 2) * scalar_bytes * ncomp + 4 * tasks
+             + scalar_bytes * (tasks if ncoef else 3 * 2 * m))
+    return (8 * SPREAD3D_STRIDE * dense * nbuf + state * SPREAD3D_BATCH
+            + scalar_bytes * 3 * 2 * m * ncoef)
+
+
+def spread3d_resident_ctas(t: SpreadTiles) -> int:
+    """CTAs of the 3D spread kernels that the register file keeps resident
+    an SM at ``SPREAD3D_MAX_REGISTERS`` a thread: two at the main paths'
+    blocks (8 warps)."""
+    return max(1, SM_REGISTERS // (SPREAD3D_MAX_REGISTERS * 32 * t.warps))
+
+
+def spread3d_buffers(block_dims: Sequence[int], m: int, ncoef: int, scalar_bytes: int,
+                     ncomp: int) -> int:
+    """Dense operand buffers of one CTA of the 3D one-transform kernel
+    (``csrc/spread_3d.cu:spread_buffers``, which must match): two, so that
+    the next batch's operands are built while the current batch's MMAs run,
+    where they fit beside the CTAs that the register file keeps resident an
+    SM (``spread3d_resident_ctas``); else one."""
+    t = spread_tiles(block_dims, m, ncomp)
+    budget = min(MAX_SMEM_BYTES,
+                 SM_SMEM_BYTES // spread3d_resident_ctas(t) - SMEM_RESERVED_PER_CTA)
+    return 2 if _spread3d_bytes(t, m, ncoef, scalar_bytes, ncomp, 2) <= budget else 1
+
+
+def spread3d_persistent_ctas(block_dims: Sequence[int], m: int, ncoef: int, scalar_bytes: int,
+                             ncomp: int, items: int, sms: int = NUM_SMS) -> int:
+    """CTAs of a launch of the 3D one-transform kernel over ``items``
+    (block, transform) items (``csrc/spread_3d.cu``'s launch, by the CUDA
+    occupancy calculator there): as many as ``sms`` SMs keep resident by
+    registers, shared memory, threads and CTAs, at most one an item."""
+    t = spread_tiles(block_dims, m, ncomp)
+    smem = spread_smem_bytes(block_dims, m, ncoef, scalar_bytes, ncomp)
+    per_sm = min(spread3d_resident_ctas(t), SM_SMEM_BYTES // (smem + SMEM_RESERVED_PER_CTA),
+                 SM_THREADS // (32 * t.warps), SM_CTAS)
+    return min(items, max(1, per_sm) * sms)
+
+
 def spread3d_cta_transforms(block_dims: Sequence[int], m: int, ncoef: int, scalar_bytes: int,
                             ncomp: int, nchan: int) -> int:
     """Transforms one CTA of a 3D spread launch of ``nchan`` transforms
@@ -663,8 +722,8 @@ def spread3d_cta_transforms(block_dims: Sequence[int], m: int, ncoef: int, scala
     one."""
     t = spread_tiles(block_dims, m, ncomp)
     block = scalar_bytes * ncomp * math.prod(t.padded)
-    ctas = max(1, SM_REGISTERS // (SPREAD3D_MAX_REGISTERS * 32 * t.warps))
-    budget = min(MAX_SMEM_BYTES, SM_SMEM_BYTES // ctas - SMEM_RESERVED_PER_CTA)
+    budget = min(MAX_SMEM_BYTES,
+                 SM_SMEM_BYTES // spread3d_resident_ctas(t) - SMEM_RESERVED_PER_CTA)
     base = _spread3d_shared_bytes(t, m, ncoef, scalar_bytes, ncomp, 0)
     fit = (budget - base) // (8 * SPREAD3D_STRIDE * ncomp) if budget > base else 0
     return max(1, min(nchan, SPREAD3D_CTA_GRID_BYTES // block, fit))
@@ -678,12 +737,16 @@ def spread_smem_bytes(block_dims: Sequence[int], m: int, ncoef: int,
     FastApproximation): nothing is staged for it.
 
     3D, a launch of ``nchan`` transforms whose CTAs serve one each
-    (``spread3d_cta_transforms`` 1): the dense operands of one staged batch
-    of ``SPREAD3D_BATCH`` points (A's rows, the y and z taps at every padded
-    row: ``SpreadTiles.rows + pd1 + cols / pd1`` rows of ``SPREAD3D_STRIDE``
-    doubles), the batch's compact 3 x 2M taps and ``ncomp`` values in double
-    and its local cells in int32, then the ``(3, 2M, ncoef)`` coefficient
-    stack; the sums live in registers.  3D, CTAs of several transforms (the
+    (``spread3d_cta_transforms`` 1): ``spread3d_buffers`` buffers of the
+    dense operands of one batch of ``SPREAD3D_BATCH`` points (A's rows, the
+    y and z taps at every padded row: ``SpreadTiles.rows + pd1 + cols /
+    pd1`` rows of ``SPREAD3D_STRIDE`` doubles), the copies of the next
+    batch's point state a slot (a point and a task,
+    ``spread3d_build_tasks``): the x tasks' values, every task's fraction
+    (or the window-weights kernel's 3 x 2M taps) in the plan's precision
+    and its int32 cell, then the coefficient stack, coefficient-major
+    ``(3, ncoef, 2M)``; the sums live in registers.  3D, CTAs of several
+    transforms (the
     shared-staging kernel): the x taps at ``rows / ncomp`` padded rows in
     place of A's rows, and the values of the CTA's transforms in ``ncomp``
     rows of ``SPREAD3D_STRIDE`` doubles each.  2D: each of ``SPREAD2D_WARPS`` warps' unit rows (A's and
@@ -695,7 +758,6 @@ def spread_smem_bytes(block_dims: Sequence[int], m: int, ncoef: int,
     cells of ``ncomp`` doubles) and an int32 start table of B + 1 entries;
     the sums live in registers."""
     D = len(block_dims)
-    ntaps = D * 2 * m
     if D == 1:
         return (scalar_bytes * row_pitch(2 * m, scalar_bytes) * ncoef
                 + ACC_BYTES * (SPREAD1D_THREADS // 32) * (2 * m - 1) * ncomp
@@ -705,9 +767,8 @@ def spread_smem_bytes(block_dims: Sequence[int], m: int, ncoef: int,
         ctrans = spread3d_cta_transforms(block_dims, m, ncoef, scalar_bytes, ncomp, nchan)
         if ctrans > 1:
             return _spread3d_shared_bytes(t, m, ncoef, scalar_bytes, ncomp, ctrans)
-        dense = t.rows + t.padded[1] + 8 * t.z_tiles
-        return (8 * (SPREAD3D_STRIDE * dense + (ntaps + ncomp) * SPREAD3D_BATCH)
-                + 4 * 3 * SPREAD3D_BATCH + scalar_bytes * ntaps * ncoef)
+        return _spread3d_bytes(t, m, ncoef, scalar_bytes, ncomp,
+                               spread3d_buffers(block_dims, m, ncoef, scalar_bytes, ncomp))
     rows = SPREAD2D_UNIT_ROWS + 8 * SPREAD2D_UNIT_COL_TILES
     return (8 * SPREAD2D_WARPS * rows * SPREAD2D_STRIDE
             + scalar_bytes * (spread2d_coef_stride(m, ncoef, scalar_bytes) + 2 * m * ncoef))

@@ -271,25 +271,31 @@ def test_lowdim_main_path_geometry(shape_over, dtype):
 
 def test_spread_smem_bytes_by_dimension():
     """The shared-memory footprint the spread sources allocate
-    (``csrc/spread_<D>d.cu:spread_smem_bytes``): 3D stages the dense
-    operands of a batch of 64 points (A's rows rounded to the MMA tile, pd1
-    y rows and pd2 rounded to 8 z rows, 68 doubles a row), the batch's
-    compact 3 x 2M taps and values in double, three int32 cells a point and
-    the coefficient stack; 2D stages 8 warps' unit rows (32 A rows and 32 B
-    rows of 20 doubles each), whatever the block dims, and two dims'
-    coefficients, the first rounded up to 16 bytes past a multiple of 128
-    (``spread2d_coef_stride``); 1D holds the coefficients in rows of whole
-    16 bytes, each warp's carry of 2M - 1 padded cells in double and an
-    int32 start table of B + 1 entries, so a long 1D block is refused.  A
-    window without a coefficient stack (ncoef = 0) stages none."""
-    cells = 4 * 3 * 64
+    (``csrc/spread_<D>d.cu:spread_smem_bytes``): 3D (one transform a CTA)
+    holds two buffers (``spread3d_buffers``) of a batch of 64 points' dense
+    operands (A's rows rounded to the MMA tile, pd1 y rows and pd2 rounded
+    to 8 z rows, 68 doubles a row), the copies of the next batch's point
+    state a slot (a point and a task: four tasks with a coefficient stack,
+    whose two x tasks each take the value, each task a fraction and an
+    int32 cell; three without, each task 2M taps and a cell, the x task the
+    value) and the coefficient stack; 2D stages 8 warps' unit rows (32 A
+    rows and 32 B rows of 20 doubles each), whatever the block dims, and two
+    dims' coefficients, the first rounded up to 16 bytes past a multiple of
+    128 (``spread2d_coef_stride``); 1D holds the coefficients in rows of
+    whole 16 bytes, each warp's carry of 2M - 1 padded cells in double and
+    an int32 start table of B + 1 entries, so a long 1D block is refused.
+    A window without a coefficient stack (ncoef = 0) stages none."""
     # (8, 8, 12), m = 4, complex: 32 A rows, 15 y rows, 24 z rows.
     assert spread_smem_bytes((8, 8, 12), 4, 8, 4, 2) == (
-        8 * (68 * (32 + 15 + 24) + (24 + 2) * 64) + cells + 4 * 24 * 8)
+        2 * 8 * 68 * (32 + 15 + 24) + 64 * (2 * 8 + 4 * 4 + 4 * 4) + 4 * 24 * 8)
     assert spread_smem_bytes((12, 12, 16), 4, 8, 8, 2) == (
-        8 * (68 * (48 + 19 + 24) + (24 + 2) * 64) + cells + 8 * 24 * 8)
+        2 * 8 * 68 * (48 + 19 + 24) + 64 * (2 * 16 + 4 * 8 + 4 * 4) + 8 * 24 * 8)
     assert spread_smem_bytes((8, 8, 8), 10, 0, 8, 1) == (
-        8 * (68 * (32 + 27 + 32) + (60 + 1) * 64) + cells)
+        2 * 8 * 68 * (32 + 27 + 32) + 64 * (8 + 3 * 20 * 8 + 3 * 4))
+    # 8 warps whose two buffers would not fit beside the two CTAs an SM
+    # holds: one buffer.
+    assert spread_smem_bytes((50, 1, 1), 4, 8, 4, 2) == (
+        8 * 68 * (128 + 8 + 8) + 64 * (2 * 8 + 4 * 4 + 4 * 4) + 4 * 24 * 8)
     rows = 8 * 8 * 64 * 20
     # m = 4: 64 coefficients a dim, 256 B of float (-> 272) or 512 B of
     # double (-> 528); m = 10, ncoef 14: 280 doubles, 2,240 B (-> 2,320).

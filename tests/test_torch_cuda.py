@@ -342,6 +342,153 @@ def test_spread_3d_groups_of_many_transforms(cuda_device, C, chunk, dtype):
     assert _rel_err(got, want) <= (1e-6 if real == np.float32 else 1e-12)
 
 
+# The pipelined one-transform kernel (csrc/spread_3d.cu:spread_3d_kernel):
+# persistent CTAs walking (block, transform) items, their batches chained
+# across blocks.  (shape, sigma, block_dims, transforms, where the points
+# lie.)  "sized": four blocks of exactly 1, 64, 65 and 1,500 points (a
+# batch, one over it, 24 batches) among ~1.5 points a block elsewhere, so
+# empty blocks lie between full ones and each CTA walks several of the
+# 1,728 blocks; "few": only those four blocks, fewer non-empty blocks than
+# resident CTAs; "three": three transforms of 48^3-cell blocks, each CTA a
+# (block, transform) item (``common.spread3d_cta_transforms`` 1), several
+# passes of 16 warps and at some M one operand buffer.
+PIPELINED_CASES = {
+    "sized": ((64, 64, 64), 1.5, (8, 8, 8), 1, "sized"),
+    "few": ((32, 32, 32), 1.5, (8, 8, 8), 1, "four_blocks"),
+    "three": ((64, 64, 64), 1.5, (48, 48, 48), 3, "uniform"),
+}
+#: Points of the four sized blocks (at 5%, 30%, 55% and 80% of the block
+#: ids).
+SIZED_BLOCKS = (1, 64, 65, 1_500)
+
+
+def _sized_points(rng, plan, background: float, real) -> np.ndarray:
+    """``SIZED_BLOCKS`` points in four blocks and ``background`` points a
+    block, on average, in the others; (3, Np) in [0, 2 pi)."""
+    from nonuniformffts_tpu_torch import blocking
+
+    nb = blocking.num_blocks(plan.shape_over, plan.block_dims)
+    nblocks = int(np.prod(nb))
+    h = 2 * np.pi / np.array(plan.shape_over)
+    side = np.array(plan.block_dims) * h
+    ids = [int(f * nblocks) for f in (0.05, 0.30, 0.55, 0.80)]
+    parts = []
+    for bid, count in zip(ids, SIZED_BLOCKS):
+        lo = np.array(np.unravel_index(bid, nb)) * side
+        parts.append(lo[:, None] + rng.uniform(0.01, 0.99, (3, count)) * side[:, None])
+    if background:  # none within a cell of the four blocks
+        pts = rng.uniform(0.0, 2 * np.pi, (3, int(background * nblocks)))
+        cell = (pts / h[:, None]).astype(int)
+        keep = np.ones(pts.shape[1], dtype=bool)
+        for bid in ids:
+            lo = np.array(np.unravel_index(bid, nb)) * np.array(plan.block_dims)
+            hi = lo + np.array(plan.block_dims)
+            keep &= ~((cell >= lo[:, None] - 1) & (cell <= hi[:, None])).all(axis=0)
+        parts.append(pts[:, keep])
+    pts = np.concatenate(parts, axis=1)
+    return pts[:, rng.permutation(pts.shape[1])].astype(real)
+
+
+def _pipelined_launch(plan, vp, tol):
+    """One spread launch of ``vp`` against the plain version: one launch,
+    C transforms served by the pipelined kernel and none by the shared one,
+    and the kernel's device counter moved by C x passes x the sum over the
+    blocks of ceil(points / 64) batches, all but each working CTA's first
+    staged while another batch's MMAs ran where a CTA holds two operand
+    buffers (none with one).  A zeroed counter from which the CTAs take
+    their items is allocated for the launch."""
+    name = blocked.entry_point("spread", plan)
+    _, sb, ncomp = common.VALUE_TYPES[plan.dtype]
+    ncoef = blocked.kernel_coefs(plan)[1]
+    C = vp.shape[0]
+    assert common.spread3d_cta_transforms(plan.block_dims, plan.m, ncoef, sb, ncomp, C) == 1
+    before = (blocked.LAUNCHES[name], blocked.SPREAD3D_PIPELINED[name],
+              blocked.SPREAD3D_SHARED[name], blocked.spread3d_batches(plan.dtype))
+    g_k = blocked.spread_blocked(plan, vp)
+    staged, overlapped = (a - b for a, b in zip(blocked.spread3d_batches(plan.dtype), before[3]))
+    assert blocked.LAUNCHES[name] == before[0] + 1
+    assert blocked.SPREAD3D_PIPELINED[name] == before[1] + C
+    assert blocked.SPREAD3D_SHARED[name] == before[2]
+    g_p = blocked.spread_blocked_plain(plan, vp)
+    assert g_k.dtype == g_p.dtype == plan.dtype
+    assert _rel_err(g_k, g_p) <= tol
+    t = common.spread_tiles(plan.block_dims, plan.m, ncomp)
+    counts = (plan.pstarts[1:] - plan.pstarts[:-1]).tolist()
+    assert staged == C * t.passes * sum(-(-n // common.SPREAD3D_BATCH) for n in counts)
+    if common.spread3d_buffers(plan.block_dims, plan.m, ncoef, sb, ncomp) == 1:
+        assert overlapped == 0
+        return
+    # Each CTA that took an item staged its first batch alone; which CTAs
+    # took items depends on the timing.
+    sms = torch.cuda.get_device_properties(plan.pstarts.device).multi_processor_count
+    ctas = common.spread3d_persistent_ctas(plan.block_dims, plan.m, ncoef, sb, ncomp,
+                                           len(counts) * C, sms)
+    if t.warps != 8:  # the register file's residency then follows what ptxas gives
+        ctas = len(counts) * C
+    assert 1 <= staged - overlapped <= min(ctas, sum(1 for n in counts if n) * C)
+
+
+def _pipelined_plan(case, dtype, m, device, window=None):
+    shape, sigma, bd, C, where = PIPELINED_CASES[case]
+    rng = np.random.default_rng(m + len(case))
+    real = np.dtype(dtype).type(0).real.dtype
+    kw = {} if window is None else {"kernel": window, "kernel_evalmode": tnufft.Direct()}
+    plan = tnufft.PlanNUFFT(dtype, shape, m=m, sigma=sigma, ntransforms=C,
+                            spread_method="blocked", block_dims=bd, device=device, **kw)
+    if where == "uniform":
+        pts = rng.uniform(0.0, 2 * np.pi, (3, 5_000)).astype(real)
+    else:
+        pts = _sized_points(rng, plan, 1.5 if where == "sized" else 0.0, real)
+    plan = tnufft.set_points(plan, torch.from_numpy(pts).to(device))
+    counts = plan.pstarts[1:] - plan.pstarts[:-1]
+    if where != "uniform":
+        assert sorted(counts[counts > 64].tolist())[-2:] == [65, 1_500]
+        assert (counts == 0).any() and (counts == 1).any() and (counts == 64).any()
+    if where == "four_blocks":
+        assert int((counts > 0).sum()) == 4
+    vp = torch.from_numpy(_values(rng, dtype, (C, pts.shape[1]))).to(device)
+    return plan, vp, KERNEL_TOL[np.dtype(real).itemsize]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("m", [2, 4, 8, 10])
+@pytest.mark.parametrize("case", list(PIPELINED_CASES))
+def test_spread_3d_pipelined_matches_plain_version(cuda_device, case, m, dtype):
+    """The pipelined one-transform kernel against the plain version, its
+    counters and its batches (``_pipelined_launch``)."""
+    plan, vp, tol = _pipelined_plan(case, dtype, m, cuda_device)
+    _pipelined_launch(plan, vp, tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+def test_spread_3d_pipelined_window_weights_taps(cuda_device, dtype):
+    """The pipelined kernel on the window-weights kernel's taps (KB Direct:
+    three build tasks, each copying its 2M taps a point) over the sized
+    blocks, m = 4."""
+    plan, vp, tol = _pipelined_plan("sized", dtype, 4, cuda_device, tnufft.KaiserBesselKernel())
+    assert blocked.kernel_coefs(plan)[1] == 0 and plan.wtaps_sorted is not None
+    _pipelined_launch(plan, vp, tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+def test_spread_3d_pipelined_one_buffer(cuda_device, dtype):
+    """8 warps a CTA whose two operand buffers would not fit beside the two
+    CTAs an SM holds (50 x 1 x 1 complex blocks, 100 x 1 x 1 real, m = 4):
+    the kernel stages into one, its build after every warp's MMAs."""
+    complex_ = np.dtype(dtype).kind == "c"
+    shape, bd = ((50, 8, 8), (50, 1, 1)) if complex_ else ((100, 8, 8), (100, 1, 1))
+    rng = np.random.default_rng(7)
+    real = np.dtype(dtype).type(0).real.dtype
+    plan = tnufft.PlanNUFFT(dtype, shape, m=4, sigma=2.0, spread_method="blocked",
+                            block_dims=bd, device=cuda_device)
+    _, sb, ncomp = common.VALUE_TYPES[plan.dtype]
+    assert common.spread3d_buffers(bd, 4, blocked.kernel_coefs(plan)[1], sb, ncomp) == 1
+    pts = rng.uniform(0.0, 2 * np.pi, (3, 3_000)).astype(real)
+    plan = tnufft.set_points(plan, torch.from_numpy(pts).to(cuda_device))
+    vp = torch.from_numpy(_values(rng, dtype, (1, 3_000))).to(cuda_device)
+    _pipelined_launch(plan, vp, KERNEL_TOL[np.dtype(real).itemsize])
+
+
 #: The spread's value gather (ops/kernels/blocked.py): a grid of each
 #: dimension, its points on a lattice 12 cells apart, so that no cell of the
 #: oversampled grid takes more than one point's taps (2M = 8 cells) and the

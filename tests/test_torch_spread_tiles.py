@@ -31,6 +31,7 @@ from nonuniformffts_tpu_torch.ops.kernels.common import (
     SM_SMEM_BYTES,
     SMEM_RESERVED_PER_CTA,
     SPREAD2D_BATCH,
+    SPREAD3D_BATCH,
     SPREAD3D_CTA_GRID_BYTES,
     SPREAD3D_MAX_REGISTERS,
     SPREAD3D_MAX_WARPS,
@@ -39,7 +40,11 @@ from nonuniformffts_tpu_torch.ops.kernels.common import (
     SPREAD3D_UNIT_ROWS,
     VALUE_TYPES,
     spread2d_units,
+    spread3d_build_tasks,
+    spread3d_buffers,
     spread3d_cta_transforms,
+    spread3d_persistent_ctas,
+    spread3d_resident_ctas,
     spread_registers,
     spread_smem_bytes,
     spread_tiles,
@@ -53,10 +58,46 @@ def _wrap(i: torch.Tensor, n: int) -> torch.Tensor:
     return torch.remainder(i, n)
 
 
-def emulate_spread_3d(plan, vp: torch.Tensor) -> torch.Tensor:
-    """The 3D spread kernel's decomposition in float64 on the CPU.  ``vp``
-    (C, Np) in original point order; returns the grid ``(C,) +
-    shape_over`` in the plan's dtype."""
+def spread3d_walk(pstarts, nchan: int, ctas: int, passes: int, takers=None):
+    """The batches of each of ``ctas`` CTAs of the 3D one-transform kernel,
+    in the order it stages them (``csrc/spread_3d.cu:spread_3d_kernel``).
+    The kernel hands its (block, transform) items out in launch order (item
+    = transform x blocks + block) from a counter, a CTA taking the next one
+    as it needs one, past the empty blocks; which CTA takes an item depends
+    on the timing, so here the i-th non-empty item goes to CTA
+    ``takers[i]``, by default to the CTAs in turn.  A CTA takes an item's
+    points ``SPREAD3D_BATCH`` at a time, once a pass over its units.
+    Returns, a CTA each, its batches as ``(transform, block, pass, first
+    point, points)``."""
+    nblocks = len(pstarts) - 1
+    walks = [[] for _ in range(ctas)]
+    full = [(item, int(pstarts[item % nblocks]), int(pstarts[item % nblocks + 1]))
+            for item in range(nblocks * nchan)
+            if pstarts[item % nblocks] < pstarts[item % nblocks + 1]]
+    for i, (item, pb, pe) in enumerate(full):
+        ch, bid = divmod(item, nblocks)
+        walks[i % ctas if takers is None else takers[i]] += [
+            (ch, bid, q, p0, min(SPREAD3D_BATCH, pe - p0))
+            for q in range(passes) for p0 in range(pb, pe, SPREAD3D_BATCH)]
+    return walks
+
+
+def emulate_spread_3d(plan, vp: torch.Tensor, ctas: int = None, walks: list = None,
+                      tasks: bool = False, takers=None) -> torch.Tensor:
+    """The 3D one-transform kernel's walk in float64 on the CPU: ``ctas``
+    persistent CTAs (by default as many as the card keeps resident,
+    ``spread3d_persistent_ctas``) taking the non-empty (block, transform)
+    items in launch order, the i-th by CTA ``takers[i]`` (by default the
+    CTAs in turn), each CTA's batches as one chain (``spread3d_walk``):
+    each batch's dense A and B, each unit of the
+    batch's pass adding its rows of A times its columns of B into its sums,
+    and a unit's flush with periodic wrap where its block or pass ends.
+    With ``tasks`` each batch's columns are built slot by slot as the
+    kernel's tasks write them (``spread3d_build_tasks``: rows of a padded
+    cell range of one dim, zero outside the point's taps and past the
+    batch's points, up to whole k-steps).  ``vp`` (C, Np) in original point
+    order; returns the grid ``(C,) + shape_over`` in the plan's dtype.
+    ``walks``, a list, receives each CTA's walk."""
     m, S = plan.m, 2 * plan.m
     ncomp = 2 if plan.dtype.is_complex else 1
     bd = plan.block_dims
@@ -73,35 +114,50 @@ def emulate_spread_3d(plan, vp: torch.Tensor) -> torch.Tensor:
     nb = blocking.num_blocks(n, bd)
     ps = plan.pstarts.tolist()
     cells = plan.cells_sorted.to(torch.int64)
+    ncoef = blocked.kernel_coefs(plan)[1]
+    if ctas is None:
+        _, sb, _ = VALUE_TYPES[plan.dtype]
+        ctas = spread3d_persistent_ctas(bd, m, ncoef, sb, ncomp, (len(ps) - 1) * C)
 
     rows = torch.arange(t.rows)
     ri, rk = rows // ncomp, rows % ncomp
     cols = torch.arange(t.cols)
     cj, cl = cols // zrow, cols % zrow
     col_groups = -(-t.col_tiles // SPREAD3D_UNIT_COL_TILES)
-    for bid in range(len(ps) - 1):
-        p0, p1 = ps[bid], ps[bid + 1]
-        if p0 == p1:
-            continue
-        o = torch.tensor(np.unravel_index(bid, nb)) * torch.tensor(bd)
-        lc = cells[:, p0:p1] - o[:, None]  # (3, P) cells relative to the origin
-        tx, ty, tz = (taps[d][:, p0:p1] for d in range(3))  # (S, P)
-        di = ri[:, None] - lc[0][None, :]  # (rows, P)
-        wx = torch.where((di >= 0) & (di < S), tx.gather(0, di.clamp(0, S - 1)), 0.0)
-        A = wx[None] * vals[:, p0:p1, :].permute(0, 2, 1)[:, rk, :]  # (C, rows, P)
-        dj = cj[None, :] - lc[1][:, None]  # (P, cols)
+
+    def batch_operands(o, p0, P, ch):
+        """A (rows, P') and B (P', cols) of points p0 .. p0 + P - 1, P'
+        rounded up to whole k-steps (the extra columns zero)."""
+        P8 = -(-P // 8) * 8
+        lc = torch.zeros((3, P8), dtype=torch.int64)
+        lc[:, :P] = cells[:, p0:p0 + P] - o[:, None]  # cells relative to the origin
+        tp = torch.zeros((3, S, P8), dtype=torch.float64)
+        tp[:, :, :P] = taps[:, :, p0:p0 + P]
+        v = torch.zeros((P8, ncomp), dtype=torch.float64)
+        v[:P] = vals[ch, p0:p0 + P]
+        if tasks:
+            A, wy, wz = _built_columns(lc, tp, v, P, t, m, ncomp, ncoef)
+            B = (wy[cj] * wz[cl]).T  # (P8, cols)
+            return A, B
+        di = ri[:, None] - lc[0][None, :]  # (rows, P8)
+        wx = torch.where((di >= 0) & (di < S), tp[0].gather(0, di.clamp(0, S - 1)), 0.0)
+        A = wx * v.T[rk, :]
+        dj = cj[None, :] - lc[1][:, None]  # (P8, cols)
         dl = cl[None, :] - lc[2][:, None]
         ok = (dj >= 0) & (dj < S) & (dl >= 0) & (dl < S)
-        B = torch.where(ok, ty.T.gather(1, dj.clamp(0, S - 1)) * tz.T.gather(1, dl.clamp(0, S - 1)),
-                        0.0)  # (P, cols)
-        for unit in range(t.units):
-            rg, cg = divmod(unit, col_groups)
-            r0, c0 = rg * SPREAD3D_UNIT_ROWS, cg * SPREAD3D_UNIT_COL_TILES * 8
-            r1 = min(r0 + SPREAD3D_UNIT_ROWS, t.rows)
-            c1 = min(c0 + SPREAD3D_UNIT_COL_TILES * 8, t.cols)
-            if r0 >= r1 or c0 >= c1:
-                continue
-            G = torch.matmul(A[:, r0:r1], B[:, c0:c1])  # (C, r, c)
+        B = torch.where(ok, tp[1].T.gather(1, dj.clamp(0, S - 1))
+                        * tp[2].T.gather(1, dl.clamp(0, S - 1)), 0.0)
+        return A, B
+
+    def unit_box(unit):
+        rg, cg = divmod(unit, col_groups)
+        r0, c0 = rg * SPREAD3D_UNIT_ROWS, cg * SPREAD3D_UNIT_COL_TILES * 8
+        return r0, min(r0 + SPREAD3D_UNIT_ROWS, t.rows), c0, min(c0 + SPREAD3D_UNIT_COL_TILES * 8,
+                                                                  t.cols)
+
+    def flush(acc, ch, o, units):
+        for unit in units:
+            r0, r1, c0, c1 = unit_box(unit)
             i, k = ri[r0:r1], rk[r0:r1]
             j, l = cj[c0:c1], cl[c0:c1]
             keep = (i < pd0)[:, None] & (l < pd2)[None, :]
@@ -110,12 +166,61 @@ def emulate_spread_3d(plan, vp: torch.Tensor) -> torch.Tensor:
             gz = _wrap(o[2] - (m - 1) + l, n[2])[None, :]
             flat = ((gx * n[1] + gy) * n[2] + gz).expand_as(keep)[keep]
             comp = k[:, None].expand_as(keep)[keep]
-            for c in range(C):
-                grid[c].index_put_((flat, comp), G[c][keep], accumulate=True)
+            grid[ch].index_put_((flat, comp), acc[r0:r1, c0:c1][keep], accumulate=True)
+
+    for walk in spread3d_walk(ps, C, ctas, t.passes, takers):
+        if walks is not None:
+            walks.append(walk)
+        acc = None
+        for b, (ch, bid, q, p0, P) in enumerate(walk):
+            o = torch.tensor(np.unravel_index(bid, nb)) * torch.tensor(bd)
+            units = range(q * t.warps, min((q + 1) * t.warps, t.units))
+            if acc is None:
+                acc = torch.zeros((t.rows, t.cols), dtype=torch.float64)
+            A, B = batch_operands(o, p0, P, ch)
+            for unit in units:
+                r0, r1, c0, c1 = unit_box(unit)
+                acc[r0:r1, c0:c1] += A[r0:r1] @ B[:, c0:c1]
+            if b + 1 == len(walk) or walk[b + 1][:3] != (ch, bid, q):
+                flush(acc, ch, o, units)
+                acc = None
     grid = grid.reshape((C,) + tuple(n) + (ncomp,))
     if ncomp == 2:
         return torch.view_as_complex(grid).to(plan.dtype)
     return grid[..., 0].to(plan.dtype)
+
+
+def _built_columns(lc, tp, v, P, t, m, ncomp, ncoef):
+    """A batch's dense operands as the kernel's slots build them: each task
+    (``spread3d_build_tasks``) covers a padded cell range along its dim, and
+    a slot writes, for one point, the rows of its task's cells (A's: NCOMP
+    rows a cell, the value times the tap), zero outside the point's 2M taps;
+    a column past the batch's P points, up to whole k-steps, is zero.  Rows past NCOMP pd0 and z
+    rows past pd2 keep the zeros the buffers started with.  Returns A (rows,
+    P'), the y rows (pd1, P') and the z rows (8 z_tiles, P')."""
+    S = 2 * m
+    P8 = lc.shape[1]
+    pd = t.padded
+    A = torch.full((t.rows, P8), float("nan"), dtype=torch.float64)
+    A[ncomp * pd[0]:] = 0.0
+    wy = torch.full((pd[1], P8), float("nan"), dtype=torch.float64)
+    wz = torch.full((8 * t.z_tiles, P8), float("nan"), dtype=torch.float64)
+    wz[pd[2]:] = 0.0
+    half = (pd[0] + 1) // 2
+    ntask = spread3d_build_tasks(ncoef)
+    bounds = ([(0, 0, half), (0, half, pd[0])] if ntask == 4 else [(0, 0, pd[0])])
+    bounds += [(1, 0, pd[1]), (2, 0, pd[2])]
+    for d, lo, hi in bounds:
+        dst, per = (A, ncomp) if d == 0 else (wy, 1) if d == 1 else (wz, 1)
+        for p in range(P8):
+            c = int(lc[d, p]) if p < P else pd[d]
+            for i in range(lo, hi):
+                tap = i - c
+                w = float(tp[d, tap, p]) if 0 <= tap < S else 0.0
+                for k in range(per):
+                    dst[i * per + k, p] = w * float(v[p, k]) if d == 0 else w
+    assert not (A.isnan().any() or wy.isnan().any() or wz.isnan().any())
+    return A, wy, wz
 
 
 # (shape, sigma, m, block_dims, transforms): the main path's blocks cut to a
@@ -132,11 +237,12 @@ TILE_CASES = {
 }
 
 
-def _tile_plan(case, dtype, np_=900, seed=0):
+def _tile_plan(case, dtype, np_=900, seed=0, window=None):
     shape, sigma, m, bd, C = TILE_CASES[case]
     rng = np.random.default_rng(seed)
+    kw = {} if window is None else {"kernel": window, "kernel_evalmode": tnufft.Direct()}
     plan = tnufft.PlanNUFFT(dtype, shape, m=m, sigma=sigma, ntransforms=C,
-                            spread_method="blocked", block_dims=bd, device="cpu")
+                            spread_method="blocked", block_dims=bd, device="cpu", **kw)
     if case == "slab":
         # A rank of 4 at n0 = 24 holds 6 planes plus 2M - 1 of halo: 13,
         # padded to 16, as SpatialNUFFT's slab plan.
@@ -177,6 +283,124 @@ def test_emulated_tiles_match_jax_spread():
     assert rel_err(got.numpy(), np.asarray(want)) <= 1e-12
 
 
+# Walks of the one-transform kernel (``spread3d_walk``): (tile case, CTAs,
+# window, takers).  As many CTAs as the card keeps resident (more than the
+# items here), one CTA walking every block, a few CTAs each walking several
+# blocks (ragged: two transforms, so items of both; once the items dealt in
+# turn, once to CTAs drawn at random, as uneven timing deals them), several
+# passes of 16 warps a batch (m = 10), and the window-weights taps (KB
+# Direct: three build tasks, x whole).
+WALK_CASES = {
+    "main_888_resident": ("main_888", None, None, None),
+    "main_888_one_cta": ("main_888", 1, None, None),
+    "ragged_7_ctas": ("ragged", 7, None, None),
+    "ragged_7_ctas_random": ("ragged", 7, None, "random"),
+    "m10_passes_5_ctas": ("m10", 5, None, None),
+    "main_888_kb_direct": ("main_888", 3, "kb", None),
+}
+
+
+@pytest.mark.parametrize("dtype", [np.complex128, np.float64], ids=str)
+@pytest.mark.parametrize("walk", list(WALK_CASES))
+def test_emulated_walk_matches_plain_spread(walk, dtype):
+    """The one-transform kernel's persistent walk, its batches chained
+    across blocks and built slot by slot as its tasks write them, against
+    the plain spread to 1e-12.  Each CTA takes its items in launch order,
+    every non-empty (block, transform) item once, its points a batch of 64
+    at a time and again each pass, so the batches are C x passes x the sum
+    of ceil(n_b / 64), whichever CTA takes which item."""
+    case, ctas, window, takers = WALK_CASES[walk]
+    plan, _, vp = _tile_plan(case, dtype, window=tnufft.KaiserBesselKernel() if window else None)
+    ncomp = 2 if plan.dtype.is_complex else 1
+    t = spread_tiles(plan.block_dims, plan.m, ncomp)
+    assert spread3d_build_tasks(blocked.kernel_coefs(plan)[1]) == (3 if window else 4)
+    counts = (plan.pstarts[1:] - plan.pstarts[:-1]).tolist()
+    nblocks, C = len(counts), vp.shape[0]
+    if takers == "random":
+        takers = np.random.default_rng(1).integers(0, ctas, C * nblocks).tolist()
+    walks = []
+    got = emulate_spread_3d(plan, vp, ctas=ctas, walks=walks, tasks=True, takers=takers)
+    want = blocked.spread_blocked_plain(plan, vp)
+    assert rel_err(got.numpy(), want.numpy()) <= 1e-12
+    G = len(walks)
+    assert G == (ctas or min(C * nblocks, 2 * NUM_SMS))
+    seen = []
+    for w in walks:
+        items = list(dict.fromkeys(ch * nblocks + bid for ch, bid, _, _, _ in w))
+        assert items == sorted(items)
+        seen += items
+    assert sorted(seen) == [c * nblocks + b for c in range(C) for b in range(nblocks)
+                            if counts[b]]
+    batches = sum(len(w) for w in walks)
+    assert batches == C * t.passes * sum(-(-n // SPREAD3D_BATCH) for n in counts)
+    assert t.passes > 1 if case == "m10" else t.passes == 1
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_TYPES), ids=str)
+def test_pipelined_kernel_keeps_16_mma_warps_an_sm(dtype):
+    """At each main path's pick (grid 384^3, m = 4, BKB Fast: ncoef 8; and
+    with the window-weights taps, ncoef 0) the one-transform kernel stages
+    into two operand buffers, and its shared memory still lets an SM hold
+    the two CTAs of 8 warps at 128 registers that its register file allows:
+    16 MMA warps, the whole register file, so no staging warp fits beside
+    them; a launch is 2 x 132 persistent CTAs."""
+    _, sb, ncomp = VALUE_TYPES[dtype]
+    bd = blocking.choose_geometry((384, 384, 384), 4, sb, ncomp)
+    t = spread_tiles(bd, 4, ncomp)
+    assert t.warps == 8 and t.passes == 1 and spread3d_resident_ctas(t) == 2
+    assert 2 * 32 * t.warps * SPREAD3D_MAX_REGISTERS == SM_REGISTERS
+    for ncoef in (8, 0):
+        assert spread3d_buffers(bd, 4, ncoef, sb, ncomp) == 2
+        smem = spread_smem_bytes(bd, 4, ncoef, sb, ncomp)
+        assert SM_SMEM_BYTES // (smem + SMEM_RESERVED_PER_CTA) >= 2
+        assert spread3d_persistent_ctas(bd, 4, ncoef, sb, ncomp, 10 ** 6) == 2 * NUM_SMS
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_TYPES), ids=str)
+def test_chooser_keeps_the_main_path_blocks(dtype):
+    """The pipelined kernel leaves the 3D chooser's picks at grid 384^3,
+    m = 4: (8, 8, 8) for complex values, (24, 8, 8) for real ones."""
+    _, sb, ncomp = VALUE_TYPES[dtype]
+    want = (8, 8, 8) if ncomp == 2 else (24, 8, 8)
+    assert blocking.choose_geometry((384, 384, 384), 4, sb, ncomp) == want
+
+
+def _one_cta_a_block_bytes(bd, m, ncoef, sb, ncomp):
+    """Shared memory of the design the pipelined kernel replaced (a CTA a
+    block and transform, one batch's dense operands, its compact taps and
+    values in double and its int32 cells, then the coefficients)."""
+    t = spread_tiles(bd, m, ncomp)
+    dense = t.rows + t.padded[1] + 8 * t.z_tiles
+    return (8 * (SPREAD3D_STRIDE * dense + (6 * m + ncomp) * SPREAD3D_BATCH)
+            + 4 * 3 * SPREAD3D_BATCH + sb * 6 * m * ncoef)
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_TYPES), ids=str)
+@pytest.mark.parametrize("m", [2, 4, 7, 10])
+def test_pipelined_kernel_refuses_no_block_the_old_one_took(m, dtype):
+    """Over block dims up to 64 cells a dim, with and without a coefficient
+    stack, the pipelined kernel's shared memory stays within what one CTA
+    may take wherever the one-CTA-a-block design's did: where two buffers
+    do not fit beside the resident CTAs it stages into one, which takes no
+    more than that design did.  A block of 64 x 1 x 1 cells (complex) or
+    100 x 1 x 1 (real) at m = 4 is such a block at 8 warps."""
+    _, sb, ncomp = VALUE_TYPES[dtype]
+    dims = (1, 2, 4, 8, 12, 16, 24, 32, 48, 64)
+    ones = 0
+    for bd in [(a, b, c) for a in dims for b in dims for c in dims]:
+        for ncoef in (m + 4, 0):
+            old = _one_cta_a_block_bytes(bd, m, ncoef, sb, ncomp)
+            new = spread_smem_bytes(bd, m, ncoef, sb, ncomp)
+            if spread3d_buffers(bd, m, ncoef, sb, ncomp) == 1:
+                ones += 1
+                assert new <= old
+            if old <= MAX_SMEM_BYTES:
+                assert new <= MAX_SMEM_BYTES
+    assert ones > 0 or m < 7
+    bd = (50, 1, 1) if ncomp == 2 else (100, 1, 1)
+    assert spread_tiles(bd, 4, ncomp).warps == 8 and spread3d_buffers(bd, 4, 8, sb, ncomp) == 1
+
+
 @pytest.mark.parametrize("dtype", list(VALUE_TYPES), ids=str)
 @pytest.mark.parametrize("m", [2, 4, 6, 8, 10])
 def test_3d_chooser_picks_fit_the_kernel(dtype, m):
@@ -209,9 +433,10 @@ def test_3d_chooser_is_the_cost_models_minimum():
 
 def test_3d_shared_staging_at_the_32_coil_plan():
     """The 32-coil cell's plan (complex64, 256^3, m = 4, sigma = 1.5, BKB
-    Fast, 32 transforms): a launch of one transform runs the per-transform
-    kernel at the bytes it had before the shared-staging kernel came
-    (49,120); one of 32 runs the shared-staging kernel, two CTAs a block of
+    Fast, 32 transforms): a launch of one transform runs the pipelined
+    one-transform kernel in two operand buffers (72,384 B: 2 x 34,272 of
+    dense operands, 3,072 of copied point state, 768 of coefficients); one
+    of 32 runs the shared-staging kernel, two CTAs a block of
     16 transforms each, whose values it stages at once in 56,800 B, room
     for the 2 CTAs an SM that its 8 warps at 128 registers allow.  At the
     other dtypes' main-path blocks a CTA serves 16 (float32) or 8 (64-bit)
@@ -223,7 +448,7 @@ def test_3d_shared_staging_at_the_32_coil_plan():
     assert spread_tiles(bd, 4, 2).warps == 8 and SPREAD3D_MAX_REGISTERS == 128
     assert spread3d_cta_transforms(bd, 4, ncoef, 4, 2, 1) == 1
     assert spread_smem_bytes(bd, 4, ncoef, 4, 2) == spread_smem_bytes(bd, 4, ncoef, 4, 2, 1)
-    assert spread_smem_bytes(bd, 4, ncoef, 4, 2, 1) == 49_120
+    assert spread_smem_bytes(bd, 4, ncoef, 4, 2, 1) == 72_384 == 2 * 34_272 + 3_072 + 768
     assert spread3d_cta_transforms(bd, 4, ncoef, 4, 2, 32) == 16
     assert spread_smem_bytes(bd, 4, ncoef, 4, 2, 32) == 56_800
     assert SM_SMEM_BYTES // (56_800 + SMEM_RESERVED_PER_CTA) >= 2
