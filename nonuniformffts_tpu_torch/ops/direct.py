@@ -27,7 +27,13 @@ one matrix product against the first dim's factor times the values.
   TF32, whatever ``torch.backends.cuda.matmul.allow_tf32`` says.
 - **Memory.** The points are taken in chunks so that one chunk's factors
   stay under ``FACTOR_BYTES``; type 1 accumulates over chunks, type 2
-  writes each chunk's points.
+  writes each chunk's points.  ``DIRECT_CHUNKS`` counts the chunks run in
+  this process, by exec; ``reset_chunk_counts`` zeros it.
+- **Tracing.** Each chunk's factor build runs in the section ``phase
+  factors`` and its contraction in ``product`` (``utils/timer.py:traced``,
+  nested in the exec's ``(1) direct NUDFT``): a plan's timer's sections,
+  and profiler spans while a profiler records.  Tracing off, each costs a
+  flag read; the arithmetic is the same either way.
 
 Real-data plans use the halved last axis (k = 0 .. N/2) and, in type 2,
 the doubling weights of the c2r convention (1 at k = 0, 2 beyond).
@@ -39,6 +45,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..utils.timer import traced
 
 #: Byte budget of one point chunk's factors.
 FACTOR_BYTES = 1 << 30
@@ -91,6 +99,16 @@ def _factors(plan, x: torch.Tensor, sign: float):
     return f0, tail
 
 
+#: Point chunks run in this process, by exec.
+DIRECT_CHUNKS = {"exec_type1": 0, "exec_type2": 0}
+
+
+def reset_chunk_counts() -> None:
+    """Zero ``DIRECT_CHUNKS``."""
+    for name in DIRECT_CHUNKS:
+        DIRECT_CHUNKS[name] = 0
+
+
 def _chunks(plan, C: int):
     """Point ranges whose factors (the tail and C first-dim rows a point)
     fit ``FACTOR_BYTES``."""
@@ -111,14 +129,21 @@ def exec_type1_direct(plan, vp: torch.Tensor) -> torch.Tensor:
     u = torch.zeros((C * spec[0], math.prod(spec[1:])), dtype=FACTOR_DTYPE,
                     device=vp.device)
     for s, e in _chunks(plan, C):
-        f0, tail = _factors(plan, plan.points[:, s:e], -1.0)
-        if tail is None:
-            u.view(C, spec[0]).addmm_(v[:, s:e], f0)
-        else:
-            # (C, N_0, Np_chunk) left factor v_j e^{-i k_0 x_0j}, rows (c, k_0).
-            lhs = f0.T[None] * v[:, None, s:e]
-            u.addmm_(lhs.reshape(C * spec[0], e - s), tail)
+        f0, tail = traced(plan.timer, "phase factors", _factors, plan, plan.points[:, s:e], -1.0)
+        traced(plan.timer, "product", _product1, u, v[:, s:e], f0, tail)
+        DIRECT_CHUNKS["exec_type1"] += 1
     return u.reshape((C,) + spec).to(plan.complex_dtype)
+
+
+def _product1(u: torch.Tensor, v: torch.Tensor, f0: torch.Tensor, tail) -> torch.Tensor:
+    """Adds one chunk's sums into ``u`` (C * N_0, prod N_1..) from its
+    values ``v`` (C, Np_chunk) and factors; returns ``u``."""
+    C, n = v.shape
+    if tail is None:
+        return u.view(C, -1).addmm_(v, f0)
+    # (C, N_0, Np_chunk) left factor v_j e^{-i k_0 x_0j}, rows (c, k_0).
+    lhs = f0.T[None] * v[:, None, :]
+    return u.addmm_(lhs.reshape(-1, n), tail)
 
 
 def exec_type2_direct(plan, uhat: torch.Tensor) -> torch.Tensor:
@@ -140,10 +165,18 @@ def exec_type2_direct(plan, uhat: torch.Tensor) -> torch.Tensor:
         rhs = u.permute(2, 0, 1).reshape(u.shape[2], C * spec[0])
     out = torch.empty((C, plan.num_points), dtype=FACTOR_DTYPE, device=u.device)
     for s, e in _chunks(plan, C):
-        g0, tail = _factors(plan, plan.points[:, s:e], 1.0)
-        if tail is None:
-            out[:, s:e] = (g0 @ rhs).T
-        else:
-            m = (tail @ rhs).view(e - s, C, spec[0])
-            out[:, s:e] = (g0[:, None, :] * m).sum(-1).T
+        g0, tail = traced(plan.timer, "phase factors", _factors, plan, plan.points[:, s:e], 1.0)
+        traced(plan.timer, "product", _product2, out[:, s:e], rhs, g0, tail)
+        DIRECT_CHUNKS["exec_type2"] += 1
     return (out.real if plan.is_real else out).to(plan.dtype)
+
+
+def _product2(out: torch.Tensor, rhs: torch.Tensor, g0: torch.Tensor, tail) -> torch.Tensor:
+    """Writes one chunk's sums into ``out`` (C, Np_chunk) from ``rhs``
+    (see ``exec_type2_direct``) and the chunk's factors; returns ``out``."""
+    if tail is None:
+        out.copy_((g0 @ rhs).T)
+    else:
+        m = (tail @ rhs).view(len(g0), out.shape[0], -1)
+        out.copy_((g0[:, None, :] * m).sum(-1).T)
+    return out

@@ -5,6 +5,9 @@ reference path (m = 8, sigma = 2) and the JAX package's direct path for
 the r2c/c2r conventions; callbacks, ``sort_points`` refused, the MAC model
 and ``np_hint``'s choice.  N = 8192 in 1D is held to the exact sums, where
 the JAX package's float32 phase reduction errs 9.8e-4 (ROADMAP F1).
+Also the path's ``phase factors`` and ``product`` sections (Timer and
+profiler spans, outputs bit-equal with and without a timer) and its
+``DIRECT_CHUNKS`` counter.
 """
 
 import numpy as np
@@ -16,6 +19,7 @@ import nonuniformffts_tpu_torch as tnufft
 from nonuniformffts_tpu.ops import direct as jdirect
 from nonuniformffts_tpu_torch.ops import direct
 from nonuniformffts_tpu_torch.plan import auto_spread_method
+from nonuniformffts_tpu_torch.utils.timer import SPAN_PREFIX
 from nufft_test_utils import direct_type1, direct_type2, direct_type2_real
 from torch_port_utils import random_complex, random_points
 
@@ -210,3 +214,89 @@ def test_direct_points_fold_in_float64():
     p1 = _plan(np.complex64, (32, 24), pts + 2 * np.pi * rng.integers(-3, 4, pts.shape))
     assert p0.points.dtype == torch.float64
     assert _max_rel(tnufft.exec_type1(p1, v).numpy(), tnufft.exec_type1(p0, v).numpy()) < 1e-6
+
+
+STAGE = "(1) direct NUDFT"
+PARTS = ("phase factors", "product")
+
+
+def _chunked_plan(monkeypatch, timer=None, shape=(12, 10, 14), C=2, np_=101):
+    """A 3D complex128 direct plan with its points set, ``FACTOR_BYTES``
+    cut so that its points run in 4 chunks; its values and spectrum."""
+    rng = np.random.default_rng(12)
+    ntail = int(np.prod(shape[1:]))
+    monkeypatch.setattr(direct, "FACTOR_BYTES", 16 * 30 * (ntail + C * shape[0]))
+    plan = _plan(np.complex128, shape, random_points(rng, 3, np_, np.complex128),
+                 ntransforms=C, timer=timer)
+    assert len(direct._chunks(plan, C)) == 4
+    return (plan, torch.from_numpy(random_complex(rng, np.complex128, (C, np_))),
+            torch.from_numpy(random_complex(rng, np.complex128, (C,) + shape)))
+
+
+def test_direct_sections_nest_in_the_stage(monkeypatch):
+    """With a Timer, each exec's ``(1) direct NUDFT`` holds a ``phase
+    factors`` and a ``product`` section a chunk, which together take no
+    more than the stage."""
+    timer = tnufft.Timer(synchronise=True)
+    plan, v, u = _chunked_plan(monkeypatch, timer)
+    tnufft.exec_type1(plan, v)
+    tnufft.exec_type2(plan, u)
+    for ex in ("exec_type1", "exec_type2"):
+        stage = f"{ex}/{STAGE}"
+        parts = [f"{stage}/{p}" for p in PARTS]
+        assert all(timer.counts[p] == 4 for p in parts) and timer.counts[stage] == 1
+        assert sum(timer.times[p] for p in parts) <= timer.times[stage]
+
+
+def test_direct_spans_without_a_timer(monkeypatch):
+    """With no timer, a profiler's trace carries the sections as spans
+    ``nufft:exec_type{1,2}/(1) direct NUDFT/phase factors`` and ``/product``,
+    one a chunk."""
+    plan, v, u = _chunked_plan(monkeypatch)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        tnufft.exec_type1(plan, v)
+        tnufft.exec_type2(plan, u)
+    names = [e.name for e in prof.events()]
+    for ex in ("exec_type1", "exec_type2"):
+        for p in PARTS:
+            assert names.count(f"{SPAN_PREFIX}{ex}/{STAGE}/{p}") == 4
+
+
+@pytest.mark.parametrize("shape", [(40,), (12, 10), (12, 10, 14)], ids=str)
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128, np.float64])
+def test_direct_outputs_bit_equal_with_a_timer(shape, dtype):
+    rng = np.random.default_rng(13)
+    pts = random_points(rng, len(shape), 70, dtype)
+    real = np.dtype(dtype).kind == "f"
+    v = rng.standard_normal((2, 70)).astype(dtype) if real else random_complex(rng, dtype, (2, 70))
+    plain = _plan(dtype, shape, pts, ntransforms=2)
+    timed = _plan(dtype, shape, pts, ntransforms=2, timer=tnufft.Timer(synchronise=True))
+    uh = random_complex(rng, np.result_type(dtype, np.complex64), (2,) + plain.spectral_shape)
+    assert torch.equal(tnufft.exec_type1(plain, v), tnufft.exec_type1(timed, v))
+    assert torch.equal(tnufft.exec_type2(plain, uh), tnufft.exec_type2(timed, uh))
+    assert f"exec_type2/{STAGE}/product" in timed.timer.times
+
+
+def test_direct_chunks_counts_each_exec(monkeypatch):
+    """``DIRECT_CHUNKS`` adds ``len(_chunks(plan, C))`` an exec, by type,
+    and ``reset_chunk_counts`` zeros it."""
+    plan, v, u = _chunked_plan(monkeypatch)
+    direct.reset_chunk_counts()
+    assert direct.DIRECT_CHUNKS == {"exec_type1": 0, "exec_type2": 0}
+    tnufft.exec_type1(plan, v)
+    tnufft.exec_type1(plan, v)
+    tnufft.exec_type2(plan, u)
+    assert direct.DIRECT_CHUNKS == {"exec_type1": 8, "exec_type2": 4}
+    direct.reset_chunk_counts()
+    assert not any(direct.DIRECT_CHUNKS.values())
+
+
+def test_direct_chunks_at_the_benchmark_cell():
+    """1,678 complex128 points on 256^3 (the protocol's rho = 1e-4 row) run
+    in 2 chunks a transform, 1,020 + 658 points: the tail factor of 65,536
+    modes and 256 first-dim rows at 16 bytes each fit 1,020 points into
+    ``FACTOR_BYTES``.  Worked out from the chunk arithmetic; no sums run."""
+    rng = np.random.default_rng(14)
+    plan = _plan(np.complex128, (256, 256, 256), rng.uniform(0, 2 * np.pi, (3, 1678)))
+    assert direct.FACTOR_BYTES // (16 * (256 * 256 + 256)) == 1020
+    assert direct._chunks(plan, 1) == [(0, 1020), (1020, 1678)]

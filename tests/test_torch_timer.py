@@ -18,7 +18,9 @@ T1 = ["exec_type1/(1) spreading", "exec_type1/(2) forward FFT",
       "exec_type1/(3) deconvolve + truncate"]
 T2 = ["exec_type2/(1) deconvolve + pad", "exec_type2/(2) backward FFT",
       "exec_type2/(3) interpolation"]
-DIRECT = ["exec_type1/(1) direct NUDFT", "exec_type2/(1) direct NUDFT"]
+DIRECT = ["exec_type1/(1) direct NUDFT", "exec_type2/(1) direct NUDFT",
+          *(f"exec_type{t}/(1) direct NUDFT/{part}" for t in (1, 2)
+            for part in ("phase factors", "product"))]
 CALLBACK = ["exec_type1/(0) nonuniform callback", "exec_type2/(4) nonuniform callback"]
 METHODS = ["reference", "blocked", "direct"]
 #: ``set_points``' parts on each path (no ``sort_points``).
@@ -62,8 +64,9 @@ def test_timer_records_stages(method, with_callbacks):
     assert set(t.times) == {"set_points", "exec_type1", "exec_type2", *SET_POINTS[method],
                             *stages}
     assert all(t.counts[label] == 1 for label in t.times)
-    for top in ("set_points", "exec_type1", "exec_type2"):
-        inner = sum(v for k, v in t.times.items() if k.startswith(top + "/"))
+    # each section's children, one level down, take no more than it
+    for top in t.times:
+        inner = sum(v for k, v in t.times.items() if k.rsplit("/", 1)[0] == top and k != top)
         assert inner <= t.times[top]
     assert "timer attached (synchronise=True)" in repr(tnufft.set_points(plan, pts))
     assert t.counts["set_points"] == 2
